@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Smoke run of gym_tpu_torch, the PyTorch/CUDA port, on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result lines are printed):
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from this checkout (``nvcc``), print the
+   ``-Xptxas -v`` report (registers, shared memory, spills);
+3. every kernel against its plain PyTorch version on the card, bf16 and f32:
+   the packed pair (B1/B2) at the flagship shape with q, k and v as strided
+   views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
+   GPT-2-base shape, causal and full-block with a random lse cotangent;
+4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
+   T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
+   warmup, 6 steps on random tokens; the packed kernels must have launched;
+5. GPT-2 base (12L/12H/768, vocab 50304, T=1024, K=2 × 4 rows, 3 steps,
+   DiLoCo H=2); the per-head kernels must have launched;
+6. card against CPU: a tiny GPT through ``Trainer.fit`` on ``cuda`` and on
+   ``cpu`` from the same weights and batches, in bf16 and in f32;
+7. timing with CUDA events (median of 5 runs of back-to-back launches): each
+   kernel, its plain version, the library call
+   (``scaled_dot_product_attention``, timed only as a yardstick) and the
+   bound at 3.35 TB/s and 989 TFLOP/s;
+8. the ``kernels`` JSON line, then the result line.
+
+The launch counts in the ``kernels`` line are those of the training runs of
+phases 4 (B1/B2) and 5 (B3/B4), each counted from zero.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+SOURCE = "gym_tpu_torch/ops/csrc/fused_attention.cu"
+KERNELS = {  # name: (wrapper, TPU kernel it replaces)
+    "B1_fwd_packed": ("_fwd_packed", "gym_tpu/ops/fused_attention.py:246"),
+    "B2_bwd_packed": ("_bwd_packed", "gym_tpu/ops/fused_attention.py:267"),
+    "B3_blk_fwd": ("_blk_fwd", "gym_tpu/ops/fused_attention.py:137"),
+    "B4_blk_bwd": ("_blk_bwd", "gym_tpu/ops/fused_attention.py:153"),
+}
+# stated tolerances, kernel against plain version on the same inputs:
+# |a − b| <= atol + rtol·|b| elementwise. bf16: p and ds are rounded to bf16
+# at the same points in both, but a value on a rounding boundary can go
+# either way when the f32 sums differ in order — two bf16 steps.
+TOL = {"bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-4, 1e-5)},
+       "float32": {"out": (5e-5, 1e-4), "lse": (1e-5, 1e-6)}}
+# card against CPU, per-step train loss: bf16 compute rounds differently
+# in cuBLAS and the CPU kernels; f32 differs by summation order only
+LOSS_RTOL = {"bf16": 1e-2, "f32": 1e-4}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 3: kernels against plain versions --------------------------------
+
+
+def compare(name, got, ref, kind, dtype):
+    atol, rtol = TOL[str(dtype).replace("torch.", "")][kind]
+    a, b = got.float(), ref.float()
+    err = (a - b).abs()
+    bad = (err > atol + rtol * b.abs()).sum().item()
+    mx = err.max().item()
+    log(f"  {name}: max_abs_err {mx:.3e} (atol {atol}, rtol {rtol}) "
+        f"{'ok' if bad == 0 else f'{bad} elements outside'}")
+    check(bad == 0 and math.isfinite(mx), f"{name} disagrees with its "
+          f"plain version")
+    return mx
+
+
+def check_kernels(torch, tfa, shapes):
+    errs = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        n, t, c, h = shapes["flagship"]
+        scale = 1.0 / math.sqrt(c // h)
+        qkv = torch.randn(n, t, 3 * c, device="cuda", generator=g).to(dtype)
+        q, k, v = qkv.split(c, dim=-1)
+        do = torch.randn(n, t, c, device="cuda", generator=g).to(dtype)
+        log(f"B1/B2 packed {dn} N={n} T={t} C={c} H={h} (strided views):")
+        o, lse = tfa._fwd_packed(q, k, v, scale, h)
+        ro, rl = tfa.plain_fwd_packed(q, k, v, scale, h)
+        e1 = max(compare("B1 o", o, ro, "out", dtype),
+                 compare("B1 lse", lse, rl, "lse", dtype))
+        got = tfa._bwd_packed(q, k, v, o, do, lse, scale, h)
+        ref = tfa.plain_bwd_packed(q, k, v, o, do, lse, scale, h)
+        e2 = max(compare(f"B2 {nm}", a, b, "out", dtype)
+                 for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+        del qkv, q, k, v, do, o, lse, ro, rl, got, ref
+        torch.cuda.empty_cache()
+
+        n, h, t, d = shapes["base"]
+        e3 = e4 = 0.0
+        for causal in (True, False):
+            qkv = torch.randn(n, t, 3 * h * d, device="cuda",
+                              generator=g).to(dtype)
+            heads = [z.reshape(n, t, h, d).transpose(1, 2)
+                     for z in qkv.split(h * d, dim=-1)]
+            do = torch.randn(n, h, t, d, device="cuda", generator=g).to(dtype)
+            dlse = (None if causal else
+                    torch.randn(n, h, t, 1, device="cuda", generator=g))
+            log(f"B3/B4 per-head {dn} N={n} H={h} T={t} D={d} "
+                f"causal={causal} dlse={'random' if dlse is not None else 0}:")
+            o, lse = tfa._blk_fwd(*heads, 0.125, causal)
+            ro, rl = tfa.plain_fwd(*heads, 0.125, causal)
+            ef = max(compare("B3 o", o, ro, "out", dtype),
+                     compare("B3 lse", lse, rl, "lse", dtype))
+            got = tfa._blk_bwd(*heads, o, do, lse, dlse, 0.125, causal)
+            ref = tfa.plain_bwd(*heads, o, do, lse, dlse, 0.125, causal)
+            eb = max(compare(f"B4 {nm}", a, b, "out", dtype)
+                     for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+            if causal:
+                e3, e4 = ef, eb
+            del qkv, heads, do, dlse, o, lse, ro, rl, got, ref
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:  # the training runs' dtype
+            errs.update(B1_fwd_packed=e1, B2_bwd_packed=e2, B3_blk_fwd=e3,
+                        B4_blk_bwd=e4)
+    return errs
+
+
+# -- phases 4-6: training through Trainer.fit --------------------------------
+
+
+def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
+            run_name, init_params=None, tokens=200_000):
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import ContiguousGPTTrainDataset
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.strategy import DiLoCoStrategy, OptimSpec
+    import numpy as np
+
+    cfg = GPTConfig(**cfg_kw)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, tokens).astype(np.int32)
+    cut = tokens * 9 // 10
+    ds = ContiguousGPTTrainDataset(toks[:cut], cfg.block_size)
+    val = ContiguousGPTTrainDataset(toks[cut:], cfg.block_size)
+    strategy = DiLoCoStrategy(
+        optim_spec=OptimSpec("adamw", lr=3e-4), H=2,
+        lr_scheduler="lambda_cosine", lr_scheduler_kwargs={"warmup_steps": 2})
+    return Trainer(GPT(cfg), ds, val).fit(
+        strategy=strategy, num_nodes=nodes, max_steps=steps,
+        batch_size=batch, device=device, autocast=autocast, seed=seed,
+        val_size=batch, val_interval=100,
+        init_params=init_params, show_progress=False,
+        log_dir=os.path.join(HERE, "build", "chip_smoke_logs"),
+        run_name=run_name)
+
+
+def train_phase(torch, tfa, title, cfg_kw, nodes, batch, steps, want):
+    log(f"{title}: K={nodes} x {batch} rows, {steps} steps, bf16")
+    tfa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = gpt_fit(torch, cfg_kw, nodes, batch, steps, "cuda", True, 0, title)
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(tfa, w).launches for k, (w, _) in KERNELS.items()}
+    losses = [l for _, l in res.history["train_loss"]]
+    for step, loss in res.history["train_loss"]:
+        log(f"  step {step}: loss {loss:.6f}")
+    for (step, lo), (_, gl) in zip(res.history["local_loss"],
+                                   res.history["global_loss"]):
+        log(f"  eval at step {step}: local {lo:.6f} global {gl:.6f}")
+    log(f"  steps/s {res.steps_per_second:.4f} (steady "
+        f"{res.steps_per_second_steady}) on {torch.cuda.get_device_name(0)}, "
+        f"wall {wall:.1f} s incl. init, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches: {counts}")
+    check(len(losses) == steps and all(math.isfinite(l) for l in losses),
+          f"{title}: non-finite or missing losses {losses}")
+    ln_v = math.log(cfg_kw["vocab_size"])
+    check(abs(losses[0] - ln_v) < 0.5,
+          f"{title}: first loss {losses[0]} far from ln(V) = {ln_v:.3f}")
+    for name in want:
+        check(counts[name] > 0, f"{title}: {name} never launched")
+    return counts
+
+
+def card_vs_cpu(torch):
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    cfg_kw = dict(block_size=128, vocab_size=65, n_layer=2, n_head=2,
+                  n_embd=64, attn_impl="flash")
+    init = {n: p[0] for n, p in GPT(GPTConfig(**cfg_kw)).init_params(
+        1, seed=11, device="cpu").items()}
+    for mode, autocast in (("bf16", True), ("f32", False)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            res = gpt_fit(torch, cfg_kw, 4, 4, 3, device, autocast, 5,
+                          f"card_vs_cpu_{mode}_{device}", init_params=init,
+                          tokens=20_000)
+            out[device] = [l for _, l in res.history["train_loss"]] + [
+                l for _, l in res.history["global_loss"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"],
+                                                      out["cpu"]))
+        log(f"card vs CPU {mode}: cuda {['%.6f' % x for x in out['cuda']]}")
+        log(f"                  cpu  {['%.6f' % x for x in out['cpu']]}")
+        log(f"  max rel diff {rel:.3e} (band {LOSS_RTOL[mode]})")
+        check(rel <= LOSS_RTOL[mode], f"card vs CPU {mode}: losses differ "
+              f"by {rel:.3e} > {LOSS_RTOL[mode]}")
+
+
+# -- phase 7: timing --------------------------------------------------------
+
+
+def timed(torch, fn, reps=5, inner=10):
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(n, h, t, d, itemsize, backward, causal=True):
+    """Least time (ms) for the work at 3.35 TB/s and 989 TFLOP/s (bf16):
+    each input read once, each output written once; causal pairs only."""
+    elems = n * h * t * d
+    stats = n * h * t * 4
+    if backward:   # read q k v o do lse, write dq dk dv
+        nbytes = 8 * elems * itemsize + stats
+        matmuls = 5
+    else:          # read q k v, write o lse
+        nbytes = 4 * elems * itemsize + stats
+        matmuls = 2
+    pairs = n * h * (t * (t + 1) // 2 if causal else t * t)
+    flops = 2 * d * pairs * matmuls
+    peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_kernels(torch, tfa, shapes):
+    import torch.nn.functional as F
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+
+    n, t, c, h = shapes["flagship"]
+    d = c // h
+    scale = 1.0 / math.sqrt(d)
+    qkv = torch.randn(n, t, 3 * c, device="cuda", generator=g).to(bf)
+    q, k, v = qkv.split(c, dim=-1)
+    do = torch.randn(n, t, c, device="cuda", generator=g).to(bf)
+    o, lse = tfa._fwd_packed(q, k, v, scale, h)
+    lib = [x.view(n, t, h, d).transpose(1, 2).detach().requires_grad_(True)
+           for x in (q, k, v)]
+    lo = F.scaled_dot_product_attention(*lib, is_causal=True, scale=scale)
+    ldo = do.view(n, t, h, d).transpose(1, 2)
+    out["B1_fwd_packed"] = dict(
+        ms=timed(torch, lambda: tfa._fwd_packed(q, k, v, scale, h)),
+        plain_ms=timed(torch, lambda: tfa.plain_fwd_packed(q, k, v, scale, h),
+                       inner=3),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            *[x.detach() for x in lib], is_causal=True, scale=scale)),
+        shape=f"N={n} T={t} C={c} H={h} bf16 packed views",
+        bound=bound(n, h, t, d, 2, False))
+    out["B2_bwd_packed"] = dict(
+        ms=timed(torch, lambda: tfa._bwd_packed(q, k, v, o, do, lse, scale,
+                                                h)),
+        plain_ms=timed(torch, lambda: tfa.plain_bwd_packed(
+            q, k, v, o, do, lse, scale, h), inner=3),
+        library_ms=timed(torch, lambda: torch.autograd.grad(
+            lo, lib, ldo, retain_graph=True)),
+        shape=f"N={n} T={t} C={c} H={h} bf16 packed views",
+        bound=bound(n, h, t, d, 2, True))
+    del qkv, q, k, v, do, o, lse, lib, lo, ldo
+    torch.cuda.empty_cache()
+
+    n, h, t, d = shapes["base"]
+    qkv = torch.randn(n, t, 3 * h * d, device="cuda", generator=g).to(bf)
+    heads = [z.reshape(n, t, h, d).transpose(1, 2)
+             for z in qkv.split(h * d, dim=-1)]
+    do = torch.randn(n, h, t, d, device="cuda", generator=g).to(bf)
+    o, lse = tfa._blk_fwd(*heads, 0.125, True)
+    lib = [x.detach().requires_grad_(True) for x in heads]
+    lo = F.scaled_dot_product_attention(*lib, is_causal=True, scale=0.125)
+    out["B3_blk_fwd"] = dict(
+        ms=timed(torch, lambda: tfa._blk_fwd(*heads, 0.125, True)),
+        plain_ms=timed(torch, lambda: tfa.plain_fwd(*heads, 0.125, True),
+                       inner=3),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=True, scale=0.125)),
+        shape=f"N={n} H={h} T={t} D={d} bf16 per-head views",
+        bound=bound(n, h, t, d, 2, False))
+    out["B4_blk_bwd"] = dict(
+        ms=timed(torch, lambda: tfa._blk_bwd(*heads, o, do, lse, None, 0.125,
+                                             True)),
+        plain_ms=timed(torch, lambda: tfa.plain_bwd(
+            *heads, o, do, lse, None, 0.125, True), inner=3),
+        library_ms=timed(torch, lambda: torch.autograd.grad(
+            lo, lib, do, retain_graph=True)),
+        shape=f"N={n} H={h} T={t} D={d} bf16 per-head views",
+        bound=bound(n, h, t, d, 2, True))
+    for name, r in out.items():
+        b, by = r["bound"]
+        log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {b:.4f} ({by}) -> {b / r['ms']:.1%} of bound")
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        import gym_tpu_torch.ops.fused_attention as tfa
+        from gym_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: gym_tpu_torch not found beside chip_smoke.py "
+              f"({e})", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    shapes = {"flagship": (64 * 16, 256, 128, 4), "base": (2 * 4, 12, 1024,
+                                                            64)}
+    t_all = time.perf_counter()
+    try:
+        card = card_line()
+        log(f"phase 1: {card}; torch {torch.__version__} cuda "
+            f"{torch.version.cuda}; {torch.cuda.device_count()} card(s)")
+
+        t0 = time.perf_counter()
+        path = _build.build()
+        lib = _build.load()
+        log(f"phase 2: built {os.path.relpath(path, HERE)} in "
+            f"{time.perf_counter() - t0:.1f} s; ptxas:")
+        for line in _build.build_log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                log("  " + line.strip())
+        for d in (32, 64):
+            log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
+                f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
+                enumerate(("attn_fwd", "attn_dkdv", "attn_dq"))))
+
+        log("phase 3: kernels against plain versions on the card")
+        errs = check_kernels(torch, tfa, shapes)
+
+        flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
+                        n_embd=128, attn_impl="flash")
+        base = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
+                    n_embd=768, attn_impl="flash")
+        c4 = train_phase(torch, tfa, "phase 4 flagship", flagship, 64, 16, 6,
+                         ("B1_fwd_packed", "B2_bwd_packed"))
+        torch.cuda.empty_cache()
+        c5 = train_phase(torch, tfa, "phase 5 gpt2-base", base, 2, 4, 3,
+                         ("B3_blk_fwd", "B4_blk_bwd"))
+        torch.cuda.empty_cache()
+        launches = {"B1_fwd_packed": c4["B1_fwd_packed"],
+                    "B2_bwd_packed": c4["B2_bwd_packed"],
+                    "B3_blk_fwd": c5["B3_blk_fwd"],
+                    "B4_blk_bwd": c5["B4_blk_bwd"]}
+
+        log("phase 6: card against CPU")
+        card_vs_cpu(torch)
+
+        log("phase 7: timing (CUDA events, median of 5)")
+        times = time_kernels(torch, tfa, shapes)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_all:.1f} s")
+    log(card)
+    kernels = []
+    for name, (_, replaces) in KERNELS.items():
+        r = times[name]
+        b, by = r["bound"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

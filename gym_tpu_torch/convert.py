@@ -1,0 +1,41 @@
+"""Weights from the JAX package: the flax param tree, as numpy, into the
+port's parameters.
+
+Neither the init nor the threefry keys of the JAX package can be matched in
+PyTorch, so both packages start from the same weights this way: a flax tree
+``{"h_0": {"attn": {"c_attn": {"kernel": ...}}}, ...}`` becomes the port's
+flat dict ``{"h_0.attn.c_attn.kernel": ...}`` (kernels keep flax's
+``[in, out]`` layout), stacked over the K simulated nodes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts → {"a.b.c": leaf}, leaves as numpy arrays."""
+    out: Dict[str, np.ndarray] = {}
+    for key in tree:
+        val = tree[key]
+        name = f"{prefix}{key}"
+        if hasattr(val, "keys"):
+            out.update(flatten_tree(val, name + "."))
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def params_from_jax(tree: Any, num_nodes: int = 1,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """The port's f32 parameters from one node's flax param tree: every
+    leaf copied to each of the ``num_nodes`` nodes, ``[K, ...]``."""
+    out = {}
+    for name, arr in flatten_tree(tree).items():
+        t = torch.as_tensor(np.array(arr, dtype=np.float32))
+        out[name] = t.to(device).unsqueeze(0).repeat(
+            num_nodes, *([1] * t.dim())).contiguous()
+    return out

@@ -1,0 +1,167 @@
+"""Port parity for the slice as a whole: ``Trainer.fit(device="cpu")`` of
+``gym_tpu_torch`` against ``gym_tpu``'s, a tiny GPT at K = 4 simulated nodes
+for 8 steps, from identical ``init_params`` and the same token stream.
+
+The ``train.csv`` losses (node 0) and the ``validation.csv`` local and
+global evals must agree in f32 within rtol 5e-5 (the per-step difference is
+summation order; DiLoCo's outer step at lr 0.7 and Adam's normalisation
+carry it forward over the 8 steps). The comm columns must agree within
+rtol 1e-6.
+"""
+
+import csv
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gym_tpu import Trainer as JTrainer
+from gym_tpu.data import ContiguousGPTTrainDataset as JDataset
+from gym_tpu.models.nanogpt import GPT as JGPT, GPTConfig as JConfig
+from gym_tpu.strategy import (DiLoCoStrategy as JDiLoCo, OptimSpec as JSpec,
+                              SimpleReduceStrategy as JSimple)
+from gym_tpu_torch import Trainer as TTrainer
+from gym_tpu_torch.convert import params_from_jax
+from gym_tpu_torch.data import ContiguousGPTTrainDataset as TDataset
+from gym_tpu_torch.models.nanogpt import GPT as TGPT, GPTConfig as TConfig
+from gym_tpu_torch.strategy import (DiLoCoStrategy as TDiLoCo,
+                                    OptimSpec as TSpec,
+                                    SimpleReduceStrategy as TSimple)
+
+K, T, V, STEPS = 4, 32, 65, 8
+SMALL = dict(block_size=T, vocab_size=V, n_layer=2, n_head=2, n_embd=32,
+             attn_impl="flash")
+RTOL = 5e-5
+
+
+def _tokens():
+    rng = np.random.default_rng(0)
+    return rng.integers(0, V, 6000).astype(np.int32)
+
+
+def _init_tree():
+    import jax.numpy as jnp
+    x = jnp.zeros((1, T), jnp.int32)
+    p = JGPT(JConfig(**SMALL)).init(jax.random.PRNGKey(7), (x, x),
+                                    train=False)["params"]
+    return jax.tree.map(np.asarray, p)
+
+
+def _strategy(pkg, which):
+    sched = dict(lr_scheduler="lambda_cosine",
+                 lr_scheduler_kwargs={"warmup_steps": 2})
+    if pkg == "jax":
+        if which == "diloco":
+            return JDiLoCo(JSpec("adamw", lr=1e-2), H=2, **sched)
+        return JSimple(JSpec("adamw", lr=1e-2), **sched)
+    if which == "diloco":
+        return TDiLoCo(TSpec("adamw", lr=1e-2), H=2, **sched)
+    return TSimple(TSpec("adamw", lr=1e-2), **sched)
+
+
+FIT = dict(num_nodes=K, max_steps=STEPS, batch_size=4, minibatch_size=2,
+           device="cpu", val_size=4, val_interval=4, seed=3,
+           show_progress=False)
+
+
+def _rows(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _fit_port(tmp_path, which, tree, **kw):
+    toks = _tokens()
+    return TTrainer(TGPT(TConfig(**SMALL)), TDataset(toks[:5000], T),
+                    TDataset(toks[5000:], T)).fit(
+        strategy=_strategy("torch", which), log_dir=str(tmp_path),
+        init_params=params_from_jax(tree, K), **{**FIT, **kw})
+
+
+@pytest.mark.parametrize("which", ["diloco", "simple_reduce"])
+def test_fit_matches_jax(tmp_path, which):
+    toks = _tokens()
+    tree = _init_tree()
+    JTrainer(JGPT(JConfig(**SMALL)), JDataset(toks[:5000], T),
+             JDataset(toks[5000:], T)).fit(
+        strategy=_strategy("jax", which), log_dir=str(tmp_path),
+        run_name="jax", init_params=tree, **FIT)
+    res = _fit_port(tmp_path, which, tree, run_name="torch")
+    assert res.steps == STEPS and np.isfinite(res.final_train_loss)
+
+    jt = _rows(os.path.join(tmp_path, "jax", "train.csv"))
+    tt = _rows(os.path.join(tmp_path, "torch", "train.csv"))
+    assert len(jt) == len(tt) == STEPS
+    assert list(jt[0]) == list(tt[0])
+    for a, b in zip(jt, tt):
+        assert a["step"] == b["step"]
+        np.testing.assert_allclose(float(b["loss"]), float(a["loss"]),
+                                   rtol=RTOL, err_msg=f"step {a['step']}")
+        np.testing.assert_allclose(float(b["lr"]), float(a["lr"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(b["comm_bytes"]),
+                                   float(a["comm_bytes"]), rtol=1e-6)
+    jv = _rows(os.path.join(tmp_path, "jax", "validation.csv"))
+    tv = _rows(os.path.join(tmp_path, "torch", "validation.csv"))
+    assert [(r["step"], r["name"]) for r in jv] == \
+        [(r["step"], r["name"]) for r in tv]
+    assert {r["name"] for r in tv} == {"local", "global"}
+    for a, b in zip(jv, tv):
+        np.testing.assert_allclose(float(b["loss"]), float(a["loss"]),
+                                   rtol=RTOL, err_msg=f"{a['name']} eval")
+
+
+def test_steps_per_call_and_microbatches_are_the_same_run(tmp_path):
+    """Several steps per call (and the grad-accumulation loop) change the
+    dispatch, not the result."""
+    tree = _init_tree()
+    one = _fit_port(tmp_path, "diloco", tree, run_name="one")
+    multi = _fit_port(tmp_path, "diloco", tree, run_name="multi",
+                      steps_per_call=3)
+    assert [l for _, l in one.history["train_loss"]] == \
+        [l for _, l in multi.history["train_loss"]]
+
+
+def test_bf16_autocast_fit_on_cpu(tmp_path):
+    """bf16 compute trains; eval stays f32 and both evals are logged."""
+    res = _fit_port(tmp_path, "diloco", _init_tree(), run_name="bf16",
+                    autocast=True, skip_nonfinite=True)
+    losses = [l for _, l in res.history["train_loss"]]
+    assert len(losses) == STEPS and np.all(np.isfinite(losses))
+    assert len(res.history["global_loss"]) == 3  # steps 0, 4 and the end
+    assert set(res.params) == set(params_from_jax(_init_tree()))
+
+
+def test_skip_nonfinite_quarantines_a_diverged_node(tmp_path):
+    """A node whose loss is NaN contributes zero gradient: the other nodes
+    stay finite and every step logs the quarantine."""
+    init = params_from_jax(_init_tree(), K)
+    init["wte.embedding"][1] = float("nan")
+    toks = _tokens()
+    res = TTrainer(TGPT(TConfig(**SMALL)), TDataset(toks[:5000], T)).fit(
+        strategy=_strategy("torch", "simple_reduce"), init_params=init,
+        skip_nonfinite=True, log_dir=str(tmp_path), run_name="nan",
+        **{**FIT, "max_steps": 3})
+    assert all(np.isfinite(l) for _, l in res.history["train_loss"])
+    assert res.history["nonfinite"] == [(0, 1.0), (1, 1.0), (2, 1.0)]
+    node = res.node_state.params["h_0.attn.c_attn.kernel"]
+    assert torch.isfinite(node[0]).all() and torch.isfinite(node[2]).all()
+
+
+def test_fit_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: fit() would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTrainer(TGPT(TConfig(**SMALL)), TDataset(_tokens(), T)).fit(
+            strategy=_strategy("torch", "diloco"), num_nodes=2, max_steps=1)
+
+
+@pytest.mark.parametrize("kwarg,value", [
+    ("guard", True), ("network", "wan"), ("checkpoint_interval", 2),
+    ("cp", 2), ("tp", 2), ("pp", 2), ("ep", 2)])
+def test_later_slice_kwargs_raise(kwarg, value):
+    with pytest.raises(NotImplementedError):
+        TTrainer(TGPT(TConfig(**SMALL)), TDataset(_tokens(), T)).fit(
+            strategy=_strategy("torch", "diloco"), num_nodes=2, max_steps=1,
+            device="cpu", **{kwarg: value})
