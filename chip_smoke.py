@@ -11,14 +11,22 @@ Phases (any failure exits non-zero before the result lines are printed):
 3. every kernel against its plain PyTorch version on the card, bf16 and f32:
    the packed pair (B1/B2) at the flagship shape with q, k and v as strided
    views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
-   GPT-2-base shape, causal and full-block with a random lse cotangent;
+   GPT-2-base shape, causal and full-block with a random lse cotangent, the
+   long-context pair (B5) at N=2 H=12 T=8192 D=64 on per-head views of the
+   projection, and at T=1152 (the default-block rule);
 4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
    T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
    warmup, 6 steps on random tokens; the packed kernels must have launched;
 5. GPT-2 base (12L/12H/768, vocab 50304, T=1024, K=2 × 4 rows, 3 steps,
    DiLoCo H=2); the per-head kernels must have launched;
-6. card against CPU: a tiny GPT through ``Trainer.fit`` on ``cuda`` and on
-   ``cpu`` from the same weights and batches, in bf16 and in f32;
+5b. long context: GPT-2 base at T=8192 with ``remat`` and ``loss_chunk=2048``,
+   K=2 × 1 row, 4 steps (the steady rate counts the last two); the B5 pair must have launched exactly as often as
+   the steps and evals need (the forward twice a layer a step under remat);
+   then one step without ``remat`` and ``loss_chunk``, whose peak memory
+   must be higher;
+6. card against CPU: tiny GPTs through ``Trainer.fit`` on ``cuda`` and on
+   ``cpu`` from the same weights and batches, in bf16 and in f32, at T=128
+   and at T=2048 (where the card runs B5 and the CPU dense attention);
 7. timing with CUDA events (median of 5 runs of back-to-back launches): each
    kernel, its plain version, the library call
    (``scaled_dot_product_attention``, timed only as a yardstick) and the
@@ -26,7 +34,7 @@ Phases (any failure exits non-zero before the result lines are printed):
 8. the ``kernels`` JSON line, then the result line.
 
 The launch counts in the ``kernels`` line are those of the training runs of
-phases 4 (B1/B2) and 5 (B3/B4), each counted from zero.
+phases 4 (B1/B2), 5 (B3/B4) and 5b (B5), each counted from zero.
 """
 
 from __future__ import annotations
@@ -42,12 +50,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-SOURCE = "gym_tpu_torch/ops/csrc/fused_attention.cu"
-KERNELS = {  # name: (wrapper, TPU kernel it replaces)
-    "B1_fwd_packed": ("_fwd_packed", "gym_tpu/ops/fused_attention.py:246"),
-    "B2_bwd_packed": ("_bwd_packed", "gym_tpu/ops/fused_attention.py:267"),
-    "B3_blk_fwd": ("_blk_fwd", "gym_tpu/ops/fused_attention.py:137"),
-    "B4_blk_bwd": ("_blk_bwd", "gym_tpu/ops/fused_attention.py:153"),
+FUSED_CU = "gym_tpu_torch/ops/csrc/fused_attention.cu"
+FLASH_CU = "gym_tpu_torch/ops/csrc/flash_attention.cu"
+# JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
+# calls for T > 1024
+BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+KERNELS = {  # name: (module, wrapper, source, TPU kernel it replaces)
+    "B1_fwd_packed": ("fused", "_fwd_packed", FUSED_CU,
+                      "gym_tpu/ops/fused_attention.py:246"),
+    "B2_bwd_packed": ("fused", "_bwd_packed", FUSED_CU,
+                      "gym_tpu/ops/fused_attention.py:267"),
+    "B3_blk_fwd": ("fused", "_blk_fwd", FUSED_CU,
+                   "gym_tpu/ops/fused_attention.py:137"),
+    "B4_blk_bwd": ("fused", "_blk_bwd", FUSED_CU,
+                   "gym_tpu/ops/fused_attention.py:153"),
+    "B5f_flash_fwd": ("flash", "_flash_fwd", FLASH_CU, f"{BUNDLED}:758"),
+    "B5b_flash_bwd": ("flash", "_flash_bwd", FUSED_CU,
+                      f"{BUNDLED}:1121 and :1456"),
 }
 # stated tolerances, kernel against plain version on the same inputs:
 # |a − b| <= atol + rtol·|b| elementwise. bf16: p and ds are rounded to bf16
@@ -97,7 +116,42 @@ def compare(name, got, ref, kind, dtype):
     return mx
 
 
-def check_kernels(torch, tfa, shapes):
+def per_head_views(torch, g, n, h, t, d, dtype):
+    """q, k, v as [N, H, T, D] views of one [N, T, 3·H·D] projection (token
+    stride 3C, as the model passes them) and a random cotangent."""
+    qkv = torch.randn(n, t, 3 * h * d, device="cuda", generator=g).to(dtype)
+    heads = [z.view(n, t, h, d).transpose(1, 2)
+             for z in qkv.split(h * d, dim=-1)]
+    do = torch.randn(n, h, t, d, device="cuda", generator=g).to(dtype)
+    return heads, do
+
+
+def check_long_context(torch, tflash, shapes, g, dtype):
+    """B5 forward and backward against their plain versions; the largest
+    error of each at the slice's shape (the first in ``shapes``)."""
+    dn = str(dtype).replace("torch.", "")
+    errs = []
+    for n, h, t, d in shapes:
+        heads, do = per_head_views(torch, g, n, h, t, d, dtype)
+        scale = 1.0 / math.sqrt(d)
+        log(f"B5 long-context {dn} N={n} H={h} T={t} D={d} "
+            f"(per-head views, blocks {tflash._block_sizes(t, d)}):")
+        o, lse = tflash._flash_fwd(*heads, scale)
+        ro, rl = tflash.plain_flash_fwd(*heads, scale)
+        ef = max(compare("B5f o", o, ro, "out", dtype),
+                 compare("B5f lse", lse, rl, "lse", dtype))
+        got = tflash._flash_bwd(*heads, o, do, lse, scale)
+        ref = tflash.plain_flash_bwd(*heads, o, do, lse, scale)
+        eb = max(compare(f"B5b {nm}", a, b, "out", dtype)
+                 for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+        errs.append((ef, eb))
+        del heads, do, o, lse, ro, rl, got, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs[0]
+
+
+def check_kernels(torch, tfa, tflash, shapes):
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
@@ -144,9 +198,12 @@ def check_kernels(torch, tfa, shapes):
             del qkv, heads, do, dlse, o, lse, ro, rl, got, ref
             torch.cuda.empty_cache()
         torch.cuda.synchronize()
+        e5f, e5b = check_long_context(
+            torch, tflash, (shapes["long"], shapes["long_default_blocks"]), g,
+            dtype)
         if dtype == torch.bfloat16:  # the training runs' dtype
             errs.update(B1_fwd_packed=e1, B2_bwd_packed=e2, B3_blk_fwd=e3,
-                        B4_blk_bwd=e4)
+                        B4_blk_bwd=e4, B5f_flash_fwd=e5f, B5b_flash_bwd=e5b)
     return errs
 
 
@@ -179,14 +236,28 @@ def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
         run_name=run_name)
 
 
-def train_phase(torch, tfa, title, cfg_kw, nodes, batch, steps, want):
+def reset_counts(mods):
+    for m in mods.values():
+        m.reset_launch_counts()
+
+
+def read_counts(mods):
+    return {k: getattr(mods[m], w).launches
+            for k, (m, w, _, _) in KERNELS.items()}
+
+
+def train_phase(torch, mods, title, cfg_kw, nodes, batch, steps, want,
+                tokens=200_000):
     log(f"{title}: K={nodes} x {batch} rows, {steps} steps, bf16")
-    tfa.reset_launch_counts()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts(mods)
     t0 = time.perf_counter()
-    res = gpt_fit(torch, cfg_kw, nodes, batch, steps, "cuda", True, 0, title)
+    res = gpt_fit(torch, cfg_kw, nodes, batch, steps, "cuda", True, 0, title,
+                  tokens=tokens)
     wall = time.perf_counter() - t0
-    counts = {k: getattr(tfa, w).launches for k, (w, _) in KERNELS.items()}
+    counts = read_counts(mods)
     losses = [l for _, l in res.history["train_loss"]]
     for step, loss in res.history["train_loss"]:
         log(f"  step {step}: loss {loss:.6f}")
@@ -196,7 +267,8 @@ def train_phase(torch, tfa, title, cfg_kw, nodes, batch, steps, want):
     log(f"  steps/s {res.steps_per_second:.4f} (steady "
         f"{res.steps_per_second_steady}) on {torch.cuda.get_device_name(0)}, "
         f"wall {wall:.1f} s incl. init, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+        f"{held / 2**30:.2f} GiB held before the fit)")
     log(f"  launches: {counts}")
     check(len(losses) == steps and all(math.isfinite(l) for l in losses),
           f"{title}: non-finite or missing losses {losses}")
@@ -205,26 +277,75 @@ def train_phase(torch, tfa, title, cfg_kw, nodes, batch, steps, want):
           f"{title}: first loss {losses[0]} far from ln(V) = {ln_v:.3f}")
     for name in want:
         check(counts[name] > 0, f"{title}: {name} never launched")
+    return counts, res
+
+
+def long_context_phase(torch, mods, cfg_kw, nodes, steps):
+    """GPT-2 base at T=8192 under remat and loss_chunk: losses, the exact
+    B5 launch counts, steps/s, peak memory and MFU; then one step without
+    the memory levers, which must peak higher."""
+    from gym_tpu_torch.models.nanogpt import GPTConfig, node_mfu
+    title = "phase 5b long-context"
+    counts, res = train_phase(torch, mods, title, cfg_kw, nodes, 1, steps,
+                              ("B5f_flash_fwd", "B5b_flash_bwd"),
+                              tokens=400_000)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg_kw["n_layer"]
+    # every eval runs the f32 forward twice (local and global params), one
+    # validation microbatch each
+    evals = 2 * len(res.history["global_loss"])
+    want_f = layers * (2 * steps + evals)
+    want_b = layers * steps
+    check(counts["B5f_flash_fwd"] == want_f and
+          counts["B5b_flash_bwd"] == want_b,
+          f"{title}: B5 launches {counts['B5f_flash_fwd']}/"
+          f"{counts['B5b_flash_bwd']}, expected {want_f}/{want_b} "
+          f"({layers} layers, {steps} steps under remat, {evals} evals)")
+    sps = res.steps_per_second_steady or res.steps_per_second
+    mfu = node_mfu(GPTConfig(**cfg_kw), res.node_state.params, nodes,
+                   1.0 / sps, peak_flops=BF16_FLOPS)
+    log(f"  B5 launches as expected: forward {want_f} = {layers} x (2 x "
+        f"{steps} steps + {evals} evals), backward {want_b}")
+    log(f"  MFU {mfu:.4%} at {BF16_FLOPS / 1e12:.0f} TFLOP/s (steady "
+        f"{sps:.4f} steps/s); peak memory with remat and loss_chunk "
+        f"{peak / 2**30:.2f} GiB")
+    del res  # its node state would count in the next run's peak
+    plain_kw = dict(cfg_kw, remat=False, loss_chunk=0)
+    train_phase(torch, mods, f"{title} without remat", plain_kw, nodes, 1,
+                1, ("B5f_flash_fwd", "B5b_flash_bwd"), tokens=400_000)
+    peak1 = torch.cuda.max_memory_allocated()
+    log(f"  peak memory without remat and loss_chunk {peak1 / 2**30:.2f} GiB "
+        f"(with: {peak / 2**30:.2f} GiB)")
+    check(peak < peak1, f"{title}: remat and loss_chunk did not lower the "
+          f"peak memory ({peak} >= {peak1} bytes)")
     return counts
 
 
-def card_vs_cpu(torch):
+def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=()):
+    """Train losses and global evals of the same fit on the card and on the
+    CPU; ``want`` names kernels the card run must have launched."""
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
-    cfg_kw = dict(block_size=128, vocab_size=65, n_layer=2, n_head=2,
-                  n_embd=64, attn_impl="flash")
+    t = cfg_kw["block_size"]
     init = {n: p[0] for n, p in GPT(GPTConfig(**cfg_kw)).init_params(
         1, seed=11, device="cpu").items()}
     for mode, autocast in (("bf16", True), ("f32", False)):
         out = {}
         for device in ("cuda", "cpu"):
-            res = gpt_fit(torch, cfg_kw, 4, 4, 3, device, autocast, 5,
-                          f"card_vs_cpu_{mode}_{device}", init_params=init,
-                          tokens=20_000)
+            reset_counts(mods)
+            res = gpt_fit(torch, cfg_kw, nodes, batch, steps, device,
+                          autocast, 5, f"card_vs_cpu_T{t}_{mode}_{device}",
+                          init_params=init, tokens=tokens)
             out[device] = [l for _, l in res.history["train_loss"]] + [
                 l for _, l in res.history["global_loss"]]
+            if device == "cuda":
+                counts = read_counts(mods)
+                for name in want:
+                    check(counts[name] > 0, f"card vs CPU T={t}: {name} "
+                          f"never launched on the card")
         rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"],
                                                       out["cpu"]))
-        log(f"card vs CPU {mode}: cuda {['%.6f' % x for x in out['cuda']]}")
+        log(f"card vs CPU T={t} {mode}: cuda "
+            f"{['%.6f' % x for x in out['cuda']]}")
         log(f"                  cpu  {['%.6f' % x for x in out['cpu']]}")
         log(f"  max rel diff {rel:.3e} (band {LOSS_RTOL[mode]})")
         check(rel <= LOSS_RTOL[mode], f"card vs CPU {mode}: losses differ "
@@ -271,7 +392,7 @@ def bound(n, h, t, d, itemsize, backward, causal=True):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(torch, tfa, shapes):
+def time_kernels(torch, tfa, tflash, shapes):
     import torch.nn.functional as F
     out = {}
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -333,6 +454,33 @@ def time_kernels(torch, tfa, shapes):
             lo, lib, do, retain_graph=True)),
         shape=f"N={n} H={h} T={t} D={d} bf16 per-head views",
         bound=bound(n, h, t, d, 2, True))
+    del qkv, heads, do, o, lse, lib, lo
+    torch.cuda.empty_cache()
+
+    n, h, t, d = shapes["long"]
+    scale = 1.0 / math.sqrt(d)
+    heads, do = per_head_views(torch, g, n, h, t, d, bf)
+    o, lse = tflash._flash_fwd(*heads, scale)
+    lib = [x.detach().requires_grad_(True) for x in heads]
+    lo = F.scaled_dot_product_attention(*lib, is_causal=True, scale=scale)
+    shape = f"N={n} H={h} T={t} D={d} bf16 per-head views"
+    out["B5f_flash_fwd"] = dict(
+        ms=timed(torch, lambda: tflash._flash_fwd(*heads, scale), inner=3),
+        plain_ms=timed(torch, lambda: tflash.plain_flash_fwd(*heads, scale),
+                       inner=3),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=True, scale=scale)),
+        shape=shape, bound=bound(n, h, t, d, 2, False))
+    out["B5b_flash_bwd"] = dict(
+        ms=timed(torch, lambda: tflash._flash_bwd(*heads, o, do, lse, scale),
+                 inner=3),
+        plain_ms=timed(torch, lambda: tflash.plain_flash_bwd(
+            *heads, o, do, lse, scale), inner=3),
+        library_ms=timed(torch, lambda: torch.autograd.grad(
+            lo, lib, do, retain_graph=True)),
+        shape=shape, bound=bound(n, h, t, d, 2, True))
+    del heads, do, o, lse, lib, lo
+    torch.cuda.empty_cache()
     for name, r in out.items():
         b, by = r["bound"]
         log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
@@ -353,6 +501,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
+        import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
         from gym_tpu_torch.ops import _build
     except ImportError as e:
@@ -362,8 +511,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    shapes = {"flagship": (64 * 16, 256, 128, 4), "base": (2 * 4, 12, 1024,
-                                                            64)}
+    shapes = {"flagship": (64 * 16, 256, 128, 4),
+              "base": (2 * 4, 12, 1024, 64),
+              "long": (2 * 1, 12, 8192, 64),
+              "long_default_blocks": (2, 12, 1152, 64)}
+    mods = {"fused": tfa, "flash": tflash}
     t_all = time.perf_counter()
     try:
         card = card_line()
@@ -381,31 +533,41 @@ def main() -> int:
         for d in (32, 64):
             log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
                 f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
-                enumerate(("attn_fwd", "attn_dkdv", "attn_dq"))))
+                enumerate(("attn_fwd", "attn_dkdv", "attn_dq",
+                           "flash_fwd"))))
 
         log("phase 3: kernels against plain versions on the card")
-        errs = check_kernels(torch, tfa, shapes)
+        errs = check_kernels(torch, tfa, tflash, shapes)
 
         flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
                         n_embd=128, attn_impl="flash")
         base = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
                     n_embd=768, attn_impl="flash")
-        c4 = train_phase(torch, tfa, "phase 4 flagship", flagship, 64, 16, 6,
-                         ("B1_fwd_packed", "B2_bwd_packed"))
-        torch.cuda.empty_cache()
-        c5 = train_phase(torch, tfa, "phase 5 gpt2-base", base, 2, 4, 3,
-                         ("B3_blk_fwd", "B4_blk_bwd"))
+        long_ctx = dict(base, block_size=8192, remat=True, loss_chunk=2048)
+        c4 = train_phase(torch, mods, "phase 4 flagship", flagship, 64, 16,
+                         6, ("B1_fwd_packed", "B2_bwd_packed"))[0]
+        c5 = train_phase(torch, mods, "phase 5 gpt2-base", base, 2, 4, 3,
+                         ("B3_blk_fwd", "B4_blk_bwd"))[0]
+        c5b = long_context_phase(torch, mods, long_ctx, 2, 4)
         torch.cuda.empty_cache()
         launches = {"B1_fwd_packed": c4["B1_fwd_packed"],
                     "B2_bwd_packed": c4["B2_bwd_packed"],
                     "B3_blk_fwd": c5["B3_blk_fwd"],
-                    "B4_blk_bwd": c5["B4_blk_bwd"]}
+                    "B4_blk_bwd": c5["B4_blk_bwd"],
+                    "B5f_flash_fwd": c5b["B5f_flash_fwd"],
+                    "B5b_flash_bwd": c5b["B5b_flash_bwd"]}
 
         log("phase 6: card against CPU")
-        card_vs_cpu(torch)
+        card_vs_cpu(torch, mods, dict(block_size=128, vocab_size=65,
+                                      n_layer=2, n_head=2, n_embd=64,
+                                      attn_impl="flash"), 4, 4, 3, 20_000)
+        card_vs_cpu(torch, mods, dict(block_size=2048, vocab_size=65,
+                                      n_layer=2, n_head=2, n_embd=128,
+                                      attn_impl="flash"), 2, 1, 2, 100_000,
+                    want=("B5f_flash_fwd", "B5b_flash_bwd"))
 
         log("phase 7: timing (CUDA events, median of 5)")
-        times = time_kernels(torch, tfa, shapes)
+        times = time_kernels(torch, tfa, tflash, shapes)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -413,11 +575,11 @@ def main() -> int:
         f"{time.perf_counter() - t_all:.1f} s")
     log(card)
     kernels = []
-    for name, (_, replaces) in KERNELS.items():
+    for name, (_, _, source, replaces) in KERNELS.items():
         r = times[name]
         b, by = r["bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,

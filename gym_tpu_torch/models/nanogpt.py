@@ -9,9 +9,12 @@ layout, so a linear layer is one ``bmm`` over the node dimension. The module
 holds no parameters of its own: ``forward(params, batch)`` returns the K
 per-node losses.
 
-Decode (KV caches, paging, sampling), MoE, quantized weights, chunked loss,
-rematerialization and sequence sharding belong to later slices of the port
-and raise.
+``remat`` runs each block under ``torch.utils.checkpoint`` (the JAX
+package's ``nn.remat(Block)``), and ``loss_chunk`` computes the tied lm head
+and cross-entropy over row chunks, each recomputed in the backward: the two
+memory levers of long-context training. Decode (KV caches, paging,
+sampling), MoE, quantized weights and sequence sharding belong to later
+slices of the port and raise.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention
 
@@ -100,8 +104,6 @@ def _unsupported(cfg: GPTConfig) -> Optional[str]:
          or cfg.quant_embed, "quantized weights and KV caches"),
         (cfg.seq_axis is not None or cfg.attn_impl == "ring",
          "sequence sharding (ring attention)"),
-        (cfg.loss_chunk != 0, "chunked cross-entropy (loss_chunk)"),
-        (cfg.remat, "block rematerialization (remat)"),
     )
     for bad, what in checks:
         if bad:
@@ -163,20 +165,61 @@ def _embed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return F.embedding(idx.long() + offs, table.reshape(k * v, -1))
 
 
-def ce_sum_count(x, targets, embedding) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-node (Σ masked CE, Σ valid) through the tied lm head: the head
-    matmul in the embedding's dtype, f32 cross-entropy, ``targets == -1``
-    masked. x [K, B, T, C], targets [K, B, T], embedding [K, V, C]."""
-    k, c = x.shape[0], x.shape[-1]
-    v = embedding.shape[1]
-    logits = torch.bmm(x.reshape(k, -1, c).to(embedding.dtype),
-                       embedding.transpose(1, 2)).float()
-    tgt = targets.reshape(k, -1).long()
+def _ce_rows(x, targets, embedding) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-node (Σ masked CE, Σ valid) of rows x [K, S, C] (already in the
+    embedding's dtype) and targets [K, S]."""
+    k, v = x.shape[0], embedding.shape[1]
+    logits = torch.bmm(x, embedding.transpose(1, 2)).float()
+    tgt = targets.long()
     losses = F.cross_entropy(logits.reshape(-1, v),
                              tgt.clamp(min=0).reshape(-1),
                              reduction="none").view(k, -1)
     valid = (tgt >= 0).float()
     return (losses * valid).sum(dim=1), valid.sum(dim=1)
+
+
+def ce_sum_count(x, targets, embedding,
+                 loss_chunk: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-node (Σ masked CE, Σ valid) through the tied lm head: the head
+    matmul in the embedding's dtype, f32 cross-entropy, ``targets == -1``
+    masked. x [K, B, T, C], targets [K, B, T], embedding [K, V, C]."""
+    k, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(k, -1, c).to(embedding.dtype)
+    tf = targets.reshape(k, -1)
+    if loss_chunk > 0:
+        return _chunked_ce(xf, tf, embedding, loss_chunk)
+    return _ce_rows(xf, tf, embedding)
+
+
+def _chunked_ce(xf, tf, embedding, chunk: int):
+    """(Σ masked CE, Σ valid) per node over ``chunk``-row blocks, never
+    holding more than [K, chunk, V] logits: each block runs head matmul →
+    f32 CE under ``checkpoint``, so the backward recomputes a block's logits
+    instead of storing them (the JAX package's ``jax.checkpoint`` inside a
+    ``lax.scan``). Rows are padded to a multiple of ``chunk`` with target −1,
+    and the sums accumulate in f32 in block order."""
+    s = xf.shape[1]
+    n_blocks = -(-s // chunk)
+    pad = n_blocks * chunk - s
+    xf = F.pad(xf, (0, 0, 0, pad))
+    tf = F.pad(tf, (0, pad), value=-1)
+    loss_sum = torch.zeros(xf.shape[0], device=xf.device)
+    count = torch.zeros_like(loss_sum)
+    for i in range(n_blocks):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        ls, n = _maybe_checkpoint(_ce_rows, xf[:, rows], tf[:, rows],
+                                  embedding)
+        loss_sum = loss_sum + ls
+        count = count + n
+    return loss_sum, count
+
+
+def _maybe_checkpoint(fn, *args):
+    """``fn(*args)``, with its activations recomputed in the backward when
+    a backward will run; a plain call under ``no_grad`` (evaluation)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class GPT(torch.nn.Module):
@@ -290,16 +333,86 @@ class GPT(torch.nn.Module):
         x = _embed(wte, idx) + wpe[:, None]
         x = _dropout(x, cfg.dropout, train, generator)
         for i in range(cfg.n_layer):
-            p = f"h_{i}"
-            x = x + self._attention(params, f"{p}.attn",
-                                    _layer_norm(params, f"{p}.ln_1", x),
-                                    train, generator)
-            x = x + self._mlp(params, f"{p}.mlp",
-                              _layer_norm(params, f"{p}.ln_2", x),
-                              train, generator)
+            if cfg.remat:
+                x = self._remat_block(params, f"h_{i}", x, train, generator)
+            else:
+                x = self._block(params, f"h_{i}", x, train, generator)
         x = _layer_norm(params, "ln_f", x)
         if targets is None:
             # weight tying: lm_head = wteᵀ
             return torch.matmul(x.to(wte.dtype), wte.transpose(1, 2)[:, None])
-        loss_sum, count = ce_sum_count(x, targets, wte)
+        loss_sum, count = ce_sum_count(x, targets, wte, cfg.loss_chunk)
         return loss_sum / torch.clamp(count, min=1.0)
+
+    def _block(self, params, p, x, train, generator):
+        x = x + self._attention(params, f"{p}.attn",
+                                _layer_norm(params, f"{p}.ln_1", x),
+                                train, generator)
+        return x + self._mlp(params, f"{p}.mlp",
+                             _layer_norm(params, f"{p}.ln_2", x),
+                             train, generator)
+
+    def _remat_block(self, params, p, x, train, generator):
+        """One block whose activations are recomputed in the backward.
+        ``checkpoint`` restores the global RNG state for the recomputation,
+        not an explicit generator, so the dropout generator's state is saved
+        here before the block and set back for the recomputation (which then
+        draws the forward's masks), and the generator is left where the
+        recomputation found it."""
+        if generator is None:
+            return _maybe_checkpoint(self._block, params, p, x, train, None)
+        saved = generator.get_state()
+        recompute = False
+
+        def run(x):
+            nonlocal recompute
+            if not recompute:  # the forward
+                recompute = True
+                return self._block(params, p, x, train, generator)
+            now = generator.get_state()
+            generator.set_state(saved)
+            try:
+                return self._block(params, p, x, train, generator)
+            finally:
+                generator.set_state(now)
+
+        return _maybe_checkpoint(run, x)
+
+
+# -- model utilities (reference parity helpers) ----------------------------
+
+
+def num_params(params: Dict[str, torch.Tensor],
+               non_embedding: bool = True) -> int:
+    """Parameter count of one node's params (no node dimension); positional
+    embeddings subtracted by default (token embeddings stay: they serve as
+    the lm head through tying)."""
+    total = sum(p.numel() for p in params.values())
+    if non_embedding:
+        total -= params["wpe.embedding"].numel()
+    return total
+
+
+def estimate_mfu(config: GPTConfig, params: Dict[str, torch.Tensor],
+                 fwdbwd_per_iter: float, dt: float, peak_flops: float,
+                 n_params: Optional[int] = None) -> float:
+    """Model FLOPs utilization against ``peak_flops``, which the caller
+    states for its device (989e12 for an H100's bf16 tensor cores): 6·N
+    flops a token for the matmuls plus 12·L·H·Q·T for attention, the
+    reference's convention. ``n_params`` overrides the count."""
+    n = n_params if n_params is not None else num_params(params)
+    cfg = config
+    l, h, q, t = cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head, \
+        cfg.block_size
+    flops_per_token = 6 * n + 12 * l * h * q * t
+    flops_per_iter = flops_per_token * t * fwdbwd_per_iter
+    return (flops_per_iter / dt) / peak_flops
+
+
+def node_mfu(config: GPTConfig, node_params: Dict[str, torch.Tensor],
+             seqs_per_iter: float, dt: float, peak_flops: float) -> float:
+    """MFU from node-stacked params (leading [K] dimension, as the trainer
+    holds them): counts one node's parameters and delegates to
+    ``estimate_mfu``."""
+    one = {n: p[0] for n, p in node_params.items()}
+    return estimate_mfu(config, one, seqs_per_iter, dt, peak_flops)

@@ -1,5 +1,7 @@
 """Build and load the port's CUDA kernels: ``nvcc`` by hand into a shared
-library with a plain C interface, bound with ``ctypes``.
+library with a plain C interface, bound with ``ctypes``. Each source is
+compiled by its own ``nvcc``, all started together, and the objects are
+linked into one library.
 
 The library is built at first use into ``build/gym_tpu_torch/`` at the root
 of the checkout, keyed by a hash of the sources and flags, so a fresh
@@ -20,9 +22,12 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(_ROOT, "build", "gym_tpu_torch")
-SOURCES = (os.path.join(_HERE, "csrc", "fused_attention.cu"),)
+_CSRC = os.path.join(_HERE, "csrc")
+SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
+                                                 "flash_attention.cu"))
+HEADERS = (os.path.join(_CSRC, "attn_common.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -42,7 +47,7 @@ def _nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -65,13 +70,28 @@ def build() -> str:
                 build_log = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    outs = [p.communicate()[0] for p in procs]
+    build_log = "".join(outs)
+    for cmd, p, out in zip(compiles, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    build_log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     with open(log_path, "w") as f:
         f.write(build_log)
     os.replace(tmp, path)
@@ -93,6 +113,9 @@ def load() -> ctypes.CDLL:
         lib.gym_attn_bwd.argtypes = [vp] * 11 + [strides] + [i32] * 5 + [
             f32, i32, vp]
         lib.gym_attn_bwd.restype = i32
+        lib.gym_flash_fwd.argtypes = [vp] * 5 + [strides] + [i32] * 4 + [
+            f32, i32, vp]
+        lib.gym_flash_fwd.restype = i32
         lib.gym_attn_smem_bytes.argtypes = [i32, i32]
         lib.gym_attn_smem_bytes.restype = ctypes.c_longlong
         lib.gym_attn_error_string.argtypes = [i32]

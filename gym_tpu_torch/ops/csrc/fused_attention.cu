@@ -4,6 +4,9 @@
 //   _fwd_packed_kernel / _blk_fwd_kernel  ->  attn_fwd_kernel
 //   _bwd_packed_kernel / _blk_bwd_kernel  ->  attn_delta_kernel + attn_dkdv_kernel
 //                                             + attn_dq_kernel
+// The backward kernels also serve the long-context flash attention (B5,
+// flash_attention.cu): their shared memory does not grow with T and their
+// offsets are 64-bit, so they take any T % 64 == 0.
 // The packed [B, T, C] and per-head [B, H, T, D] layouts differ only in
 // their strides, so every kernel takes element strides (batch, head, token)
 // for each tensor; the last dimension must be contiguous. In the packed
@@ -33,44 +36,9 @@
 // computed by separate kernels, each owning its output rows). Moving the
 // products to wgmma with TMA-fed tiles is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "attn_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int NTHREADS = 256; // 16 x 16 threads, 4 x 4 micro-tile each
-constexpr int LDP = BK + 1;   // padded row stride of score tiles in smem
-
-struct Strides {
-  long long n, h, t;
-};
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// round an f32 value to the storage dtype and back (the Pallas .astype)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Copy rows [r0, r0 + 64) of one (batch, head) slice into a padded smem tile.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long tstride, int r0) {
-  for (int e = threadIdx.x; e < 64 * D; e += NTHREADS) {
-    const int r = e / D, d = e - (e / D) * D;
-    dst[r * (D + 1) + d] = load_f(src + (long long)(r0 + r) * tstride + d);
-  }
-}
 
 // ---------------------------------------------------------------- forward
 
@@ -509,17 +477,6 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * 64 * (D + 1) + BQ * LDP + 3 * BQ);
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-Strides strides_at(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
-}
-
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const long long* st, int N, int H, int T_len,
@@ -575,29 +532,6 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
-#define GYM_DISPATCH(DTYPE, HEAD_DIM, CALL)                                  \
-  do {                                                                       \
-    if (DTYPE == 0) {                                                        \
-      using T = float;                                                       \
-      switch (HEAD_DIM) {                                                    \
-        case 16: { constexpr int D = 16; return (int)CALL; }                 \
-        case 32: { constexpr int D = 32; return (int)CALL; }                 \
-        case 64: { constexpr int D = 64; return (int)CALL; }                 \
-        case 128: { constexpr int D = 128; return (int)CALL; }               \
-      }                                                                      \
-    } else if (DTYPE == 1) {                                                 \
-      using T = __nv_bfloat16;                                               \
-      switch (HEAD_DIM) {                                                    \
-        case 16: { constexpr int D = 16; return (int)CALL; }                 \
-        case 32: { constexpr int D = 32; return (int)CALL; }                 \
-        case 64: { constexpr int D = 64; return (int)CALL; }                 \
-        case 128: { constexpr int D = 128; return (int)CALL; }               \
-      }                                                                      \
-    }                                                                        \
-    return (int)cudaErrorInvalidValue;                                       \
-  } while (0)
-
 }  // namespace
 
 extern "C" {
@@ -632,9 +566,13 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                                  strides, N, H, T_len, causal, scale, s)));
 }
 
+long long gym_flash_smem_bytes(int D);  // flash_attention.cu
+
 // dynamic shared memory of one block: kernel 0 = forward, 1 = dk/dv,
-// 2 = dq (the same for both dtypes); -1 for an unsupported head dim
+// 2 = dq, 3 = the long-context forward (the same for both dtypes); -1 for
+// an unsupported head dim
 long long gym_attn_smem_bytes(int kernel, int D) {
+  if (kernel == 3) return gym_flash_smem_bytes(D);
   switch (D) {
     case 16: return kernel == 0 ? fwd_smem<16>() : kernel == 1 ? dkdv_smem<16>() : dq_smem<16>();
     case 32: return kernel == 0 ? fwd_smem<32>() : kernel == 1 ? dkdv_smem<32>() : dq_smem<32>();

@@ -1,11 +1,22 @@
-"""Fused attention dispatch (counterpart of ``gym_tpu/ops/flash_attention.py``).
+"""Fused attention dispatch (counterpart of ``gym_tpu/ops/flash_attention.py``)
+and the long-context causal attention it dispatches to (TPU kernel B5).
 
-On the card, shapes the fused whole-context kernels take go to them
-(``ops/fused_attention.py``); on the CPU, and for shapes ``_flash_ok``
-rejects or with active dropout, attention is dense, as in the JAX package
-off the TPU. Contexts longer than 1024 need the tiled long-context kernel
-(TPU kernel B5), which the port does not have yet: on the card they raise
-rather than fall back silently to dense.
+On the card, shapes the fused whole-context kernels take (T ≤ 1024) go to
+them (``ops/fused_attention.py``); longer contexts go to the tiled
+long-context pair of this module, the counterpart of JAX's bundled Pallas
+TPU ``flash_attention`` that the JAX package calls there. On the CPU, and
+for shapes ``_flash_ok`` rejects or with active dropout, attention is dense,
+as in the JAX package off the TPU. A shape ``_flash_ok`` accepts but the
+CUDA kernels do not take (a head dim outside 16/32/64/128) raises on the
+card; nothing falls back quietly.
+
+The pair: ``_flash_fwd`` launches ``gym_flash_fwd`` (``csrc/
+flash_attention.cu``, a single-pass online-softmax forward) and
+``_flash_bwd`` the FA2 backward kernels of ``csrc/fused_attention.cu``
+given lse. Each counts its launches in ``launches`` and runs its plain
+version (``plain_flash_fwd`` / ``plain_flash_bwd``) only for CPU tensors.
+The plain versions follow the TPU kernel's arithmetic block by block, at the
+block sizes the JAX package would pick for the shape.
 
 Inputs carry any number of leading node dimensions before the batch
 (``[..., B, H, T, D]`` or ``[..., B, T, C]``). The eligibility gates see the
@@ -15,16 +26,218 @@ then see the node axis folded into the batch.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .attention import dense_causal_attention
+from .fused_attention import (_DTYPES, _check, _check_stats, _grad_layout,
+                              _launch_bwd, _stream, _strides,
+                              fused_causal_attention,
+                              fused_causal_attention_packed, fused_supported,
+                              packed_supported)
+
+# the TPU kernel's mask: added to masked scores, so exp(s - m) is exactly 0
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 
 def _flash_ok(q: torch.Tensor) -> bool:
     t, d = q.shape[-2], q.shape[-1]
     return t >= 128 and t % 128 == 0 and d <= 256
+
+
+def _block_sizes(t: int, d: int):
+    """(block_q, block_k) of the forward and (block_q, block_k) of the
+    backward, as ``gym_tpu/ops/flash_attention.py:71-85`` chooses them: the
+    tuned 1024/2048 and 512/1024 where D ≤ 64 and T divides, the bundled
+    kernel's default 128 everywhere otherwise."""
+    bq, bk = min(1024, t), min(2048, t)
+    bqb, bkb = min(512, t), min(1024, t)
+    if d > 64 or t % bq or t % bk or t % bqb or t % bkb:
+        return 128, 128, 128, 128
+    return bq, bk, bqb, bkb
+
+
+def _runs(i: int, bq: int, j: int, bk: int) -> bool:
+    """The TPU kernel's causal block test: the block's bottom-left corner is
+    on or below the diagonal."""
+    return (i + 1) * bq - 1 > j * bk
+
+
+def _masked(s, r0, c0):
+    rows = torch.arange(r0, r0 + s.shape[-2], device=s.device)[:, None]
+    cols = torch.arange(c0, c0 + s.shape[-1], device=s.device)[None, :]
+    return s + torch.where(cols <= rows, 0.0, MASK_VALUE)
+
+
+# -- plain versions: the TPU kernel's arithmetic, block by block ------------
+
+
+def plain_flash_fwd(q, k, v, scale):
+    """[N, H, T, D] → (o [N, H, T, D], lse [N, H, T, 1] f32). Online softmax
+    over key blocks with the normalised accumulator of the TPU kernel's
+    multi-step body; where one key block spans T, its single-step body
+    (p normalised, then rounded)."""
+    n, h, t, d = q.shape
+    bq, bk = _block_sizes(t, d)[:2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.empty_like(q)
+    lse = torch.empty((n, h, t, 1), dtype=torch.float32, device=q.device)
+    for i in range(t // bq):
+        rows = slice(i * bq, (i + 1) * bq)
+        if bk == t:
+            s = _masked(torch.matmul(qf[:, :, rows], kf.transpose(-1, -2))
+                        * scale, i * bq, 0)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(dim=-1, keepdim=True)
+            acc = torch.matmul((p / l).to(v.dtype).float(), vf)
+        else:
+            m = torch.full((n, h, bq, 1), -math.inf, device=q.device)
+            l = torch.zeros((n, h, bq, 1), device=q.device)
+            acc = torch.zeros((n, h, bq, d), device=q.device)
+            for j in range(t // bk):
+                if not _runs(i, bq, j, bk):
+                    continue
+                cols = slice(j * bk, (j + 1) * bk)
+                s = _masked(torch.matmul(qf[:, :, rows],
+                                         kf[:, :, cols].transpose(-1, -2))
+                            * scale, i * bq, j * bk)
+                m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_next)
+                l_corr = torch.exp(m - m_next) * l
+                l_next = p.sum(dim=-1, keepdim=True) + l_corr
+                inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+                acc = acc * (l_corr * inv) + torch.matmul(
+                    p.to(v.dtype).float(), vf[:, :, cols]) * inv
+                m, l = m_next, l_next
+        o[:, :, rows] = acc.to(q.dtype)
+        lse[:, :, rows] = m + torch.log(l)
+    return o, lse
+
+
+def plain_flash_bwd(q, k, v, o, do, lse, scale):
+    """(dq, dk, dv) of the causal attention above, given its lse: the TPU
+    kernel's dk/dv and dq bodies over (query, key) blocks, p = exp(s − lse)
+    rounded to do's dtype for dv, ds = (dp − δ)·p·scale rounded to q's dtype
+    for dk and dq, every sum accumulated in f32 in block order."""
+    n, h, t, d = q.shape
+    bq, bk = _block_sizes(t, d)[2:]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (o.float() * dof).sum(dim=-1, keepdim=True)
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    for j in range(t // bk):
+        cols = slice(j * bk, (j + 1) * bk)
+        for i in range(t // bq):
+            if not _runs(i, bq, j, bk):
+                continue
+            rows = slice(i * bq, (i + 1) * bq)
+            s = _masked(torch.matmul(qf[:, :, rows],
+                                     kf[:, :, cols].transpose(-1, -2))
+                        * scale, i * bq, j * bk)
+            p = torch.exp(s - lse[:, :, rows])
+            dv[:, :, cols] += torch.matmul(
+                p.to(do.dtype).float().transpose(-1, -2), dof[:, :, rows])
+            dp = torch.matmul(dof[:, :, rows],
+                              vf[:, :, cols].transpose(-1, -2))
+            ds = ((dp - delta[:, :, rows]) * p * scale).to(q.dtype).float()
+            dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2),
+                                           qf[:, :, rows])
+            dq[:, :, rows] += torch.matmul(ds, kf[:, :, cols])
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# -- the two wrappers (B5's forward and backward) ---------------------------
+
+
+def _check_flash(tensors, what):
+    """Raise on anything the kernels do not take; (N, H, T, D)."""
+    q = tensors[0]
+    if q.dim() != 4 or any(x.shape != q.shape for x in tensors):
+        raise ValueError(f"{what}: shapes "
+                         f"{[tuple(x.shape) for x in tensors]}, expected "
+                         f"equal [N, H, T, D]")
+    n, h, t, d = q.shape
+    _check(tensors, n, h, t, d, what)
+    return n, h, t, d
+
+
+def _flash_fwd(q, k, v, scale):
+    """Causal forward on [N, H, T, D] (strided views with a unit last
+    stride) → (o [N, H, T, D], lse [N, H, T, 1] f32)."""
+    if not q.is_cuda:
+        return plain_flash_fwd(q, k, v, scale)
+    from . import _build
+    n, h, t, d = _check_flash((q, k, v), "flash attention forward")
+    o = torch.empty((n, h, t, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, h, t, 1), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    st = (ctypes.c_longlong * 15)(*[int(s) for x in (q, k, v, o, lse)
+                                    for s in _strides(x, "blk")])
+    with torch.cuda.device(q.device):
+        code = lib.gym_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(), st, n, h, t, d,
+                                 float(scale), _DTYPES[q.dtype], _stream(q))
+    _build.check(lib, code, "gym_flash_fwd")
+    _flash_fwd.launches += 1
+    return o, lse
+
+
+def _flash_bwd(q, k, v, o, do, lse, scale):
+    """(dq, dk, dv) of ``_flash_fwd`` given its o and lse."""
+    if not q.is_cuda:
+        return plain_flash_bwd(q, k, v, o, do, lse, scale)
+    what = "flash attention backward"
+    n, h, t, d = _check_flash((q, k, v, o, do), what)
+    _check_stats(lse, None, (n, h, t, 1), what)
+    dq, dk, dv = (torch.empty((n, h, t, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    lse_st = _strides(lse, "blk")
+    strides = (*(s for x in (q, k, v, o, do, dq, dk, dv)
+                 for s in _strides(x, "blk")), *lse_st, *lse_st)
+    _launch_bwd(q, k, v, o, do, lse, None, dq, dk, dv, strides, n, h, t, d,
+                True, scale)
+    _flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+_flash_fwd.launches = 0
+_flash_bwd.launches = 0
+
+
+def reset_launch_counts() -> None:
+    _flash_fwd.launches = 0
+    _flash_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, _grad_layout(do).to(q.dtype),
+                                lse, ctx.scale)
+        return dq, dk, dv, None
+
+
+def long_causal_attention(q, k, v, scale=None):
+    """softmax(mask(QKᵀ·scale))·V on [N, H, T, D], any T % 64 == 0, no
+    dropout, through the B5 pair."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+# -- dispatch ----------------------------------------------------------------
 
 
 def _per_node(x: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -46,18 +259,14 @@ def flash_causal_attention(
         return dense_causal_attention(
             q, k, v, dropout_rate=dropout_rate, generator=generator,
             deterministic=deterministic)
-    from .fused_attention import fused_causal_attention, fused_supported
-    if not fused_supported(_per_node(q, 4)):
-        raise NotImplementedError(
-            f"causal attention at T={q.shape[-2]} > 1024 needs the tiled "
-            f"long-context kernel (TPU kernel B5), not yet ported to "
-            f"gym_tpu_torch")
     h, t, d = q.shape[-3:]
 
     def fold(x):
         return x.reshape(-1, h, t, d)
 
-    return fused_causal_attention(fold(q), fold(k), fold(v)).reshape(q.shape)
+    attend = (fused_causal_attention if fused_supported(_per_node(q, 4))
+              else long_causal_attention)
+    return attend(fold(q), fold(k), fold(v)).reshape(q.shape)
 
 
 def packed_flash_attention_or_none(q, k, v, n_head: int):
@@ -66,8 +275,6 @@ def packed_flash_attention_or_none(q, k, v, n_head: int):
     are not eligible (off the card, or the per-node shape fails
     ``packed_supported``), so that the caller takes the [B, H, T, D] path.
     The one dispatch point for packed eligibility."""
-    from .fused_attention import (fused_causal_attention_packed,
-                                  packed_supported)
     if not q.is_cuda or not packed_supported(_per_node(q, 3), n_head):
         return None
     t, c = q.shape[-2:]

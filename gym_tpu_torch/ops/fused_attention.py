@@ -14,7 +14,9 @@ launches its kernel for CUDA tensors, or raises on anything the kernel does
 not take; it runs the plain version only for CPU tensors. ``launches`` on
 each wrapper counts its kernel launches. The node axis of the simulator is
 folded into the batch by the callers (``ops/flash_attention.py``), as
-Pallas' batching rule folds the vmapped axis into the grid.
+Pallas' batching rule folds the vmapped axis into the grid. Contexts longer
+than 1024 go to the long-context pair of ``ops/flash_attention.py``, whose
+backward launches the backward kernels here.
 """
 
 from __future__ import annotations

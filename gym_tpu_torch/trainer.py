@@ -296,10 +296,13 @@ class Trainer:
                     metrics = {k: (v[:, None] if torch.is_tensor(v) else [v])
                                for k, v in metrics.items()}
                 if pending is not None:
-                    # the previous call's loss, read while this call runs
+                    # the previous call's loss; reading it waits for all the
+                    # work queued on the device, this call's included, so
+                    # the steady clock counts from the next call on
                     drain(pending)
                     if t_steady is None:
-                        t_steady, steady_from = time.perf_counter(), step_idx
+                        t_steady = time.perf_counter()
+                        steady_from = step_idx + s
                 drain_host()
                 pending = (step_idx, metrics, s)
                 for _ in range(s):

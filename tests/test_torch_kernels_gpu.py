@@ -1,5 +1,6 @@
-"""The CUDA kernels of ``gym_tpu_torch.ops.fused_attention`` against their
-plain versions on the card. Marked ``gpu``: they skip without a card. This
+"""The CUDA kernels of ``gym_tpu_torch.ops.fused_attention`` and
+``gym_tpu_torch.ops.flash_attention`` against their plain versions on the
+card. Marked ``gpu``: they skip without a card. This
 file imports neither JAX nor ``gym_tpu``, so it runs on the machine with the
 card, where JAX is not installed:
 
@@ -13,6 +14,7 @@ these inputs reach), lse 1e-4.
 import pytest
 import torch
 
+import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
 
 
@@ -47,3 +49,32 @@ def test_kernels_match_plain_on_card():
                                                    dlse)), 0.125, causal)
             for a, b in zip(got, ref):
                 assert (a.cpu().float() - b.float()).abs().max() <= tol * 8
+
+
+@pytest.mark.gpu
+def test_long_context_pair_matches_plain_on_card():
+    """The B5 pair (``_flash_fwd``, ``_flash_bwd``) against its plain
+    versions on the card at T=2048, bf16 and f32, on per-head views of a
+    packed projection (token stride 3C, as the model passes them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100 with -m gpu)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n, h, t, d = 2, 2, 2048, 64
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qkv = torch.randn(n, t, 3 * h * d, device="cuda", generator=g).to(dt)
+        q, k, v = (z.view(n, t, h, d).transpose(1, 2)
+                   for z in qkv.split(h * d, dim=-1))
+        do = torch.randn(n, h, t, d, device="cuda", generator=g).to(dt)
+        o, lse = tflash._flash_fwd(q, k, v, 0.125)
+        ro, rl = tflash.plain_flash_fwd(q, k, v, 0.125)
+        assert (o.float() - ro.float()).abs().max() <= tol * 4
+        assert (lse - rl).abs().max() <= 1e-4
+        got = tflash._flash_bwd(q, k, v, o, do, lse, 0.125)
+        ref = tflash.plain_flash_bwd(q, k, v, o, do, lse, 0.125)
+        for a, b in zip(got, ref):
+            assert (a.float() - b.float()).abs().max() <= tol * 8
+    # a head dim the kernels do not take raises on the card: no quiet
+    # fallback to dense attention or to the plain version
+    x = torch.randn(1, 1, 2048, 256, device="cuda", generator=g)
+    with pytest.raises(ValueError):
+        tflash.flash_causal_attention(x, x, x)

@@ -29,12 +29,13 @@ K, BATCH, T, V = 2, 2, 64, 65
 SMALL = dict(block_size=T, vocab_size=V, n_layer=2, n_head=2, n_embd=32)
 
 
-def _setup(attn_impl, bias=True, seed=0):
-    jcfg = JConfig(**SMALL, attn_impl=attn_impl, bias=bias)
-    jmodel = JGPT(jcfg)
+def _setup(attn_impl, bias=True, seed=0, batch=BATCH, **over):
+    cfg = {**SMALL, **over, "attn_impl": attn_impl, "bias": bias}
+    t = cfg["block_size"]
+    jmodel = JGPT(JConfig(**cfg))
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, V, (K, BATCH, T)).astype(np.int32)
-    y = rng.integers(0, V, (K, BATCH, T)).astype(np.int32)
+    x = rng.integers(0, V, (K, batch, t)).astype(np.int32)
+    y = rng.integers(0, V, (K, batch, t)).astype(np.int32)
     y[:, 0, :5] = -1  # ignored targets
     trees = []
     for node in range(K):
@@ -44,7 +45,7 @@ def _setup(attn_impl, bias=True, seed=0):
         trees.append(jax.tree.map(np.asarray, p))
     tparams = {n: torch.cat([params_from_jax(t)[n] for t in trees])
                for n in params_from_jax(trees[0])}
-    tmodel = TGPT(TConfig(**SMALL, attn_impl=attn_impl, bias=bias))
+    tmodel = TGPT(TConfig(**cfg))
     return jmodel, tmodel, trees, tparams, x, y
 
 
@@ -68,10 +69,7 @@ def _torch_loss_grads(tmodel, params, x, y, dtype):
     return loss.detach().numpy(), dict(zip(leaves, grads))
 
 
-@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
-@pytest.mark.parametrize("bias", [True, False])
-def test_loss_and_grads_f32(attn_impl, bias):
-    jmodel, tmodel, trees, tparams, x, y = _setup(attn_impl, bias)
+def _assert_f32_parity(jmodel, tmodel, trees, tparams, x, y):
     tloss, tgrads = _torch_loss_grads(tmodel, tparams, x, y, None)
     assert set(tgrads) == set(flatten_tree(trees[0]))
     for node in range(K):
@@ -82,6 +80,71 @@ def test_loss_and_grads_f32(attn_impl, bias):
             np.testing.assert_allclose(
                 tgrads[name][node].numpy(), jg, atol=2e-6, rtol=2e-4,
                 err_msg=f"node {node} grad {name}")
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_loss_and_grads_f32(attn_impl, bias):
+    _assert_f32_parity(*_setup(attn_impl, bias))
+
+
+@pytest.mark.parametrize("remat,loss_chunk", [(True, 0), (False, 48),
+                                              (True, 48)])
+def test_memory_levers_match_jax(remat, loss_chunk):
+    """``remat`` and ``loss_chunk`` (48 rows, which do not divide the 128
+    rows of a node, so the last chunk is padded) against ``jax.grad`` of the
+    same config: loss and every gradient, f32."""
+    _assert_f32_parity(*_setup("flash", seed=8, remat=remat,
+                               loss_chunk=loss_chunk))
+
+
+def test_long_context_loss_and_grads_match_jax():
+    """block_size 2048 with the flash dispatch, 2L/2H/128d (head dim 64),
+    remat and loss_chunk on: off the card both packages run dense
+    attention, as JAX itself does off the TPU."""
+    _assert_f32_parity(*_setup("flash", seed=9, batch=1, block_size=2048,
+                               n_embd=128, remat=True, loss_chunk=1024))
+
+
+def test_remat_dropout_draws_the_forward_masks():
+    """With dropout, the recomputation of a rematerialized block draws the
+    same masks as its forward: loss and gradients equal those of remat=False
+    from the same generator seed, exactly, and the generator ends in the
+    same state."""
+    out = []
+    for remat in (False, True):
+        tmodel = TGPT(TConfig(**SMALL, dropout=0.1, remat=remat))
+        params = tmodel.init_params(K, seed=0, device="cpu")
+        leaves = {n: p.requires_grad_(True) for n, p in params.items()}
+        gen = torch.Generator().manual_seed(5)
+        rng = np.random.default_rng(4)
+        batch = tuple(torch.tensor(rng.integers(0, V, (K, BATCH, T)))
+                      for _ in range(2))
+        loss = tmodel(leaves, batch, train=True, generator=gen)
+        grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+        out.append((loss.detach(), grads, torch.rand(3, generator=gen)))
+    (l0, g0, r0), (l1, g1, r1) = out
+    assert torch.equal(l0, l1) and torch.equal(r0, r1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+def test_mfu_helpers_match_jax():
+    from gym_tpu.models.nanogpt import (estimate_mfu as jmfu,
+                                        num_params as jnum)
+    from gym_tpu_torch.models.nanogpt import (estimate_mfu, node_mfu,
+                                              num_params)
+    jmodel, tmodel, trees, tparams, _, _ = _setup("dense")
+    one = {n: p[0] for n, p in tparams.items()}
+    assert num_params(one) == jnum(trees[0])
+    assert num_params(one, False) == jnum(trees[0], False)
+    cfg = JConfig(**SMALL)
+    want = jmfu(cfg, trees[0], 8.0, 0.05, peak_flops=989e12)
+    np.testing.assert_allclose(
+        estimate_mfu(tmodel.config, one, 8.0, 0.05, 989e12), want, rtol=1e-12)
+    np.testing.assert_allclose(
+        node_mfu(tmodel.config, tparams, 8.0, 0.05, 989e12), want,
+        rtol=1e-12)
 
 
 def test_loss_and_grads_bf16():
@@ -127,7 +190,7 @@ def test_init_scales_and_names():
 
 @pytest.mark.parametrize("field,value", [
     ("decode", True), ("n_experts", 4), ("weights_dtype", "int8"),
-    ("seq_axis", "seq"), ("loss_chunk", 128), ("attn_impl", "ring")])
+    ("seq_axis", "seq"), ("kv_dtype", "int8"), ("attn_impl", "ring")])
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError):
         TGPT(TConfig(**SMALL, **{field: value}))

@@ -11,6 +11,7 @@ rtol 1e-6.
 
 import csv
 import os
+import time
 
 import jax
 import numpy as np
@@ -71,23 +72,29 @@ def _rows(path):
         return list(csv.DictReader(f))
 
 
-def _fit_port(tmp_path, which, tree, **kw):
+def _fit_port(tmp_path, which, tree, levers=None, **kw):
     toks = _tokens()
-    return TTrainer(TGPT(TConfig(**SMALL)), TDataset(toks[:5000], T),
+    return TTrainer(TGPT(TConfig(**SMALL, **(levers or {}))),
+                    TDataset(toks[:5000], T),
                     TDataset(toks[5000:], T)).fit(
         strategy=_strategy("torch", which), log_dir=str(tmp_path),
         init_params=params_from_jax(tree, K), **{**FIT, **kw})
 
 
-@pytest.mark.parametrize("which", ["diloco", "simple_reduce"])
-def test_fit_matches_jax(tmp_path, which):
+@pytest.mark.parametrize("which,levers", [
+    pytest.param("diloco", {}, id="diloco"),
+    pytest.param("simple_reduce", {}, id="simple_reduce"),
+    # the memory levers: 48-row loss chunks do not divide a microbatch's 64
+    pytest.param("diloco", dict(remat=True, loss_chunk=48),
+                 id="diloco-remat-loss_chunk")])
+def test_fit_matches_jax(tmp_path, which, levers):
     toks = _tokens()
     tree = _init_tree()
-    JTrainer(JGPT(JConfig(**SMALL)), JDataset(toks[:5000], T),
+    JTrainer(JGPT(JConfig(**SMALL, **levers)), JDataset(toks[:5000], T),
              JDataset(toks[5000:], T)).fit(
         strategy=_strategy("jax", which), log_dir=str(tmp_path),
         run_name="jax", init_params=tree, **FIT)
-    res = _fit_port(tmp_path, which, tree, run_name="torch")
+    res = _fit_port(tmp_path, which, tree, levers, run_name="torch")
     assert res.steps == STEPS and np.isfinite(res.final_train_loss)
 
     jt = _rows(os.path.join(tmp_path, "jax", "train.csv"))
@@ -147,6 +154,32 @@ def test_skip_nonfinite_quarantines_a_diverged_node(tmp_path):
     assert res.history["nonfinite"] == [(0, 1.0), (1, 1.0), (2, 1.0)]
     node = res.node_state.params["h_0.attn.c_attn.kernel"]
     assert torch.isfinite(node[0]).all() and torch.isfinite(node[2]).all()
+
+
+class _SlowModel(torch.nn.Module):
+    """One weight vector per node; every forward sleeps ``DELAY`` seconds,
+    so a step takes at least that long."""
+    DELAY = 0.15
+
+    def init_params(self, num_nodes, seed, device):
+        return {"w": torch.ones(num_nodes, 4, device=device)}
+
+    def forward(self, params, batch, train=True, generator=None):
+        time.sleep(self.DELAY)
+        x = batch[0].float().mean(dim=(1, 2))
+        return params["w"].sum(dim=1) * x
+
+
+def test_steady_rate_counts_only_steps_inside_its_window(tmp_path):
+    """Eagerly, reading the first step's loss waits for the second step
+    too, so the steady clock may count only the steps after that: three
+    steps of at least DELAY each give at most 1/DELAY steady steps/s."""
+    res = TTrainer(_SlowModel(), TDataset(_tokens(), T)).fit(
+        strategy=_strategy("torch", "simple_reduce"), num_nodes=2,
+        max_steps=3, batch_size=2, device="cpu", val_size=0,
+        log_dir=str(tmp_path), run_name="slow", show_progress=False)
+    assert res.steps == 3
+    assert 0 < res.steps_per_second_steady <= 1.0 / _SlowModel.DELAY
 
 
 def test_fit_without_device_needs_a_card():
