@@ -6,14 +6,18 @@
 Phases (any failure exits non-zero before the result lines are printed):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from this checkout (``nvcc``), print the
-   ``-Xptxas -v`` report (registers, shared memory, spills);
+2. build the CUDA kernels from this checkout (``nvcc``), print the build
+   time, the ``-Xptxas -v`` report (registers, shared memory, spills) and,
+   from ``cuobjdump -sass``, each kernel's count of ``HGMMA`` (wgmma),
+   ``HMMA``, ``FFMA`` and ``ATOM``/``RED`` instructions; fails if a bf16
+   forward, dk/dv or dq kernel has no ``HGMMA`` or any kernel an atomic;
 3. every kernel against its plain PyTorch version on the card, bf16 and f32:
    the packed pair (B1/B2) at the flagship shape with q, k and v as strided
    views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
    GPT-2-base shape, causal and full-block with a random lse cotangent, the
    long-context pair (B5) at N=2 H=12 T=8192 D=64 on per-head views of the
-   projection, and at T=1152 (the default-block rule);
+   projection, and at T=1152 (the default-block rule); the bf16 backward
+   run twice at the B5 shape must agree bit for bit;
 4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
    T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
    warmup, 6 steps on random tokens; the packed kernels must have launched;
@@ -27,10 +31,12 @@ Phases (any failure exits non-zero before the result lines are printed):
 6. card against CPU: tiny GPTs through ``Trainer.fit`` on ``cuda`` and on
    ``cpu`` from the same weights and batches, in bf16 and in f32, at T=128
    and at T=2048 (where the card runs B5 and the CPU dense attention);
-7. timing with CUDA events (median of 5 runs of back-to-back launches): each
-   kernel, its plain version, the library call
-   (``scaled_dot_product_attention``, timed only as a yardstick) and the
-   bound at 3.35 TB/s and 989 TFLOP/s;
+7. timing with CUDA events (median of 5 runs of back-to-back launches,
+   queued behind a device sleep so that the events bracket device work
+   only): each kernel, its plain version, the library call
+   (``scaled_dot_product_attention``, timed only as a yardstick), the bound
+   at 3.35 TB/s and 989 TFLOP/s and the TFLOP/s of the tiles the kernel
+   computes;
 8. the ``kernels`` JSON line, then the result line.
 
 The launch counts in the ``kernels`` line are those of the training runs of
@@ -42,6 +48,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,11 +76,17 @@ KERNELS = {  # name: (module, wrapper, source, TPU kernel it replaces)
                       f"{BUNDLED}:1121 and :1456"),
 }
 # stated tolerances, kernel against plain version on the same inputs:
-# |a − b| <= atol + rtol·|b| elementwise. bf16: p and ds are rounded to bf16
-# at the same points in both, but a value on a rounding boundary can go
-# either way when the f32 sums differ in order — two bf16 steps.
-TOL = {"bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-4, 1e-5)},
-       "float32": {"out": (5e-5, 1e-4), "lse": (1e-5, 1e-6)}}
+# |a − b| <= atol + rms_frac·rms(b) + rtol·|b| elementwise, rms(b) the root
+# mean square of the plain version's tensor (o and the gradients shrink as T
+# grows: at T=8192 a typical element is about 0.02-0.05). bf16: p and ds are
+# rounded to bf16 at the same points in both, but a value on a rounding
+# boundary can go either way when the f32 sums differ in order: rtol covers
+# two bf16 steps of an element, the rms part such a flip on an element near
+# zero (the kernels need at most 0.019 rms at phase 3's shapes; PERF.md has
+# the measurement and the planted faults this tolerance fails).
+TOL = {"bfloat16": {"out": (0.0, 5e-2, 2e-2),
+                    "lse": (1e-4, 0.0, 1e-5)},
+       "float32": {"out": (5e-5, 0.0, 1e-4), "lse": (1e-5, 0.0, 1e-6)}}
 # card against CPU, per-step train loss: bf16 compute rounds differently
 # in cuBLAS and the CPU kernels; f32 differs by summation order only
 LOSS_RTOL = {"bf16": 1e-2, "f32": 1e-4}
@@ -100,16 +113,75 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# -- phase 2: what the compiler made ----------------------------------------
+
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "ATOM/RED")
+_SASS_INSN = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9]*)")
+
+
+def sass_counts(nvcc, lib_path):
+    """{kernel: {op: count}} from ``cuobjdump -sass`` of the library."""
+    bindir = os.path.dirname(nvcc)
+    out = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+                          lib_path], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = _SASS_INSN.match(line)
+        if name is None or not m:
+            continue
+        op = m.group(1)
+        if op in ("ATOM", "ATOMS", "ATOMG", "RED", "REDG"):
+            op = "ATOM/RED"
+        if op in counts[name]:
+            counts[name][op] += 1
+    check(counts, "cuobjdump listed no kernels")
+    names = list(counts)
+    for tool in (os.path.join(bindir, "cu++filt"), "c++filt"):
+        try:
+            dem = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+        except OSError:
+            continue
+        if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(names):
+            return dict(zip(dem.stdout.splitlines(), counts.values()))
+    return counts
+
+
+def check_sass(counts):
+    """Every bf16 wgmma kernel uses the tensor cores; no kernel has an
+    atomic."""
+    wgmma = [k for k in counts if "wgmma" in k]
+    check(len(wgmma) == 12, f"expected 12 bf16 wgmma kernels (forward, dq, "
+          f"dk/dv at 4 head dims), found {len(wgmma)}: {wgmma}")
+    for k in sorted(counts):
+        c = counts[k]
+        log("  " + k + ": " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+        check(c["ATOM/RED"] == 0, f"{k}: {c['ATOM/RED']} atomic instructions")
+        if k in wgmma:
+            check(c["HGMMA"] > 0, f"{k}: no HGMMA (wgmma) instruction")
+
+
 # -- phase 3: kernels against plain versions --------------------------------
 
 
 def compare(name, got, ref, kind, dtype):
-    atol, rtol = TOL[str(dtype).replace("torch.", "")][kind]
+    atol, frac, rtol = TOL[str(dtype).replace("torch.", "")][kind]
     a, b = got.float(), ref.float()
     err = (a - b).abs()
-    bad = (err > atol + rtol * b.abs()).sum().item()
+    rms = b.square().mean().sqrt().item()
+    over = err - rtol * b.abs()  # what atol has to cover
+    bad = (over > atol + frac * rms).sum().item()
     mx = err.max().item()
-    log(f"  {name}: max_abs_err {mx:.3e} (atol {atol}, rtol {rtol}) "
+    log(f"  {name}: max_abs_err {mx:.3e}, rms {rms:.3e}, largest |a-b| - "
+        f"rtol|b| {over.max().item() / rms:.2e} rms (atol {atol} + "
+        f"{frac} rms, rtol {rtol}) "
         f"{'ok' if bad == 0 else f'{bad} elements outside'}")
     check(bad == 0 and math.isfinite(mx), f"{name} disagrees with its "
           f"plain version")
@@ -144,6 +216,13 @@ def check_long_context(torch, tflash, shapes, g, dtype):
         ref = tflash.plain_flash_bwd(*heads, o, do, lse, scale)
         eb = max(compare(f"B5b {nm}", a, b, "out", dtype)
                  for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+        if dtype == torch.bfloat16 and not errs:
+            again = tflash._flash_bwd(*heads, o, do, lse, scale)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"  B5b bf16 run twice: dq, dk, dv "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            check(same, "B5b: two runs of the bf16 backward differ")
+            del again
         errs.append((ef, eb))
         del heads, do, o, lse, ro, rl, got, ref
         torch.cuda.empty_cache()
@@ -355,14 +434,30 @@ def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=()):
 # -- phase 7: timing --------------------------------------------------------
 
 
+# above the H100's highest SM clock (1.98 GHz), so torch.cuda._sleep of
+# s * SLEEP_HZ cycles lasts at least s seconds
+SLEEP_HZ = 2.0e9
+
+
 def timed(torch, fn, reps=5, inner=10):
+    """Median ms of one call over ``reps`` runs of ``inner`` back-to-back
+    calls. Each run is queued behind a device sleep longer than the host
+    takes to queue it, so the events bracket device work only, not the
+    host's launch cost."""
     fn()
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int(min(2 * host_s + 1e-3, 1.0) * SLEEP_HZ)
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(inner):
             fn()
@@ -392,6 +487,14 @@ def bound(n, h, t, d, itemsize, backward, causal=True):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def tile_tflops(n, h, t, d, products, ms, causal=True):
+    """TFLOP/s of the 64 x 64 tiles a kernel computes (whole diagonal tiles
+    included), ``products`` matrix products of 2·D flops a pair each."""
+    nt = t // 64
+    tiles = nt * (nt + 1) // 2 if causal else nt * nt
+    return n * h * tiles * 64 * 64 * 2 * d * products / (ms * 1e-3) / 1e12
+
+
 def time_kernels(torch, tfa, tflash, shapes):
     import torch.nn.functional as F
     out = {}
@@ -416,7 +519,7 @@ def time_kernels(torch, tfa, tflash, shapes):
         library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
             *[x.detach() for x in lib], is_causal=True, scale=scale)),
         shape=f"N={n} T={t} C={c} H={h} bf16 packed views",
-        bound=bound(n, h, t, d, 2, False))
+        bound=bound(n, h, t, d, 2, False), work=(n, h, t, d, 3))
     out["B2_bwd_packed"] = dict(
         ms=timed(torch, lambda: tfa._bwd_packed(q, k, v, o, do, lse, scale,
                                                 h)),
@@ -425,7 +528,7 @@ def time_kernels(torch, tfa, tflash, shapes):
         library_ms=timed(torch, lambda: torch.autograd.grad(
             lo, lib, ldo, retain_graph=True)),
         shape=f"N={n} T={t} C={c} H={h} bf16 packed views",
-        bound=bound(n, h, t, d, 2, True))
+        bound=bound(n, h, t, d, 2, True), work=(n, h, t, d, 7))
     del qkv, q, k, v, do, o, lse, lib, lo, ldo
     torch.cuda.empty_cache()
 
@@ -444,7 +547,7 @@ def time_kernels(torch, tfa, tflash, shapes):
         library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
             *heads, is_causal=True, scale=0.125)),
         shape=f"N={n} H={h} T={t} D={d} bf16 per-head views",
-        bound=bound(n, h, t, d, 2, False))
+        bound=bound(n, h, t, d, 2, False), work=(n, h, t, d, 3))
     out["B4_blk_bwd"] = dict(
         ms=timed(torch, lambda: tfa._blk_bwd(*heads, o, do, lse, None, 0.125,
                                              True)),
@@ -453,7 +556,7 @@ def time_kernels(torch, tfa, tflash, shapes):
         library_ms=timed(torch, lambda: torch.autograd.grad(
             lo, lib, do, retain_graph=True)),
         shape=f"N={n} H={h} T={t} D={d} bf16 per-head views",
-        bound=bound(n, h, t, d, 2, True))
+        bound=bound(n, h, t, d, 2, True), work=(n, h, t, d, 7))
     del qkv, heads, do, o, lse, lib, lo
     torch.cuda.empty_cache()
 
@@ -470,7 +573,8 @@ def time_kernels(torch, tfa, tflash, shapes):
                        inner=3),
         library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
             *heads, is_causal=True, scale=scale)),
-        shape=shape, bound=bound(n, h, t, d, 2, False))
+        shape=shape, bound=bound(n, h, t, d, 2, False),
+        work=(n, h, t, d, 2))
     out["B5b_flash_bwd"] = dict(
         ms=timed(torch, lambda: tflash._flash_bwd(*heads, o, do, lse, scale),
                  inner=3),
@@ -478,14 +582,17 @@ def time_kernels(torch, tfa, tflash, shapes):
             *heads, o, do, lse, scale), inner=3),
         library_ms=timed(torch, lambda: torch.autograd.grad(
             lo, lib, do, retain_graph=True)),
-        shape=shape, bound=bound(n, h, t, d, 2, True))
+        shape=shape, bound=bound(n, h, t, d, 2, True),
+        work=(n, h, t, d, 7))
     del heads, do, o, lse, lib, lo
     torch.cuda.empty_cache()
     for name, r in out.items():
         b, by = r["bound"]
         log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {b:.4f} ({by}) -> {b / r['ms']:.1%} of bound")
+            f"bound_ms {b:.4f} ({by}) -> {b / r['ms']:.1%} of bound, "
+            f"{tile_tflops(*r['work'], r['ms']):.1f} TFLOP/s of computed "
+            f"tiles ({r['work'][-1]} products)")
     return out
 
 
@@ -533,8 +640,11 @@ def main() -> int:
         for d in (32, 64):
             log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
                 f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
-                enumerate(("attn_fwd", "attn_dkdv", "attn_dq",
-                           "flash_fwd"))))
+                enumerate(("attn_fwd f32", "attn_dkdv f32", "attn_dq f32",
+                           "flash_fwd", "attn_fwd_wgmma bf16",
+                           "attn_dkdv_wgmma bf16", "attn_dq_wgmma bf16"))))
+        log("  SASS instructions per kernel (cuobjdump -sass):")
+        check_sass(sass_counts(_build._nvcc(), path))
 
         log("phase 3: kernels against plain versions on the card")
         errs = check_kernels(torch, tfa, tflash, shapes)

@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(_ROOT, "build", "gym_tpu_torch")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "flash_attention.cu"))
-HEADERS = (os.path.join(_CSRC, "attn_common.cuh"),)
+HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
+                                                 "hopper.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,6 @@
 // Shared by the attention kernels of this directory: tile sizes, element
-// strides, dtype conversions, the shared-memory tile loader and the dtype /
-// head-dim dispatch of the C entries.
+// strides, dtype conversions, the shared-memory tile loader of the scalar
+// kernels and the dtype / head-dim dispatch of the C entries.
 
 #pragma once
 
@@ -56,25 +56,24 @@ Strides strides_at(const long long* s, int i) {
 
 }  // namespace
 
+// head-dim dispatch: CALL sees a constexpr int D
+#define GYM_HEAD_DIM(HEAD_DIM, CALL)                                         \
+  switch (HEAD_DIM) {                                                        \
+    case 16: { constexpr int D = 16; return (int)CALL; }                     \
+    case 32: { constexpr int D = 32; return (int)CALL; }                     \
+    case 64: { constexpr int D = 64; return (int)CALL; }                     \
+    case 128: { constexpr int D = 128; return (int)CALL; }                   \
+  }
+
 // dtype: 0 = float32, 1 = bfloat16
 #define GYM_DISPATCH(DTYPE, HEAD_DIM, CALL)                                  \
   do {                                                                       \
     if (DTYPE == 0) {                                                        \
       using T = float;                                                       \
-      switch (HEAD_DIM) {                                                    \
-        case 16: { constexpr int D = 16; return (int)CALL; }                 \
-        case 32: { constexpr int D = 32; return (int)CALL; }                 \
-        case 64: { constexpr int D = 64; return (int)CALL; }                 \
-        case 128: { constexpr int D = 128; return (int)CALL; }               \
-      }                                                                      \
+      GYM_HEAD_DIM(HEAD_DIM, CALL)                                           \
     } else if (DTYPE == 1) {                                                 \
       using T = __nv_bfloat16;                                               \
-      switch (HEAD_DIM) {                                                    \
-        case 16: { constexpr int D = 16; return (int)CALL; }                 \
-        case 32: { constexpr int D = 32; return (int)CALL; }                 \
-        case 64: { constexpr int D = 64; return (int)CALL; }                 \
-        case 128: { constexpr int D = 128; return (int)CALL; }               \
-      }                                                                      \
+      GYM_HEAD_DIM(HEAD_DIM, CALL)                                           \
     }                                                                        \
     return (int)cudaErrorInvalidValue;                                       \
   } while (0)

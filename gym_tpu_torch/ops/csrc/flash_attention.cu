@@ -8,7 +8,8 @@
 // pallas_call at :758, multi-step body :385-475). B5's backward
 // (_flash_attention_bwd_dkv, pallas_call :1121; _flash_attention_bwd_dq,
 // :1456) is the FA2 backward given lse = m + log l; the wrapper launches the
-// delta, dk/dv and dq kernels of fused_attention.cu for it, which take any
+// backward kernels of fused_attention.cu for it (in bf16 the wgmma dq
+// kernel, which also computes delta, then dk/dv), which take any
 // T % 64 == 0.
 //
 // Arithmetic, as in the TPU kernel's multi-step body: scores in f32 from

@@ -1,12 +1,13 @@
 // Whole-context FA2 attention for Hopper (sm_90a): forward and backward.
 //
 // Replaces the four Pallas kernels of gym_tpu/ops/fused_attention.py:
-//   _fwd_packed_kernel / _blk_fwd_kernel  ->  attn_fwd_kernel
-//   _bwd_packed_kernel / _blk_bwd_kernel  ->  attn_delta_kernel + attn_dkdv_kernel
-//                                             + attn_dq_kernel
-// The backward kernels also serve the long-context flash attention (B5,
-// flash_attention.cu): their shared memory does not grow with T and their
-// offsets are 64-bit, so they take any T % 64 == 0.
+//   _fwd_packed_kernel (B1) / _blk_fwd_kernel (B3)  ->  forward
+//   _bwd_packed_kernel (B2) / _blk_bwd_kernel (B4)  ->  dq and dk/dv kernels
+// The backward kernels also serve the long-context flash attention (B5's
+// backward, the bundled Pallas kernel's _flash_attention_bwd_dkv and
+// _flash_attention_bwd_dq; flash_attention.cu has its forward): their shared
+// memory does not grow with T and their offsets are 64-bit, so they take any
+// T % 64 == 0.
 // The packed [B, T, C] and per-head [B, H, T, D] layouts differ only in
 // their strides, so every kernel takes element strides (batch, head, token)
 // for each tensor; the last dimension must be contiguous. In the packed
@@ -14,29 +15,52 @@
 // [B, T, 3C] and are read in place (token stride 3C), with no copy.
 //
 // Rounding points follow the Pallas kernels: scores in f32 from products of
-// the input dtype, p normalised by l and rounded to v's dtype before the PV
-// product (forward); p recomputed as exp(s - lse), rounded to do's dtype for
-// dv, delta = rowsum(do * o) in f32, ds rounded to q's dtype before dq and dk
-// (backward). The forward is two-pass over the key tiles (running max and
-// sum first, then the normalised PV product), which keeps the
-// normalise-then-round order of the whole-row Pallas softmax. Masked scores
-// (NEG = -1e30 in Pallas) contribute exp(-1e30 - m) = 0 exactly, so causal
-// tiles above the diagonal are skipped rather than computed.
+// the input dtype, times scale; p normalised by l and rounded to v's dtype
+// before the PV product (forward); p recomputed as exp(s - lse), rounded to
+// do's dtype for dv, delta = rowsum(do * o) in f32, ds = p (dp - delta +
+// dlse) scale rounded to q's dtype before dq and dk (backward). The forward
+// is two-pass over the key tiles (row max and sum first, then the normalised
+// PV product), which keeps the normalise-then-round order of the whole-row
+// Pallas softmax. Masked scores (NEG = -1e30 in Pallas) contribute
+// exp(-1e30 - m) = 0 exactly, so causal tiles above the diagonal are skipped.
 //
-// What bounds it on this card: at the training shapes (T <= 1024,
-// head_dim 32-64) attention is memory-bound at the bf16 tensor-core rate
-// (about 0.4 flop per byte of q/k/v/o against H100's ~295 flop/byte ridge).
-// This first version computes the products with scalar f32 FMAs on
-// shared-memory tiles (64 x 64 score tiles, 256 threads, 4 x 4 register
-// micro-tiles), so it is bound by the f32 FMA rate of the SMs instead, and
-// recomputes the score tile once more in the forward (two passes) and once
-// per backward kernel. The design keeps the score and probability blocks in
-// shared memory only: like the Pallas kernels, nothing of size T x T ever
-// reaches device memory, and the backward has no atomics (dk/dv and dq are
-// computed by separate kernels, each owning its output rows). Moving the
-// products to wgmma with TMA-fed tiles is later work.
+// Two implementations, chosen by dtype:
+// - bf16 (training): wgmma kernels on the tensor cores (namespace wg). One
+//   warpgroup a block owns 64 rows: query rows in the forward and in dq, key
+//   rows in dk/dv. Operand tiles sit in shared memory as bf16 in wgmma's
+//   swizzled layout (hopper.cuh); the other side's tiles are double-buffered
+//   with 16-byte cp.async copies, so the next tile's copy overlaps this
+//   tile's products. Scores s = q k^T (dk/dv: s^T = k q^T and dp^T = v do^T,
+//   key-major) accumulate in f32 registers; p and ds are rounded to bf16 in
+//   registers, where the accumulator layout is already wgmma's register A
+//   operand, so the second products (p v, ds k, p^T do, ds^T q) read only
+//   their B tile from shared memory. The rounding points above are exactly
+//   the bf16 operand conversions. The delta pre-pass is folded into the dq
+//   kernel's prologue (it reads o and do for its own rows and writes delta
+//   for dk/dv, launched after it).
+// - f32 (evals, card-against-CPU checks): the scalar kernels below, f32
+//   FMAs on 64 x 64 shared-memory tiles (256 threads, 4 x 4 register
+//   micro-tiles). Tensor cores in f32 would mean TF32 and move those
+//   results.
+//
+// What bounds it on this card: each input read once and each output written
+// once at 3.35 TB/s against the causal products at 989 TFLOP/s (bf16). At
+// the training shapes the whole-context pair is bound by bytes (B1 forward
+// N=1024 T=256 C=128 H=4: 0.081 ms; B3 N=8 H=12 T=1024 D=64: 0.015 ms) or
+// just by operations (B4: 0.033 ms), and B5's backward (N=2 H=12 T=8192
+// D=64, 811.6 M computed pairs) by operations: 0.52 ms. The kernels compute
+// more than the bound counts: the forward computes q k^T twice (two passes,
+// three products over the computed tiles), and the backward seven products
+// where the bound counts five, because dk/dv and dq are separate kernels
+// that each own their output rows and recompute s and dp. That keeps the
+// backward free of atomics and bit-reproducible run to run, as XLA's is.
+// The heaviest causal tiles are scheduled first (the tile index is the
+// grid's slowest axis, counted from the last query tile in the forward and
+// dq, from the first key tile in dk/dv), so the longest blocks start in the
+// first wave.
 
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -532,21 +556,533 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ============================================================ bf16: wgmma
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using hop::Tile;
+constexpr int THREADS = 128;  // one warpgroup a block
+
+// This thread's rows (row, row + 8) and first column of each 8-column chunk
+// in the accumulator layout (hopper.cuh).
+struct Lane {
+  int row, col;
+  __device__ Lane()
+      : row(16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2)),
+        col(2 * (threadIdx.x & 3)) {}
+};
+
+// reductions over the four lanes that hold one row
+__device__ __forceinline__ float row_max4(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float row_sum4(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// s = a b^T over depth D, both tiles K-major: s [64 x 64] f32
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    hop::wgmma_ss_n64(s, hop::desc_k<D>(a, ks), hop::desc_k<D>(b, ks), ks > 0);
+}
+
+// acc += p b: p [64 x 64] bf16 in registers (four depth steps), b a tile
+// read MN-major (depth over its 64 rows, width D)
+template <int D>
+__device__ __forceinline__ void mma_pb(float (&acc)[D / 2],
+                                         uint32_t (&p)[4][4],
+                                         uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < L::HALVES; ++hf)
+      hop::wgmma_rs<L::SUB>(acc + hf * (L::SUB / 2), p[kk],
+                            hop::desc_mn<D>(b, kk, hf));
+}
+
+// wait for the products in flight; their accumulators are then readable
+template <int A, int B>
+__device__ __forceinline__ void finish(float (&a)[A], float (&b)[B]) {
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::fence_regs(a);
+  hop::fence_regs(b);
+}
+template <int A, int B>
+__device__ __forceinline__ void start(float (&a)[A], float (&b)[B]) {
+  hop::fence_regs(a);
+  hop::fence_regs(b);
+  hop::wg_fence();
+}
+
+// the tiles of this step have landed: every thread's copies are complete
+// and visible to wgmma
+__device__ __forceinline__ void tiles_ready() {
+  hop::cp_async_commit();
+  hop::cp_async_wait<1>();
+  hop::fence_async_smem();
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t smem_base(uint8_t* smem) {
+  return (hop::smem_u32(smem) + 1023) & ~1023u;
+}
+
+template <int D>
+constexpr size_t fwd_smem() {  // q, two k and two v tiles, 1024-aligned
+  return 1024 + 5 * Tile<D>::BYTES;
+}
+template <int D>
+constexpr size_t dq_smem() {  // q, do, two k and two v tiles
+  return 1024 + 6 * Tile<D>::BYTES;
+}
+template <int D>
+constexpr size_t dkdv_smem() {  // k, v, two q and two do tiles, two stats
+  return 1024 + 6 * Tile<D>::BYTES + 2 * 3 * 64 * sizeof(float);
+}
+
+// Forward, B1/B3: one block per (head, batch row, query tile); o and lse
+// for its 64 query rows. Steps 0 .. nkb-1 are pass 1 (k tiles: row max m
+// and sum l), steps nkb .. 2nkb-1 pass 2 (k and v tiles: o += p v with
+// p = exp(s - m) / l in bf16).
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
+attn_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+               Strides so, Strides sl, int T_len, int causal, float scale) {
+  using L = Tile<D>;
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const uint32_t Qs = smem_base(wsmem);
+  const uint32_t Ks = Qs + L::BYTES;      // two buffers
+  const uint32_t Vs = Ks + 2 * L::BYTES;  // two buffers
+
+  const int nt = T_len / 64;
+  const int h = blockIdx.x;
+  const long long n = blockIdx.y;
+  const int qb = nt - 1 - (int)blockIdx.z;  // heaviest causal tiles first
+  const int q0 = qb * 64;
+  const bf16* qp = q + n * sq.n + h * sq.h;
+  const bf16* kp = k + n * sk.n + h * sk.h;
+  const bf16* vp = v + n * sv.n + h * sv.h;
+  const Lane ln;
+
+  const int nkb = causal ? qb + 1 : nt;
+  const int steps = 2 * nkb;
+  hop::load_tile<D>(Qs, qp, sq.t, q0);
+  hop::load_tile<D>(Ks, kp, sk.t, 0);
+  hop::cp_async_commit();
+
+  const float c2 = scale * hop::LOG2E;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+  float acc[D / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    const bool pass2 = st >= nkb;
+    const int kb = pass2 ? st - nkb : st;
+    const int buf = st & 1;
+    if (st + 1 < steps) {  // the next step's tiles into the other buffers
+      const int nx = st + 1 >= nkb ? st + 1 - nkb : st + 1;
+      hop::load_tile<D>(Ks + (buf ^ 1) * L::BYTES, kp, sk.t, nx * 64);
+      if (st + 1 >= nkb)
+        hop::load_tile<D>(Vs + (buf ^ 1) * L::BYTES, vp, sv.t, nx * 64);
+    }
+    tiles_ready();
+
+    start(s, acc);
+    mma_abt<D>(s, Qs, Ks + buf * L::BYTES);
+    finish(s, acc);
+
+    const bool diag = causal && kb == qb;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = ln.row + 8 * ((i >> 1) & 1);
+      const int c = 8 * (i >> 2) + ln.col + (i & 1);
+      s[i] = (diag && c > r) ? -INFINITY : s[i] * c2;
+    }
+    if (!pass2) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+        // finite: every row sees column 0 of every tile it visits
+        const float mnew = fmaxf(m[rr], row_max4(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum += exp2f(s[4 * j + 2 * rr] - mnew) +
+                 exp2f(s[4 * j + 2 * rr + 1] - mnew);
+        l[rr] = l[rr] * exp2f(m[rr] - mnew) + row_sum4(sum);
+        m[rr] = mnew;
+        inv_l[rr] = 1.f / l[rr];
+      }
+    } else {
+      uint32_t p[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = 8 * kk + 2 * x, rr = x & 1;
+          p[kk][x] = hop::pack_bf16(exp2f(s[i] - m[rr]) * inv_l[rr],
+                                    exp2f(s[i + 1] - m[rr]) * inv_l[rr]);
+        }
+      start(acc, s);
+      mma_pb<D>(acc, p, Vs + buf * L::BYTES);
+      finish(acc, s);
+    }
+    __syncthreads();  // the next step refills this step's buffers
+  }
+
+  bf16* op = o + n * so.n + h * so.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      hop::store_pair(op + i * so.t + 8 * j + ln.col, acc[4 * j + 2 * rr],
+                      acc[4 * j + 2 * rr + 1]);
+    if ((threadIdx.x & 3) == 0)
+      lse[n * sl.n + h * sl.h + i * sl.t] = m[rr] * hop::LN2 + logf(l[rr]);
+  }
+}
+
+// dq, B2/B4/B5b: one block per (head, batch row, query tile), looping over
+// the key tiles its rows see. Its prologue computes delta = rowsum(do * o)
+// for its rows and writes it for the dk/dv kernel, launched after it.
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 2)
+attn_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ o,
+              const bf16* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ dlse, float* __restrict__ delta,
+              bf16* __restrict__ dq, BwdArgs a, Strides so, int T_len,
+              int causal, float scale) {
+  using L = Tile<D>;
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const uint32_t Qs = smem_base(wsmem);
+  const uint32_t dOs = Qs + L::BYTES;
+  const uint32_t Ks = dOs + L::BYTES;     // two buffers
+  const uint32_t Vs = Ks + 2 * L::BYTES;  // two buffers
+
+  const int nt = T_len / 64;
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long n = blockIdx.y;
+  const int qb = nt - 1 - (int)blockIdx.z;  // heaviest causal tiles first
+  const int q0 = qb * 64;
+  const bf16* qp = q + n * a.sq.n + h * a.sq.h;
+  const bf16* kp = k + n * a.sk.n + h * a.sk.h;
+  const bf16* vp = v + n * a.sv.n + h * a.sv.h;
+  const bf16* dop = dout + n * a.sdo.n + h * a.sdo.h;
+  const bf16* op = o + n * so.n + h * so.h;
+  const Lane ln;
+
+  hop::load_tile<D>(Qs, qp, a.sq.t, q0);
+  hop::load_tile<D>(dOs, dop, a.sdo.t, q0);
+  hop::load_tile<D>(Ks, kp, a.sk.t, 0);
+  hop::load_tile<D>(Vs, vp, a.sv.t, 0);
+  hop::cp_async_commit();
+
+  // row statistics of rows ln.row + 8 rr: lse in log2 units, delta, and the
+  // lse cotangent (0 without one)
+  float lse2[2], dl[2], g[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+    lse2[rr] = lse[n * a.sl.n + h * a.sl.h + i * a.sl.t] * hop::LOG2E;
+    g[rr] = dlse ? dlse[n * a.sg.n + h * a.sg.h + i * a.sg.t] : 0.f;
+    const bf16* orow = op + i * so.t;
+    const bf16* drow = dop + i * a.sdo.t;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + ln.col + e;
+        sum = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]), sum);
+      }
+    dl[rr] = row_sum4(sum);
+    if ((threadIdx.x & 3) == 0)
+      delta[((long long)n * H + h) * T_len + i] = dl[rr];
+  }
+
+  const float c2 = scale * hop::LOG2E;
+  const int nkb = causal ? qb + 1 : nt;
+  float acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int buf = kb & 1;
+    if (kb + 1 < nkb) {
+      hop::load_tile<D>(Ks + (buf ^ 1) * L::BYTES, kp, a.sk.t, (kb + 1) * 64);
+      hop::load_tile<D>(Vs + (buf ^ 1) * L::BYTES, vp, a.sv.t, (kb + 1) * 64);
+    }
+    tiles_ready();
+    const uint32_t Kt = Ks + buf * L::BYTES, Vt = Vs + buf * L::BYTES;
+
+    start(s, dp);
+    mma_abt<D>(s, Qs, Kt);    // s = q k^T
+    mma_abt<D>(dp, dOs, Vt);  // dp = do v^T
+    finish(s, dp);
+
+    const bool diag = causal && kb == qb;
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = 8 * kk + 2 * x, rr = x & 1;
+        const int r = ln.row + 8 * rr, c = 8 * (i >> 2) + ln.col;
+        float d2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = (diag && c + e > r)
+                              ? 0.f
+                              : exp2f(fmaf(s[i + e], c2, -lse2[rr]));
+          d2[e] = p * (dp[i + e] - dl[rr] + g[rr]) * scale;
+        }
+        ds[kk][x] = hop::pack_bf16(d2[0], d2[1]);
+      }
+    start(acc, s);
+    mma_pb<D>(acc, ds, Kt);  // dq += ds k
+    finish(acc, s);
+    __syncthreads();
+  }
+
+  bf16* dqp = dq + n * a.sdq.n + h * a.sdq.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      hop::store_pair(dqp + i * a.sdq.t + 8 * j + ln.col, acc[4 * j + 2 * rr],
+                      acc[4 * j + 2 * rr + 1]);
+  }
+}
+
+// dk, dv, B2/B4/B5b: one block per (head, batch row, key tile), looping
+// over the query tiles that see it. Key-major: s^T = k q^T and dp^T = v do^T
+// put p^T and ds^T in registers as the A operands of dv += p^T do and
+// dk += ds^T q, with do and q read MN-major.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ dlse, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, BwdArgs a, int T_len, int causal,
+                float scale) {
+  using L = Tile<D>;
+  extern __shared__ __align__(16) uint8_t wsmem[];
+  const uint32_t Ks = smem_base(wsmem);
+  const uint32_t Vs = Ks + L::BYTES;
+  const uint32_t Qs = Vs + L::BYTES;       // two buffers
+  const uint32_t dOs = Qs + 2 * L::BYTES;  // two buffers
+  const uint32_t Ss = dOs + 2 * L::BYTES;  // two x (lse, delta, dlse) x 64
+  const float* stats = reinterpret_cast<const float*>(
+      wsmem + (Ss - hop::smem_u32(wsmem)));
+
+  const int nt = T_len / 64;
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long n = blockIdx.y;
+  const int kb = blockIdx.z;  // key tile 0 is seen by every query tile
+  const int k0 = kb * 64;
+  const bf16* qp = q + n * a.sq.n + h * a.sq.h;
+  const bf16* dop = dout + n * a.sdo.n + h * a.sdo.h;
+  const float* lp = lse + n * a.sl.n + h * a.sl.h;
+  const float* dlp = delta + ((long long)n * H + h) * T_len;
+  const float* gp = dlse ? dlse + n * a.sg.n + h * a.sg.h : nullptr;
+  const Lane ln;
+
+  auto load_q = [&](int qb, int buf) {
+    hop::load_tile<D>(Qs + buf * L::BYTES, qp, a.sq.t, qb * 64);
+    hop::load_tile<D>(dOs + buf * L::BYTES, dop, a.sdo.t, qb * 64);
+    for (int e = threadIdx.x; e < 3 * 64; e += THREADS) {
+      const int which = e >> 6, r = e & 63;
+      const long long i = qb * 64 + r;
+      const float* src = which == 0   ? lp + i * a.sl.t
+                         : which == 1 ? dlp + i
+                                      : gp + i * a.sg.t;
+      if (which < 2 || gp)
+        hop::cp_async4(Ss + 4 * ((buf * 3 + which) * 64 + r), src);
+    }
+  };
+
+  hop::load_tile<D>(Ks, k + n * a.sk.n + h * a.sk.h, a.sk.t, k0);
+  hop::load_tile<D>(Vs, v + n * a.sv.n + h * a.sv.h, a.sv.t, k0);
+  const int qs = causal ? kb : 0;
+  const int nq = nt - qs;
+  load_q(qs, 0);
+  hop::cp_async_commit();
+
+  const float c2 = scale * hop::LOG2E;
+  float dka[D / 2], dva[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < nq; ++it) {
+    const int qb = qs + it, buf = it & 1;
+    if (it + 1 < nq) load_q(qb + 1, buf ^ 1);
+    tiles_ready();
+    const uint32_t Qt = Qs + buf * L::BYTES, dOt = dOs + buf * L::BYTES;
+    const float* Ls = stats + buf * 3 * 64;
+    const float* Dl = Ls + 64;
+    const float* Gl = Ls + 128;
+
+    start(s, dp);
+    mma_abt<D>(s, Ks, Qt);    // s^T = k q^T
+    mma_abt<D>(dp, Vs, dOt);  // dp^T = v do^T
+    finish(s, dp);
+
+    const bool diag = causal && qb == kb;
+    uint32_t pt[4][4], dst[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = 8 * kk + 2 * x;
+        const int r = ln.row + 8 * (x & 1);     // key row
+        const int c = 8 * (i >> 2) + ln.col;    // query column (even)
+        const float2 lv = *reinterpret_cast<const float2*>(Ls + c);
+        const float2 dv2 = *reinterpret_cast<const float2*>(Dl + c);
+        const float2 gv = gp ? *reinterpret_cast<const float2*>(Gl + c)
+                             : make_float2(0.f, 0.f);
+        const float l2[2] = {lv.x, lv.y}, d2[2] = {dv2.x, dv2.y},
+                    g2[2] = {gv.x, gv.y};
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = (diag && r > c + e)
+                     ? 0.f
+                     : exp2f(fmaf(s[i + e], c2, -l2[e] * hop::LOG2E));
+          ds[e] = p[e] * (dp[i + e] - d2[e] + g2[e]) * scale;
+        }
+        pt[kk][x] = hop::pack_bf16(p[0], p[1]);
+        dst[kk][x] = hop::pack_bf16(ds[0], ds[1]);
+      }
+    start(dva, dka);
+    mma_pb<D>(dva, pt, dOt);  // dv += p^T do
+    mma_pb<D>(dka, dst, Qt);  // dk += ds^T q
+    finish(dva, dka);
+    __syncthreads();
+  }
+
+  bf16* dkp = dk + n * a.sdk.n + h * a.sdk.h;
+  bf16* dvp = dv + n * a.sdv.n + h * a.sdv.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long j = k0 + ln.row + 8 * rr;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + ln.col;
+      hop::store_pair(dkp + j * a.sdk.t + col, dka[4 * c + 2 * rr],
+                      dka[4 * c + 2 * rr + 1]);
+      hop::store_pair(dvp + j * a.sdv.t + col, dva[4 * c + 2 * rr],
+                      dva[4 * c + 2 * rr + 1]);
+    }
+  }
+}
+
+// 16-byte copies need 16-byte aligned rows: base and every stride. The
+// wrappers refuse other bf16 views; a view that reaches a launcher
+// unaligned is refused here rather than faulting the context.
+bool aligned16(const void* p, Strides s) {
+  return ((uintptr_t)p & 15) == 0 && s.n % 8 == 0 && s.h % 8 == 0 &&
+         s.t % 8 == 0;
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const long long* st, int N, int H, int T_len,
+                       int causal, float scale, cudaStream_t stream) {
+  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
+                sv = strides_at(st, 2), so = strides_at(st, 3);
+  if (!(aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+        aligned16(o, so)))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem<D>();
+  auto kern = attn_fwd_wgmma<D>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, N, T_len / 64);
+  kern<<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      sq, sk, sv, so, strides_at(st, 4), T_len, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       const void* dlse, void* dq, void* dk, void* dv,
+                       void* delta, const long long* st, int N, int H,
+                       int T_len, int causal, float scale,
+                       cudaStream_t stream) {
+  // strides: q k v o do dq dk dv lse dlse
+  BwdArgs a{strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+            strides_at(st, 4), strides_at(st, 5), strides_at(st, 6),
+            strides_at(st, 7), strides_at(st, 8), strides_at(st, 9)};
+  if (!(aligned16(q, a.sq) && aligned16(k, a.sk) && aligned16(v, a.sv) &&
+        aligned16(dout, a.sdo) && aligned16(dq, a.sdq) &&
+        aligned16(dk, a.sdk) && aligned16(dv, a.sdv)))
+    return cudaErrorInvalidValue;
+  dim3 grid(H, N, T_len / 64);
+  const size_t smem_q = dq_smem<D>();
+  auto kdq = attn_dq_wgmma<D>;
+  cudaError_t err = set_smem(kdq, smem_q);
+  if (err != cudaSuccess) return err;
+  kdq<<<grid, THREADS, smem_q, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+      (const bf16*)dout, (const float*)lse, (const float*)dlse,
+      (float*)delta, (bf16*)dq, a, strides_at(st, 3), T_len, causal, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t smem_kv = dkdv_smem<D>();
+  auto kdkdv = attn_dkdv_wgmma<D>;
+  if ((err = set_smem(kdkdv, smem_kv)) != cudaSuccess) return err;
+  kdkdv<<<grid, THREADS, smem_kv, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (const float*)dlse, (bf16*)dk,
+      (bf16*)dv, a, T_len, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
 
 // o = softmax(mask(q k^T * scale)) v and lse = logsumexp of the scores.
 // strides: 15 element strides, (batch, head, token) for q, k, v, o, lse.
+// bf16 takes T / 64 <= 65535 (query tiles are the grid's z axis), as the
+// long-context forward does, and views whose base and strides are 16-byte
+// aligned (both entries).
 int gym_attn_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, const long long* strides, int N, int H, int T_len,
                  int D, int causal, float scale, int dtype, void* stream) {
   if (T_len % 64 != 0 || N <= 0 || H <= 0 || N > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  GYM_DISPATCH(dtype, D,
-               (launch_fwd<T, D>(q, k, v, o, lse, strides, N, H, T_len, causal,
-                                 scale, s)));
+  if (dtype == 1 && T_len / 64 <= 65535) {
+    GYM_HEAD_DIM(D, (wg::launch_fwd<D>(q, k, v, o, lse, strides, N, H, T_len,
+                                       causal, scale, s)));
+  } else if (dtype == 0) {
+    GYM_HEAD_DIM(D, (launch_fwd<float, D>(q, k, v, o, lse, strides, N, H,
+                                          T_len, causal, scale, s)));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // dq, dk, dv of the forward above, with an optional lse cotangent
@@ -561,24 +1097,44 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
   if (T_len % 64 != 0 || N <= 0 || H <= 0 || N > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  GYM_DISPATCH(dtype, D,
-               (launch_bwd<T, D>(q, k, v, o, dout, lse, dlse, dq, dk, dv, delta,
-                                 strides, N, H, T_len, causal, scale, s)));
+  if (dtype == 1 && T_len / 64 <= 65535) {
+    GYM_HEAD_DIM(D, (wg::launch_bwd<D>(q, k, v, o, dout, lse, dlse, dq, dk,
+                                       dv, delta, strides, N, H, T_len,
+                                       causal, scale, s)));
+  } else if (dtype == 0) {
+    GYM_HEAD_DIM(D, (launch_bwd<float, D>(q, k, v, o, dout, lse, dlse, dq, dk,
+                                          dv, delta, strides, N, H, T_len,
+                                          causal, scale, s)));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 long long gym_flash_smem_bytes(int D);  // flash_attention.cu
 
 // dynamic shared memory of one block: kernel 0 = forward, 1 = dk/dv,
-// 2 = dq, 3 = the long-context forward (the same for both dtypes); -1 for
-// an unsupported head dim
+// 2 = dq (f32, scalar), 3 = the long-context forward (both dtypes),
+// 4 = forward, 5 = dk/dv, 6 = dq (bf16, wgmma); -1 for an unsupported head
+// dim or kernel
 long long gym_attn_smem_bytes(int kernel, int D) {
   if (kernel == 3) return gym_flash_smem_bytes(D);
-  switch (D) {
-    case 16: return kernel == 0 ? fwd_smem<16>() : kernel == 1 ? dkdv_smem<16>() : dq_smem<16>();
-    case 32: return kernel == 0 ? fwd_smem<32>() : kernel == 1 ? dkdv_smem<32>() : dq_smem<32>();
-    case 64: return kernel == 0 ? fwd_smem<64>() : kernel == 1 ? dkdv_smem<64>() : dq_smem<64>();
-    case 128: return kernel == 0 ? fwd_smem<128>() : kernel == 1 ? dkdv_smem<128>() : dq_smem<128>();
+  if (kernel < 0 || kernel > 6) return -1;
+#define GYM_SMEM_ROW(DD)                                                     \
+  case DD: {                                                                 \
+    const long long b[7] = {(long long)fwd_smem<DD>(),                      \
+                            (long long)dkdv_smem<DD>(),                     \
+                            (long long)dq_smem<DD>(), 0,                    \
+                            (long long)wg::fwd_smem<DD>(),                  \
+                            (long long)wg::dkdv_smem<DD>(),                 \
+                            (long long)wg::dq_smem<DD>()};                  \
+    return b[kernel];                                                        \
   }
+  switch (D) {
+    GYM_SMEM_ROW(16)
+    GYM_SMEM_ROW(32)
+    GYM_SMEM_ROW(64)
+    GYM_SMEM_ROW(128)
+  }
+#undef GYM_SMEM_ROW
   return -1;
 }
 

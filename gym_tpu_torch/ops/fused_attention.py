@@ -155,6 +155,11 @@ def _check(tensors, n, h, t, d, what):
             raise TypeError(f"{what}: mixed dtypes {x.dtype} and {dtype}")
         if x.stride(-1) != 1:
             raise ValueError(f"{what}: last dimension must be contiguous")
+        # the bf16 kernels copy rows with 16-byte cp.async
+        if dtype == torch.bfloat16 and (
+                x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:-1])):
+            raise ValueError(f"{what}: bf16 views must be 16-byte aligned "
+                             f"(base and strides), got strides {x.stride()}")
     if t % 64 or d not in _HEAD_DIMS or not (0 < n <= 65535) or h > 65535:
         raise ValueError(f"{what}: shape N={n} H={h} T={t} D={d} not "
                          f"supported (T % 64 == 0, D in {_HEAD_DIMS})")

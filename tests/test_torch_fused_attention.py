@@ -205,3 +205,32 @@ def test_dense_attention_and_cpu_dispatch_match_jax(dt):
         _close(want, causal_attention(tq, tk, tv, impl=impl), tol, impl)
     packed = tq.transpose(2, 3).reshape(2, B, T, H * D)
     assert packed_flash_attention_or_none(packed, packed, packed, H) is None
+
+
+def _projection_views(dt, skew=0, extra=0):
+    """q as the model passes it: a per-head [N, H, T, D] view of a
+    projection with a 16-byte-multiple token stride, here started ``skew``
+    elements in or with ``extra`` columns more (both 0 on the main path)."""
+    qkv = torch.zeros(2, T, 3 * H * D + 8 + extra, dtype=dt)[..., skew:]
+    return qkv[..., :H * D].unflatten(-1, (H, D)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,dt,refused", [
+    ("main path", torch.bfloat16, False),
+    ("main path", torch.float32, False),
+    ("base one element in", torch.bfloat16, True),
+    ("base one element in", torch.float32, False),
+    ("token stride not 16 bytes", torch.bfloat16, True),
+])
+def test_check_refuses_unaligned_bf16_views(case, dt, refused):
+    """The bf16 kernels copy rows with 16-byte cp.async: ``_check`` refuses
+    a bf16 view whose base or strides are not 16-byte aligned; f32 (the
+    scalar kernels) takes any such view."""
+    skew = 1 if case == "base one element in" else 0
+    extra = 2 if case == "token stride not 16 bytes" else 0
+    q = _projection_views(dt, skew, extra)
+    if refused:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa._check((q, q, q), 2, H, T, D, "attention forward")
+    else:
+        tfa._check((q, q, q), 2, H, T, D, "attention forward")
