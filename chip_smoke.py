@@ -10,14 +10,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    time, the ``-Xptxas -v`` report (registers, shared memory, spills) and,
    from ``cuobjdump -sass``, each kernel's count of ``HGMMA`` (wgmma),
    ``HMMA``, ``FFMA`` and ``ATOM``/``RED`` instructions; fails if a bf16
-   forward, dk/dv or dq kernel has no ``HGMMA`` or any kernel an atomic;
+   forward, dk/dv, dq or long-context forward kernel has no ``HGMMA`` or any
+   kernel an atomic; the long-context forward's register split and blocks
+   per SM;
 3. every kernel against its plain PyTorch version on the card, bf16 and f32:
    the packed pair (B1/B2) at the flagship shape with q, k and v as strided
    views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
    GPT-2-base shape, causal and full-block with a random lse cotangent, the
    long-context pair (B5) at N=2 H=12 T=8192 D=64 on per-head views of the
-   projection, and at T=1152 (the default-block rule); the bf16 backward
-   run twice at the B5 shape must agree bit for bit;
+   projection, at T=2048 (the tuned blocks) and at T=1152 (the default-block
+   rule); the bf16 forward and backward, each run twice at the B5 shape,
+   must agree bit for bit;
 4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
    T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
    warmup, 6 steps on random tokens; the packed kernels must have launched;
@@ -36,7 +39,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    only): each kernel, its plain version, the library call
    (``scaled_dot_product_attention``, timed only as a yardstick), the bound
    at 3.35 TB/s and 989 TFLOP/s and the TFLOP/s of the tiles the kernel
-   computes;
+   computes; the f32 long-context forward's time beside them;
 8. the ``kernels`` JSON line, then the result line.
 
 The launch counts in the ``kernels`` line are those of the training runs of
@@ -45,6 +48,7 @@ phases 4 (B1/B2), 5 (B3/B4) and 5b (B5), each counted from zero.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -158,8 +162,12 @@ def check_sass(counts):
     """Every bf16 wgmma kernel uses the tensor cores; no kernel has an
     atomic."""
     wgmma = [k for k in counts if "wgmma" in k]
-    check(len(wgmma) == 12, f"expected 12 bf16 wgmma kernels (forward, dq, "
-          f"dk/dv at 4 head dims), found {len(wgmma)}: {wgmma}")
+    check(len(wgmma) == 16, f"expected 16 bf16 wgmma kernels (forward, dq, "
+          f"dk/dv and the long-context forward at 4 head dims), found "
+          f"{len(wgmma)}: {wgmma}")
+    flash = [k for k in wgmma if "flash_fwd_wgmma" in k]
+    check(len(flash) == 4, f"expected flash_fwd_wgmma at 4 head dims, found "
+          f"{flash}")
     for k in sorted(counts):
         c = counts[k]
         log("  " + k + ": " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -212,6 +220,13 @@ def check_long_context(torch, tflash, shapes, g, dtype):
         ro, rl = tflash.plain_flash_fwd(*heads, scale)
         ef = max(compare("B5f o", o, ro, "out", dtype),
                  compare("B5f lse", lse, rl, "lse", dtype))
+        if dtype == torch.bfloat16 and not errs:
+            o2, lse2 = tflash._flash_fwd(*heads, scale)
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            log(f"  B5f bf16 run twice: o, lse "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            check(same, "B5f: two runs of the bf16 forward differ")
+            del o2, lse2
         got = tflash._flash_bwd(*heads, o, do, lse, scale)
         ref = tflash.plain_flash_bwd(*heads, o, do, lse, scale)
         eb = max(compare(f"B5b {nm}", a, b, "out", dtype)
@@ -278,8 +293,8 @@ def check_kernels(torch, tfa, tflash, shapes):
             torch.cuda.empty_cache()
         torch.cuda.synchronize()
         e5f, e5b = check_long_context(
-            torch, tflash, (shapes["long"], shapes["long_default_blocks"]), g,
-            dtype)
+            torch, tflash, (shapes["long"], shapes["long_tuned_blocks"],
+                            shapes["long_default_blocks"]), g, dtype)
         if dtype == torch.bfloat16:  # the training runs' dtype
             errs.update(B1_fwd_packed=e1, B2_bwd_packed=e2, B3_blk_fwd=e3,
                         B4_blk_bwd=e4, B5f_flash_fwd=e5f, B5b_flash_bwd=e5b)
@@ -488,8 +503,10 @@ def bound(n, h, t, d, itemsize, backward, causal=True):
 
 
 def tile_tflops(n, h, t, d, products, ms, causal=True):
-    """TFLOP/s of the 64 x 64 tiles a kernel computes (whole diagonal tiles
-    included), ``products`` matrix products of 2·D flops a pair each."""
+    """TFLOP/s of the 64 x 64 tiles a kernel computes: causal, the tiles on
+    or below the diagonal, diagonal tiles whole (B5f's 128-row blocks
+    compute the same tiles: warpgroup 0 skips its block's last key tile),
+    ``products`` matrix products of 2·D flops a pair each."""
     nt = t // 64
     tiles = nt * (nt + 1) // 2 if causal else nt * nt
     return n * h * tiles * 64 * 64 * 2 * d * products / (ms * 1e-3) / 1e12
@@ -584,7 +601,14 @@ def time_kernels(torch, tfa, tflash, shapes):
             lo, lib, do, retain_graph=True)),
         shape=shape, bound=bound(n, h, t, d, 2, True),
         work=(n, h, t, d, 7))
-    del heads, do, o, lse, lib, lo
+    f32 = [x.float() for x in heads]
+    f32_ms = timed(torch, lambda: tflash._flash_fwd(*f32, scale), inner=3)
+    log(f"B5f f32 (scalar kernel) [N={n} H={h} T={t} D={d} contiguous]: "
+        f"kernel_ms {f32_ms:.4f}, bound_ms "
+        f"{bound(n, h, t, d, 4, False)[0]:.4f} at {F32_FLOPS / 1e12:.0f} "
+        f"TFLOP/s, {tile_tflops(n, h, t, d, 2, f32_ms):.1f} TFLOP/s of "
+        f"computed tiles")
+    del heads, do, o, lse, lib, lo, f32
     torch.cuda.empty_cache()
     for name, r in out.items():
         b, by = r["bound"]
@@ -592,7 +616,8 @@ def time_kernels(torch, tfa, tflash, shapes):
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
             f"bound_ms {b:.4f} ({by}) -> {b / r['ms']:.1%} of bound, "
             f"{tile_tflops(*r['work'], r['ms']):.1f} TFLOP/s of computed "
-            f"tiles ({r['work'][-1]} products)")
+            f"64 x 64 tiles on or below the diagonal ({r['work'][-1]} "
+            f"products)")
     return out
 
 
@@ -621,6 +646,7 @@ def main() -> int:
     shapes = {"flagship": (64 * 16, 256, 128, 4),
               "base": (2 * 4, 12, 1024, 64),
               "long": (2 * 1, 12, 8192, 64),
+              "long_tuned_blocks": (2, 12, 2048, 64),
               "long_default_blocks": (2, 12, 1152, 64)}
     mods = {"fused": tfa, "flash": tflash}
     t_all = time.perf_counter()
@@ -641,8 +667,18 @@ def main() -> int:
             log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
                 f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
                 enumerate(("attn_fwd f32", "attn_dkdv f32", "attn_dq f32",
-                           "flash_fwd", "attn_fwd_wgmma bf16",
-                           "attn_dkdv_wgmma bf16", "attn_dq_wgmma bf16"))))
+                           "flash_fwd f32", "attn_fwd_wgmma bf16",
+                           "attn_dkdv_wgmma bf16", "attn_dq_wgmma bf16",
+                           "flash_fwd_wgmma bf16"))))
+        for d in (16, 32, 64, 128):
+            regs = (ctypes.c_int * 3)()
+            per_sm = lib.gym_flash_occupancy(d, regs)
+            check(per_sm >= 1, f"flash_fwd_wgmma<{d}> cannot be resident "
+                  f"({per_sm})")
+            log(f"  flash_fwd_wgmma<{d}>: 384 threads at {regs[2]} registers "
+                f"a thread at launch, setmaxnreg to {regs[0]} (producer "
+                f"warpgroup) and {regs[1]} (two consumer warpgroups); "
+                f"{per_sm} block(s) per SM")
         log("  SASS instructions per kernel (cuobjdump -sass):")
         check_sass(sass_counts(_build._nvcc(), path))
 

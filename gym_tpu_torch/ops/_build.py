@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
         lib.gym_flash_fwd.argtypes = [vp] * 5 + [strides] + [i32] * 4 + [
             f32, i32, vp]
         lib.gym_flash_fwd.restype = i32
+        lib.gym_flash_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.gym_flash_occupancy.restype = i32
         lib.gym_attn_smem_bytes.argtypes = [i32, i32]
         lib.gym_attn_smem_bytes.restype = ctypes.c_longlong
         lib.gym_attn_error_string.argtypes = [i32]

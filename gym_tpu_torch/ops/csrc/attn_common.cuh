@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -52,6 +53,15 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+// The bf16 kernels copy 16-byte rows (cp.async, TMA): base and every
+// stride 16-byte aligned. The wrappers refuse other bf16 views; a view that
+// reaches a launcher unaligned is refused there rather than faulting the
+// context.
+bool aligned16(const void* p, Strides s) {
+  return ((uintptr_t)p & 15) == 0 && s.n % 8 == 0 && s.h % 8 == 0 &&
+         s.t % 8 == 0;
 }
 
 }  // namespace

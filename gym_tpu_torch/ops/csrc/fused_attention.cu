@@ -7,7 +7,8 @@
 // backward, the bundled Pallas kernel's _flash_attention_bwd_dkv and
 // _flash_attention_bwd_dq; flash_attention.cu has its forward): their shared
 // memory does not grow with T and their offsets are 64-bit, so they take any
-// T % 64 == 0.
+// T % 64 == 0 (B5's wrappers take only T % 128 == 0, the bundled kernel's
+// rule).
 // The packed [B, T, C] and per-head [B, H, T, D] layouts differ only in
 // their strides, so every kernel takes element strides (batch, head, token)
 // for each tensor; the last dimension must be contiguous. In the packed
@@ -561,66 +562,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 namespace wg {
 
 using bf16 = __nv_bfloat16;
+using hop::Lane;
 using hop::Tile;
+using hop::finish;
+using hop::mma_abt;
+using hop::mma_pb;
+using hop::row_max4;
+using hop::row_sum4;
+using hop::start;
 constexpr int THREADS = 128;  // one warpgroup a block
-
-// This thread's rows (row, row + 8) and first column of each 8-column chunk
-// in the accumulator layout (hopper.cuh).
-struct Lane {
-  int row, col;
-  __device__ Lane()
-      : row(16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2)),
-        col(2 * (threadIdx.x & 3)) {}
-};
-
-// reductions over the four lanes that hold one row
-__device__ __forceinline__ float row_max4(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float row_sum4(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// s = a b^T over depth D, both tiles K-major: s [64 x 64] f32
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
-                                          uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    hop::wgmma_ss_n64(s, hop::desc_k<D>(a, ks), hop::desc_k<D>(b, ks), ks > 0);
-}
-
-// acc += p b: p [64 x 64] bf16 in registers (four depth steps), b a tile
-// read MN-major (depth over its 64 rows, width D)
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 2],
-                                         uint32_t (&p)[4][4],
-                                         uint32_t b) {
-  using L = Tile<D>;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int hf = 0; hf < L::HALVES; ++hf)
-      hop::wgmma_rs<L::SUB>(acc + hf * (L::SUB / 2), p[kk],
-                            hop::desc_mn<D>(b, kk, hf));
-}
-
-// wait for the products in flight; their accumulators are then readable
-template <int A, int B>
-__device__ __forceinline__ void finish(float (&a)[A], float (&b)[B]) {
-  hop::wg_commit();
-  hop::wg_wait<0>();
-  hop::fence_regs(a);
-  hop::fence_regs(b);
-}
-template <int A, int B>
-__device__ __forceinline__ void start(float (&a)[A], float (&b)[B]) {
-  hop::fence_regs(a);
-  hop::fence_regs(b);
-  hop::wg_fence();
-}
 
 // the tiles of this step have landed: every thread's copies are complete
 // and visible to wgmma
@@ -994,14 +944,6 @@ attn_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// 16-byte copies need 16-byte aligned rows: base and every stride. The
-// wrappers refuse other bf16 views; a view that reaches a launcher
-// unaligned is refused here rather than faulting the context.
-bool aligned16(const void* p, Strides s) {
-  return ((uintptr_t)p & 15) == 0 && s.n % 8 == 0 && s.h % 8 == 0 &&
-         s.t % 8 == 0;
-}
-
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const long long* st, int N, int H, int T_len,
@@ -1109,14 +1051,14 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-long long gym_flash_smem_bytes(int D);  // flash_attention.cu
+long long gym_flash_smem_bytes(int D, int wgmma);  // flash_attention.cu
 
 // dynamic shared memory of one block: kernel 0 = forward, 1 = dk/dv,
-// 2 = dq (f32, scalar), 3 = the long-context forward (both dtypes),
-// 4 = forward, 5 = dk/dv, 6 = dq (bf16, wgmma); -1 for an unsupported head
-// dim or kernel
+// 2 = dq (f32, scalar), 3 = the long-context forward (f32, scalar),
+// 4 = forward, 5 = dk/dv, 6 = dq (bf16, wgmma), 7 = the long-context
+// forward (bf16, wgmma); -1 for an unsupported head dim or kernel
 long long gym_attn_smem_bytes(int kernel, int D) {
-  if (kernel == 3) return gym_flash_smem_bytes(D);
+  if (kernel == 3 || kernel == 7) return gym_flash_smem_bytes(D, kernel == 7);
   if (kernel < 0 || kernel > 6) return -1;
 #define GYM_SMEM_ROW(DD)                                                     \
   case DD: {                                                                 \

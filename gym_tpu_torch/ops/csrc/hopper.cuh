@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels: swizzled
-// shared-memory tiles, wgmma matrix descriptors and instructions, cp.async
-// copies and the fences between them.
+// shared-memory tiles, wgmma matrix descriptors, instructions and the
+// products built on them, cp.async copies, TMA loads with the mbarriers
+// that report them, and the fences between them.
 //
 // A tile is 64 rows of D bf16 values (a 64-row block of q, k, v or do) in
 // the layout wgmma reads with a swizzle: rows of min(D, 64) values (32, 64 or
@@ -113,6 +114,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
+// 2^x on the special-function unit, subnormal results flushed to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -208,6 +216,139 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else wgmma_rs_n64(d, a, db);
+}
+
+// ---------------------------------------------- products of one warpgroup
+
+// This thread's rows (row, row + 8) and first column of each 8-column chunk
+// in the accumulator layout above, within its warpgroup.
+struct Lane {
+  int row, col;
+  __device__ Lane()
+      : row(16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2)),
+        col(2 * (threadIdx.x & 3)) {}
+};
+
+// reductions over the four lanes that hold one row
+__device__ __forceinline__ float row_max4(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float row_sum4(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// s = a b^T over depth D, both tiles K-major: s [64 x 64] f32
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
+                                        uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss_n64(s, desc_k<D>(a, ks), desc_k<D>(b, ks), ks > 0);
+}
+
+// acc += p b: p [64 x 64] bf16 in registers (four depth steps), b a tile
+// read MN-major (depth over its 64 rows, width D)
+template <int D>
+__device__ __forceinline__ void mma_pb(float (&acc)[D / 2],
+                                       uint32_t (&p)[4][4], uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < L::HALVES; ++hf)
+      wgmma_rs<L::SUB>(acc + hf * (L::SUB / 2), p[kk], desc_mn<D>(b, kk, hf));
+}
+
+// wait for the products in flight; their accumulators are then readable
+template <int A, int B>
+__device__ __forceinline__ void finish(float (&a)[A], float (&b)[B]) {
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(a);
+  fence_regs(b);
+}
+template <int A, int B>
+__device__ __forceinline__ void start(float (&a)[A], float (&b)[B]) {
+  fence_regs(a);
+  fence_regs(b);
+  wg_fence();
+}
+
+// ------------------------------------------------- mbarriers and TMA loads
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// the initialised barriers made visible to the other threads and to the
+// async proxy (TMA); a __syncthreads follows
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive and announce the bytes that TMA loads will complete on this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of the given parity has completed (a barrier starts
+// in phase 0, so waiting on parity 1 of a fresh barrier returns at once)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on the barrier bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Rows [r0, r0 + 64) of head (n, h) of a [N, H, T, D] tensor map whose box
+// is [64 rows x SUB values] into a tile: one box per column half. The map's
+// swizzle at the box's row width (32, 64 or 128 bytes) is Tile<D>::chunk's,
+// so the box lands in the tile layout above.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const void* map,
+                                         uint32_t bar, int r0, int h, int n) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int hf = 0; hf < L::HALVES; ++hf)
+    tma_load_4d(dst + hf * L::HALF_BYTES, map, bar, hf * L::SUB, r0, h, n);
+}
+
+// Registers a thread of this warpgroup may hold from here on; every warp
+// of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace hop

@@ -154,6 +154,18 @@ def plain_flash_bwd(q, k, v, o, do, lse, scale):
 # -- the two wrappers (B5's forward and backward) ---------------------------
 
 
+def _check_blocks(q, what):
+    """Refuse T % 128 != 0 on either device. The bundled Pallas kernel takes
+    only block sizes that divide the sequence (its ``_verify_block``), and
+    the JAX package sends such T to dense attention; the plain versions step
+    over whole 128-row blocks and the card's forward over 128-row query
+    blocks, so neither covers a ragged last block."""
+    t = q.shape[-2]
+    if t % 128:
+        raise ValueError(f"{what}: T={t} is not a multiple of 128 (the "
+                         f"bundled Pallas kernel's blocks divide T)")
+
+
 def _check_flash(tensors, what):
     """Raise on anything the kernels do not take; (N, H, T, D)."""
     q = tensors[0]
@@ -168,11 +180,13 @@ def _check_flash(tensors, what):
 
 def _flash_fwd(q, k, v, scale):
     """Causal forward on [N, H, T, D] (strided views with a unit last
-    stride) → (o [N, H, T, D], lse [N, H, T, 1] f32)."""
+    stride), T % 128 == 0 → (o [N, H, T, D], lse [N, H, T, 1] f32)."""
+    what = "flash attention forward"
+    _check_blocks(q, what)
     if not q.is_cuda:
         return plain_flash_fwd(q, k, v, scale)
     from . import _build
-    n, h, t, d = _check_flash((q, k, v), "flash attention forward")
+    n, h, t, d = _check_flash((q, k, v), what)
     o = torch.empty((n, h, t, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, t, 1), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -189,9 +203,10 @@ def _flash_fwd(q, k, v, scale):
 
 def _flash_bwd(q, k, v, o, do, lse, scale):
     """(dq, dk, dv) of ``_flash_fwd`` given its o and lse."""
+    what = "flash attention backward"
+    _check_blocks(q, what)
     if not q.is_cuda:
         return plain_flash_bwd(q, k, v, o, do, lse, scale)
-    what = "flash attention backward"
     n, h, t, d = _check_flash((q, k, v, o, do), what)
     _check_stats(lse, None, (n, h, t, 1), what)
     dq, dk, dv = (torch.empty((n, h, t, d), dtype=q.dtype, device=q.device)
@@ -231,8 +246,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def long_causal_attention(q, k, v, scale=None):
-    """softmax(mask(QKᵀ·scale))·V on [N, H, T, D], any T % 64 == 0, no
-    dropout, through the B5 pair."""
+    """softmax(mask(QKᵀ·scale))·V on [N, H, T, D], T % 128 == 0 (other T
+    raise ValueError), no dropout, through the B5 pair."""
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, scale)
 

@@ -32,12 +32,16 @@ class TrainState:
 
 
 def make_init_fn(loss_model: LossModel, strategy: Strategy, seed: int,
-                 init_params=None, device="cpu"):
+                 init_params=None, device=None):
     """``init_fn(node_index [K]) -> TrainState``. Parameters come from the
     same seed for every node (replicas start identical), or from
     ``init_params``: a dict of per-node tensors (or arrays) by parameter
     name, copied to every node, or already stacked ``[K, ...]``. Shapes
-    come from the model's config, so no example batch is needed."""
+    come from the model's config, so no example batch is needed.
+    ``device=None`` is the card (``default_device``: an error without
+    one), as in ``Trainer.fit``."""
+    device = default_device(device)
+
     def init_fn(node_index: torch.Tensor) -> TrainState:
         k = int(node_index.shape[0])
         params, model_state = loss_model.init(k, seed, device)

@@ -138,3 +138,76 @@ def test_plain_forward_never_holds_a_full_score_matrix():
     bwd = sum(tflash._runs(i, bqb, j, bkb) for i in range(8192 // bqb)
               for j in range(8192 // bkb))
     assert (fwd, bwd) == (20, 72)
+
+
+@pytest.mark.parametrize("call", ["long_causal_attention", "_flash_fwd",
+                                  "_flash_bwd"])
+def test_b5_wrappers_refuse_t_not_multiple_of_128(call):
+    """T = 1088 is a multiple of 64 but not of 128: the plain versions step
+    over whole 128-row blocks and would leave the last 64 rows unwritten
+    (forward) or without their contributions (backward). The wrappers
+    refuse it on CPU tensors, as the bundled kernel refuses blocks that do
+    not divide T."""
+    x = torch.zeros(1, 1, 1088, D)
+    lse = torch.zeros(1, 1, 1088, 1)
+    fn = {"long_causal_attention": lambda: tflash.long_causal_attention(
+              x, x, x),
+          "_flash_fwd": lambda: tflash._flash_fwd(x, x, x, 0.125),
+          "_flash_bwd": lambda: tflash._flash_bwd(x, x, x, x, x, lse, 0.125)}
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fn[call]()
+
+
+def _kernel_rounding_fwd(q, k, v, scale, bk=64):
+    """The bf16 card forward's rounding order in torch, 64 query rows a
+    warpgroup against ``bk``-key tiles: scores in f32, a running row max
+    per key tile, p = exp(s − m) unnormalised and rounded to bf16 for the
+    PV product, l from the unrounded p, the accumulator rescaled at each
+    tile and divided by l at the end. Vectorised over the query tiles: key
+    tile j updates every row at or after it."""
+    n, h, t, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((n, h, t, 1), -np.inf)
+    l = torch.zeros((n, h, t, 1))
+    acc = torch.zeros((n, h, t, d))
+    for j in range(t // bk):
+        rows, cols = slice(j * bk, t), slice(j * bk, (j + 1) * bk)
+        s = torch.matmul(qf[:, :, rows], kf[:, :, cols].transpose(-1, -2))
+        s = s * scale
+        diag = torch.ones(bk, bk, dtype=torch.bool).triu(1)
+        s[:, :, :bk] = s[:, :, :bk].masked_fill(diag, -np.inf)
+        m_new = torch.maximum(m[:, :, rows], s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m[:, :, rows] - m_new)
+        p = torch.exp(s - m_new)
+        l[:, :, rows] = l[:, :, rows] * alpha + p.sum(dim=-1, keepdim=True)
+        acc[:, :, rows] = acc[:, :, rows] * alpha + torch.matmul(
+            p.to(torch.bfloat16).float(), vf[:, :, cols])
+        m[:, :, rows] = m_new
+    return (acc / l).to(q.dtype), m + torch.log(l)
+
+
+def _within_phase3(a, b, what):
+    """chip_smoke.py phase 3's bf16 tolerance, elementwise:
+    |a − b| ≤ 0.05·rms(b) + 0.02·|b|."""
+    a, b = a.float(), b.float()
+    limit = 0.05 * b.square().mean().sqrt() + 0.02 * b.abs()
+    over = ((a - b).abs() > limit).sum().item()
+    assert over == 0, (f"{what}: {over} elements outside, max abs err "
+                       f"{(a - b).abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("t", [2048, 1152])
+def test_kernel_rounding_order_fits_phase3_tolerance(t, monkeypatch):
+    """The card forward rounds p unnormalised at each 64-key tile, where
+    the bundled kernel at T = 2048 (one key block) normalises first: held
+    to the bundled Pallas kernel (interpreted) and to ``plain_flash_fwd``
+    under phase 3's bf16 tolerance, lse within phase 3's 1e-4 + 1e-5·|b|."""
+    (jq, jk, jv, jdo), (tq, tk, tv, _) = _inputs(t, "bf16", seed=t + 1)
+    scale = 1.0 / np.sqrt(D)
+    jo, _ = _jax_b5(jq, jk, jv, jdo, monkeypatch)
+    eo, el = _kernel_rounding_fwd(tq, tk, tv, scale)
+    po, pl = tflash.plain_flash_fwd(tq, tk, tv, scale)
+    _within_phase3(eo, torch.from_numpy(np.asarray(jo, np.float32)),
+                   "o against the bundled kernel")
+    _within_phase3(eo, po, "o against plain_flash_fwd")
+    assert ((el - pl).abs() <= 1e-4 + 1e-5 * pl.abs()).all()

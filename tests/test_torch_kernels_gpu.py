@@ -10,14 +10,18 @@ One case for each head dim (16, 32, 64, 128), dtype (bf16 runs the wgmma
 kernels, f32 the scalar ones) and layout: the packed pair (B1/B2) on
 strided column slices of a ``[N, T, 3C]`` projection, the per-head pair
 (B3/B4) on per-head views of one, causal and full-block with a random lse
-cotangent, at T=128 and T=384; and the long-context pair (B5) at T=1152.
+cotangent, at T=128 and T=384; and the long-context pair (B5) at T=1152
+and T=2048 (where the plain version runs the tuned 1024/2048 blocks and the
+bf16 forward its 128-row query blocks against 64-key tiles).
 
 Tolerance, elementwise on o, dq, dk and dv, as ``chip_smoke.py`` states it:
 |kernel − plain| <= atol + rms_frac·rms(plain) + rtol·|plain|, bf16 atol 0,
 rms_frac 5e-2, rtol 2e-2; f32 atol 5e-5, rtol 1e-4; lse within 1e-4. The
 bf16 backward has no atomics, so two runs on the same inputs agree bit for
-bit. The bf16 kernels copy rows with 16-byte ``cp.async`` and refuse views
-that are not 16-byte aligned; the f32 kernels take them.
+bit, and so do two runs of the bf16 long-context forward. The bf16 kernels
+copy rows with 16-byte ``cp.async`` or TMA and refuse views that are not
+16-byte aligned; the f32 kernels take them. The long-context pair refuses
+T % 128 != 0 on the card as on the CPU.
 """
 
 import pytest
@@ -33,7 +37,7 @@ DTYPES = {"bf16": (torch.bfloat16, (0.0, 5e-2, 2e-2)),
 LAYOUTS = (
     [("packed", t) for t in (128, 384)]
     + [(f"heads_{m}", t) for m in ("causal", "full_dlse") for t in (128, 384)]
-    + [("long", 1152)])
+    + [("long", 1152), ("long", 2048)])
 
 
 def _card():
@@ -141,6 +145,31 @@ def test_bf16_backward_is_bit_reproducible(layout, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [1152, 2048])
+def test_bf16_long_forward_is_bit_reproducible(t):
+    """Two runs of the bf16 long-context forward give identical o and lse:
+    each output row has one owner warpgroup, summed in a fixed order."""
+    g = _card()
+    qkv, _, _, h = _inputs(g, "long", t, 64, torch.bfloat16)
+    first = _fwd("long", qkv, h, plain=False)
+    second = _fwd("long", qkv, h, plain=False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_long_pair_refuses_t_not_multiple_of_128_on_card():
+    """T = 1088 (a multiple of 64, not of 128): both B5 wrappers raise on
+    the card, as on the CPU, before any launch."""
+    qkv, do, _, h = _inputs(_card(), "long", 1088, 64, torch.bfloat16)
+    lse = torch.zeros(*do.shape[:-1], 1, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _fwd("long", qkv, h, plain=False)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _bwd("long", qkv, do, do, lse, None, h, plain=False)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_unaligned_views_on_card(d, dtype):
@@ -156,6 +185,8 @@ def test_unaligned_views_on_card(d, dtype):
                   plain=False)
     with pytest.raises(ValueError, match="16-byte aligned"):
         _fwd("heads_causal", qkv, h, plain=False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _fwd("long", qkv, h, plain=False)
     with pytest.raises(ValueError, match="16-byte aligned"):
         _bwd("heads_causal", qkv, o, do, lse, None, h, plain=False)
     with pytest.raises(ValueError, match="16-byte aligned"):

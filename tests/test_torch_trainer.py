@@ -198,3 +198,24 @@ def test_later_slice_kwargs_raise(kwarg, value):
         TTrainer(TGPT(TConfig(**SMALL)), TDataset(_tokens(), T)).fit(
             strategy=_strategy("torch", "diloco"), num_nodes=2, max_steps=1,
             device="cpu", **{kwarg: value})
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_make_init_fn_takes_the_card_unless_told(device):
+    """``make_init_fn`` without a device resolves it as ``fit()`` does: the
+    card, or a RuntimeError where there is none; ``device="cpu"`` builds
+    the node state on the CPU."""
+    from gym_tpu_torch.models.base import as_loss_model
+    from gym_tpu_torch.train_node import make_init_fn
+    strategy = _strategy("torch", "simple_reduce").finalize(1)
+    loss_model = as_loss_model(TGPT(TConfig(**SMALL)))
+    if device is None:
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: the state would go to it")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_init_fn(loss_model, strategy, 0)
+        return
+    state = make_init_fn(loss_model, strategy, 0, device=device)(
+        torch.arange(2))
+    assert all(p.device.type == "cpu" and p.shape[0] == 2
+               for p in state.params.values())
