@@ -33,17 +33,35 @@ Phases (any failure exits non-zero before the result lines are printed):
    must be higher;
 6. card against CPU: tiny GPTs through ``Trainer.fit`` on ``cuda`` and on
    ``cpu`` from the same weights and batches, in bf16 and in f32, at T=128
-   and at T=2048 (where the card runs B5 and the CPU dense attention);
+   and at T=2048 (where the card runs B5 and the CPU dense attention); at
+   T=128 also under SPARTA-DiLoCo (p 0.3, H 2, participation 0.75), whose
+   masks come from the threefry kernel on the card and its twin on the CPU;
 7. timing with CUDA events (median of 5 runs of back-to-back launches,
    queued behind a device sleep so that the events bracket device work
    only): each kernel, its plain version, the library call
    (``scaled_dot_product_attention``, timed only as a yardstick), the bound
    at 3.35 TB/s and 989 TFLOP/s and the TFLOP/s of the tiles the kernel
-   computes; the f32 long-context forward's time beside them;
-8. the ``kernels`` JSON line, then the result line.
+   computes; the f32 long-context forward's time beside them; T1, the
+   threefry Bernoulli masks of every GPT-2 base leaf (one SPARTA step),
+   against its twin and its bound (bytes, or the SASS's integer instructions
+   at the dispatch limit of 128 lanes a clock an SM at the card's highest SM
+   clock);
+8. the stochastic strategies through ``Trainer.fit`` (random tokens, bf16),
+   each with its steady steps/s, exact launch counts of B1-B4 and T1 and
+   peak memory: 8a GPT-2 base, K=4 × 4 rows, SPARTA-DiLoCo (p 0.005, H 2,
+   participation 0.75), 4 steps, whose step-0 ``comm_bytes`` must equal
+   the prediction from the twin's mask counts; 8b the flagship, K=64 × 16,
+   FedAvg (H 2, islands of 16), 6 steps; 8c GPT-2 base, K=4 × 4, ZeRO-1
+   then SimpleReduce (AdamW), 3 steps each, where ZeRO must peak lower;
+9. the ``kernels`` JSON line, then the result line.
 
-The launch counts in the ``kernels`` line are those of the training runs of
-phases 4 (B1/B2), 5 (B3/B4) and 5b (B5), each counted from zero.
+Phase 3 also holds the threefry kernels (random bits and the fused
+Bernoulli mask, T1) to their plain twin bit for bit at 1, 4097, 786,432
+(``wpe``) and 38,633,472 (``wte``) elements and, at 2³² + 4097 elements,
+where the counter's high word is 1, on the last 8192; and the card's
+permutation to the twin's at 38,633,472. The launch counts in the ``kernels`` line are
+those of the training runs of phases 4 (B1/B2), 5 (B3/B4), 5b (B5) and 8a
+(T1), each counted from zero.
 """
 
 from __future__ import annotations
@@ -61,8 +79,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# the least time of integer work: an SM dispatches at most one warp instruction
+# (32 lanes) a clock from each of its 4 schedulers, 128 lanes a clock, which
+# the integer pipe (64 INT32 lanes) and the FMA pipe (which runs IMAD and
+# VIADD) share; times the SM count and the card's highest SM clock, both read
+# from the card (phase 1). 64 lanes is no ceiling: T1 beat it (PERF.md).
+DISPATCH_LANES_PER_SM = 128
+# the least int32 work of one Bernoulli mask element: threefry2x32's 20
+# rounds of add, rotate and xor, six key injections of two adds and the
+# final xor (73), then the mask as an integer test, (bits >> 9) <
+# ceil(p·2^23): a shift and a compare
+THREEFRY_LEAST_OPS = 73 + 2
 FUSED_CU = "gym_tpu_torch/ops/csrc/fused_attention.cu"
 FLASH_CU = "gym_tpu_torch/ops/csrc/flash_attention.cu"
+THREEFRY_CU = "gym_tpu_torch/ops/csrc/threefry.cu"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
 BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -78,7 +108,15 @@ KERNELS = {  # name: (module, wrapper, source, TPU kernel it replaces)
     "B5f_flash_fwd": ("flash", "_flash_fwd", FLASH_CU, f"{BUNDLED}:758"),
     "B5b_flash_bwd": ("flash", "_flash_bwd", FUSED_CU,
                       f"{BUNDLED}:1121 and :1456"),
+    # no pallas_call: XLA's threefry2x32 lowering of jax.random.bernoulli,
+    # which SPARTA's masks reach
+    "T1_threefry_bernoulli": ("threefry", "bernoulli", THREEFRY_CU,
+                              "gym_tpu/strategy/sparta.py:60"),
 }
+# the bits of the (fold_in(fold_in(PRNGKey(7), leaf), 0), step) keys
+# SPARTA's masks use; three leaves and steps for phase 3
+THREEFRY_KEYS = ((0, 0), (146, 3), (37, 1000))
+THREEFRY_N = (1, 4097, 786_432, 38_633_472)  # 38,633,472: GPT-2 base wte
 # stated tolerances, kernel against plain version on the same inputs:
 # |a − b| <= atol + rms_frac·rms(b) + rtol·|b| elementwise, rms(b) the root
 # mean square of the plain version's tensor (o and the gradients shrink as T
@@ -117,9 +155,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def int32_rate(torch) -> float:
+    """int32 instructions a second at the dispatch limit: 128 lanes a clock
+    on each SM at the card's highest SM clock (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = DISPATCH_LANES_PER_SM * sms * mhz * 1e6
+    log(f"  {sms} SMs, highest SM clock {mhz:.0f} MHz: int32 instructions "
+        f"at the dispatch limit {rate / 1e12:.2f} TOP/s")
+    return rate
+
+
 # -- phase 2: what the compiler made ----------------------------------------
 
-SASS_OPS = ("HGMMA", "HMMA", "FFMA", "ATOM/RED")
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "ATOM/RED", "ALU")
+# per-thread integer and float-compare ALU instructions (the uniform
+# datapath's U* instructions run once a warp and are not counted)
+ALU_OPS = {"IADD3", "IADD", "VIADD", "IMAD", "IMUL", "LOP3", "LOP", "SHF",
+           "SHL", "SHR", "ISETP", "LEA", "PRMT", "SEL", "IMNMX", "VIMNMX",
+           "IABS", "FADD", "FSETP", "FSEL", "FMUL"}
 _SASS_INSN = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                         r"([A-Z][A-Z0-9]*)")
 
@@ -135,7 +193,7 @@ def sass_counts(nvcc, lib_path):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            counts[name] = dict.fromkeys(SASS_OPS + ("ROT",), 0)
             continue
         m = _SASS_INSN.match(line)
         if name is None or not m:
@@ -143,6 +201,10 @@ def sass_counts(nvcc, lib_path):
         op = m.group(1)
         if op in ("ATOM", "ATOMS", "ATOMG", "RED", "REDG"):
             op = "ATOM/RED"
+        if op in ALU_OPS:
+            counts[name]["ALU"] += 1
+        if "SHF.L.W" in line:  # a 32-bit rotate: a funnel shift that wraps
+            counts[name]["ROT"] += 1
         if op in counts[name]:
             counts[name][op] += 1
     check(counts, "cuobjdump listed no kernels")
@@ -301,15 +363,109 @@ def check_kernels(torch, tfa, tflash, shapes):
     return errs
 
 
+def threefry_ops_per_element(counts):
+    """ALU instructions of the Bernoulli mask kernel per element, counted
+    from its SASS, a diagnostic beside the bound's THREEFRY_LEAST_OPS: every
+    threefry evaluation has exactly 20 rotations (``SHF.L.W``), so the
+    kernel's ALU count over its rotations / 20 is the work of one element,
+    the loop's and the last group's instructions shared out among the
+    evaluations."""
+    name = [k for k in counts if re.search(
+        r"threefry_kernel<(true|\(bool\)1)>", k)]
+    check(len(name) == 1, f"expected one Bernoulli mask kernel in the "
+          f"SASS, found {name}")
+    c = counts[name[0]]
+    check(c["ROT"] >= 20 and c["ROT"] % 20 == 0, f"T1: {c['ROT']} "
+          f"rotations are not whole threefry evaluations")
+    evals = c["ROT"] // 20
+    ops = c["ALU"] / evals
+    log(f"  T1 {name[0]}: {c['ALU']} ALU instructions, {c['ROT']} rotations "
+        f"= {evals} threefry evaluations in the code (4 a pass), {ops:.2f} "
+        f"an element (the least, which the bound counts: "
+        f"{THREEFRY_LEAST_OPS})")
+    check(THREEFRY_LEAST_OPS <= ops <= 160, f"T1: {ops} ALU instructions an element is "
+          f"outside 73-160")
+    return ops
+
+
+def threefry_key(tf, leaf, step, seed=7):
+    return tf.fold_in(tf.fold_in(tf.fold_in(tf.PRNGKey(seed), leaf), 0),
+                      step)
+
+
+def check_threefry(torch, tf):
+    """The bits and mask kernels against the plain twin, bit for bit, and
+    the card's permutation against the twin's (the twin runs on the card
+    here too, for speed). Returns the largest |kernel − twin| (0)."""
+    worst = 0
+    for n in THREEFRY_N:
+        for leaf, step in THREEFRY_KEYS:
+            key = threefry_key(tf, leaf, step)
+            got = tf.random_bits(key, n, "cuda")
+            ref = tf.plain_random_bits(key, n, "cuda")
+            diff = int((got != ref).sum())
+            worst = max(worst, diff)
+            check(diff == 0, f"T1 bits n={n} key {key}: {diff} elements "
+                  f"differ from the twin")
+            for p in (0.005, 0.5):
+                got = tf.bernoulli(key, p, n, "cuda")
+                ref = tf.plain_bernoulli(key, p, n, "cuda")
+                diff = int((got != ref).sum())
+                worst = max(worst, diff)
+                check(diff == 0, f"T1 mask n={n} p={p} key {key}: {diff} "
+                      f"elements differ from the twin")
+            del got, ref
+        log(f"  T1 threefry n={n}: bits and masks (p 0.005, 0.5) of "
+            f"{len(THREEFRY_KEYS)} keys bit-identical to the twin")
+    # past 2^32 elements the counter's hi word is 1: the mask kernel's last
+    # elements against the twin at those indices (4 GiB of mask)
+    n = 2 ** 32 + 4097
+    key = threefry_key(tf, 146, 3)
+    tail = tf.bernoulli(key, 0.5, n, "cuda")[-8192:]
+    idx = torch.arange(n - 8192, n, dtype=torch.int64, device="cuda")
+    ref = tf.bits_to_uniform(tf.plain_bits_at(key, idx)) < 0.5
+    diff = int((tail != ref).sum())
+    worst = max(worst, diff)
+    log(f"  T1 threefry n={n}: the last 8192 elements "
+        f"{'bit-identical to' if diff == 0 else 'DIFFER FROM'} the twin")
+    check(diff == 0, f"T1 mask past 2^32: {diff} elements differ")
+    del tail, idx, ref
+    torch.cuda.empty_cache()
+    n = THREEFRY_N[-1]
+    key = threefry_key(tf, 0, 0)
+    perm = tf.permutation(key, n, "cuda")
+    twin = torch.arange(n, dtype=torch.int64, device="cuda")
+    for _ in range(tf.sort_rounds(n)):
+        key, sub = tf.split(key)
+        bits = tf.plain_random_bits(sub, n, "cuda") ^ -0x80000000
+        twin = twin[torch.sort(bits, stable=True).indices]
+    same = torch.equal(perm, twin)
+    log(f"  permutation n={n} ({tf.sort_rounds(n)} sort rounds): card "
+        f"{'equals' if same else 'DIFFERS FROM'} the twin")
+    check(same, "permutation on the card differs from the twin")
+    del perm, twin
+    torch.cuda.empty_cache()
+    return float(worst)
+
+
 # -- phases 4-6: training through Trainer.fit --------------------------------
 
 
+SCHED = dict(lr_scheduler="lambda_cosine",
+             lr_scheduler_kwargs={"warmup_steps": 2})
+
+
+def diloco():
+    from gym_tpu_torch.strategy import DiLoCoStrategy, OptimSpec
+    return DiLoCoStrategy(optim_spec=OptimSpec("adamw", lr=3e-4), H=2,
+                          **SCHED)
+
+
 def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
-            run_name, init_params=None, tokens=200_000):
+            run_name, init_params=None, tokens=200_000, strategy=None):
     from gym_tpu_torch import Trainer
     from gym_tpu_torch.data import ContiguousGPTTrainDataset
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
-    from gym_tpu_torch.strategy import DiLoCoStrategy, OptimSpec
     import numpy as np
 
     cfg = GPTConfig(**cfg_kw)
@@ -318,9 +474,7 @@ def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
     cut = tokens * 9 // 10
     ds = ContiguousGPTTrainDataset(toks[:cut], cfg.block_size)
     val = ContiguousGPTTrainDataset(toks[cut:], cfg.block_size)
-    strategy = DiLoCoStrategy(
-        optim_spec=OptimSpec("adamw", lr=3e-4), H=2,
-        lr_scheduler="lambda_cosine", lr_scheduler_kwargs={"warmup_steps": 2})
+    strategy = strategy if strategy is not None else diloco()
     return Trainer(GPT(cfg), ds, val).fit(
         strategy=strategy, num_nodes=nodes, max_steps=steps,
         batch_size=batch, device=device, autocast=autocast, seed=seed,
@@ -341,7 +495,7 @@ def read_counts(mods):
 
 
 def train_phase(torch, mods, title, cfg_kw, nodes, batch, steps, want,
-                tokens=200_000):
+                tokens=200_000, strategy=None):
     log(f"{title}: K={nodes} x {batch} rows, {steps} steps, bf16")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -349,7 +503,7 @@ def train_phase(torch, mods, title, cfg_kw, nodes, batch, steps, want,
     reset_counts(mods)
     t0 = time.perf_counter()
     res = gpt_fit(torch, cfg_kw, nodes, batch, steps, "cuda", True, 0, title,
-                  tokens=tokens)
+                  tokens=tokens, strategy=strategy)
     wall = time.perf_counter() - t0
     counts = read_counts(mods)
     losses = [l for _, l in res.history["train_loss"]]
@@ -415,11 +569,12 @@ def long_context_phase(torch, mods, cfg_kw, nodes, steps):
     return counts
 
 
-def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=()):
+def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=(),
+                strategy_fn=diloco, label=""):
     """Train losses and global evals of the same fit on the card and on the
     CPU; ``want`` names kernels the card run must have launched."""
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
-    t = cfg_kw["block_size"]
+    t = f"{cfg_kw['block_size']}{label}"
     init = {n: p[0] for n, p in GPT(GPTConfig(**cfg_kw)).init_params(
         1, seed=11, device="cpu").items()}
     for mode, autocast in (("bf16", True), ("f32", False)):
@@ -428,7 +583,8 @@ def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=()):
             reset_counts(mods)
             res = gpt_fit(torch, cfg_kw, nodes, batch, steps, device,
                           autocast, 5, f"card_vs_cpu_T{t}_{mode}_{device}",
-                          init_params=init, tokens=tokens)
+                          init_params=init, tokens=tokens,
+                          strategy=strategy_fn())
             out[device] = [l for _, l in res.history["train_loss"]] + [
                 l for _, l in res.history["global_loss"]]
             if device == "cuda":
@@ -621,6 +777,143 @@ def time_kernels(torch, tfa, tflash, shapes):
     return out
 
 
+def gpt_leaves(cfg_kw):
+    """(JAX leaf index, per-node element count) of every leaf of the GPT,
+    in the port's dict order, from the parameter shapes alone."""
+    from gym_tpu_torch.convert import jax_leaf_order
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    specs = GPT(GPTConfig(**cfg_kw))._param_specs()
+    order = jax_leaf_order(specs)
+    return [(order[n], math.prod(shape)) for n, (shape, _) in specs.items()]
+
+
+def time_threefry(torch, tf, leaves, sass_ops, int32_ops_per_s, p=0.005):
+    """T1 at phase 8a's shapes: the masks of every leaf for one SPARTA
+    step, one launch a leaf; its twin on the card; the bound, from the
+    least operations an element (the compiled kernel's ``sass_ops`` is
+    printed beside it)."""
+    keys = [(threefry_key(tf, i, 0), n) for i, n in leaves]
+
+    def kernel():
+        for key, n in keys:
+            tf.bernoulli(key, p, n, "cuda")
+
+    def plain():
+        for key, n in keys:
+            tf.plain_bernoulli(key, p, n, "cuda")
+
+    total = sum(n for _, n in leaves)
+    t_bytes = total / HBM_BYTES_PER_S  # one byte written an element
+    t_ops = total * THREEFRY_LEAST_OPS / int32_ops_per_s
+    # two steps' masks a timed run (296 launches) stay inside the card's
+    # queue of pending launches; ten (1480) fill it, and the host's launch
+    # rate then shows in the events
+    r = dict(ms=timed(torch, kernel, inner=2),
+             plain_ms=timed(torch, plain, reps=3, inner=1),
+             library_ms=None,
+             bound=(max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    ten = timed(torch, kernel)
+    key, n = max(keys, key=lambda kn: kn[1])
+    one = timed(torch, lambda: tf.bernoulli(key, p, n, "cuda"))
+    log(f"T1 at 10 steps a timed run ({10 * len(keys)} launches): "
+        f"{ten:.4f} ms a step; the largest leaf alone ({n} elements): "
+        f"{one:.4f} ms, bound "
+        f"{n * THREEFRY_LEAST_OPS / int32_ops_per_s * 1e3:.4f} ms")
+    log(f"T1_threefry_bernoulli [{len(leaves)} leaves, {total} elements, "
+        f"p {p}, one launch a leaf]: kernel_ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} (twin, int64) library_ms none (no PyTorch "
+        f"call computes threefry2x32) bound_ms {r['bound'][0]:.4f} "
+        f"({r['bound'][1]}: {THREEFRY_LEAST_OPS} ops an element at "
+        f"{int32_ops_per_s / 1e12:.2f} TOP/s int32; bytes "
+        f"{t_bytes * 1e3:.4f} ms; at the compiled kernel's {sass_ops:.2f} "
+        f"ops an element {total * sass_ops / int32_ops_per_s * 1e3:.4f} ms) "
+        f"-> {r['bound'][0] / r['ms']:.1%} of bound")
+    torch.cuda.empty_cache()
+    return r
+
+
+# -- phase 8: the stochastic strategies --------------------------------------
+
+
+def expected_launches(res, cfg_kw, steps, packed, t1_per_step=0):
+    """Exact launches of a fit: the attention pair's forward once a layer a
+    step and twice a layer an eval (local and global params, one
+    validation microbatch), its backward once a layer a step; T1 once a
+    leaf a SPARTA step."""
+    layers = cfg_kw["n_layer"]
+    fwd = layers * (steps + 2 * len(res.history["global_loss"]))
+    pair = {"fwd": fwd, "bwd": layers * steps}
+    want = dict.fromkeys(("B1_fwd_packed", "B2_bwd_packed", "B3_blk_fwd",
+                          "B4_blk_bwd", "B5f_flash_fwd", "B5b_flash_bwd"), 0)
+    if packed:
+        want.update(B1_fwd_packed=pair["fwd"], B2_bwd_packed=pair["bwd"])
+    else:
+        want.update(B3_blk_fwd=pair["fwd"], B4_blk_bwd=pair["bwd"])
+    want["T1_threefry_bernoulli"] = t1_per_step * steps
+    return want
+
+
+def stochastic_phase(torch, mods, tf, card, base, flagship):
+    """8a SPARTA-DiLoCo at GPT-2 base, 8b FedAvg islands at the flagship,
+    8c ZeRO-1 against SimpleReduce at GPT-2 base; returns 8a's counts."""
+    from gym_tpu_torch.convert import jax_leaf_order
+    from gym_tpu_torch.strategy import (FedAvgStrategy, OptimSpec,
+                                        SimpleReduceStrategy,
+                                        SPARTADiLoCoStrategy,
+                                        ZeroReduceStrategy)
+    from gym_tpu_torch.strategy.faults import host_participation, ring_bytes
+    adamw = OptimSpec("adamw", lr=3e-4)
+
+    def run(title, cfg_kw, nodes, batch, steps, strategy, packed, t1=0):
+        counts, res = train_phase(torch, mods, title, cfg_kw, nodes, batch,
+                                  steps, (), strategy=strategy)
+        want = expected_launches(res, cfg_kw, steps, packed, t1)
+        log(f"  {title} on {card}: steady steps/s "
+            f"{res.steps_per_second_steady}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(counts == want, f"{title}: launches {counts}, expected {want}")
+        log(f"  launches exactly as expected: {want}")
+        return counts, res
+
+    # 8a: every leaf's mask each step, on the card through T1
+    strat = SPARTADiLoCoStrategy(adamw, p_sparta=0.005, H=2,
+                                 participation=0.75, **SCHED)
+    c8a, res = run("phase 8a gpt2-base SPARTA-DiLoCo", base, 4, 4, 4, strat,
+                   False, t1=len(gpt_leaves(base)))
+    # step 0's comm_bytes: the twin's realized mask count over every leaf
+    order = jax_leaf_order(res.node_state.params)
+    count = 0
+    for name, p in res.node_state.params.items():
+        key = threefry_key(tf, order[name], 0)
+        count += int(tf.plain_bernoulli(key, 0.005, p[0].numel(),
+                                        "cuda").sum())
+    group, frac = host_participation(5678, 0, 4, 0.75)
+    predicted = frac * ring_bytes(group, 4.0 * count)
+    got = res.history["comm_bytes"][0][1]
+    log(f"  step 0 comm_bytes {got:.1f}, predicted {predicted:.1f} from the "
+        f"twin's {count} masked elements, {group} of 4 nodes alive")
+    check(abs(got - predicted) <= 1e-6 * predicted,
+          f"8a: step 0 comm_bytes {got} != predicted {predicted}")
+    del res
+    # 8b: FedAvg with 16-node islands among 64 nodes
+    strat = FedAvgStrategy(adamw, H=2, island_size=16, **SCHED)
+    run("phase 8b flagship FedAvg islands", flagship, 64, 16, 6, strat, True)
+    # 8c: ZeRO-1 against SimpleReduce, both AdamW
+    peaks = {}
+    for title, cls in (("ZeRO-1", ZeroReduceStrategy),
+                       ("SimpleReduce", SimpleReduceStrategy)):
+        run(f"phase 8c gpt2-base {title}", base, 4, 4, 3,
+            cls(adamw, **SCHED), False)
+        peaks[title] = torch.cuda.max_memory_allocated()
+    log(f"  8c peak memory on {card}: ZeRO-1 "
+        f"{peaks['ZeRO-1'] / 2**30:.2f} GiB, SimpleReduce "
+        f"{peaks['SimpleReduce'] / 2**30:.2f} GiB")
+    check(peaks["ZeRO-1"] < peaks["SimpleReduce"],
+          "8c: ZeRO-1 did not lower the peak memory")
+    return c8a
+
+
 def main() -> int:
     try:
         import torch
@@ -635,6 +928,7 @@ def main() -> int:
     try:
         import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
+        import gym_tpu_torch.ops.threefry as tf
         from gym_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: gym_tpu_torch not found beside chip_smoke.py "
@@ -648,12 +942,13 @@ def main() -> int:
               "long": (2 * 1, 12, 8192, 64),
               "long_tuned_blocks": (2, 12, 2048, 64),
               "long_default_blocks": (2, 12, 1152, 64)}
-    mods = {"fused": tfa, "flash": tflash}
+    mods = {"fused": tfa, "flash": tflash, "threefry": tf}
     t_all = time.perf_counter()
     try:
         card = card_line()
         log(f"phase 1: {card}; torch {torch.__version__} cuda "
             f"{torch.version.cuda}; {torch.cuda.device_count()} card(s)")
+        int32_ops_per_s = int32_rate(torch)
 
         t0 = time.perf_counter()
         path = _build.build()
@@ -680,10 +975,13 @@ def main() -> int:
                 f"warpgroup) and {regs[1]} (two consumer warpgroups); "
                 f"{per_sm} block(s) per SM")
         log("  SASS instructions per kernel (cuobjdump -sass):")
-        check_sass(sass_counts(_build._nvcc(), path))
+        sass = sass_counts(_build._nvcc(), path)
+        check_sass(sass)
+        t1_ops = threefry_ops_per_element(sass)
 
         log("phase 3: kernels against plain versions on the card")
         errs = check_kernels(torch, tfa, tflash, shapes)
+        errs["T1_threefry_bernoulli"] = check_threefry(torch, tf)
 
         flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
                         n_embd=128, attn_impl="flash")
@@ -712,8 +1010,26 @@ def main() -> int:
                                       attn_impl="flash"), 2, 1, 2, 100_000,
                     want=("B5f_flash_fwd", "B5b_flash_bwd"))
 
+        def sparta_diloco():
+            from gym_tpu_torch.strategy import (OptimSpec,
+                                                SPARTADiLoCoStrategy)
+            return SPARTADiLoCoStrategy(OptimSpec("adamw", lr=3e-4),
+                                        p_sparta=0.3, H=2,
+                                        participation=0.75, **SCHED)
+        card_vs_cpu(torch, mods, dict(block_size=128, vocab_size=65,
+                                      n_layer=2, n_head=2, n_embd=64,
+                                      attn_impl="flash"), 4, 4, 3, 20_000,
+                    want=("T1_threefry_bernoulli",),
+                    strategy_fn=sparta_diloco, label="_sparta_diloco")
+
         log("phase 7: timing (CUDA events, median of 5)")
         times = time_kernels(torch, tfa, tflash, shapes)
+        times["T1_threefry_bernoulli"] = time_threefry(
+            torch, tf, gpt_leaves(base), t1_ops, int32_ops_per_s)
+
+        log("phase 8: the stochastic strategies through Trainer.fit")
+        c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
+        launches["T1_threefry_bernoulli"] = c8a["T1_threefry_bernoulli"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,7 +10,7 @@ flat dict ``{"h_0.attn.c_attn.kernel": ...}`` (kernels keep flax's
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable
 
 import numpy as np
 import torch
@@ -27,6 +27,16 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[name] = np.asarray(val)
     return out
+
+
+def jax_leaf_order(names: Iterable[str]) -> Dict[str, int]:
+    """The index ``jax.tree.flatten`` gives each flat name's leaf in the
+    nested tree: dict keys sorted at every level (``h_0, h_1, h_10, ...,
+    ln_f, wpe, wte``), where the port's dicts keep flax's insertion order.
+    What a leaf's random draws are keyed by (SPARTA's masks) and the order
+    a tree is raveled in (ZeRO's and DiLoCo's flat shards)."""
+    ordered = sorted(names, key=lambda n: n.split("."))
+    return {n: i for i, n in enumerate(ordered)}
 
 
 def params_from_jax(tree: Any, num_nodes: int = 1,

@@ -24,7 +24,8 @@ _ROOT = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(_ROOT, "build", "gym_tpu_torch")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
-                                                 "flash_attention.cu"))
+                                                 "flash_attention.cu",
+                                                 "threefry.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -121,6 +122,11 @@ def load() -> ctypes.CDLL:
         lib.gym_flash_occupancy.restype = i32
         lib.gym_attn_smem_bytes.argtypes = [i32, i32]
         lib.gym_attn_smem_bytes.restype = ctypes.c_longlong
+        u32, i64 = ctypes.c_uint, ctypes.c_longlong
+        lib.gym_threefry_bits.argtypes = [u32, u32, i64, vp, vp]
+        lib.gym_threefry_bits.restype = i32
+        lib.gym_bernoulli_mask.argtypes = [u32, u32, i64, f32, vp, vp]
+        lib.gym_bernoulli_mask.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,213 @@
+"""JAX's threefry PRNG, bit for bit: the host-side key algebra in Python ints
+and the device functions as a hand-written CUDA kernel with its plain
+PyTorch twin.
+
+Counterpart of ``jax.random`` as the JAX package uses it (jax 0.9.0,
+``jax_threefry_partitionable`` on): every random choice of the stochastic
+strategies (SPARTA's masks, FedAvg's island shuffle, the failure draws)
+comes from a shared threefry key, so the port reproduces the same bits to be
+held to ``gym_tpu``'s losses. ``torch.rand`` is Philox, a different function.
+
+Keys are pairs of uint32 held as Python ints:
+
+- ``PRNGKey(seed)`` = ``(seed >> 32, seed & 0xFFFFFFFF)`` (of the seed as
+  jax stores it: a 32-bit int without x64);
+- ``fold_in(key, d)`` = ``threefry2x32(key, (0, d))``;
+- ``split(key, n)[i]`` = ``threefry2x32(key, (0, i))`` (the fold-like split).
+
+Device functions take an explicit ``device``; element i of ``random_bits``
+is ``b0 ^ b1`` of ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))`` over the
+row-major flat index. ``uniform`` is ``bitcast_f32((bits >> 9) |
+0x3F800000) − 1``, ``bernoulli`` is ``uniform < float32(p)``, and
+``permutation`` is ``ceil(3·ln n / ln(2³²−1))`` rounds of a stable sort by
+fresh bits, each round's key split off the last.
+
+``random_bits`` and ``bernoulli`` dispatch on the device: on the card they
+launch ``csrc/threefry.cu`` (``gym_threefry_bits``, ``gym_bernoulli_mask``)
+or raise; on the CPU they run the plain twin, threefry in int64 tensors
+masked to 32 bits. ``launches`` on each counts its kernel launches. Bits are
+returned as int32 tensors holding the uint32 pattern (PyTorch has no usable
+uint32 arithmetic).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+Key = Tuple[int, int]
+M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+# -- host key algebra (Python ints) ------------------------------------------
+
+
+def _rotl(x, r):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(key: Key, count):
+    """threefry2x32 (20 rounds) of one counter pair under ``key``. The
+    counter words may be Python ints or int64 tensors holding uint32 values
+    (the plain twin); the result has the counter's type."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (count[0] + k0) & M32
+    x1 = (count[1] + k1) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)``: without x64 the seed is a 32-bit int,
+    so the high word is 0 and the low word its bit pattern."""
+    return (0, int(seed) & M32)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    return threefry2x32(key, (0, int(data) & M32))
+
+
+def split(key: Key, num: int = 2):
+    return [threefry2x32(key, (0, i)) for i in range(num)]
+
+
+# -- plain twin (int64 tensors masked to 32 bits) ----------------------------
+
+
+def _signed32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values in int64 → the same bit pattern as int32."""
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def plain_bits_at(key: Key, idx: torch.Tensor) -> torch.Tensor:
+    """The bits of the elements at flat indices ``idx`` (int64), as int32
+    bit patterns."""
+    b0, b1 = threefry2x32(key, (idx >> 32, idx & M32))
+    return _signed32(b0 ^ b1)
+
+
+def plain_random_bits(key: Key, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` as int32 bit patterns, in plain
+    PyTorch on ``device``."""
+    return plain_bits_at(key, torch.arange(n, dtype=torch.int64,
+                                            device=device))
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """[0, 1) floats from int32 bit patterns: the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1 (exact)."""
+    mant = (bits >> 9) & 0x7FFFFF  # arithmetic shift: mask the sign fill
+    return (mant | 0x3F800000).view(torch.float32) - 1.0
+
+
+def plain_bernoulli(key: Key, p: float, n: int, device="cpu"):
+    return bits_to_uniform(plain_random_bits(key, n, device)) < _f32(p)
+
+
+def _f32(p: float) -> torch.Tensor:
+    return torch.tensor(p, dtype=torch.float32)
+
+
+# -- kernel launches ---------------------------------------------------------
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check_n(n: int, device) -> torch.device:
+    device = torch.device(device)
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device}")
+    return device
+
+
+def random_bits(key: Key, n: int, device) -> torch.Tensor:
+    """[n] int32: ``jax.random.bits(key, (n,))``'s uint32 bit patterns."""
+    device = _check_n(n, device)
+    if device.type == "cpu":
+        return plain_random_bits(key, n, device)
+    from . import _build
+    lib = _build.load()
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        with torch.cuda.device(device):
+            code = lib.gym_threefry_bits(key[0], key[1], n, out.data_ptr(),
+                                         _stream(device))
+        _build.check(lib, code, "gym_threefry_bits")
+        random_bits.launches += 1
+    return out
+
+
+def bernoulli(key: Key, p: float, n: int, device) -> torch.Tensor:
+    """[n] bool: ``jax.random.bernoulli(key, p, (n,))``; on the card one
+    fused pass (bits, uniform, compare) writing one byte an element."""
+    device = _check_n(n, device)
+    if device.type == "cpu":
+        return plain_bernoulli(key, p, n, device)
+    from . import _build
+    lib = _build.load()
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n:
+        with torch.cuda.device(device):
+            code = lib.gym_bernoulli_mask(key[0], key[1], n, float(p),
+                                          out.data_ptr(), _stream(device))
+        _build.check(lib, code, "gym_bernoulli_mask")
+        bernoulli.launches += 1
+    return out
+
+
+random_bits.launches = 0
+bernoulli.launches = 0
+
+
+def reset_launch_counts() -> None:
+    random_bits.launches = 0
+    bernoulli.launches = 0
+
+
+# -- composites --------------------------------------------------------------
+
+
+def uniform(key: Key, n: int, device) -> torch.Tensor:
+    """[n] float32: ``jax.random.uniform(key, (n,))``."""
+    return bits_to_uniform(random_bits(key, n, device))
+
+
+def sort_rounds(n: int) -> int:
+    """Rounds of ``jax.random.permutation``'s shuffle for n elements."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1)))
+
+
+def permutation(key: Key, n: int, device) -> torch.Tensor:
+    """[n] int64: ``jax.random.permutation(key, n)``. Each round sorts the
+    current order by fresh bits, stably, as unsigned ints (the sign bit
+    flipped so that int32 order is uint32 order)."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(sort_rounds(n)):
+        key, sub = split(key)
+        sort_keys = random_bits(sub, n, device) ^ -0x80000000
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """[n] int32 ``pos`` with ``pos[perm[j]] = j``: ``argsort(perm)`` for a
+    permutation."""
+    pos = torch.empty(perm.shape[0], dtype=torch.int32, device=perm.device)
+    pos[perm] = torch.arange(perm.shape[0], dtype=torch.int32,
+                             device=perm.device)
+    return pos

@@ -40,6 +40,16 @@ class AxisCtx:
         """Mean across nodes (all_reduce SUM then /K)."""
         return _map(lambda x: x.mean(dim=0, keepdim=True).expand_as(x), tree)
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum across nodes, node i receiving the i-th of K equal chunks:
+        [K, K·c] → [K, c] (reference reduce_scatter SUM, ``psum_scatter``
+        of a flat vector)."""
+        k = x.shape[0]
+        if x.shape[-1] % k:
+            raise ValueError(f"reduce_scatter: length {x.shape[-1]} is not "
+                             f"a multiple of the {k} nodes")
+        return x.sum(dim=0).view(k, x.shape[-1] // k)
+
     def all_gather(self, tree):
         """Every node receives all K values: [K, ...] → [K, K, ...], ordered
         by node index."""

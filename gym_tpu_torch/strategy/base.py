@@ -8,9 +8,11 @@
 their leading dimension; ``ctx`` (``parallel/axis.py:AxisCtx``) supplies the
 collectives over it. ``step`` is the host step counter (a Python int), so
 the strategy's gates branch on the host with no device round trip.
-``finalize(max_steps)`` must be called before ``init``. Every ``step``
-returns ``comm_bytes``: the analytic per-node payload the algorithm would
-transmit on a real network.
+``finalize(max_steps)`` must be called before ``init``, and strategies
+whose state layout depends on the node count (ZeRO) need ``bind_ctx(ctx)``
+before it (``make_init_fn(..., ctx=)`` and ``Trainer.fit`` do that). Every ``step`` returns
+``comm_bytes``: the payload the algorithm would transmit on a real
+network, as the mean over the nodes.
 """
 
 from __future__ import annotations
@@ -51,9 +53,14 @@ def tree_num_params(tree) -> int:
     return int(sum(x.numel() for x in leaves))
 
 
-def comm_metric(x) -> float:
-    """Canonical form of the per-step ``comm_bytes`` metric: a float32
-    value, known on the host (it depends on shapes and the step only)."""
+def comm_metric(x):
+    """Canonical form of the per-step ``comm_bytes`` metric, a float32
+    value: a Python float where the host knows it (shapes, the step and the
+    host's fault draw fix it), or a 0-d float32 tensor left on the device
+    where it counts realized random masks (SPARTA), read back one step late
+    with the loss."""
+    if torch.is_tensor(x):
+        return x.to(torch.float32).reshape(())
     return float(np.float32(x))
 
 
@@ -116,6 +123,13 @@ class Strategy(abc.ABC):
         self.max_steps = 1
         self._lr_scale = None
         self._finalized = False
+        self._ctx: Optional[AxisCtx] = None
+
+    def bind_ctx(self, ctx: AxisCtx) -> "Strategy":
+        """Attach the node context before ``init``; most strategies ignore
+        it."""
+        self._ctx = ctx
+        return self
 
     def finalize(self, max_steps: int) -> "Strategy":
         """Bind ``max_steps`` (needed by the lr schedule) and build the
@@ -139,7 +153,7 @@ class Strategy(abc.ABC):
              step: int, ctx: AxisCtx
              ) -> Tuple[Tree, Dict[str, Any], Dict[str, Any]]:
         """One post-gradient step: communicate + optimize. Returns (params,
-        state, metrics); ``metrics['comm_bytes']`` is per node."""
+        state, metrics); ``metrics['comm_bytes']`` is the node mean."""
 
     def comm_events(self, step: int, params,
                     num_nodes: int) -> List[CollectiveEvent]:

@@ -17,12 +17,19 @@ from .optim import OptimSpec, apply_updates, ensure_optim_spec
 class CommunicationModule(abc.ABC):
     """Communication transformer over the node dimension."""
 
+    _ctx = None  # node context, bound before init for layout decisions
+
+    def bind_ctx(self, ctx) -> "CommunicationModule":
+        self._ctx = ctx
+        return self
+
     def init(self, params) -> Dict[str, Any]:
         return {}
 
     @abc.abstractmethod
     def communicate(self, params, mstate, step, ctx):
-        """Returns (new_params, new_mstate, comm_bytes per node)."""
+        """Returns (new_params, new_mstate, comm_bytes as the node mean: a
+        host float or a 0-d device tensor)."""
 
     def comm_events(self, step: int, params,
                     num_nodes: int) -> List[CollectiveEvent]:
@@ -52,6 +59,12 @@ class CommunicateOptimizeStrategy(Strategy):
     def _build(self):
         self.tx = self.optim_spec.build(self._lr_scale)
 
+    def bind_ctx(self, ctx):
+        super().bind_ctx(ctx)
+        for m in self.communication_modules:
+            m.bind_ctx(ctx)
+        return self
+
     def init(self, params):
         require_finalized(self)
         return {
@@ -60,7 +73,7 @@ class CommunicateOptimizeStrategy(Strategy):
         }
 
     def _should_communicate(self, step: int) -> bool:
-        """Gate hook (FedAvg's H-periodic gate in a later slice)."""
+        """Gate hook; FedAvg overrides it with its H-periodic gate."""
         return True
 
     def comm_events(self, step: int, params,

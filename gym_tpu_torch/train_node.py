@@ -32,15 +32,18 @@ class TrainState:
 
 
 def make_init_fn(loss_model: LossModel, strategy: Strategy, seed: int,
-                 init_params=None, device=None):
+                 init_params=None, device=None, ctx: Optional[AxisCtx] = None):
     """``init_fn(node_index [K]) -> TrainState``. Parameters come from the
     same seed for every node (replicas start identical), or from
     ``init_params``: a dict of per-node tensors (or arrays) by parameter
     name, copied to every node, or already stacked ``[K, ...]``. Shapes
     come from the model's config, so no example batch is needed.
     ``device=None`` is the card (``default_device``: an error without
-    one), as in ``Trainer.fit``."""
+    one), as in ``Trainer.fit``. ``ctx`` is bound to the strategy before
+    its ``init`` (ZeRO lays its state out by the node count)."""
     device = default_device(device)
+    if ctx is not None:
+        strategy.bind_ctx(ctx)
 
     def init_fn(node_index: torch.Tensor) -> TrainState:
         k = int(node_index.shape[0])
@@ -85,7 +88,8 @@ def make_train_step(loss_model: LossModel, strategy: Strategy, ctx: AxisCtx,
                     skip_nonfinite: bool = False):
     """``node_step(state, batch) -> (state, metrics)``; batch tensors are
     [K, n_micro, micro_bs, ...]. Metrics: ``loss`` [K] on the device,
-    ``comm_bytes`` per node (host float) and, with ``skip_nonfinite``,
+    ``comm_bytes`` as the node mean (a host float, or a 0-d tensor on the
+    device where it counts random masks) and, with ``skip_nonfinite``,
     ``nonfinite`` [K]: a node whose loss or gradients go non-finite
     contributes zero gradient instead, so one diverged replica cannot
     poison the collective mean."""
@@ -135,7 +139,8 @@ def make_train_step(loss_model: LossModel, strategy: Strategy, ctx: AxisCtx,
 def make_multi_train_step(loss_model: LossModel, strategy: Strategy,
                           ctx: AxisCtx, skip_nonfinite: bool = False):
     """S steps per call: batch tensors are [K, S, n_micro, micro_bs, ...];
-    per-node metrics gain a step axis, [K, S] (``comm_bytes`` a list)."""
+    per-node metrics gain a step axis, [K, S] (``comm_bytes`` a list of its
+    S values)."""
     node_step = make_train_step(loss_model, strategy, ctx, skip_nonfinite)
 
     def node_multi(state: TrainState, batches):
@@ -146,8 +151,8 @@ def make_multi_train_step(loss_model: LossModel, strategy: Strategy,
         metrics = {}
         for key in per_step[0]:
             vals = [m[key] for m in per_step]
-            metrics[key] = (torch.stack(vals, dim=1) if torch.is_tensor(
-                vals[0]) else vals)
+            metrics[key] = vals if key == "comm_bytes" else torch.stack(
+                vals, dim=1)
         return state, metrics
 
     return node_multi

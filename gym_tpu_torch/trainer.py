@@ -194,7 +194,8 @@ class Trainer:
         strategy.finalize(max_steps)
 
         init_fn = make_init_fn(loss_model, strategy, seed,
-                               init_params=init_params, device=dev)
+                               init_params=init_params, device=dev,
+                               ctx=runtime.ctx)
         state = runtime.init_state(init_fn)
         train_step = make_train_step(loss_model, strategy, runtime.ctx,
                                      skip_nonfinite)
@@ -256,7 +257,10 @@ class Trainer:
             nonlocal last_loss
             first_idx, m, count = p
             loss_a = m["loss"][0].reshape(count).cpu().numpy()
-            comm_a = np.asarray(m["comm_bytes"], np.float64).reshape(count)
+            # the node mean; a count of random masks is still on the device
+            # and is read here, one step late, as the loss is
+            comm_a = np.array([float(c) for c in m["comm_bytes"]],
+                              np.float64)
             nf_a = (m["nonfinite"].sum(dim=0).reshape(count).cpu().numpy()
                     if "nonfinite" in m else None)
             for j in range(count):
@@ -293,7 +297,7 @@ class Trainer:
                     batch = feed(train_iter.next_batch(n_micro,
                                                        minibatch_size))
                     state, metrics = train_step(state, batch)
-                    metrics = {k: (v[:, None] if torch.is_tensor(v) else [v])
+                    metrics = {k: ([v] if k == "comm_bytes" else v[:, None])
                                for k, v in metrics.items()}
                 if pending is not None:
                     # the previous call's loss; reading it waits for all the

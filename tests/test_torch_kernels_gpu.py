@@ -1,6 +1,6 @@
-"""The CUDA kernels of ``gym_tpu_torch.ops.fused_attention`` and
-``gym_tpu_torch.ops.flash_attention`` against their plain versions on the
-card. Marked ``gpu``: they skip without a card. This
+"""The CUDA kernels of ``gym_tpu_torch.ops.fused_attention``,
+``gym_tpu_torch.ops.flash_attention`` and ``gym_tpu_torch.ops.threefry``
+against their plain versions on the card. Marked ``gpu``: they skip without a card. This
 file imports neither JAX nor ``gym_tpu``, so it runs on the machine with the
 card, where JAX is not installed:
 
@@ -21,7 +21,9 @@ bf16 backward has no atomics, so two runs on the same inputs agree bit for
 bit, and so do two runs of the bf16 long-context forward. The bf16 kernels
 copy rows with 16-byte ``cp.async`` or TMA and refuse views that are not
 16-byte aligned; the f32 kernels take them. The long-context pair refuses
-T % 128 != 0 on the card as on the CPU.
+T % 128 != 0 on the card as on the CPU. The threefry kernels (random bits
+and the fused Bernoulli mask) equal their plain twin bit for bit, at
+lengths that end inside and on a 4-element group.
 """
 
 import pytest
@@ -29,6 +31,7 @@ import torch
 
 import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
+import gym_tpu_torch.ops.threefry as tf
 
 HEAD_DIMS = (16, 32, 64, 128)
 # (atol, rms_frac, rtol) of each dtype, as in chip_smoke.py's TOL
@@ -201,3 +204,32 @@ def test_unsupported_head_dim_raises_on_card():
     x = torch.randn(1, 1, 2048, 256, device="cuda", generator=g)
     with pytest.raises(ValueError):
         tflash.flash_causal_attention(x, x, x)
+
+
+THREEFRY_N = (0, 1, 3, 4, 5, 4097, 786_432, (1 << 20) + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", THREEFRY_N)
+def test_threefry_kernels_match_twin_bit_for_bit(n):
+    _card()
+    for leaf, step in ((0, 0), (146, 3), (37, 1000)):
+        key = tf.fold_in(tf.fold_in(tf.fold_in(tf.PRNGKey(7), leaf), 0),
+                         step)
+        before = tf.bernoulli.launches
+        assert torch.equal(tf.random_bits(key, n, "cuda"),
+                           tf.plain_random_bits(key, n, "cuda"))
+        for p in (0.005, 0.3, 0.5):
+            got = tf.bernoulli(key, p, n, "cuda")
+            assert got.dtype == torch.bool and got.is_cuda
+            assert torch.equal(got, tf.plain_bernoulli(key, p, n, "cuda"))
+        assert tf.bernoulli.launches == before + (3 if n else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 1000, 70_000])
+def test_permutation_on_card_matches_twin(n):
+    _card()
+    key = tf.fold_in(tf.PRNGKey(7), 3)
+    got = tf.permutation(key, n, "cuda").cpu()
+    assert torch.equal(got, tf.permutation(key, n, "cpu"))

@@ -1,0 +1,127 @@
+"""Port parity: ``gym_tpu_torch.ops.threefry`` against ``jax.random`` (jax
+0.9.0, threefry, partitionable), bit for bit on the CPU, where the device
+functions run their plain twin (threefry in int64 tensors masked to 32
+bits). Also the leaf order the strategies key their draws by, and the flat
+shards of ZeRO and DiLoCo's sharded outer state, against the JAX package.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gym_tpu.models.nanogpt import GPT as JGPT, GPTConfig as JConfig
+from gym_tpu.strategy.sharding import take_shard as j_take_shard
+from gym_tpu_torch.convert import flatten_tree, jax_leaf_order
+from gym_tpu_torch.ops import threefry as tf
+from gym_tpu_torch.strategy import faults as tfaults
+from gym_tpu_torch.strategy import sharding as tsharding
+
+SEEDS = [0, 7, 2 ** 31 + 5]
+
+
+def _key(k):
+    return tuple(int(x) for x in np.asarray(k))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_algebra_matches_jax(seed):
+    jk = jax.random.PRNGKey(seed)
+    tk = tf.PRNGKey(seed)
+    assert _key(jk) == tk
+    for d in (0, 1, 146, 2 ** 32 - 1):
+        assert _key(jax.random.fold_in(jk, d)) == tf.fold_in(tk, d)
+    for num in (2, 5):
+        assert [_key(k) for k in jax.random.split(jk, num)] == \
+            tf.split(tk, num)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4097, 100_003])
+def test_bits_uniform_bernoulli_match_jax_bit_for_bit(n):
+    for seed in SEEDS:
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
+        tk = tf.fold_in(tf.PRNGKey(seed), 11)
+        bits = np.asarray(jax.random.bits(jk, (n,))).view(np.int32)
+        np.testing.assert_array_equal(tf.random_bits(tk, n, "cpu").numpy(),
+                                      bits)
+        u = np.asarray(jax.random.uniform(jk, (n,)))
+        np.testing.assert_array_equal(
+            tf.uniform(tk, n, "cpu").numpy().view(np.int32), u.view(np.int32))
+        for p in (0.005, 0.3, 0.5):
+            m = np.asarray(jax.random.bernoulli(jk, p, (n,)))
+            np.testing.assert_array_equal(
+                tf.bernoulli(tk, p, n, "cpu").numpy(), m)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 70_000])
+def test_permutation_matches_jax(n):
+    """Rounds: 0 at n=1, 1 at 2 and 1000, 2 at 70,000 (each a stable sort
+    by fresh bits)."""
+    assert tf.sort_rounds(n) == {1: 0, 2: 1, 1000: 1, 70_000: 2}[n]
+    for seed in SEEDS:
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+        tk = tf.fold_in(tf.PRNGKey(seed), 3)
+        perm = tf.permutation(tk, n, "cpu")
+        np.testing.assert_array_equal(
+            perm.numpy(), np.asarray(jax.random.permutation(jk, n)))
+        np.testing.assert_array_equal(
+            tf.inverse_permutation(perm).numpy(),
+            np.asarray(jnp.argsort(jax.random.permutation(jk, n))))
+
+
+@pytest.mark.parametrize("rate", [0.25, 0.5, 0.75])
+def test_fault_draws_match_jax(rate):
+    from gym_tpu.strategy import faults as jfaults
+    for k in (1, 4, 16):
+        for step in range(6):
+            alive = np.asarray(jfaults.alive_mask(5678, step, k, rate))
+            assert tfaults.alive_mask(5678, step, k, rate) == \
+                tuple(alive.tolist())
+            assert tfaults.host_participation(5678, step, k, rate) == \
+                jfaults.host_participation(5678, step, k, rate)
+
+
+def _gpt_tree():
+    cfg = JConfig(block_size=32, vocab_size=65, n_layer=12, n_head=2,
+                  n_embd=16)
+    x = jnp.zeros((1, 32), jnp.int32)
+    return JGPT(cfg).init(jax.random.PRNGKey(0), (x, x),
+                          train=False)["params"]
+
+
+def test_jax_leaf_order_is_tree_flatten_order():
+    """The index each flat name gets equals its leaf's position in
+    ``jax.tree.flatten`` of the flax tree (12 layers, so h_10 sorts before
+    h_2)."""
+    tree = _gpt_tree()
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    want = [".".join(str(p.key) for p in path) for path, _ in leaves]
+    order = jax_leaf_order(flatten_tree(tree))
+    assert sorted(order, key=order.__getitem__) == want
+    assert want.index("h_10.attn.c_attn.kernel") < want.index(
+        "h_2.attn.c_attn.kernel")
+
+
+def test_take_shard_matches_jax():
+    """Node i's slice i of its raveled tree, for K = 3 nodes with different
+    params (the last shard zero-padded), against the JAX package's
+    ``take_shard`` on each node; ``unshard`` reassembles the tree."""
+    nested = _gpt_tree()
+    rng = np.random.default_rng(0)
+    k = 3
+    per_node = [jax.tree.map(lambda x: jnp.asarray(
+        rng.standard_normal(x.shape), jnp.float32), nested) for _ in range(k)]
+    flat = [flatten_tree(t) for t in per_node]
+    stacked = {n: torch.tensor(np.stack([f[n] for f in flat]))
+               for n in flat[0]}
+    shards, n = tsharding.take_shard(stacked, k)
+    for i in range(k):
+        mine, _, jn = j_take_shard(per_node[i], k, i)
+        assert jn == n
+        np.testing.assert_array_equal(shards[i].numpy(), np.asarray(mine))
+    same = {name: v[:1].expand_as(v) for name, v in stacked.items()}
+    back = tsharding.unshard(tsharding.take_shard(same, k)[0], n, same)
+    assert list(back) == list(stacked)
+    for name, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), stacked[name][0].numpy())

@@ -21,15 +21,19 @@ import torch
 from gym_tpu import Trainer as JTrainer
 from gym_tpu.data import ContiguousGPTTrainDataset as JDataset
 from gym_tpu.models.nanogpt import GPT as JGPT, GPTConfig as JConfig
-from gym_tpu.strategy import (DiLoCoStrategy as JDiLoCo, OptimSpec as JSpec,
-                              SimpleReduceStrategy as JSimple)
+from gym_tpu.strategy import (DiLoCoStrategy as JDiLoCo,
+                              FedAvgStrategy as JFedAvg, OptimSpec as JSpec,
+                              SimpleReduceStrategy as JSimple,
+                              SPARTADiLoCoStrategy as JSPARTADiLoCo)
 from gym_tpu_torch import Trainer as TTrainer
 from gym_tpu_torch.convert import params_from_jax
 from gym_tpu_torch.data import ContiguousGPTTrainDataset as TDataset
 from gym_tpu_torch.models.nanogpt import GPT as TGPT, GPTConfig as TConfig
 from gym_tpu_torch.strategy import (DiLoCoStrategy as TDiLoCo,
+                                    FedAvgStrategy as TFedAvg,
                                     OptimSpec as TSpec,
-                                    SimpleReduceStrategy as TSimple)
+                                    SimpleReduceStrategy as TSimple,
+                                    SPARTADiLoCoStrategy as TSPARTADiLoCo)
 
 K, T, V, STEPS = 4, 32, 65, 8
 SMALL = dict(block_size=T, vocab_size=V, n_layer=2, n_head=2, n_embd=32,
@@ -53,13 +57,17 @@ def _init_tree():
 def _strategy(pkg, which):
     sched = dict(lr_scheduler="lambda_cosine",
                  lr_scheduler_kwargs={"warmup_steps": 2})
-    if pkg == "jax":
-        if which == "diloco":
-            return JDiLoCo(JSpec("adamw", lr=1e-2), H=2, **sched)
-        return JSimple(JSpec("adamw", lr=1e-2), **sched)
+    jax_pkg = pkg == "jax"
+    spec = (JSpec if jax_pkg else TSpec)("adamw", lr=1e-2)
     if which == "diloco":
-        return TDiLoCo(TSpec("adamw", lr=1e-2), H=2, **sched)
-    return TSimple(TSpec("adamw", lr=1e-2), **sched)
+        return (JDiLoCo if jax_pkg else TDiLoCo)(spec, H=2, **sched)
+    if which == "sparta_diloco":
+        return (JSPARTADiLoCo if jax_pkg else TSPARTADiLoCo)(
+            spec, p_sparta=0.3, H=2, participation=0.75, **sched)
+    if which == "fedavg":
+        return (JFedAvg if jax_pkg else TFedAvg)(spec, H=2, island_size=2,
+                                                 **sched)
+    return (JSimple if jax_pkg else TSimple)(spec, **sched)
 
 
 FIT = dict(num_nodes=K, max_steps=STEPS, batch_size=4, minibatch_size=2,
@@ -84,6 +92,10 @@ def _fit_port(tmp_path, which, tree, levers=None, **kw):
 @pytest.mark.parametrize("which,levers", [
     pytest.param("diloco", {}, id="diloco"),
     pytest.param("simple_reduce", {}, id="simple_reduce"),
+    # the stochastic strategies: threefry masks, fault draws and island
+    # shuffles equal to the JAX package's
+    pytest.param("sparta_diloco", {}, id="sparta_diloco"),
+    pytest.param("fedavg", {}, id="fedavg"),
     # the memory levers: 48-row loss chunks do not divide a microbatch's 64
     pytest.param("diloco", dict(remat=True, loss_chunk=48),
                  id="diloco-remat-loss_chunk")])
