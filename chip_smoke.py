@@ -53,15 +53,40 @@ Phases (any failure exits non-zero before the result lines are printed):
    the prediction from the twin's mask counts; 8b the flagship, K=64 × 16,
    FedAvg (H 2, islands of 16), 6 steps; 8c GPT-2 base, K=4 × 4, ZeRO-1
    then SimpleReduce (AdamW), 3 steps each, where ZeRO must peak lower;
-9. the ``kernels`` JSON line, then the result line.
+9. the BASELINE configs through ``Trainer.fit`` at
+   ``benchmarks/run_baselines.py``'s settings, cut in steps, f32, each with
+   its steady steps/s, peak memory, final loss and exact launch counts:
+   9a-9c the MNIST CNN on the bundled digits (batch 256 in microbatches of
+   64, Adam 1e-3, lambda_cosine warmup 100, 8 steps): 9a K=2 SimpleReduce,
+   9b K=8 DiLoCo (H cut from 100 to 2 so that outer steps fire), 9c K=8
+   SPARTA (p 0.005), the dropout masks from the per-row T1 (3 launches a
+   microbatch) and SPARTA's from T1 (one a leaf a step), evals at step 0
+   and after the last step (the configs eval 5 times in 300 steps, so the
+   steady window holds none); 9d nanoGPT "small" 4L/4H/128d, vocab 66,
+   T=256, K=16 × 16 rows, FedAvg AdamW 3e-4 (H cut to 2), 6 steps on the
+   ``docs`` stream of the checkout's ``gym_tpu/`` (its length and crc32
+   checked), the packed pair B1/B2 in f32, evals likewise; 9e the CNN on the card against the CPU, K=2 × 8 images in
+   microbatches of 4, 3 steps from the same weights, f32 and bf16 (plain
+   SGD: under Adam the conv biases ahead of BatchNorm get gradients of
+   pure rounding noise, which Adam scales to steps of ±lr, so two
+   summation orders part after a step; PERF.md);
+10. the ``kernels`` JSON line, then the result line.
 
 Phase 3 also holds the threefry kernels (random bits and the fused
 Bernoulli mask, T1) to their plain twin bit for bit at 1, 4097, 786,432
 (``wpe``) and 38,633,472 (``wte``) elements and, at 2³² + 4097 elements,
 where the counter's high word is 1, on the last 8192; and the card's
-permutation to the twin's at 38,633,472. The launch counts in the ``kernels`` line are
-those of the training runs of phases 4 (B1/B2), 5 (B3/B4), 5b (B5) and 8a
-(T1), each counted from zero.
+permutation to the twin's at 38,633,472, and the mask at the CNN's 20
+leaves under SPARTA's keys of phase 9c's 8 steps; and the per-row mask
+(one launch for a table of keys, as dropout draws it) at phase 9's
+dropouts (K = 8 and 2 rows of 64 × 64, 128 and 256 elements, the keys of
+two steps) and at 32 rows of 4096 and of 191 elements. Phase 7 also times the f32
+packed pair at config 4's shape (N=256), the per-row mask at config 2's
+dropout shapes and the host's key algebra a step. The launch counts in the
+``kernels`` line are those of the training runs of phases 4 (B1/B2), 5
+(B3/B4), 5b (B5), 8a (T1), 9b (T1's per-row entry) and 9d (the f32 B1/B2),
+each counted from zero; the packed pair counts its bf16 and f32 kernels
+apart (every eval runs in f32).
 """
 
 from __future__ import annotations
@@ -96,22 +121,36 @@ THREEFRY_CU = "gym_tpu_torch/ops/csrc/threefry.cu"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
 BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-KERNELS = {  # name: (module, wrapper, source, TPU kernel it replaces)
-    "B1_fwd_packed": ("fused", "_fwd_packed", FUSED_CU,
+# name: (module, wrapper, its launch count, source, TPU kernel it replaces);
+# the packed pair counts its bf16 and f32 kernels apart
+KERNELS = {
+    "B1_fwd_packed": ("fused", "_fwd_packed", "launches_bf16", FUSED_CU,
                       "gym_tpu/ops/fused_attention.py:246"),
-    "B2_bwd_packed": ("fused", "_bwd_packed", FUSED_CU,
+    "B2_bwd_packed": ("fused", "_bwd_packed", "launches_bf16", FUSED_CU,
                       "gym_tpu/ops/fused_attention.py:267"),
-    "B3_blk_fwd": ("fused", "_blk_fwd", FUSED_CU,
+    "B3_blk_fwd": ("fused", "_blk_fwd", "launches", FUSED_CU,
                    "gym_tpu/ops/fused_attention.py:137"),
-    "B4_blk_bwd": ("fused", "_blk_bwd", FUSED_CU,
+    "B4_blk_bwd": ("fused", "_blk_bwd", "launches", FUSED_CU,
                    "gym_tpu/ops/fused_attention.py:153"),
-    "B5f_flash_fwd": ("flash", "_flash_fwd", FLASH_CU, f"{BUNDLED}:758"),
-    "B5b_flash_bwd": ("flash", "_flash_bwd", FUSED_CU,
+    "B5f_flash_fwd": ("flash", "_flash_fwd", "launches", FLASH_CU,
+                      f"{BUNDLED}:758"),
+    "B5b_flash_bwd": ("flash", "_flash_bwd", "launches", FUSED_CU,
                       f"{BUNDLED}:1121 and :1456"),
     # no pallas_call: XLA's threefry2x32 lowering of jax.random.bernoulli,
     # which SPARTA's masks reach
-    "T1_threefry_bernoulli": ("threefry", "bernoulli", THREEFRY_CU,
-                              "gym_tpu/strategy/sparta.py:60"),
+    "T1_threefry_bernoulli": ("threefry", "bernoulli", "launches",
+                              THREEFRY_CU, "gym_tpu/strategy/sparta.py:60"),
+    # the f32 instantiations of the packed pair: the path of config 4,
+    # which trains without autocast, and of every eval
+    "B1_fwd_packed_f32": ("fused", "_fwd_packed", "launches_f32", FUSED_CU,
+                          "gym_tpu/ops/fused_attention.py:246"),
+    "B2_bwd_packed_f32": ("fused", "_bwd_packed", "launches_f32", FUSED_CU,
+                          "gym_tpu/ops/fused_attention.py:267"),
+    # T1 with a key per row: flax nn.Dropout's jax.random.bernoulli, one
+    # mask a node, drawn for all the nodes in one launch
+    "T1_threefry_bernoulli_rows": ("threefry", "bernoulli_rows", "launches",
+                                   THREEFRY_CU,
+                                   "gym_tpu/models/mnist_cnn.py:36,45"),
 }
 # the bits of the (fold_in(fold_in(PRNGKey(7), leaf), 0), step) keys
 # SPARTA's masks use; three leaves and steps for phase 3
@@ -132,6 +171,8 @@ TOL = {"bfloat16": {"out": (0.0, 5e-2, 2e-2),
 # card against CPU, per-step train loss: bf16 compute rounds differently
 # in cuBLAS and the CPU kernels; f32 differs by summation order only
 LOSS_RTOL = {"bf16": 1e-2, "f32": 1e-4}
+# the docs stream of the checkout's gym_tpu/: tokens and crc32 of its bytes
+DOCS_TOKENS, DOCS_CRC = 279_562, 1349009140
 
 
 class SmokeFailure(Exception):
@@ -430,6 +471,20 @@ def check_threefry(torch, tf):
         f"{'bit-identical to' if diff == 0 else 'DIFFER FROM'} the twin")
     check(diff == 0, f"T1 mask past 2^32: {diff} elements differ")
     del tail, idx, ref
+    # SPARTA's masks of the CNN's leaves over phase 9c's 8 steps
+    leaves = cnn_leaves()
+    for leaf, n in leaves:
+        for step in range(8):
+            key = threefry_key(tf, leaf, step)
+            got = tf.bernoulli(key, 0.005, n, "cuda")
+            ref = tf.plain_bernoulli(key, 0.005, n, "cuda")
+            diff = int((got != ref).sum())
+            worst = max(worst, diff)
+            check(diff == 0, f"T1 mask of CNN leaf {leaf} ({n} elements) "
+                  f"step {step}: {diff} elements differ from the twin")
+    log(f"  T1 threefry at the CNN's {len(leaves)} SPARTA leaves "
+        f"({min(n for _, n in leaves)}-{max(n for _, n in leaves)} "
+        f"elements), p 0.005, steps 0-7: bit-identical to the twin")
     torch.cuda.empty_cache()
     n = THREEFRY_N[-1]
     key = threefry_key(tf, 0, 0)
@@ -445,6 +500,51 @@ def check_threefry(torch, tf):
     check(same, "permutation on the card differs from the twin")
     del perm, twin
     torch.cuda.empty_cache()
+    return float(worst)
+
+
+def dropout_tables(tf, nodes, step, n_micro=4, seed=0):
+    """A step's dropout key tables as the training step derives them from
+    the K node keys: [microbatch][dropout] of [K, 2]."""
+    from gym_tpu_torch.train_node import micro_keys
+    mk = micro_keys(tf.node_keys(seed, nodes), step, n_micro)
+    return [tf.fold_in_paths(mk[i], cnn_dropout_paths())
+            for i in range(n_micro)]
+
+
+def check_threefry_rows(torch, tf):
+    """The per-row mask kernel against its twin, bit for bit: at phase 9's
+    dropouts (a step's 3 × 4 launches at a microbatch of 64, K = 8 and
+    K = 2, two steps), and at 32 rows of 4096 elements (aligned rows) and
+    of 191 (rows that start unaligned)."""
+    import numpy as np
+    worst = 0
+
+    def hold(keys, p, n, what):
+        nonlocal worst
+        got = tf.bernoulli_rows(keys, p, n, "cuda")
+        ref = tf.plain_bernoulli_rows(keys, p, n, "cuda")
+        diff = int((got != ref).sum())
+        worst = max(worst, diff)
+        check(diff == 0, f"T1 rows {what} n={n} p={p}: {diff} elements "
+              f"differ from the twin")
+
+    for nodes in (8, 2):
+        for step in (0, 3):
+            for sites in dropout_tables(tf, nodes, step):
+                for keys, (width, keep) in zip(sites, CNN_DROPOUTS):
+                    hold(keys, keep, MNIST_MICRO * width,
+                         f"K={nodes} step {step}")
+        log(f"  T1 per-row masks at phase 9's dropouts, K={nodes} rows x "
+            f"{[MNIST_MICRO * w for w, _ in CNN_DROPOUTS]}, steps 0 and 3: "
+            f"bit-identical to the twin")
+    # the first dropout's keys over 4 microbatches of 8 nodes
+    table = np.concatenate([sites[0] for sites in dropout_tables(tf, 8, 3)])
+    for n in (4096, 64 * 3 - 1):
+        for p in (0.75, 0.5):
+            hold(table, p, n, f"{table.shape[0]} rows")
+        log(f"  T1 per-row masks, {table.shape[0]} rows x {n}: bit-identical "
+            f"to the twin (p 0.75, 0.5)")
     return float(worst)
 
 
@@ -490,8 +590,8 @@ def reset_counts(mods):
 
 
 def read_counts(mods):
-    return {k: getattr(mods[m], w).launches
-            for k, (m, w, _, _) in KERNELS.items()}
+    return {k: getattr(getattr(mods[m], w), c)
+            for k, (m, w, c, _, _) in KERNELS.items()}
 
 
 def train_phase(torch, mods, title, cfg_kw, nodes, batch, steps, want,
@@ -833,23 +933,129 @@ def time_threefry(torch, tf, leaves, sass_ops, int32_ops_per_s, p=0.005):
     return r
 
 
+def time_packed_f32(torch, tfa, shape):
+    """The f32 packed pair (the scalar kernels) at config 4's shape: held to
+    the plain version there (phase 3's f32 tolerance), then timed beside
+    it, f32 ``scaled_dot_product_attention`` and the bound at 67 TFLOP/s."""
+    import torch.nn.functional as F
+    n, t, c, h = shape
+    d = c // h
+    scale = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn(n, t, 3 * c, device="cuda", generator=g)
+    q, k, v = qkv.split(c, dim=-1)
+    do = torch.randn(n, t, c, device="cuda", generator=g)
+    log(f"B1/B2 packed float32 N={n} T={t} C={c} H={h} (config 4, strided "
+        f"views):")
+    o, lse = tfa._fwd_packed(q, k, v, scale, h)
+    ro, rl = tfa.plain_fwd_packed(q, k, v, scale, h)
+    errs = {"B1_fwd_packed_f32": max(compare("B1 o", o, ro, "out", f32),
+                                     compare("B1 lse", lse, rl, "lse", f32))}
+    got = tfa._bwd_packed(q, k, v, o, do, lse, scale, h)
+    ref = tfa.plain_bwd_packed(q, k, v, o, do, lse, scale, h)
+    errs["B2_bwd_packed_f32"] = max(
+        compare(f"B2 {nm}", a, b, "out", f32)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+    lib = [x.view(n, t, h, d).transpose(1, 2).detach().requires_grad_(True)
+           for x in (q, k, v)]
+    lo = F.scaled_dot_product_attention(*lib, is_causal=True, scale=scale)
+    ldo = do.view(n, t, h, d).transpose(1, 2)
+    desc = f"N={n} T={t} C={c} H={h} f32 packed views"
+    out = {
+        "B1_fwd_packed_f32": dict(
+            ms=timed(torch, lambda: tfa._fwd_packed(q, k, v, scale, h)),
+            plain_ms=timed(torch, lambda: tfa.plain_fwd_packed(
+                q, k, v, scale, h), inner=3),
+            library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+                *[x.detach() for x in lib], is_causal=True, scale=scale)),
+            shape=desc, bound=bound(n, h, t, d, 4, False),
+            work=(n, h, t, d, 3)),
+        "B2_bwd_packed_f32": dict(
+            ms=timed(torch, lambda: tfa._bwd_packed(q, k, v, o, do, lse,
+                                                    scale, h)),
+            plain_ms=timed(torch, lambda: tfa.plain_bwd_packed(
+                q, k, v, o, do, lse, scale, h), inner=3),
+            library_ms=timed(torch, lambda: torch.autograd.grad(
+                lo, lib, ldo, retain_graph=True)),
+            shape=desc, bound=bound(n, h, t, d, 4, True),
+            work=(n, h, t, d, 7))}
+    for name, r in out.items():
+        b, by = r["bound"]
+        log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"(f32 SDPA) bound_ms {b:.4f} ({by}, {F32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s f32) -> {b / r['ms']:.1%} of bound")
+    del qkv, q, k, v, do, o, lse, ro, rl, got, ref, lib, lo, ldo
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+# the CNN's three dropouts at a microbatch of 64: masks of [64, 1, 1, 64],
+# [64, 1, 1, 128] and [64, 256] a node, keep 0.75, 0.75 and 0.5
+CNN_DROPOUTS = ((64, 0.75), (128, 0.75), (256, 0.5))
+
+
+def time_threefry_rows(torch, tf, int32_ops_per_s, nodes=8, micro=64,
+                       n_micro=4):
+    """T1's per-row entry at config 2's dropout shapes: a step's 12
+    launches (3 dropouts × 4 microbatches, each over the 8 nodes' keys),
+    its twin, the bound; and the host's key algebra a step (the step and
+    microbatch folds, then each dropout's path)."""
+    from gym_tpu_torch.train_node import micro_keys
+    paths = cnn_dropout_paths()
+    node = tf.node_keys(0, nodes)
+    t0 = time.perf_counter()
+    for step in range(50):
+        mk = micro_keys(node, step, n_micro)
+        for i in range(n_micro):
+            tf.fold_in_paths(mk[i], paths)
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    tables = dropout_tables(tf, nodes, 3, n_micro)
+
+    def run(draw):
+        for sites in tables:
+            for keys, (width, keep) in zip(sites, CNN_DROPOUTS):
+                draw(keys, keep, micro * width, "cuda")
+
+    total = nodes * n_micro * micro * sum(w for w, _ in CNN_DROPOUTS)
+    t_bytes = total / HBM_BYTES_PER_S
+    t_ops = total * THREEFRY_LEAST_OPS / int32_ops_per_s
+    r = dict(ms=timed(torch, lambda: run(tf.bernoulli_rows), inner=2),
+             plain_ms=timed(torch, lambda: run(tf.plain_bernoulli_rows),
+                            reps=3, inner=1),
+             library_ms=None,
+             bound=(max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    launches = n_micro * len(CNN_DROPOUTS)
+    log(f"T1_threefry_bernoulli_rows [config 2's dropouts: {launches} "
+        f"launches a step, {nodes} rows each, {total} elements]: kernel_ms "
+        f"{r['ms']:.4f} ({r['ms'] / launches * 1e3:.2f} us a launch, key "
+        f"table upload included) plain_ms {r['plain_ms']:.4f} (twin) "
+        f"library_ms none bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}) -> "
+        f"{r['bound'][0] / r['ms']:.2%} of bound; host key algebra "
+        f"{host_ms:.3f} ms a step")
+    torch.cuda.empty_cache()
+    return r, host_ms
+
+
 # -- phase 8: the stochastic strategies --------------------------------------
 
 
 def expected_launches(res, cfg_kw, steps, packed, t1_per_step=0):
-    """Exact launches of a fit: the attention pair's forward once a layer a
-    step and twice a layer an eval (local and global params, one
-    validation microbatch), its backward once a layer a step; T1 once a
-    leaf a SPARTA step."""
+    """Exact launches of a bf16 fit: the attention pair's forward and
+    backward once a layer a step in bf16, the forward twice a layer an eval
+    in f32 (local and global params, one validation microbatch; evals run
+    in f32 whatever autocast says); T1 once a leaf a SPARTA step."""
     layers = cfg_kw["n_layer"]
-    fwd = layers * (steps + 2 * len(res.history["global_loss"]))
-    pair = {"fwd": fwd, "bwd": layers * steps}
-    want = dict.fromkeys(("B1_fwd_packed", "B2_bwd_packed", "B3_blk_fwd",
-                          "B4_blk_bwd", "B5f_flash_fwd", "B5b_flash_bwd"), 0)
+    train = layers * steps
+    evals = 2 * layers * len(res.history["global_loss"])
+    want = dict.fromkeys(KERNELS, 0)
     if packed:
-        want.update(B1_fwd_packed=pair["fwd"], B2_bwd_packed=pair["bwd"])
+        want.update(B1_fwd_packed=train, B2_bwd_packed=train,
+                    B1_fwd_packed_f32=evals)
     else:
-        want.update(B3_blk_fwd=pair["fwd"], B4_blk_bwd=pair["bwd"])
+        want.update(B3_blk_fwd=train + evals, B4_blk_bwd=train)
     want["T1_threefry_bernoulli"] = t1_per_step * steps
     return want
 
@@ -914,6 +1120,212 @@ def stochastic_phase(torch, mods, tf, card, base, flagship):
     return c8a
 
 
+# -- phase 9: the BASELINE configs ------------------------------------------
+
+LOGS = os.path.join(HERE, "build", "chip_smoke_logs")
+DATA = os.path.join(HERE, "build", "chip_smoke_data")
+# run_baselines.py's MNIST settings
+MNIST_BATCH, MNIST_MICRO = 256, 64
+
+
+def mnist_strategy(which, optim=None, warmup=100):
+    """The MNIST example's strategies: Adam 1e-3 with the lambda_cosine
+    warmup of 100 steps; DiLoCo's H cut from 100 to 2 so that outer steps
+    fire in a short run; SPARTA p 0.005."""
+    from gym_tpu_torch.strategy import (DiLoCoStrategy, OptimSpec,
+                                        SimpleReduceStrategy, SPARTAStrategy)
+    optim = optim or OptimSpec("adam", lr=1e-3)
+    sched = dict(lr_scheduler="lambda_cosine",
+                 lr_scheduler_kwargs={"warmup_steps": warmup})
+    if which == "diloco":
+        return DiLoCoStrategy(optim, H=2, **sched)
+    if which == "sparta":
+        return SPARTAStrategy(optim, p_sparta=0.005, **sched)
+    return SimpleReduceStrategy(optim, **sched)
+
+
+def mnist_fit(strategy, nodes, steps, device, batch, micro, run_name,
+              autocast=False, init_params=None, val_size=256, seed=0,
+              val_interval=None):
+    """The MNIST CNN on the digits. Evals by default at step 0 and after
+    the last step only: configs 1-3 eval 5 times in 300 steps, so a steady
+    window of a few steps holds none."""
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import load_digits_mnist
+    from gym_tpu_torch.models import MnistLossModel
+    return Trainer(MnistLossModel(), load_digits_mnist(True),
+                   load_digits_mnist(False)).fit(
+        strategy=strategy, num_nodes=nodes, max_steps=steps,
+        batch_size=batch, minibatch_size=micro, device=device,
+        autocast=autocast, seed=seed, val_size=val_size,
+        val_interval=val_interval or steps, init_params=init_params,
+        show_progress=False, log_dir=LOGS, run_name=run_name)
+
+
+def baseline_run(torch, mods, card, title, fit, steps, want, ln_first):
+    """One BASELINE config: losses, steady steps/s, peak memory and the
+    exact launch counts ``want`` (every kernel not named: 0)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    res = fit()
+    wall = time.perf_counter() - t0
+    counts = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in res.history["train_loss"]]
+    log(f"{title}: train losses {['%.5f' % l for l in losses]}")
+    for (step, lo), (_, gl) in zip(res.history["local_loss"],
+                                   res.history["global_loss"]):
+        log(f"  eval at step {step}: local {lo:.6f} global {gl:.6f}")
+    log(f"  {title} on {card}: steady steps/s "
+        f"{res.steps_per_second_steady} (all {res.steps_per_second:.4f}), "
+        f"wall {wall:.1f} s incl. init, peak memory {peak / 2**30:.3f} GiB, "
+        f"final loss {res.final_train_loss:.6f}")
+    log(f"  launches: {counts}")
+    check(len(losses) == steps and all(math.isfinite(l) for l in losses),
+          f"{title}: non-finite or missing losses {losses}")
+    check(abs(losses[0] - ln_first) < 0.7, f"{title}: first loss "
+          f"{losses[0]} far from ln(classes) = {ln_first:.3f}")
+    full = {k: 0 for k in KERNELS}
+    full.update(want)
+    for name, n in full.items():
+        check(counts[name] == n, f"{title}: {name} launched {counts[name]} "
+              f"times, expected {n}")
+    log(f"  launches exactly as expected: { {k: n for k, n in want.items()} }")
+    return counts, res
+
+
+# BASELINE config 4 at run_baselines.py's settings, H cut from 100 to 2
+CONFIG4 = dict(block=256, nodes=16, batch=16, n_layer=4)
+
+
+def config4_fit(steps, val_size=256, run_name="9d_fedavg"):
+    """nanoGPT "small" on the docs stream, FedAvg (AdamW 3e-4, H 2), f32,
+    the packed kernels (``attn_impl="flash"``). Evals at step 0 and after
+    the last step only: config 4 evals 5 times in 300 steps, so a steady
+    window of a few steps holds none."""
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import get_dataset
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.strategy import FedAvgStrategy, OptimSpec
+    block, batch = CONFIG4["block"], CONFIG4["batch"]
+    train, vocab = get_dataset("docs", block, end_pc=0.9, data_root=DATA)
+    val, _ = get_dataset("docs", block, start_pc=0.9, data_root=DATA)
+    cfg = GPTConfig.gpt2_size_map("small")
+    cfg.vocab_size, cfg.block_size, cfg.attn_impl = int(vocab), block, \
+        "flash"
+    sched = dict(lr_scheduler="lambda_cosine", lr_scheduler_kwargs={
+        "warmup_steps": min(100, steps // 5)})
+    strategy = FedAvgStrategy(inner_optim=OptimSpec("adamw", lr=3e-4), H=2,
+                              **sched)
+    return Trainer(GPT(cfg), train, val).fit(
+        strategy=strategy, num_nodes=CONFIG4["nodes"], max_steps=steps,
+        batch_size=batch, minibatch_size=batch, device="cuda",
+        val_size=val_size, val_interval=steps,
+        show_progress=False, log_dir=LOGS, run_name=run_name)
+
+
+def cnn_leaves():
+    """(JAX leaf index, per-node element count) of every leaf of the CNN,
+    as SPARTA keys its masks."""
+    from gym_tpu_torch.convert import jax_leaf_order
+    from gym_tpu_torch.models.mnist_cnn import MnistLossModel
+    specs = MnistLossModel().cnn.param_specs()
+    order = jax_leaf_order(specs)
+    return [(order[n], math.prod(shape)) for n, (shape, _) in specs.items()]
+
+
+def cnn_dropout_paths():
+    from gym_tpu_torch.models.mnist_cnn import MnistLossModel
+    return MnistLossModel().cnn.dropout_paths()
+
+
+def baseline_phase(torch, mods, card):
+    """9a-9d; returns the counts of 9b (T1's per-row entry) and 9d (the f32
+    packed pair)."""
+    import numpy as np
+    import zlib
+    from gym_tpu_torch.data import build_docs_corpus
+
+    steps = 8
+    rows = len(CNN_DROPOUTS) * (MNIST_BATCH // MNIST_MICRO) * steps
+    counts = {}
+    for tag, which, nodes in (("9a", "simple_reduce", 2),
+                              ("9b", "diloco", 8), ("9c", "sparta", 8)):
+        want = {"T1_threefry_bernoulli_rows": rows}
+        if which == "sparta":
+            want["T1_threefry_bernoulli"] = len(cnn_leaves()) * steps
+        counts[tag], _ = baseline_run(
+            torch, mods, card,
+            f"phase {tag} MNIST K={nodes} {which} (batch {MNIST_BATCH}, "
+            f"microbatch {MNIST_MICRO}, {steps} steps, f32)",
+            lambda: mnist_fit(mnist_strategy(which), nodes, steps, "cuda",
+                              MNIST_BATCH, MNIST_MICRO, f"9_{which}"),
+            steps, want, math.log(10))
+
+    # 9d: config 4 on the docs stream of the checkout's gym_tpu/
+    stream = build_docs_corpus(DATA)
+    crc = zlib.crc32(np.ascontiguousarray(stream).tobytes())
+    log(f"phase 9d docs stream: {len(stream)} tokens, crc32 {crc} (expected "
+        f"{DOCS_TOKENS}, {DOCS_CRC})")
+    check(len(stream) == DOCS_TOKENS and crc == DOCS_CRC,
+          "9d: the docs stream differs from the checkout's gym_tpu/ stream")
+    steps, layers, batch = 6, CONFIG4["n_layer"], CONFIG4["batch"]
+    val_size = 256
+    # all in f32: the forward once a layer a step and, each eval, twice a
+    # layer a validation microbatch (local and global params); evals at
+    # step 0 and after the last step
+    evals = 2
+    fwd = layers * (steps + 2 * evals * (val_size // batch))
+    want = {"B1_fwd_packed_f32": fwd, "B2_bwd_packed_f32": layers * steps}
+    counts["9d"], res = baseline_run(
+        torch, mods, card,
+        f"phase 9d nanoGPT small K={CONFIG4['nodes']} x {batch} rows "
+        f"T={CONFIG4['block']} vocab 66 FedAvg (H 2, {steps} steps, f32)",
+        lambda: config4_fit(steps, val_size), steps, want, math.log(66))
+    check(len(res.history["global_loss"]) == evals,
+          f"9d: {len(res.history['global_loss'])} evals, expected {evals}")
+    return counts
+
+
+def cnn_card_vs_cpu(torch, mods):
+    """9e: the CNN's train losses and global evals on the card and on the
+    CPU from the same weights, batches and dropout masks (T1 on the card,
+    the twin on the CPU), f32 and bf16."""
+    from gym_tpu_torch.models import MnistLossModel
+    from gym_tpu_torch.strategy import OptimSpec
+    init = {n: p[0] for n, p in MnistLossModel().init_params(
+        1, seed=11, device="cpu").items()}
+    nodes, batch, micro, steps = 2, 8, 4, 3
+    for mode, autocast in (("bf16", True), ("f32", False)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            reset_counts(mods)
+            res = mnist_fit(mnist_strategy("simple_reduce",
+                                           OptimSpec("sgd", lr=1e-3), 1),
+                            nodes, steps, device, batch, micro,
+                            f"9e_{mode}_{device}", autocast=autocast,
+                            init_params=init, val_size=micro, seed=5,
+                            val_interval=1)
+            out[device] = [l for _, l in res.history["train_loss"]] + [
+                l for _, l in res.history["global_loss"]]
+            if device == "cuda":
+                n = read_counts(mods)["T1_threefry_bernoulli_rows"]
+                want = len(CNN_DROPOUTS) * (batch // micro) * steps
+                check(n == want, f"9e: the card drew {n} per-row masks, "
+                      f"expected {want}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"],
+                                                      out["cpu"]))
+        log(f"phase 9e CNN card vs CPU {mode}: cuda "
+            f"{['%.6f' % x for x in out['cuda']]}")
+        log(f"                              cpu  "
+            f"{['%.6f' % x for x in out['cpu']]}")
+        log(f"  max rel diff {rel:.3e} (band {LOSS_RTOL[mode]})")
+        check(rel <= LOSS_RTOL[mode], f"9e CNN card vs CPU {mode}: losses "
+              f"differ by {rel:.3e} > {LOSS_RTOL[mode]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -941,7 +1353,8 @@ def main() -> int:
               "base": (2 * 4, 12, 1024, 64),
               "long": (2 * 1, 12, 8192, 64),
               "long_tuned_blocks": (2, 12, 2048, 64),
-              "long_default_blocks": (2, 12, 1152, 64)}
+              "long_default_blocks": (2, 12, 1152, 64),
+              "config4": (16 * 16, 256, 128, 4)}
     mods = {"fused": tfa, "flash": tflash, "threefry": tf}
     t_all = time.perf_counter()
     try:
@@ -982,6 +1395,7 @@ def main() -> int:
         log("phase 3: kernels against plain versions on the card")
         errs = check_kernels(torch, tfa, tflash, shapes)
         errs["T1_threefry_bernoulli"] = check_threefry(torch, tf)
+        errs["T1_threefry_bernoulli_rows"] = check_threefry_rows(torch, tf)
 
         flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
                         n_embd=128, attn_impl="flash")
@@ -1026,10 +1440,23 @@ def main() -> int:
         times = time_kernels(torch, tfa, tflash, shapes)
         times["T1_threefry_bernoulli"] = time_threefry(
             torch, tf, gpt_leaves(base), t1_ops, int32_ops_per_s)
+        f32_times, f32_errs = time_packed_f32(torch, tfa, shapes["config4"])
+        times.update(f32_times)
+        errs.update(f32_errs)
+        times["T1_threefry_bernoulli_rows"], _ = time_threefry_rows(
+            torch, tf, int32_ops_per_s)
 
         log("phase 8: the stochastic strategies through Trainer.fit")
         c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
         launches["T1_threefry_bernoulli"] = c8a["T1_threefry_bernoulli"]
+
+        log("phase 9: the BASELINE configs through Trainer.fit")
+        c9 = baseline_phase(torch, mods, card)
+        cnn_card_vs_cpu(torch, mods)
+        launches["T1_threefry_bernoulli_rows"] = \
+            c9["9b"]["T1_threefry_bernoulli_rows"]
+        launches["B1_fwd_packed_f32"] = c9["9d"]["B1_fwd_packed_f32"]
+        launches["B2_bwd_packed_f32"] = c9["9d"]["B2_bwd_packed_f32"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1037,7 +1464,7 @@ def main() -> int:
         f"{time.perf_counter() - t_all:.1f} s")
     log(card)
     kernels = []
-    for name, (_, _, source, replaces) in KERNELS.items():
+    for name, (_, _, _, source, replaces) in KERNELS.items():
         r = times[name]
         b, by = r["bound"]
         kernels.append({

@@ -4,8 +4,10 @@ port's parameters.
 Neither the init nor the threefry keys of the JAX package can be matched in
 PyTorch, so both packages start from the same weights this way: a flax tree
 ``{"h_0": {"attn": {"c_attn": {"kernel": ...}}}, ...}`` becomes the port's
-flat dict ``{"h_0.attn.c_attn.kernel": ...}`` (kernels keep flax's
-``[in, out]`` layout), stacked over the K simulated nodes.
+flat dict ``{"h_0.attn.c_attn.kernel": ...}``, stacked over the K simulated
+nodes. Kernels keep flax's layouts: dense ``[in, out]``, conv HWIO ``[kh,
+kw, in, out]``. Non-parameter collections (BatchNorm's ``batch_stats``)
+keep their collection names above the flat dict.
 """
 
 from __future__ import annotations
@@ -48,4 +50,20 @@ def params_from_jax(tree: Any, num_nodes: int = 1,
         t = torch.as_tensor(np.array(arr, dtype=np.float32))
         out[name] = t.to(device).unsqueeze(0).repeat(
             num_nodes, *([1] * t.dim())).contiguous()
+    return out
+
+
+def model_state_from_jax(tree: Any, num_nodes: int = 1,
+                         device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's model state from one node's flax non-parameter
+    collections, ``{"batch_stats": {"CNN_0": {"BatchNorm_0": {"mean": ...}}}}``
+    → ``{"batch_stats": {"CNN_0.BatchNorm_0.mean": [K, ...]}}``, each leaf
+    copied to every node in its own dtype."""
+    out = {}
+    for coll in tree:
+        out[coll] = {}
+        for name, arr in flatten_tree(tree[coll]).items():
+            t = torch.as_tensor(np.array(arr))
+            out[coll][name] = t.to(device).unsqueeze(0).repeat(
+                num_nodes, *([1] * t.dim())).contiguous()
     return out

@@ -12,7 +12,11 @@ per-node losses.
 ``remat`` runs each block under ``torch.utils.checkpoint`` (the JAX
 package's ``nn.remat(Block)``), and ``loss_chunk`` computes the tied lm head
 and cross-entropy over row chunks, each recomputed in the backward: the two
-memory levers of long-context training. Decode (KV caches, paging,
+memory levers of long-context training.
+
+Dropout draws flax's masks: each dropout site's key is the microbatch's
+node keys folded with the site's flax path (``_dropout_paths``), so a
+recomputed block draws its forward's masks again. Decode (KV caches, paging,
 sampling), MoE, quantized weights and sequence sharding belong to later
 slices of the port and raise.
 """
@@ -23,11 +27,14 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import threefry
 from ..ops.attention import causal_attention
+from .base import dropout as _dropout
 
 
 @dataclasses.dataclass
@@ -147,14 +154,6 @@ def _layer_norm(params, name: str, x: torch.Tensor,
     if bias is not None:
         y = y + bias.view(shape).float()
     return y.to(torch.promote_types(x.dtype, scale.dtype))
-
-
-def _dropout(x, rate: float, train: bool, generator):
-    if not train or rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _embed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -286,7 +285,20 @@ class GPT(torch.nn.Module):
                 num_nodes, *([1] * len(shape)))
         return out
 
-    def _attention(self, params, p, x, train, generator):
+    def _dropout_paths(self):
+        """flax's path and call counter of every dropout draw: the
+        embedding's ``Dropout_0``, then in each block the attention
+        probabilities (``make_rng`` in ``attn``), the attention output's
+        and the MLP's ``Dropout_0``."""
+        paths = {"drop": ("Dropout_0", 1)}
+        for i in range(self.config.n_layer):
+            p = f"h_{i}"
+            paths[f"{p}.attn"] = (p, "attn", 1)
+            paths[f"{p}.attn.drop"] = (p, "attn", "Dropout_0", 1)
+            paths[f"{p}.mlp.drop"] = (p, "mlp", "Dropout_0", 1)
+        return paths
+
+    def _attention(self, params, p, x, train, keys):
         cfg = self.config
         k, b, t, c = x.shape
         hd = c // cfg.n_head
@@ -305,20 +317,21 @@ class GPT(torch.nn.Module):
 
             y = causal_attention(
                 heads(q), heads(kk), heads(v), impl=cfg.attn_impl,
-                dropout_rate=cfg.dropout, generator=generator,
+                dropout_rate=cfg.dropout,
+                dropout_rng=keys[p] if drop_active else None,
                 deterministic=not train)
             y = y.transpose(2, 3).reshape(k, b, t, c)
         y = _dense(params, f"{p}.c_proj", y)
-        return _dropout(y, cfg.dropout, train, generator)
+        return _dropout(y, cfg.dropout, keys.get(f"{p}.drop"), train)
 
-    def _mlp(self, params, p, x, train, generator):
+    def _mlp(self, params, p, x, train, keys):
         x = _dense(params, f"{p}.c_fc", x)
         x = F.gelu(x, approximate="tanh")  # flax nn.gelu defaults to tanh
         x = _dense(params, f"{p}.c_proj", x)
-        return _dropout(x, self.config.dropout, train, generator)
+        return _dropout(x, self.config.dropout, keys.get(f"{p}.drop"), train)
 
     def forward(self, params, batch, train: bool = True,
-                generator: Optional[torch.Generator] = None):
+                rng: Optional[np.ndarray] = None):
         cfg = self.config
         if isinstance(batch, (tuple, list)):
             idx, targets = batch
@@ -330,13 +343,23 @@ class GPT(torch.nn.Module):
                 f"sequence length {t} > block_size {cfg.block_size}")
         wte = params["wte.embedding"]
         wpe = params["wpe.embedding"][:, :t]
+        keys = {}
+        if train and cfg.dropout > 0:
+            if rng is None:
+                raise ValueError("dropout in train mode needs the nodes' "
+                                 "keys (rng)")
+            paths = self._dropout_paths()
+            keys = dict(zip(paths, threefry.fold_in_paths(
+                rng, paths.values())))
         x = _embed(wte, idx) + wpe[:, None]
-        x = _dropout(x, cfg.dropout, train, generator)
+        x = _dropout(x, cfg.dropout, keys.get("drop"), train)
         for i in range(cfg.n_layer):
             if cfg.remat:
-                x = self._remat_block(params, f"h_{i}", x, train, generator)
+                # the recomputation folds the same keys: the same masks
+                x = _maybe_checkpoint(self._block, params, f"h_{i}", x,
+                                      train, keys)
             else:
-                x = self._block(params, f"h_{i}", x, train, generator)
+                x = self._block(params, f"h_{i}", x, train, keys)
         x = _layer_norm(params, "ln_f", x)
         if targets is None:
             # weight tying: lm_head = wteᵀ
@@ -344,39 +367,13 @@ class GPT(torch.nn.Module):
         loss_sum, count = ce_sum_count(x, targets, wte, cfg.loss_chunk)
         return loss_sum / torch.clamp(count, min=1.0)
 
-    def _block(self, params, p, x, train, generator):
+    def _block(self, params, p, x, train, keys):
         x = x + self._attention(params, f"{p}.attn",
                                 _layer_norm(params, f"{p}.ln_1", x),
-                                train, generator)
+                                train, keys)
         return x + self._mlp(params, f"{p}.mlp",
                              _layer_norm(params, f"{p}.ln_2", x),
-                             train, generator)
-
-    def _remat_block(self, params, p, x, train, generator):
-        """One block whose activations are recomputed in the backward.
-        ``checkpoint`` restores the global RNG state for the recomputation,
-        not an explicit generator, so the dropout generator's state is saved
-        here before the block and set back for the recomputation (which then
-        draws the forward's masks), and the generator is left where the
-        recomputation found it."""
-        if generator is None:
-            return _maybe_checkpoint(self._block, params, p, x, train, None)
-        saved = generator.get_state()
-        recompute = False
-
-        def run(x):
-            nonlocal recompute
-            if not recompute:  # the forward
-                recompute = True
-                return self._block(params, p, x, train, generator)
-            now = generator.get_state()
-            generator.set_state(saved)
-            try:
-                return self._block(params, p, x, train, generator)
-            finally:
-                generator.set_state(now)
-
-        return _maybe_checkpoint(run, x)
+                             train, keys)
 
 
 # -- model utilities (reference parity helpers) ----------------------------

@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
         lib.gym_threefry_bits.restype = i32
         lib.gym_bernoulli_mask.argtypes = [u32, u32, i64, f32, vp, vp]
         lib.gym_bernoulli_mask.restype = i32
+        lib.gym_bernoulli_rows.argtypes = [vp, i32, i64, f32, vp, vp]
+        lib.gym_bernoulli_rows.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -8,7 +8,10 @@
 - ring (context-parallel) attention belongs to a later slice of the port.
 
 Every function takes ``[..., B, H, T, D]``: leading dimensions (the
-simulated-node axis) are batch dimensions.
+simulated-node axis) are batch dimensions. Attention dropout takes
+``[K, B, H, T, D]`` and ``dropout_rng``, the K nodes' keys (a ``[K, 2]``
+threefry key table): node k's mask is ``jax.random.bernoulli(keys[k], keep,
+[B, H, T, T])``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import threefry
+
 
 def dense_causal_attention(
     q: torch.Tensor,  # [..., H, T, D]
@@ -25,7 +30,7 @@ def dense_causal_attention(
     v: torch.Tensor,
     *,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_rng: Optional[np.ndarray] = None,
     deterministic: bool = True,
 ) -> torch.Tensor:
     """Causal softmax(QKᵀ/√d)V with f32 scores and softmax."""
@@ -37,8 +42,9 @@ def dense_causal_attention(
     logits = torch.where(causal, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and not deterministic:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        n = probs[0].numel()
+        keep = threefry.bernoulli_rows(dropout_rng, 1.0 - dropout_rate, n,
+                                       probs.device).view(probs.shape)
         probs = probs * keep / (1.0 - dropout_rate)
     probs = probs.to(v.dtype)
     return torch.matmul(probs, v)
@@ -53,7 +59,7 @@ def causal_attention(
     seq_axis: Optional[str] = None,
     seq_layout: str = "contiguous",
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_rng: Optional[np.ndarray] = None,
     deterministic: bool = True,
 ) -> torch.Tensor:
     """Dispatch: ``'dense'`` (reference behaviour), ``'flash'`` (the fused
@@ -69,11 +75,11 @@ def causal_attention(
     if impl == "flash":
         from .flash_attention import flash_causal_attention
         return flash_causal_attention(
-            q, k, v, dropout_rate=dropout_rate, generator=generator,
+            q, k, v, dropout_rate=dropout_rate, dropout_rng=dropout_rng,
             deterministic=deterministic)
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r}; expected "
                          f"ring/flash/dense")
     return dense_causal_attention(
-        q, k, v, dropout_rate=dropout_rate, generator=generator,
+        q, k, v, dropout_rate=dropout_rate, dropout_rng=dropout_rng,
         deterministic=deterministic)

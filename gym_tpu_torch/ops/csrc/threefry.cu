@@ -18,6 +18,15 @@
 // rotations are single funnel shifts. The 64-bit flat index is split into
 // hi and lo words, and a group that runs past n stores element by element,
 // so no store passes n.
+//
+// gym_bernoulli_rows draws R masks of n elements in one launch, row r under
+// its own key (a [R, 2] uint32 table on the card): element (r, i) is exactly
+// gym_bernoulli_mask's element i under key r. It replaces the masks of
+// flax's nn.Dropout (gym_tpu/models/mnist_cnn.py:36,45 and the nanoGPT
+// dropouts), which draw one small mask per simulated node, microbatch and
+// layer: one launch a layer instead of one a node. Row r is blockIdx.y; the
+// x blocks stride over its 4-element groups. A row starts 4-byte aligned
+// only when n % 4 == 0; other rows store byte by byte.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,6 +112,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    threefry_rows_kernel(const uint32_t* __restrict__ keys, uint64_t n,
+                         float p, uint8_t* out) {
+  const uint32_t k0 = keys[2 * blockIdx.y];
+  const uint32_t k1 = keys[2 * blockIdx.y + 1];
+  uint8_t* row = out + (uint64_t)blockIdx.y * n;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3) == 0;
+  const uint64_t groups = (n + kPerThread - 1) / kPerThread;
+  const uint64_t stride = (uint64_t)gridDim.x * kThreads;
+  for (uint64_t g = (uint64_t)blockIdx.x * kThreads + threadIdx.x; g < groups;
+       g += stride) {
+    const uint64_t base = g * kPerThread;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      word |= (uint32_t)bernoulli_of(threefry_bits(k0, k1, base + j), p)
+              << (8 * j);
+    if (aligned && base + kPerThread <= n) {
+      *reinterpret_cast<uint32_t*>(row + base) = word;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j)
+        if (base + j < n) row[base + j] = (uint8_t)(word >> (8 * j));
+    }
+  }
+}
+
+// the grid-stride loop's block budget: at most 16 blocks of 256 threads an
+// SM of the card it runs on
+int block_budget(unsigned long long* most) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *most = 16ull * (unsigned long long)sms;
+  return (int)err;
+}
+
 template <bool MASK>
 int launch(uint32_t k0, uint32_t k1, long long n, float p, void* out,
            void* stream, uintptr_t align) {
@@ -111,15 +158,9 @@ int launch(uint32_t k0, uint32_t k1, long long n, float p, void* out,
   if (n == 0) return 0;
   const unsigned long long groups = ((unsigned long long)n + kPerThread - 1)
                                     / kPerThread;
-  // a grid-stride loop over at most 16 blocks of 256 threads an SM of the
-  // card it runs on
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  unsigned long long most = 0;
+  if (int err = block_budget(&most)) return err;
   const unsigned long long want = (groups + kThreads - 1) / kThreads;
-  const unsigned long long most = 16ull * (unsigned long long)sms;
   const unsigned int blocks = (unsigned int)(want < most ? want : most);
   threefry_kernel<MASK><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       k0, k1, (uint64_t)n, p, out);
@@ -140,6 +181,28 @@ int gym_threefry_bits(unsigned int k0, unsigned int k1, long long n,
 int gym_bernoulli_mask(unsigned int k0, unsigned int k1, long long n,
                        float p, void* out, void* stream) {
   return launch<true>(k0, k1, n, p, out, stream, 4);
+}
+
+// out[r * n + i] = uniform(element i under key r) < p, r < rows, i < n; keys
+// holds rows (k0, k1) pairs on the card.
+int gym_bernoulli_rows(const void* keys, int rows, long long n, float p,
+                       void* out, void* stream) {
+  if (rows < 0 || rows > 65535 || n < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0 || n == 0) return 0;
+  if (keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned long long most = 0;
+  if (int err = block_budget(&most)) return err;
+  const unsigned long long groups = ((unsigned long long)n + kPerThread - 1)
+                                    / kPerThread;
+  const unsigned long long want = (groups + kThreads - 1) / kThreads;
+  unsigned long long per_row = most / (unsigned long long)rows;
+  if (per_row == 0) per_row = 1;
+  const dim3 grid((unsigned int)(want < per_row ? want : per_row),
+                  (unsigned int)rows);
+  threefry_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(keys), (uint64_t)n, p,
+      static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
 
 import numpy as np
 import torch
@@ -266,13 +265,13 @@ def flash_causal_attention(
     v: torch.Tensor,
     *,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_rng=None,
     deterministic: bool = True,
 ) -> torch.Tensor:
     use_dropout = dropout_rate > 0.0 and not deterministic
     if not q.is_cuda or use_dropout or not _flash_ok(q):
         return dense_causal_attention(
-            q, k, v, dropout_rate=dropout_rate, generator=generator,
+            q, k, v, dropout_rate=dropout_rate, dropout_rng=dropout_rng,
             deterministic=deterministic)
     h, t, d = q.shape[-3:]
 

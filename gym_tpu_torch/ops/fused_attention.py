@@ -12,9 +12,11 @@ so the packed q, k and v are read in place as column slices of the
 Each wrapper (``_fwd_packed``, ``_bwd_packed``, ``_blk_fwd``, ``_blk_bwd``)
 launches its kernel for CUDA tensors, or raises on anything the kernel does
 not take; it runs the plain version only for CPU tensors. ``launches`` on
-each wrapper counts its kernel launches. The node axis of the simulator is
-folded into the batch by the callers (``ops/flash_attention.py``), as
-Pallas' batching rule folds the vmapped axis into the grid. Contexts longer
+each wrapper counts its kernel launches, ``launches_f32`` and
+``launches_bf16`` those of each dtype's kernel. The node axis of the
+simulator is folded into the batch by the callers
+(``ops/flash_attention.py``), as Pallas' batching rule folds the vmapped
+axis into the grid. Contexts longer
 than 1024 go to the long-context pair of ``ops/flash_attention.py``, whose
 backward launches the backward kernels here.
 """
@@ -236,7 +238,7 @@ def _fwd_packed(q, k, v, scale, nh):
                *_strides(v, "packed", nh), *_strides(o, "packed", nh),
                *_strides(lse, "lse_packed"))
     _launch_fwd(q, k, v, o, lse, strides, n, nh, t, d, True, scale)
-    _fwd_packed.launches += 1
+    _count(_fwd_packed, q.dtype)
     return o, lse
 
 
@@ -257,7 +259,7 @@ def _bwd_packed(q, k, v, o, do, lse, scale, nh):
                  for s in _strides(x, "packed", nh)), *lse_st, *lse_st)
     _launch_bwd(q, k, v, o, do, lse, None, dq, dk, dv, strides, n, nh, t, d,
                 True, scale)
-    _bwd_packed.launches += 1
+    _count(_bwd_packed, q.dtype)
     return dq, dk, dv
 
 
@@ -274,7 +276,7 @@ def _blk_fwd(q, k, v, scale, causal):
     lse = torch.empty((n, h, t, 1), dtype=torch.float32, device=q.device)
     strides = tuple(s for x in (q, k, v, o, lse) for s in _strides(x, "blk"))
     _launch_fwd(q, k, v, o, lse, strides, n, h, t, d, causal, scale)
-    _blk_fwd.launches += 1
+    _count(_blk_fwd, q.dtype)
     return o, lse
 
 
@@ -295,17 +297,26 @@ def _blk_bwd(q, k, v, o, do, lse, dlse, scale, causal):
                  for s in _strides(x, "blk")), *lse_st, *dlse_st)
     _launch_bwd(q, k, v, o, do, lse, dlse, dq, dk, dv, strides, n, h, t, d,
                 causal, scale)
-    _blk_bwd.launches += 1
+    _count(_blk_bwd, q.dtype)
     return dq, dk, dv
 
 
-for _w in (_fwd_packed, _bwd_packed, _blk_fwd, _blk_bwd):
-    _w.launches = 0
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches`` counts them all,
+    ``launches_f32`` and ``launches_bf16`` each instantiation's."""
+    wrapper.launches += 1
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches_bf16 += 1
 
 
 def reset_launch_counts() -> None:
     for w in (_fwd_packed, _bwd_packed, _blk_fwd, _blk_bwd):
-        w.launches = 0
+        w.launches = w.launches_f32 = w.launches_bf16 = 0
+
+
+reset_launch_counts()
 
 
 # -- autograd --------------------------------------------------------------

@@ -22,20 +22,31 @@ row-major flat index. ``uniform`` is ``bitcast_f32((bits >> 9) |
 ``permutation`` is ``ceil(3·ln n / ln(2³²−1))`` rounds of a stable sort by
 fresh bits, each round's key split off the last.
 
-``random_bits`` and ``bernoulli`` dispatch on the device: on the card they
-launch ``csrc/threefry.cu`` (``gym_threefry_bits``, ``gym_bernoulli_mask``)
-or raise; on the CPU they run the plain twin, threefry in int64 tensors
-masked to 32 bits. ``launches`` on each counts its kernel launches. Bits are
-returned as int32 tensors holding the uint32 pattern (PyTorch has no usable
-uint32 arithmetic).
+``random_bits``, ``bernoulli`` and ``bernoulli_rows`` dispatch on the
+device: on the card they launch ``csrc/threefry.cu`` (``gym_threefry_bits``,
+``gym_bernoulli_mask``, ``gym_bernoulli_rows``) or raise; on the CPU they run
+the plain twin, threefry in int64 tensors masked to 32 bits. ``launches`` on
+each counts its kernel launches. Bits are returned as int32 tensors holding
+the uint32 pattern (PyTorch has no usable uint32 arithmetic).
+
+flax derives a module's dropout key from the step key with
+``fold_in_static``: the SHA-1 of the module path and the scope's call
+counter, folded in (``flax/core/scope.py`` ``_fold_in_static``, flax 0.12.3,
+``flax_fix_rng_separator`` off). The K simulated nodes each hold a key, so
+the key algebra also runs on key tables, ``[R, 2]`` numpy uint32 arrays
+(``fold_in_rows``), and ``bernoulli_rows`` draws one mask a row in one
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 Key = Tuple[int, int]
@@ -53,8 +64,8 @@ def _rotl(x, r):
 
 def threefry2x32(key: Key, count):
     """threefry2x32 (20 rounds) of one counter pair under ``key``. The
-    counter words may be Python ints or int64 tensors holding uint32 values
-    (the plain twin); the result has the counter's type."""
+    words may be Python ints, int64 tensors holding uint32 values (the
+    plain twin) or uint32 arrays (key tables); the result has their type."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (count[0] + k0) & M32
@@ -80,6 +91,68 @@ def fold_in(key: Key, data: int) -> Key:
 
 def split(key: Key, num: int = 2):
     return [threefry2x32(key, (0, i)) for i in range(num)]
+
+
+@functools.lru_cache(maxsize=None)
+def static_hash(parts: Tuple) -> int:
+    """flax's fold value of a path: the big-endian first 4 bytes of the SHA-1
+    of its parts, strings as UTF-8 and ints as their minimal big-endian
+    bytes, with no separator. Cached: a model has a fixed set of paths."""
+    m = hashlib.sha1()
+    for x in parts:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, "big"))
+        else:
+            raise TypeError(f"expected int or str, got {x!r}")
+    return int.from_bytes(m.digest()[:4], "big")
+
+
+def fold_in_static(key, *parts):
+    """flax's ``_fold_in_static(key, parts)``: a module's key from its
+    path and call counter, e.g. ``fold_in_static(k, "CNN_0", "Dropout_0",
+    1)``. ``key`` is a Key or a key table (``fold_in_rows``)."""
+    if not parts:
+        return key
+    h = static_hash(tuple(parts))
+    if isinstance(key, np.ndarray):
+        return fold_in_rows(key, h)
+    return fold_in(key, h)
+
+
+# -- key tables: [R, 2] uint32 arrays ---------------------------------------
+
+
+def key_table(keys) -> np.ndarray:
+    """Keys (a Key, a sequence of them or a table) as an [R, 2] table."""
+    return np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+
+
+def fold_in_rows(keys: np.ndarray, data) -> np.ndarray:
+    """``fold_in`` of every row of a key table, vectorised over the rows;
+    ``data`` an int or one int a row. ``threefry2x32``'s arithmetic runs
+    unchanged on uint32 arrays."""
+    keys = key_table(keys)
+    count = (0, np.asarray(data, dtype=np.int64).astype(np.uint32))
+    return np.stack(threefry2x32((keys[:, 0], keys[:, 1]), count), axis=1)
+
+
+def fold_in_paths(keys: np.ndarray, paths) -> list:
+    """``[fold_in_static(keys, *path) for path in paths]`` in one fold over
+    all of them: a model's dropout keys for one microbatch."""
+    keys = key_table(keys)
+    r = keys.shape[0]
+    data = np.repeat([static_hash(tuple(p)) for p in paths], r)
+    out = fold_in_rows(np.tile(keys, (len(paths), 1)), data)
+    return [out[i * r:(i + 1) * r] for i in range(len(paths))]
+
+
+def node_keys(seed: int, num_nodes: int) -> np.ndarray:
+    """Node i's key ``fold_in(PRNGKey(seed), i + 1)``, for the K nodes: the
+    per-node stream of the JAX package's ``TrainState.rng``."""
+    base = key_table([PRNGKey(seed)] * num_nodes)
+    return fold_in_rows(base, np.arange(1, num_nodes + 1))
 
 
 # -- plain twin (int64 tensors masked to 32 bits) ----------------------------
@@ -113,6 +186,15 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 def plain_bernoulli(key: Key, p: float, n: int, device="cpu"):
     return bits_to_uniform(plain_random_bits(key, n, device)) < _f32(p)
+
+
+def plain_bernoulli_rows(keys, p: float, n: int, device="cpu"):
+    """[R, n] bool: row r is ``plain_bernoulli(keys[r], p, n)``."""
+    rows = [plain_bernoulli((int(k0), int(k1)), p, n, device)
+            for k0, k1 in key_table(keys)]
+    if not rows:
+        return torch.empty(0, n, dtype=torch.bool, device=device)
+    return torch.stack(rows)
 
 
 def _f32(p: float) -> torch.Tensor:
@@ -170,13 +252,45 @@ def bernoulli(key: Key, p: float, n: int, device) -> torch.Tensor:
     return out
 
 
+# gridDim.y of the per-row launch
+MAX_ROWS = 65535
+
+
+def bernoulli_rows(keys, p: float, n: int, device) -> torch.Tensor:
+    """[R, n] bool: row r is ``jax.random.bernoulli(keys[r], p, (n,))``, the
+    R rows of a key table in one launch on the card. The table goes to the
+    card from pinned memory without blocking the host."""
+    device = _check_n(n, device)
+    keys = key_table(keys)
+    if device.type == "cpu":
+        return plain_bernoulli_rows(keys, p, n, device)
+    rows = keys.shape[0]
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} rows: at most {MAX_ROWS} a launch")
+    from . import _build
+    lib = _build.load()
+    out = torch.empty(rows, n, dtype=torch.bool, device=device)
+    if rows and n:
+        host = torch.from_numpy(np.ascontiguousarray(keys).view(np.int32))
+        table = host.pin_memory().to(device, non_blocking=True)
+        with torch.cuda.device(device):
+            code = lib.gym_bernoulli_rows(table.data_ptr(), rows, n,
+                                          float(p), out.data_ptr(),
+                                          _stream(device))
+        _build.check(lib, code, "gym_bernoulli_rows")
+        bernoulli_rows.launches += 1
+    return out
+
+
 random_bits.launches = 0
 bernoulli.launches = 0
+bernoulli_rows.launches = 0
 
 
 def reset_launch_counts() -> None:
     random_bits.launches = 0
     bernoulli.launches = 0
+    bernoulli_rows.launches = 0
 
 
 # -- composites --------------------------------------------------------------

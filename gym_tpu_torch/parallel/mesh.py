@@ -39,14 +39,14 @@ class NodeRuntime:
         return tree.detach().cpu() if torch.is_tensor(tree) else tree
 
     def average_over_nodes(self, tree):
-        """Uniform average over the node dimension, on the host (numpy);
-        integer leaves are averaged in float and cast back."""
-        def avg(x):
-            x = x.detach().cpu().numpy() if torch.is_tensor(x) \
-                else np.asarray(x)
-            if np.issubdtype(x.dtype, np.integer) or x.dtype == np.bool_:
-                return x.astype(np.float64).mean(axis=0).astype(x.dtype)
-            return x.mean(axis=0)
+        """Uniform average over the node dimension, on the host (numpy), of
+        a tensor or a tree of nested dicts: the single-process path of
+        ``gym_tpu``'s ``NodeRuntime.average_over_nodes``, whose integer
+        leaves are averaged in float64 and cast back."""
         if isinstance(tree, dict):
-            return {k: avg(v) for k, v in tree.items()}
-        return avg(tree)
+            return {k: self.average_over_nodes(v) for k, v in tree.items()}
+        x = tree.detach().cpu().numpy() if torch.is_tensor(tree) \
+            else np.asarray(tree)
+        if np.issubdtype(x.dtype, np.integer) or x.dtype == np.bool_:
+            return x.astype(np.float64).mean(axis=0).astype(x.dtype)
+        return x.mean(axis=0)

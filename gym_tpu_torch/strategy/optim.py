@@ -8,7 +8,15 @@ port's optimizers step in lockstep with the JAX package's:
 - adamw: u = −lr·(m̂/(√v̂+ε) + wd·p), decoupled decay (``optax.adamw``);
 - adam: torch's L2 decay, g ← g + wd·p before the moments;
 - sgd: optax's ``trace`` momentum (Nesterov: u = g + μ·(g + μ·t)),
-  L2 decay.
+  L2 decay;
+- rmsprop: optax ``rmsprop``, ``scale_by_rms`` (ν = α·ν + (1−α)·g² from 0,
+  then g·rsqrt(ν + ε), ε inside the root), the learning rate, then
+  ``trace(momentum)``; not torch's RMSprop;
+- adagrad: optax ``adagrad``, ``scale_by_rss`` (accumulator from 0.1, then
+  where(acc > 0, g·rsqrt(acc + ε), 0)), then the learning rate.
+
+rmsprop and adagrad take torch's L2 weight decay ahead of the transform
+(optax ``add_decayed_weights``).
 
 A transform is ``init(params) -> state`` and ``update(grads, state, params)
 -> (updates, state)`` over dicts of tensors; the step count lives in the
@@ -120,6 +128,66 @@ class SGD:
                          "trace": traces if mom else None}
 
 
+class RMSprop:
+    """optax ``rmsprop`` (not centered, no bias correction), with torch's L2
+    weight decay ahead of it."""
+
+    def __init__(self, lr: _LR, decay: float, eps: float,
+                 momentum: Optional[float], weight_decay: float):
+        self.lr, self.decay, self.eps = lr, decay, eps
+        self.momentum, self.weight_decay = momentum, weight_decay
+
+    def init(self, params: Tree) -> Dict[str, Any]:
+        trace = ({n: torch.zeros_like(p) for n, p in params.items()}
+                 if self.momentum else None)
+        return {"count": 0,
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "trace": trace}
+
+    def update(self, grads: Tree, state, params: Tree):
+        lr = self.lr.step_size(state["count"])
+        a, mom = self.decay, self.momentum
+        nus, traces, updates = {}, {}, {}
+        for n, g in grads.items():
+            if self.weight_decay:
+                g = g + self.weight_decay * params[n]
+            nu = (1 - a) * (g * g) + a * state["nu"][n]
+            u = lr * (torch.rsqrt(nu + self.eps) * g)
+            if mom:
+                u = traces[n] = u + mom * state["trace"][n]
+            nus[n], updates[n] = nu, u
+        return updates, {"count": state["count"] + 1, "nu": nus,
+                         "trace": traces if mom else None}
+
+
+class Adagrad:
+    """optax ``adagrad`` (initial accumulator 0.1), with torch's L2 weight
+    decay ahead of it."""
+
+    INITIAL_ACCUMULATOR = 0.1
+
+    def __init__(self, lr: _LR, eps: float, weight_decay: float):
+        self.lr, self.eps, self.weight_decay = lr, eps, weight_decay
+
+    def init(self, params: Tree) -> Dict[str, Any]:
+        return {"count": 0, "sum_of_squares": {
+            n: torch.full_like(p, self.INITIAL_ACCUMULATOR)
+            for n, p in params.items()}}
+
+    def update(self, grads: Tree, state, params: Tree):
+        lr = self.lr.step_size(state["count"])
+        sums, updates = {}, {}
+        for n, g in grads.items():
+            if self.weight_decay:
+                g = g + self.weight_decay * params[n]
+            acc = g * g + state["sum_of_squares"][n]
+            inv = torch.where(acc > 0, torch.rsqrt(acc + self.eps),
+                              torch.zeros_like(acc))
+            sums[n], updates[n] = acc, lr * (inv * g)
+        return updates, {"count": state["count"] + 1,
+                         "sum_of_squares": sums}
+
+
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     return {n: p + updates[n] for n, p in params.items()}
 
@@ -167,9 +235,11 @@ class OptimSpec:
         if self.name == "sgd":
             return SGD(lr, float(cfg["momentum"]) or None,
                        bool(cfg["nesterov"]), float(cfg["weight_decay"]))
-        raise NotImplementedError(
-            f"optimizer {self.name!r} is ported in a later slice of "
-            f"gym_tpu_torch")
+        if self.name == "rmsprop":
+            return RMSprop(lr, float(cfg["alpha"]), float(cfg["eps"]),
+                           float(cfg["momentum"]) or None,
+                           float(cfg["weight_decay"]))
+        return Adagrad(lr, float(cfg["eps"]), float(cfg["weight_decay"]))
 
     def config(self) -> Dict[str, Any]:
         return {"optimizer": self.name, **self.kwargs}

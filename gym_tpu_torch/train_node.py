@@ -6,6 +6,12 @@ here one step runs eagerly on all K nodes at once, every tensor carrying
 the node dimension first. Gradient accumulation is a loop over
 microbatches, rescaled by their count, as in the reference's
 grad-accumulation loop (``train_node.py:157-171``).
+
+Each node's dropout key is the JAX package's, bit for bit: node i holds
+``fold_in(PRNGKey(seed), i + 1)``, a step folds in the step counter and a
+microbatch its index (``train_node.py:71,83,114,126``); the model then folds
+in each dropout module's path (``threefry.fold_in_static``). The key algebra
+runs on the host over the K nodes at once (``threefry.fold_in_rows``).
 """
 
 from __future__ import annotations
@@ -13,9 +19,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .models.base import LossModel
+from .ops import threefry
 from .parallel.axis import AxisCtx
 from .strategy.base import Strategy
 
@@ -25,10 +33,10 @@ Tree = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     params: Tree                  # f32, [K, ...] per tensor
-    model_state: Dict[str, Any]   # non-param collections (none in GPT)
+    model_state: Dict[str, Any]   # non-param collections, [K, ...] each
     strategy_state: Dict[str, Any]
     step: int                     # host step counter
-    rng: torch.Generator          # dropout noise
+    rng: np.ndarray               # [K, 2] per-node threefry keys (host)
 
 
 def make_init_fn(loss_model: LossModel, strategy: Strategy, seed: int,
@@ -50,10 +58,9 @@ def make_init_fn(loss_model: LossModel, strategy: Strategy, seed: int,
         params, model_state = loss_model.init(k, seed, device)
         if init_params is not None:
             params = _stack_given(params, init_params, k, device)
-        gen = torch.Generator(device=device).manual_seed(int(seed))
         return TrainState(params=params, model_state=model_state,
                           strategy_state=strategy.init(params), step=0,
-                          rng=gen)
+                          rng=threefry.node_keys(seed, k))
 
     return init_fn
 
@@ -84,6 +91,16 @@ def _finite_per_node(loss: torch.Tensor, grads: Tree) -> torch.Tensor:
     return ok
 
 
+def micro_keys(node_keys: np.ndarray, step: int, n_micro: int):
+    """[n_micro, K, 2]: microbatch i's keys ``fold_in(fold_in(k, step),
+    i)`` for every node key k, in two folds over all of them."""
+    k = node_keys.shape[0]
+    step_keys = threefry.fold_in_rows(node_keys, step)
+    keys = threefry.fold_in_rows(np.tile(step_keys, (n_micro, 1)),
+                                 np.repeat(np.arange(n_micro), k))
+    return keys.reshape(n_micro, k, 2)
+
+
 def make_train_step(loss_model: LossModel, strategy: Strategy, ctx: AxisCtx,
                     skip_nonfinite: bool = False):
     """``node_step(state, batch) -> (state, metrics)``; batch tensors are
@@ -102,10 +119,11 @@ def make_train_step(loss_model: LossModel, strategy: Strategy, ctx: AxisCtx,
         params = dict(zip(names, leaves))
         gsum, lsum = None, None
         model_state = state.model_state
+        keys = micro_keys(state.rng, state.step, n_micro)
         for i in range(n_micro):
             mb = tuple(x[:, i] for x in batch)
             loss, model_state = loss_model.loss(params, model_state, mb,
-                                                state.rng, True)
+                                                keys[i], True)
             g = torch.autograd.grad(loss.sum(), leaves)
             gsum = list(g) if gsum is None else [a + b
                                                  for a, b in zip(gsum, g)]
@@ -162,7 +180,8 @@ def make_eval_step(loss_model: LossModel, ctx: AxisCtx):
     """``node_eval(state, batch) -> (local_loss [K], global_loss [K])``: each
     node's loss with its own params and with the node-mean params, on its
     own validation stream (the reference's local/global protocol,
-    ``train_node.py:181-246``)."""
+    ``train_node.py:181-246``). Both use the node's own model state
+    (BatchNorm's running stats stay local, as in the reference)."""
 
     @torch.no_grad()
     def node_eval(state: TrainState, batch):

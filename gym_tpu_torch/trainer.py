@@ -36,7 +36,9 @@ from .utils.logger import CSVLogger
 @dataclasses.dataclass
 class FitResult:
     """What ``fit`` returns: node-averaged weights (host numpy, by parameter
-    name) plus the final per-node state on the device."""
+    name) and non-parameter state (``{collection: {name: array}}``, e.g.
+    BatchNorm's running stats), plus the final per-node state on the
+    device."""
 
     params: Dict[str, np.ndarray]
     model_state: Any
@@ -188,6 +190,12 @@ class Trainer:
                 val_dsets, num_nodes, sharded=val_sharded, shuffle=False,
                 seed=seed)
 
+        # the JAX package takes one example microbatch from node 0's train
+        # set for its shape-driven init (gym_tpu/trainer.py:450); a
+        # stateful set (the crop augmentation's call counter) advances by
+        # that take, so the port takes it too and draws the same batches
+        train_dsets[0].take(np.zeros(minibatch_size, dtype=np.int64))
+
         steps_per_epoch = max(1, train_iter.samples_per_node() // batch_size)
         if max_steps is None:
             max_steps = num_epochs * steps_per_epoch
@@ -223,7 +231,7 @@ class Trainer:
                            show_progress)
         history: Dict[str, List] = {
             "train_loss": [], "local_loss": [], "global_loss": [],
-            "comm_bytes": [], "nonfinite": [],
+            "comm_bytes": [], "comm_recv_bytes": [], "nonfinite": [],
         }
         pending_host: List = []
 
@@ -261,6 +269,10 @@ class Trainer:
             # and is read here, one step late, as the loss is
             comm_a = np.array([float(c) for c in m["comm_bytes"]],
                               np.float64)
+            # bytes a node receives, where a strategy's link is asymmetric:
+            # the node mean, kept beside comm_bytes (gym_tpu/trainer.py:963)
+            recv_a = (m["comm_recv_bytes"].float().mean(dim=0).reshape(
+                count).cpu().numpy() if "comm_recv_bytes" in m else None)
             nf_a = (m["nonfinite"].sum(dim=0).reshape(count).cpu().numpy()
                     if "nonfinite" in m else None)
             for j in range(count):
@@ -272,6 +284,9 @@ class Trainer:
                                  step=step_j)
                 history["train_loss"].append((step_j, loss))
                 history["comm_bytes"].append((step_j, comm))
+                if recv_a is not None:
+                    history["comm_recv_bytes"].append(
+                        (step_j, float(recv_a[j])))
                 if nf_a is not None and nf_a[j] > 0:
                     history["nonfinite"].append((step_j, float(nf_a[j])))
                     logger.log_event(f"quarantined {int(nf_a[j])} node(s) "
@@ -338,7 +353,7 @@ class Trainer:
         logger.close()
         return FitResult(
             params=runtime.average_over_nodes(state.params),
-            model_state=state.model_state,
+            model_state=runtime.average_over_nodes(state.model_state),
             node_state=state,
             steps=step_idx,
             steps_per_second=step_idx / elapsed if elapsed > 0 else 0.0,

@@ -1,7 +1,9 @@
 """The port stands alone: ``gym_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the ``gym_tpu`` package, call no library attention kernel and
-no ``torch.compile``, and the numpy modules they copy from ``gym_tpu`` stay
-pinned to their originals (same batches, same CSV columns)."""
+neither JAX nor the ``gym_tpu`` package nor scikit-learn (absent on the
+machine with the card), call no library attention kernel and no
+``torch.compile``, and the numpy modules they copy from ``gym_tpu`` stay
+pinned to their originals (same batches, same CSV columns, the same offline
+text units)."""
 
 import ast
 import csv
@@ -13,16 +15,23 @@ import sys
 import numpy as np
 import pytest
 
+import gym_tpu.data.build_dataset as jbuild
 import gym_tpu.data.gpt_datasets as jds
+import gym_tpu.data.offline as joffline
 import gym_tpu.data.sampler as jsampler
 import gym_tpu.utils.logger as jlogger
+import gym_tpu_torch.data.build_dataset as tbuild
 import gym_tpu_torch.data.gpt_datasets as tds
+import gym_tpu_torch.data.offline as toffline
 import gym_tpu_torch.data.sampler as tsampler
 import gym_tpu_torch.utils.logger as tlogger
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "gym_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gym_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gym_tpu", "sklearn")
+# the one module that may name cuDNN: the CNN's convolutions are XLA ops in
+# the JAX package, not Pallas kernels, and it turns cuDNN's TF32 off
+CUDNN_CONV = PORT / "models" / "mnist_cnn.py"
 
 
 def _port_sources():
@@ -65,12 +74,18 @@ def test_no_forbidden_imports(path):
 
 def test_no_library_attention_or_compile_in_the_port():
     """SDPA, cuDNN attention and torch.compile are no port of a kernel; only
-    chip_smoke.py may time SDPA as a yardstick."""
+    chip_smoke.py may time SDPA as a yardstick. cuDNN may be named only by
+    the CNN, for its convolutions' TF32 flag."""
     for path in sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")):
         text = path.read_text()
-        for word in ("scaled_dot_product_attention", "torch.compile",
-                     "cudnn", "flash_attn", "xformers"):
-            assert word not in text, f"{path}: {word}"
+        words = ["scaled_dot_product_attention", "torch.compile",
+                 "flash_attn", "xformers", "cudnn_attention", "sdpa"]
+        if path != CUDNN_CONV:
+            words.append("cudnn")
+        for word in words:
+            assert word not in text.lower(), f"{path}: {word}"
+    conv = CUDNN_CONV.read_text()
+    assert "torch.backends.cudnn.allow_tf32 = False" in conv
 
 
 @pytest.mark.parametrize("sharded", [False, True])
@@ -134,3 +149,25 @@ def test_logger_copy_writes_the_same_csv(tmp_path):
     with open(tmp_path / "t" / "train.csv", newline="") as fh:
         assert next(csv.reader(fh)) == ["step", "loss", "lr", "comm_bytes",
                                         "cum_comm_bytes"]
+
+
+def test_offline_copies_yield_the_same_text_units(tmp_path):
+    """``_iter_doc_texts`` over a root with every kind of unit (a short file
+    skipped, ``.md`` and ``.rst`` files, a ``.py`` whose docstrings are
+    harvested, one that does not parse) gives the same units in the same
+    order; the vocabulary is the same."""
+    (tmp_path / "b.md").write_text("# Title\n" + "word " * 600)
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "a.rst").write_text("Heading\n=======\n" +
+                                            "text, " * 500)
+    (tmp_path / "short.md").write_text("too short")
+    doc = "A docstring long enough to be harvested. " * 4
+    (tmp_path / "m.py").write_text(
+        f'"""{doc}"""\n\n\ndef f():\n    """{doc}"""\n' + "#" * 2100)
+    (tmp_path / "bad.py").write_text("def (:\n" + "#" * 2100)
+    roots = (str(tmp_path),)
+    want = list(joffline._iter_doc_texts(roots, 64))
+    assert list(toffline._iter_doc_texts(roots, 64)) == want
+    assert len(want) == 3
+    assert tbuild.CHAR_VOCAB == jbuild.CHAR_VOCAB
+    assert tbuild.char_vocab_size() == jbuild.char_vocab_size()

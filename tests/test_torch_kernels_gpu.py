@@ -23,7 +23,9 @@ copy rows with 16-byte ``cp.async`` or TMA and refuse views that are not
 16-byte aligned; the f32 kernels take them. The long-context pair refuses
 T % 128 != 0 on the card as on the CPU. The threefry kernels (random bits
 and the fused Bernoulli mask) equal their plain twin bit for bit, at
-lengths that end inside and on a 4-element group.
+lengths that end inside and on a 4-element group; so does the per-row mask
+(one launch for a table of keys, as dropout draws it), at row lengths that
+leave a row's start aligned and not.
 """
 
 import pytest
@@ -233,3 +235,19 @@ def test_permutation_on_card_matches_twin(n):
     key = tf.fold_in(tf.PRNGKey(7), 3)
     got = tf.permutation(key, n, "cuda").cpu()
     assert torch.equal(got, tf.permutation(key, n, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(1, 1), (8, 64 * 64), (32, 4096),
+                                    (32, 64 * 3 - 1), (16, 64 * 256),
+                                    (3, 5)])
+def test_bernoulli_rows_match_twin_bit_for_bit(rows, n):
+    _card()
+    table = tf.fold_in_rows(tf.node_keys(7, rows), 12)
+    for p in (0.5, 0.75):
+        before = tf.bernoulli_rows.launches
+        got = tf.bernoulli_rows(table, p, n, "cuda")
+        assert tf.bernoulli_rows.launches == before + 1
+        assert got.shape == (rows, n) and got.dtype == torch.bool
+        assert torch.equal(got, tf.plain_bernoulli_rows(table, p, n, "cuda"))
+    assert tf.bernoulli_rows(table, 0.5, 0, "cuda").shape == (rows, 0)

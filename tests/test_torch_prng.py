@@ -37,6 +37,60 @@ def test_key_algebra_matches_jax(seed):
             tf.split(tk, num)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_tables_match_jax(seed):
+    """``node_keys`` is the JAX trainer's per-node ``fold_in(PRNGKey(seed),
+    node + 1)``; ``fold_in_rows`` folds each row (one datum or one a row),
+    and ``micro_keys`` is the step's then the microbatch's fold."""
+    from gym_tpu_torch.train_node import micro_keys
+    table = tf.node_keys(seed, 5)
+    base = jax.random.PRNGKey(seed)
+    nodes = [jax.random.fold_in(base, i + 1) for i in range(5)]
+    assert [tuple(int(v) for v in r) for r in table] == \
+        [_key(k) for k in nodes]
+    data = np.array([0, 1, 146, 2 ** 32 - 1, 2 ** 31])
+    got = tf.fold_in_rows(table, data)
+    assert [tuple(int(v) for v in r) for r in got] == \
+        [_key(jax.random.fold_in(k, int(d))) for k, d in zip(nodes, data)]
+    mk = micro_keys(table, 9, 3)
+    for i in range(3):
+        assert [tuple(int(v) for v in r) for r in mk[i]] == [
+            _key(jax.random.fold_in(jax.random.fold_in(k, 9), i))
+            for k in nodes]
+
+
+@pytest.mark.parametrize("parts", [("CNN_0", "Dropout_0", 1),
+                                   ("Dropout_0", 1), ("h_11", "attn", 1),
+                                   ("h_3", "mlp", "Dropout_0", 1),
+                                   ("a", 0, 255, 256, 2 ** 40)])
+def test_fold_in_static_matches_flax(parts):
+    """flax's SHA-1 fold of a module path and call counter, on a key and on
+    every row of a key table."""
+    from flax.core.scope import _fold_in_static
+    base = jax.random.fold_in(jax.random.PRNGKey(3), 2)
+    want = _key(jax.random.key_data(_fold_in_static(base, parts)))
+    assert tf.fold_in_static(_key(base), *parts) == want
+    table = tf.key_table([_key(base)] * 3)
+    rows = tf.fold_in_static(table, *parts)
+    assert [tuple(int(v) for v in r) for r in rows] == [want] * 3
+    assert tf.fold_in_paths(table, [parts, parts[:1]])[0].tolist() == \
+        rows.tolist()
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 4097])
+def test_bernoulli_rows_match_jax(n):
+    """Row r of ``bernoulli_rows`` is ``jax.random.bernoulli(keys[r], p,
+    (n,))``, bit for bit."""
+    table = tf.fold_in_rows(tf.node_keys(7, 4), 33)
+    for p in (0.5, 0.75, 0.9):
+        got = tf.bernoulli_rows(table, p, n, "cpu")
+        assert got.shape == (4, n) and got.dtype == torch.bool
+        for r, (k0, k1) in enumerate(table):
+            jk = jax.random.wrap_key_data(np.array([k0, k1], np.uint32))
+            np.testing.assert_array_equal(
+                got[r].numpy(), np.asarray(jax.random.bernoulli(jk, p, (n,))))
+
+
 @pytest.mark.parametrize("n", [0, 1, 3, 4097, 100_003])
 def test_bits_uniform_bernoulli_match_jax_bit_for_bit(n):
     for seed in SEEDS:

@@ -66,6 +66,13 @@ def test_lambda_cosine_matches(kwargs):
     ("sgd", {"lr": 0.7, "momentum": 0.9, "nesterov": True}, False),
     ("sgd", {"lr": 0.1, "momentum": 0.5, "weight_decay": 0.01}, True),
     ("sgd", {"lr": 0.1}, False),
+    # optax's rmsprop (eps inside the root, trace momentum after the lr)
+    # and adagrad (accumulator from 0.1), torch's L2 decay ahead of each
+    ("rmsprop", {"lr": 1e-2}, False),
+    ("rmsprop", {"lr": 1e-2, "alpha": 0.9, "momentum": 0.5,
+                 "weight_decay": 0.01}, True),
+    ("adagrad", {"lr": 0.1}, False),
+    ("adagrad", {"lr": 0.1, "eps": 1e-6, "weight_decay": 0.05}, True),
 ])
 def test_optimizer_lockstep_with_optax(name, kwargs, sched):
     rng = np.random.default_rng(0)

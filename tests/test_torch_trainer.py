@@ -1,6 +1,7 @@
 """Port parity for the slice as a whole: ``Trainer.fit(device="cpu")`` of
 ``gym_tpu_torch`` against ``gym_tpu``'s, a tiny GPT at K = 4 simulated nodes
-for 8 steps, from identical ``init_params`` and the same token stream.
+for 8 steps, from identical ``init_params`` and the same token stream (with
+dropout, the same masks: both draw them from the per-node threefry keys).
 
 The ``train.csv`` losses (node 0) and the ``validation.csv`` local and
 global evals must agree in f32 within rtol 5e-5 (the per-step difference is
@@ -98,7 +99,12 @@ def _fit_port(tmp_path, which, tree, levers=None, **kw):
     pytest.param("fedavg", {}, id="fedavg"),
     # the memory levers: 48-row loss chunks do not divide a microbatch's 64
     pytest.param("diloco", dict(remat=True, loss_chunk=48),
-                 id="diloco-remat-loss_chunk")])
+                 id="diloco-remat-loss_chunk"),
+    # dropout: flax's masks from the per-node keys, in every dropout of
+    # the model and in the attention probabilities, recomputed under remat
+    pytest.param("diloco", dict(dropout=0.1), id="diloco-dropout"),
+    pytest.param("diloco", dict(dropout=0.1, remat=True),
+                 id="diloco-dropout-remat")])
 def test_fit_matches_jax(tmp_path, which, levers):
     toks = _tokens()
     tree = _init_tree()
@@ -129,6 +135,47 @@ def test_fit_matches_jax(tmp_path, which, levers):
     for a, b in zip(jv, tv):
         np.testing.assert_allclose(float(b["loss"]), float(a["loss"]),
                                    rtol=RTOL, err_msg=f"{a['name']} eval")
+
+
+class _JRecv(JSimple):
+    """SimpleReduce that also reports a per-node ``comm_recv_bytes``:
+    100 · node + step."""
+
+    def step(self, grads, params, state, step, ctx):
+        import jax.numpy as jnp
+        params, state, m = super().step(grads, params, state, step, ctx)
+        recv = 100.0 * ctx.node_index().astype(jnp.float32) + step
+        return params, state, {**m, "comm_recv_bytes": recv}
+
+
+class _TRecv(TSimple):
+    def step(self, grads, params, state, step, ctx):
+        params, state, m = super().step(grads, params, state, step, ctx)
+        recv = 100.0 * ctx.node_index(grads["wte.embedding"].device) + step
+        return params, state, {**m, "comm_recv_bytes": recv.float()}
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 3])
+def test_comm_recv_bytes_is_kept_as_the_node_mean(tmp_path, steps_per_call):
+    """A strategy's per-node ``comm_recv_bytes`` lands in
+    ``history["comm_recv_bytes"]`` as its node mean, as in the JAX
+    trainer."""
+    toks = _tokens()
+    tree = _init_tree()
+    kw = {**FIT, "max_steps": 4, "val_size": 0,
+          "steps_per_call": steps_per_call}
+    spec = dict(lr_scheduler="lambda_cosine",
+                lr_scheduler_kwargs={"warmup_steps": 2})
+    jres = JTrainer(JGPT(JConfig(**SMALL)), JDataset(toks, T)).fit(
+        strategy=_JRecv(JSpec("adamw", lr=1e-2), **spec),
+        log_dir=str(tmp_path), run_name="jax", init_params=tree, **kw)
+    tres = TTrainer(TGPT(TConfig(**SMALL)), TDataset(toks, T)).fit(
+        strategy=_TRecv(TSpec("adamw", lr=1e-2), **spec),
+        log_dir=str(tmp_path), run_name="torch",
+        init_params=params_from_jax(tree, K), **kw)
+    want = [(s, 150.0 + s) for s in range(4)]  # K = 4: mean of 100·node
+    assert jres.history["comm_recv_bytes"] == want
+    assert tres.history["comm_recv_bytes"] == want
 
 
 def test_steps_per_call_and_microbatches_are_the_same_run(tmp_path):
@@ -176,7 +223,7 @@ class _SlowModel(torch.nn.Module):
     def init_params(self, num_nodes, seed, device):
         return {"w": torch.ones(num_nodes, 4, device=device)}
 
-    def forward(self, params, batch, train=True, generator=None):
+    def forward(self, params, batch, train=True, rng=None):
         time.sleep(self.DELAY)
         x = batch[0].float().mean(dim=(1, 2))
         return params["w"].sum(dim=1) * x
