@@ -7,12 +7,14 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from this checkout (``nvcc``), print the build
-   time, the ``-Xptxas -v`` report (registers, shared memory, spills) and,
-   from ``cuobjdump -sass``, each kernel's count of ``HGMMA`` (wgmma),
-   ``HMMA``, ``FFMA`` and ``ATOM``/``RED`` instructions; fails if a bf16
-   forward, dk/dv, dq or long-context forward kernel has no ``HGMMA`` or any
-   kernel an atomic; the long-context forward's register split and blocks
-   per SM;
+   time, the ``-Xptxas -v`` report (registers, shared memory, spills), the
+   f32 kernels' registers, spills and shared memory per head dim and, from
+   ``cuobjdump -sass``, each kernel's count of ``HGMMA`` (wgmma), ``HMMA``,
+   ``FFMA`` and ``ATOM``/``RED`` instructions; fails if a bf16 forward,
+   dk/dv, dq or long-context forward kernel, or an f32 (3xTF32) forward,
+   dq or dk/dv kernel at any head dim and copy width, has no ``HGMMA``, or
+   any kernel an atomic; the long-context forward's register split and
+   blocks per SM;
 3. every kernel against its plain PyTorch version on the card, bf16 and f32:
    the packed pair (B1/B2) at the flagship shape with q, k and v as strided
    views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    long-context pair (B5) at N=2 H=12 T=8192 D=64 on per-head views of the
    projection, at T=2048 (the tuned blocks) and at T=1152 (the default-block
    rule); the bf16 forward and backward, each run twice at the B5 shape,
-   must agree bit for bit;
+   and the f32 forward and backward, each run twice at the packed and
+   per-head shapes, must agree bit for bit;
 4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
    T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
    warmup, 6 steps on random tokens; the packed kernels must have launched;
@@ -41,7 +44,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    only): each kernel, its plain version, the library call
    (``scaled_dot_product_attention``, timed only as a yardstick), the bound
    at 3.35 TB/s and 989 TFLOP/s and the TFLOP/s of the tiles the kernel
-   computes; the f32 long-context forward's time beside them; T1, the
+   computes; the f32 long-context forward's time beside f32 SDPA's and its
+   bound; T1, the
    threefry Bernoulli masks of every GPT-2 base leaf (one SPARTA step),
    against its twin and its bound (bytes, or the SASS's integer instructions
    at the dispatch limit of 128 lanes a clock an SM at the card's highest SM
@@ -81,8 +85,12 @@ leaves under SPARTA's keys of phase 9c's 8 steps; and the per-row mask
 (one launch for a table of keys, as dropout draws it) at phase 9's
 dropouts (K = 8 and 2 rows of 64 × 64, 128 and 256 elements, the keys of
 two steps) and at 32 rows of 4096 and of 191 elements. Phase 7 also times the f32
-packed pair at config 4's shape (N=256), the per-row mask at config 2's
-dropout shapes and the host's key algebra a step. The launch counts in the
+packed pair at config 4's shape (N=256) and the f32 per-head pair at B3/B4's
+shape, each beside f32 SDPA, its plain version, its bound (bytes, or three
+times the products at TF32's 495 TFLOP/s: the kernels run split-precision
+TF32) and the products at the 67 TFLOP/s of f32 FMAs, for comparison only;
+the per-row mask at config 2's dropout shapes and the host's key algebra a
+step. The launch counts in the
 ``kernels`` line are those of the training runs of phases 4 (B1/B2), 5
 (B3/B4), 5b (B5), 8a (T1), 9b (T1's per-row entry) and 9d (the f32 B1/B2),
 each counted from zero; the packed pair counts its bf16 and f32 kernels
@@ -103,6 +111,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# f32 products on the tensor cores in split-precision TF32: three TF32
+# products each (hopper.cuh); f32 FMAs (67 TFLOP/s) are printed for
+# comparison only
+TF32_FLOPS = 495e12
+TF32_SPLIT = 3
 F32_FLOPS = 67e12
 # the least time of integer work: an SM dispatches at most one warp instruction
 # (32 lanes) a clock from each of its 4 schedulers, 128 lanes a clock, which
@@ -262,8 +275,8 @@ def sass_counts(nvcc, lib_path):
 
 
 def check_sass(counts):
-    """Every bf16 wgmma kernel uses the tensor cores; no kernel has an
-    atomic."""
+    """Every bf16 wgmma kernel and every f32 3xTF32 kernel uses the tensor
+    cores; no kernel has an atomic."""
     wgmma = [k for k in counts if "wgmma" in k]
     check(len(wgmma) == 16, f"expected 16 bf16 wgmma kernels (forward, dq, "
           f"dk/dv and the long-context forward at 4 head dims), found "
@@ -271,12 +284,54 @@ def check_sass(counts):
     flash = [k for k in wgmma if "flash_fwd_wgmma" in k]
     check(len(flash) == 4, f"expected flash_fwd_wgmma at 4 head dims, found "
           f"{flash}")
+    tf32 = [k for k in counts if "tf32x3" in k]
+    check(len(tf32) == 24, f"expected 24 f32 3xTF32 kernels (forward, dq and "
+          f"dk/dv at 4 head dims and 2 copy widths), found {len(tf32)}: "
+          f"{tf32}")
     for k in sorted(counts):
         c = counts[k]
         log("  " + k + ": " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
         check(c["ATOM/RED"] == 0, f"{k}: {c['ATOM/RED']} atomic instructions")
-        if k in wgmma:
+        if k in wgmma or k in tf32:
             check(c["HGMMA"] > 0, f"{k}: no HGMMA (wgmma) instruction")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
+_TF32_KERNEL = re.compile(r"attn_(fwd|dq|dkdv)_tf32x3ILi(\d+)ELi(\d+)E")
+
+
+def f32_kernel_report(build_log, lib):
+    """The f32 (3xTF32) kernels' registers and spill stores from the
+    ``ptxas`` report, and their dynamic shared memory, a line per head
+    dim."""
+    found, name = {}, None
+    for line in build_log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name, spill = _TF32_KERNEL.search(m.group(1)), 0
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and name:
+            spill = int(m.group(1))
+        m = _PTXAS_USED.search(line)
+        if m and name:
+            kind, d, vec = name.groups()
+            found[(kind, int(d), int(vec))] = (int(m.group(1)), spill)
+            name = None
+    smem_id = {"fwd": 0, "dkdv": 1, "dq": 2}
+
+    def copies(kind, d, vec):
+        regs, spill = found.get((kind, d, vec), ("?", "?"))
+        return (f"{16 if vec == 4 else 4}-byte copies {regs} registers "
+                f"{spill} B spilled")
+
+    for d in (16, 32, 64, 128):
+        log(f"  f32 3xTF32 kernels at D={d}: " + "; ".join(
+            f"{kind} {lib.gym_attn_smem_bytes(smem_id[kind], d)} B smem, "
+            f"{copies(kind, d, 4)}, {copies(kind, d, 1)}"
+            for kind in ("fwd", "dq", "dkdv")))
 
 
 # -- phase 3: kernels against plain versions --------------------------------
@@ -348,6 +403,13 @@ def check_long_context(torch, tflash, shapes, g, dtype):
     return errs[0]
 
 
+def same_twice(torch, name, first, again):
+    """Two runs of a kernel on the same inputs: identical outputs."""
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"  {name} run twice: {'bit-identical' if same else 'DIFFER'}")
+    check(same, f"{name}: two runs on the same inputs differ")
+
+
 def check_kernels(torch, tfa, tflash, shapes):
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -367,6 +429,11 @@ def check_kernels(torch, tfa, tflash, shapes):
         ref = tfa.plain_bwd_packed(q, k, v, o, do, lse, scale, h)
         e2 = max(compare(f"B2 {nm}", a, b, "out", dtype)
                  for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+        if dtype == torch.float32:
+            same_twice(torch, "B1 f32 o, lse", (o, lse),
+                       tfa._fwd_packed(q, k, v, scale, h))
+            same_twice(torch, "B2 f32 dq, dk, dv", got,
+                       tfa._bwd_packed(q, k, v, o, do, lse, scale, h))
         del qkv, q, k, v, do, o, lse, ro, rl, got, ref
         torch.cuda.empty_cache()
 
@@ -390,6 +457,11 @@ def check_kernels(torch, tfa, tflash, shapes):
             ref = tfa.plain_bwd(*heads, o, do, lse, dlse, 0.125, causal)
             eb = max(compare(f"B4 {nm}", a, b, "out", dtype)
                      for nm, a, b in zip(("dq", "dk", "dv"), got, ref))
+            if dtype == torch.float32:
+                same_twice(torch, "B3 f32 o, lse", (o, lse),
+                           tfa._blk_fwd(*heads, 0.125, causal))
+                same_twice(torch, "B4 f32 dq, dk, dv", got, tfa._blk_bwd(
+                    *heads, o, do, lse, dlse, 0.125, causal))
             if causal:
                 e3, e4 = ef, eb
             del qkv, heads, do, dlse, o, lse, ro, rl, got, ref
@@ -739,23 +811,39 @@ def timed(torch, fn, reps=5, inner=10):
     return times[len(times) // 2]
 
 
-def bound(n, h, t, d, itemsize, backward, causal=True):
-    """Least time (ms) for the work at 3.35 TB/s and 989 TFLOP/s (bf16):
-    each input read once, each output written once; causal pairs only."""
+def attn_flops(n, h, t, d, backward, causal=True):
+    """The products of attention: 2 (forward) or 5 (backward) of 2·D flops
+    a pair; causal pairs only."""
+    pairs = n * h * (t * (t + 1) // 2 if causal else t * t)
+    return 2 * d * pairs * (5 if backward else 2)
+
+
+def bound_parts(n, h, t, d, itemsize, backward, causal=True):
+    """(bytes ms, operations ms): each input read once and each output
+    written once at 3.35 TB/s; the products on the tensor cores, at 989
+    TFLOP/s (bf16) or as three TF32 products each at 495 TFLOP/s (f32, in
+    split-precision TF32, which meets the f32 tolerance)."""
     elems = n * h * t * d
     stats = n * h * t * 4
-    if backward:   # read q k v o do lse, write dq dk dv
-        nbytes = 8 * elems * itemsize + stats
-        matmuls = 5
-    else:          # read q k v, write o lse
-        nbytes = 4 * elems * itemsize + stats
-        matmuls = 2
-    pairs = n * h * (t * (t + 1) // 2 if causal else t * t)
-    flops = 2 * d * pairs * matmuls
-    peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    # backward: read q k v o do lse, write dq dk dv; forward: read q k v,
+    # write o lse
+    nbytes = (8 if backward else 4) * elems * itemsize + stats
+    flops = attn_flops(n, h, t, d, backward, causal)
+    t_ops = (flops / BF16_FLOPS if itemsize == 2
+             else TF32_SPLIT * flops / TF32_FLOPS)
+    return nbytes / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
+
+
+def bound(n, h, t, d, itemsize, backward, causal=True):
+    """Least time (ms) for the work, the larger of ``bound_parts``."""
+    t_bytes, t_ops = bound_parts(n, h, t, d, itemsize, backward, causal)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ffma_ms(n, h, t, d, backward, causal=True):
+    """The products at the 67 TFLOP/s of f32 FMAs (ms): printed beside an
+    f32 bound for comparison, not a bound."""
+    return attn_flops(n, h, t, d, backward, causal) / F32_FLOPS * 1e3
 
 
 def tile_tflops(n, h, t, d, products, ms, causal=True):
@@ -859,11 +947,12 @@ def time_kernels(torch, tfa, tflash, shapes):
         work=(n, h, t, d, 7))
     f32 = [x.float() for x in heads]
     f32_ms = timed(torch, lambda: tflash._flash_fwd(*f32, scale), inner=3)
-    log(f"B5f f32 (scalar kernel) [N={n} H={h} T={t} D={d} contiguous]: "
-        f"kernel_ms {f32_ms:.4f}, bound_ms "
-        f"{bound(n, h, t, d, 4, False)[0]:.4f} at {F32_FLOPS / 1e12:.0f} "
-        f"TFLOP/s, {tile_tflops(n, h, t, d, 2, f32_ms):.1f} TFLOP/s of "
-        f"computed tiles")
+    f32_lib = timed(torch, lambda: F.scaled_dot_product_attention(
+        *f32, is_causal=True, scale=scale), inner=3)
+    log_f32("B5f f32 (scalar kernel)", dict(
+        ms=f32_ms, plain_ms=None, library_ms=f32_lib,
+        shape=f"N={n} H={h} T={t} D={d} contiguous",
+        work=(n, h, t, d, 2), backward=False))
     del heads, do, o, lse, lib, lo, f32
     torch.cuda.empty_cache()
     for name, r in out.items():
@@ -933,10 +1022,29 @@ def time_threefry(torch, tf, leaves, sass_ops, int32_ops_per_s, p=0.005):
     return r
 
 
+def log_f32(name, r):
+    """One f32 timing line: the kernel beside its plain version, f32 SDPA
+    and its bound (bytes, or three TF32 products each), and the products at
+    the 67 TFLOP/s of f32 FMAs for comparison."""
+    n, h, t, d, _ = r["work"]
+    t_bytes, t_ops = bound_parts(n, h, t, d, 4, r["backward"])
+    b = max(t_bytes, t_ops)
+    plain = "" if r["plain_ms"] is None else f"plain_ms {r['plain_ms']:.4f} "
+    log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} {plain}library_ms "
+        f"{r['library_ms']:.4f} (f32 SDPA) bound_ms {b:.4f} (bytes "
+        f"{t_bytes:.4f} at 3.35 TB/s; 3 x the products at "
+        f"{TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 {t_ops:.4f}) -> "
+        f"{b / r['ms']:.1%} of bound; the products at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s of f32 FMAs "
+        f"{ffma_ms(n, h, t, d, r['backward']):.4f} ms (comparison only); "
+        f"{tile_tflops(*r['work'], r['ms']):.1f} TFLOP/s of computed 64 x 64 "
+        f"tiles ({r['work'][-1]} f32 products)")
+
+
 def time_packed_f32(torch, tfa, shape):
-    """The f32 packed pair (the scalar kernels) at config 4's shape: held to
-    the plain version there (phase 3's f32 tolerance), then timed beside
-    it, f32 ``scaled_dot_product_attention`` and the bound at 67 TFLOP/s."""
+    """The f32 packed pair (3xTF32 wgmma) at config 4's shape: held to the
+    plain version there (phase 3's f32 tolerance), then timed beside it, f32
+    ``scaled_dot_product_attention`` and the bound."""
     import torch.nn.functional as F
     n, t, c, h = shape
     d = c // h
@@ -970,7 +1078,7 @@ def time_packed_f32(torch, tfa, shape):
             library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
                 *[x.detach() for x in lib], is_causal=True, scale=scale)),
             shape=desc, bound=bound(n, h, t, d, 4, False),
-            work=(n, h, t, d, 3)),
+            work=(n, h, t, d, 2), backward=False),
         "B2_bwd_packed_f32": dict(
             ms=timed(torch, lambda: tfa._bwd_packed(q, k, v, o, do, lse,
                                                     scale, h)),
@@ -979,16 +1087,45 @@ def time_packed_f32(torch, tfa, shape):
             library_ms=timed(torch, lambda: torch.autograd.grad(
                 lo, lib, ldo, retain_graph=True)),
             shape=desc, bound=bound(n, h, t, d, 4, True),
-            work=(n, h, t, d, 7))}
+            work=(n, h, t, d, 7), backward=True)}
     for name, r in out.items():
-        b, by = r["bound"]
-        log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"(f32 SDPA) bound_ms {b:.4f} ({by}, {F32_FLOPS / 1e12:.0f} "
-            f"TFLOP/s f32) -> {b / r['ms']:.1%} of bound")
+        log_f32(name, r)
     del qkv, q, k, v, do, o, lse, ro, rl, got, ref, lib, lo, ldo
     torch.cuda.empty_cache()
     return out, errs
+
+
+def time_heads_f32(torch, tfa, shape):
+    """The same f32 kernels on per-head views at B3/B4's shape (GPT-2
+    base's f32 evals run this forward), timed as ``time_packed_f32``."""
+    import torch.nn.functional as F
+    n, h, t, d = shape
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(n, t, 3 * h * d, device="cuda", generator=g)
+    heads = [z.reshape(n, t, h, d).transpose(1, 2)
+             for z in qkv.split(h * d, dim=-1)]
+    do = torch.randn(n, h, t, d, device="cuda", generator=g)
+    o, lse = tfa._blk_fwd(*heads, 0.125, True)
+    lib = [x.detach().requires_grad_(True) for x in heads]
+    lo = F.scaled_dot_product_attention(*lib, is_causal=True, scale=0.125)
+    desc = f"N={n} H={h} T={t} D={d} f32 per-head views"
+    log_f32("B3 f32 (per-head forward)", dict(
+        ms=timed(torch, lambda: tfa._blk_fwd(*heads, 0.125, True)),
+        plain_ms=timed(torch, lambda: tfa.plain_fwd(*heads, 0.125, True),
+                       inner=3),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=True, scale=0.125)),
+        shape=desc, work=(n, h, t, d, 2), backward=False))
+    log_f32("B4 f32 (per-head backward)", dict(
+        ms=timed(torch, lambda: tfa._blk_bwd(*heads, o, do, lse, None, 0.125,
+                                             True)),
+        plain_ms=timed(torch, lambda: tfa.plain_bwd(
+            *heads, o, do, lse, None, 0.125, True), inner=3),
+        library_ms=timed(torch, lambda: torch.autograd.grad(
+            lo, lib, do, retain_graph=True)),
+        shape=desc, work=(n, h, t, d, 7), backward=True))
+    del qkv, heads, do, o, lse, lib, lo
+    torch.cuda.empty_cache()
 
 
 # the CNN's three dropouts at a microbatch of 64: masks of [64, 1, 1, 64],
@@ -1374,10 +1511,11 @@ def main() -> int:
         for d in (32, 64):
             log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
                 f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
-                enumerate(("attn_fwd f32", "attn_dkdv f32", "attn_dq f32",
-                           "flash_fwd f32", "attn_fwd_wgmma bf16",
-                           "attn_dkdv_wgmma bf16", "attn_dq_wgmma bf16",
-                           "flash_fwd_wgmma bf16"))))
+                enumerate(("attn_fwd_tf32x3 f32", "attn_dkdv_tf32x3 f32",
+                           "attn_dq_tf32x3 f32", "flash_fwd f32",
+                           "attn_fwd_wgmma bf16", "attn_dkdv_wgmma bf16",
+                           "attn_dq_wgmma bf16", "flash_fwd_wgmma bf16"))))
+        f32_kernel_report(_build.build_log, lib)
         for d in (16, 32, 64, 128):
             regs = (ctypes.c_int * 3)()
             per_sm = lib.gym_flash_occupancy(d, regs)
@@ -1443,6 +1581,7 @@ def main() -> int:
         f32_times, f32_errs = time_packed_f32(torch, tfa, shapes["config4"])
         times.update(f32_times)
         errs.update(f32_errs)
+        time_heads_f32(torch, tfa, shapes["base"])
         times["T1_threefry_bernoulli_rows"], _ = time_threefry_rows(
             torch, tf, int32_ops_per_s)
 

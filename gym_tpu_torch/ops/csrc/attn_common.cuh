@@ -1,6 +1,7 @@
-// Shared by the attention kernels of this directory: tile sizes, element
-// strides, dtype conversions, the shared-memory tile loader of the scalar
-// kernels and the dtype / head-dim dispatch of the C entries.
+// Shared by the attention kernels of this directory: element strides, the
+// head-dim dispatch of the C entries, and the tile sizes, dtype conversions
+// and shared-memory tile loader of the scalar f32 long-context forward
+// (flash_attention.cu).
 
 #pragma once
 
@@ -74,16 +75,3 @@ bool aligned16(const void* p, Strides s) {
     case 64: { constexpr int D = 64; return (int)CALL; }                     \
     case 128: { constexpr int D = 128; return (int)CALL; }                   \
   }
-
-// dtype: 0 = float32, 1 = bfloat16
-#define GYM_DISPATCH(DTYPE, HEAD_DIM, CALL)                                  \
-  do {                                                                       \
-    if (DTYPE == 0) {                                                        \
-      using T = float;                                                       \
-      GYM_HEAD_DIM(HEAD_DIM, CALL)                                           \
-    } else if (DTYPE == 1) {                                                 \
-      using T = __nv_bfloat16;                                               \
-      GYM_HEAD_DIM(HEAD_DIM, CALL)                                           \
-    }                                                                        \
-    return (int)cudaErrorInvalidValue;                                       \
-  } while (0)

@@ -39,8 +39,9 @@
 //   from the producer warpgroup to the consumers.
 // - f32 (evals, card-against-CPU checks): flash_fwd_kernel, scalar f32
 //   FMAs on 64 x 64 shared-memory tiles (256 threads, 4 x 4 register
-//   micro-tiles). Tensor cores in f32 would mean TF32 and move those
-//   results.
+//   micro-tiles). Single-pass TF32 on the tensor cores would move those
+//   results; the split-precision TF32 design of fused_attention.cu's f32
+//   kernels would not, and is not applied here yet.
 //
 // What bounds it on this card (an H100 SXM's published peaks, which assume
 // its full 700 W power limit): at the slice's shape (N=2, H=12, T=8192,
@@ -217,7 +218,7 @@ cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v,
 namespace wg {
 
 using bf16 = __nv_bfloat16;
-using hop::Tile;
+using hop::BfTile;
 constexpr int STAGES = 4;       // k/v ring depth
 constexpr int THREADS = 384;    // producer warpgroup, two consumers
 constexpr int CONSUMERS = 256;  // arrivals that empty a stage
@@ -231,9 +232,9 @@ constexpr int CONSUMER_REGS = 240;
 // empty[STAGES]
 template <int D>
 struct Smem {
-  static constexpr uint32_t K = 2 * Tile<D>::BYTES;
-  static constexpr uint32_t V = K + STAGES * Tile<D>::BYTES;
-  static constexpr uint32_t BARS = V + STAGES * Tile<D>::BYTES;
+  static constexpr uint32_t K = 2 * BfTile<D>::BYTES;
+  static constexpr uint32_t V = K + STAGES * BfTile<D>::BYTES;
+  static constexpr uint32_t BARS = V + STAGES * BfTile<D>::BYTES;
   static constexpr size_t BYTES = 1024 + BARS + 8 * (1 + 2 * STAGES);
 };
 
@@ -310,7 +311,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 bf16* __restrict__ o, float* __restrict__ lse, Strides so,
                 Strides sl, int H, float scale) {
-  using L = Tile<D>;
+  using L = BfTile<D>;
   using S = Smem<D>;
   extern __shared__ __align__(16) uint8_t wsmem[];
   const uint32_t base = (hop::smem_u32(wsmem) + 1023) & ~1023u;
@@ -431,19 +432,19 @@ EncodeTiled encode_tiled() {
 }
 
 // The [N, H, T, D] bf16 view at p with element strides s as a 4-d tensor
-// map (dims innermost first: D, T, H, N) of [64 rows x SUB values] boxes,
-// swizzled at the box's row width as Tile<D> is.
+// map (dims innermost first: D, T, H, N) of [64 rows x ROWB bytes] boxes,
+// swizzled at the box's row width as BfTile<D> is.
 template <int D>
 cudaError_t tensor_map(CUtensorMap* map, const void* p, Strides s, int N,
                        int H, int T_len) {
-  using L = Tile<D>;
+  using L = BfTile<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_len,
                               (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t bytes[3] = {(cuuint64_t)s.t * 2, (cuuint64_t)s.h * 2,
                                (cuuint64_t)s.n * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::SUB, 64, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(L::ROWB / 2), 64, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = L::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : L::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B

@@ -19,543 +19,667 @@
 // the input dtype, times scale; p normalised by l and rounded to v's dtype
 // before the PV product (forward); p recomputed as exp(s - lse), rounded to
 // do's dtype for dv, delta = rowsum(do * o) in f32, ds = p (dp - delta +
-// dlse) scale rounded to q's dtype before dq and dk (backward). The forward
-// is two-pass over the key tiles (row max and sum first, then the normalised
-// PV product), which keeps the normalise-then-round order of the whole-row
-// Pallas softmax. Masked scores (NEG = -1e30 in Pallas) contribute
-// exp(-1e30 - m) = 0 exactly, so causal tiles above the diagonal are skipped.
+// dlse) scale rounded to q's dtype before dq and dk (backward). Masked
+// scores (NEG = -1e30 in Pallas) contribute exp(-1e30 - m) = 0 exactly, so
+// causal tiles above the diagonal are skipped.
 //
-// Two implementations, chosen by dtype:
-// - bf16 (training): wgmma kernels on the tensor cores (namespace wg). One
-//   warpgroup a block owns 64 rows: query rows in the forward and in dq, key
-//   rows in dk/dv. Operand tiles sit in shared memory as bf16 in wgmma's
-//   swizzled layout (hopper.cuh); the other side's tiles are double-buffered
-//   with 16-byte cp.async copies, so the next tile's copy overlaps this
-//   tile's products. Scores s = q k^T (dk/dv: s^T = k q^T and dp^T = v do^T,
-//   key-major) accumulate in f32 registers; p and ds are rounded to bf16 in
-//   registers, where the accumulator layout is already wgmma's register A
-//   operand, so the second products (p v, ds k, p^T do, ds^T q) read only
-//   their B tile from shared memory. The rounding points above are exactly
-//   the bf16 operand conversions. The delta pre-pass is folded into the dq
-//   kernel's prologue (it reads o and do for its own rows and writes delta
-//   for dk/dv, launched after it).
-// - f32 (evals, card-against-CPU checks): the scalar kernels below, f32
-//   FMAs on 64 x 64 shared-memory tiles (256 threads, 4 x 4 register
-//   micro-tiles). Tensor cores in f32 would mean TF32 and move those
-//   results.
+// Both dtypes run on wgmma. One warpgroup a block owns 64 rows (query rows
+// in the forward and in dq, key rows in dk/dv) and streams the other side's
+// rows, the next rows' copy overlapping this step's products. s = q k^T
+// (dk/dv: s^T = k q^T and dp^T = v do^T, key-major) accumulates in f32
+// registers; p and ds stay in the accumulator's registers and are the
+// register A operand of the second products (p v, ds k, p^T do, ds^T q),
+// which read only their B tile from shared memory. The delta pre-pass is
+// folded into the dq kernel's prologue (it reads o and do for its own rows
+// and writes delta for dk/dv, launched after it).
+// - bf16 (training; namespace wg): tiles of 64 rows as bf16 in wgmma's
+//   swizzled layout (hopper.cuh), double-buffered with 16-byte cp.async
+//   copies; v, q and do are read MN-major by the second products, and the
+//   accumulator layout is already bf16's register A layout. The rounding
+//   points above are exactly the bf16 operand conversions. The forward is
+//   two-pass over the key tiles (row max and sum first, then the normalised
+//   PV product), which keeps the normalise-then-round order of the
+//   whole-row Pallas softmax.
+// - f32 (evals, config 4's training, card-against-CPU checks; namespace
+//   x3): split-precision TF32 ("3xTF32", hopper.cuh). Each operand x is held
+//   as hi + lo, two TF32 values, and each product is three wgmmas, a_lo b_hi
+//   + a_hi b_lo + a_hi b_hi, about 2^-21 relative: the order of reordering
+//   an f32 sum. Single-pass TF32 (2^-11) moves lse by about 1e-3 where the
+//   f32 tolerance allows 1e-5. Rounding to f32 is the identity, so the
+//   forward is one pass (FA2's online softmax: o rescaled by exp(m_old -
+//   m_new) and divided by l at the end). TF32 wgmma reads shared memory only
+//   K-major, so the B tiles of the second products are transposes (v^T,
+//   k^T, do^T, q^T); and since the accumulator's columns are not where
+//   TF32's register A fragment wants them, each group of 8 keys (queries in
+//   dk/dv) of a transposed tile is stored in the order 0,2,4,6,1,3,5,7
+//   (hop::frags, hop::key_order). The streamed rows, S at a time (S = 64,
+//   32, 16, 16 at D = 16, 32, 64, 128: two blocks an SM or more at D <= 64,
+//   under 227 KB at D = 128), are copied raw with cp.async (16-byte copies,
+//   or 4-byte ones for a view that is not 16-byte aligned: a template
+//   parameter the launcher picks) and split by the block's threads into
+//   their hi and lo tiles and transposes. The second products sum each
+//   step's terms on the tensor cores in a zeroed block of registers, added
+//   to the f32 accumulator with round-to-nearest, so the long sums over a
+//   context are f32 additions.
 //
 // What bounds it on this card: each input read once and each output written
-// once at 3.35 TB/s against the causal products at 989 TFLOP/s (bf16). At
-// the training shapes the whole-context pair is bound by bytes (B1 forward
-// N=1024 T=256 C=128 H=4: 0.081 ms; B3 N=8 H=12 T=1024 D=64: 0.015 ms) or
-// just by operations (B4: 0.033 ms), and B5's backward (N=2 H=12 T=8192
-// D=64, 811.6 M computed pairs) by operations: 0.52 ms. The kernels compute
-// more than the bound counts: the forward computes q k^T twice (two passes,
-// three products over the computed tiles), and the backward seven products
-// where the bound counts five, because dk/dv and dq are separate kernels
-// that each own their output rows and recompute s and dp. That keeps the
-// backward free of atomics and bit-reproducible run to run, as XLA's is.
-// The heaviest causal tiles are scheduled first (the tile index is the
-// grid's slowest axis, counted from the last query tile in the forward and
-// dq, from the first key tile in dk/dv), so the longest blocks start in the
-// first wave.
+// once at 3.35 TB/s against the causal products at 989 TFLOP/s (bf16), or
+// three times the products at TF32's 495 TFLOP/s (f32). At the training
+// shapes the whole-context pair is bound by bytes (bf16 B1 forward N=1024
+// T=256 C=128 H=4: 0.081 ms; B3 N=8 H=12 T=1024 D=64: 0.015 ms; f32 at
+// config 4's N=256 T=256 C=128 H=4: 0.0404 ms forward, 0.0804 backward) or
+// by operations (bf16 B4: 0.033 ms; f32 at B3/B4's shape: 0.0782 and 0.1954
+// ms), and B5's backward (N=2 H=12 T=8192 D=64, 811.6 M computed pairs) by
+// operations: 0.52 ms in bf16, 3.12 ms in f32. The kernels do more than the
+// bound counts: the bf16 forward computes q k^T twice (two passes, three
+// products over the computed tiles), and the backward seven products where
+// the bound counts five, because dk/dv and dq are separate kernels that
+// each own their output rows and recompute s and dp. That keeps the
+// backward free of atomics and bit-reproducible run to run, as XLA's is. In
+// f32 the split passes rewrite every streamed tile twice (hi and lo) and
+// again transposed, and the small streamed tiles (S rows) make the first
+// products read more shared memory per operation. The heaviest causal tiles
+// are scheduled first (the tile index is the grid's slowest axis, counted
+// from the last query tile in the forward and dq, from the first key tile
+// in dk/dv), so the longest blocks start in the first wave.
 
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- forward
-
-// Replaces _fwd_packed_kernel (B1) and _blk_fwd_kernel (B3): one block per
-// (64-row query tile, head, batch row); o and lse for its query rows.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
-                float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                Strides so, Strides sl, int T_len, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-
-  const int qb = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qb * BQ;
-  const T* qp = q + n * sq.n + h * sq.h;
-  const T* kp = k + n * sk.n + h * sk.h;
-  const T* vp = v + n * sv.n + h * sv.h;
-
-  load_tile<T, D>(Qs, qp, sq.t, q0);
-  const int nkb = causal ? qb + 1 : T_len / BK;
-
-  float m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-
-  // pass 1: running row max and sum of exp over the key tiles
-  for (int kb = 0; kb < nkb; ++kb) {
-    __syncthreads();
-    load_tile<T, D>(Ks, kp, sk.t, kb * BK);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty + 16 * r) * LD + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty + 16 * r;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = kb * BK + tx + 16 * c;
-        s[r][c] *= scale;
-        if (!causal || j <= i) tmax = fmaxf(tmax, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float mnew = fmaxf(m[r], tmax);
-      float tsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = kb * BK + tx + 16 * c;
-        if (!causal || j <= i) tsum += expf(s[r][c] - mnew);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-      l[r] = l[r] * expf(m[r] - mnew) + tsum;
-      m[r] = mnew;
-    }
-  }
-
-  // pass 2: p = exp(s - m) / l rounded to v's dtype, then o = p @ v
-  float acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-
-  for (int kb = 0; kb < nkb; ++kb) {
-    __syncthreads();
-    load_tile<T, D>(Ks, kp, sk.t, kb * BK);
-    load_tile<T, D>(Vs, vp, sv.t, kb * BK);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty + 16 * r) * LD + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = kb * BK + tx + 16 * c;
-        float p = 0.f;
-        if (!causal || j <= i) p = expf(s[r][c] * scale - m[r]) / l[r];
-        Ps[(ty + 16 * r) * LDP + tx + 16 * c] = round_to(p, v);
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = Ps[(ty + 16 * r) * LDP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-      }
-    }
-  }
-
-  T* op = o + n * so.n + h * so.h;
-  float* lp = lse + n * sl.n + h * sl.h;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store_f(op + (long long)i * so.t + tx + 16 * c, acc[r][c]);
-    if (tx == 0) lp[(long long)i * sl.t] = m[r] + logf(l[r]);
-  }
-}
-
-// --------------------------------------------------------------- backward
-
-// The backward replaces _bwd_packed_kernel (B2) and _blk_bwd_kernel (B4),
-// which compute a whole head per program, with three kernels that each own
-// their outputs: the delta pre-pass, dk/dv per key tile, dq per query tile.
-
-// delta[n, h, t] = sum_d do * o in f32 (the FA2 pre-pass), [N, H, T] dense
-template <typename T>
-__global__ void attn_delta_kernel(const T* __restrict__ o,
-                                  const T* __restrict__ dout,
-                                  float* __restrict__ delta, Strides so,
-                                  Strides sdo, int H, int T_len, int D,
-                                  long long rows) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows) return;
-  const int t = (int)(idx % T_len);
-  const int h = (int)((idx / T_len) % H);
-  const long long n = idx / ((long long)T_len * H);
-  const T* op = o + n * so.n + h * so.h + t * so.t;
-  const T* dp = dout + n * sdo.n + h * sdo.h + t * sdo.t;
-  float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(load_f(dp + d), load_f(op + d), acc);
-  delta[idx] = acc;
-}
-
-// Recompute the 64 x 64 score tile s (scaled) and dp = do @ v^T for query
-// rows ty + 16r, key columns tx + 16c.
-template <int D>
-__device__ __forceinline__ void score_and_dp(const float* Qs, const float* dOs,
-                                             const float* Ks, const float* Vs,
-                                             int tx, int ty, float s[4][4],
-                                             float dp[4][4]) {
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[r][c] = 0.f;
-      dp[r][c] = 0.f;
-    }
-  for (int d = 0; d < D; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qv[r] = Qs[(ty + 16 * r) * LD + d];
-      dov[r] = dOs[(ty + 16 * r) * LD + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kv[c] = Ks[(tx + 16 * c) * LD + d];
-      vv[c] = Vs[(tx + 16 * c) * LD + d];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-        dp[r][c] = fmaf(dov[r], vv[c], dp[r][c]);
-      }
-  }
-}
-
-// Row statistics of one query tile: lse, delta and the optional lse
-// cotangent (0 where the caller passes none).
-__device__ __forceinline__ void load_row_stats(float* Ls, float* Dl, float* Gl,
-                                               const float* lse,
-                                               const float* delta,
-                                               const float* dlse, Strides sl,
-                                               Strides sg, long long n, int h,
-                                               int H, int T_len, int q0) {
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    const int i = q0 + r;
-    Ls[r] = lse[n * sl.n + h * sl.h + (long long)i * sl.t];
-    Dl[r] = delta[(n * H + h) * (long long)T_len + i];
-    Gl[r] = dlse ? dlse[n * sg.n + h * sg.h + (long long)i * sg.t] : 0.f;
-  }
-}
-
+// Backward strides: q k v do dq dk dv lse dlse.
 struct BwdArgs {
   Strides sq, sk, sv, sdo, sdq, sdk, sdv, sl, sg;
 };
 
-// dk, dv for one key tile: loops over the query tiles that see it.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const float* __restrict__ dlse, T* __restrict__ dk,
-                 T* __restrict__ dv, BwdArgs a, int H, int T_len, int causal,
-                 float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LDP;
-  float* Ls = dSs + BQ * LDP;
-  float* Dl = Ls + BQ;
-  float* Gl = Dl + BQ;
+__device__ __forceinline__ uint32_t smem_base(uint8_t* smem) {
+  return (hop::smem_u32(smem) + 1023) & ~1023u;
+}
 
-  const int kb = blockIdx.x, h = blockIdx.y;
-  const long long n = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = kb * BK;
-  const T* qp = q + n * a.sq.n + h * a.sq.h;
-  const T* kp = k + n * a.sk.n + h * a.sk.h;
-  const T* vp = v + n * a.sv.n + h * a.sv.h;
-  const T* dop = dout + n * a.sdo.n + h * a.sdo.h;
+// ============================================== f32: 3xTF32 wgmma (x3)
 
-  load_tile<T, D>(Ks, kp, a.sk.t, k0);
-  load_tile<T, D>(Vs, vp, a.sv.t, k0);
+namespace x3 {
 
-  float dkacc[4][DC], dvacc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkacc[r][c] = 0.f;
-      dvacc[r][c] = 0.f;
-    }
+using hop::Lane;
+using hop::Tile;
+using hop::finish;
+using hop::row_max4;
+using hop::row_sum4;
+using hop::start;
+constexpr int THREADS = 128;  // one warpgroup a block
 
-  const int nqb = T_len / BQ;
-  for (int qb = causal ? kb : 0; qb < nqb; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();
-    load_tile<T, D>(Qs, qp, a.sq.t, q0);
-    load_tile<T, D>(dOs, dop, a.sdo.t, q0);
-    load_row_stats(Ls, Dl, Gl, lse, delta, dlse, a.sl, a.sg, n, h, H, T_len,
-                   q0);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_and_dp<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int ri = ty + 16 * r;
-      const int i = q0 + ri;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx + 16 * c;
-        float p = 0.f;
-        if (!causal || j <= i) p = expf(s[r][c] * scale - Ls[ri]);
-        const float ds = p * (dp[r][c] - Dl[ri] + Gl[ri]) * scale;
-        Ps[ri * LDP + tx + 16 * c] = round_to(p, dout);
-        dSs[ri * LDP + tx + 16 * c] = round_to(ds, q);
-      }
-    }
-    __syncthreads();
-    // dv += p^T @ do and dk += ds^T @ q for key rows ty + 16r
-    for (int i = 0; i < BQ; ++i) {
-      float dov[DC], qv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        dov[c] = dOs[i * LD + tx + 16 * c];
-        qv[c] = Qs[i * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = Ps[i * LDP + ty + 16 * r];
-        const float ds = dSs[i * LDP + ty + 16 * r];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dvacc[r][c] = fmaf(p, dov[c], dvacc[r][c]);
-          dkacc[r][c] = fmaf(ds, qv[c], dkacc[r][c]);
-        }
-      }
-    }
-  }
+// The tiles of head dim D, f32 values. A block owns 64 rows (Rows tiles)
+// and streams the other side's rows S at a time: S rows of D (Strm) and
+// their transpose, D rows of S values in hop::key_order (Tr), each as a hi
+// and a lo tile, copied raw (RAW bytes a tensor) and split in shared
+// memory. S keeps a block's shared memory at 106 KB or less for D <= 64
+// (two blocks an SM or more) and under 227 KB at D = 128.
+template <int D>
+struct Cfg {
+  static constexpr int S = D <= 16 ? 64 : D == 32 ? 32 : 16;
+  using Rows = Tile<4 * D>;
+  using Strm = Tile<4 * D, S>;
+  using Tr = Tile<4 * S, D>;
+  static constexpr uint32_t RAW = S * D * 4;
+};
 
-  T* dkp = dk + n * a.sdk.n + h * a.sdk.h;
-  T* dvp = dv + n * a.sdv.n + h * a.sdv.h;
+__device__ __forceinline__ const float* at(uint8_t* smem, uint32_t addr) {
+  return reinterpret_cast<const float*>(smem + (addr - hop::smem_u32(smem)));
+}
+
+// Rows [r0, r0 + ROWS) of a [T x D] f32 view with token stride ts into a
+// dense [ROWS x D] buffer: 16-byte cp.async (VEC = 4: the view's base and
+// strides 16-byte aligned) or 4-byte (VEC = 1: any view).
+template <int ROWS, int D, int VEC>
+__device__ __forceinline__ void copy_raw(uint32_t dst, const float* src,
+                                         long long ts, int r0) {
+  constexpr int PER_ROW = D / VEC;
+  static_assert(ROWS * PER_ROW % THREADS == 0, "whole rounds");
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long j = k0 + ty + 16 * r;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      store_f(dkp + j * a.sdk.t + tx + 16 * c, dkacc[r][c]);
-      store_f(dvp + j * a.sdv.t + tx + 16 * c, dvacc[r][c]);
-    }
+  for (int e0 = 0; e0 < ROWS * PER_ROW; e0 += THREADS) {
+    const int e = e0 + (int)threadIdx.x;
+    const int r = e / PER_ROW, c = (e % PER_ROW) * VEC;
+    const float* g = src + (long long)(r0 + r) * ts + c;
+    if constexpr (VEC == 4) hop::cp_async16(dst + 4 * (r * D + c), g);
+    else hop::cp_async4(dst + 4 * (r * D + c), g);
   }
 }
 
-// dq for one query tile: loops over the key tiles it sees.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               const float* __restrict__ dlse, T* __restrict__ dq, BwdArgs a,
-               int H, int T_len, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  float* Ls = dSs + BQ * LDP;
-  float* Dl = Ls + BQ;
-  float* Gl = Dl + BQ;
-
-  const int qb = blockIdx.x, h = blockIdx.y;
-  const long long n = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qb * BQ;
-  const T* qp = q + n * a.sq.n + h * a.sq.h;
-  const T* kp = k + n * a.sk.n + h * a.sk.h;
-  const T* vp = v + n * a.sv.n + h * a.sv.h;
-  const T* dop = dout + n * a.sdo.n + h * a.sdo.h;
-
-  load_tile<T, D>(Qs, qp, a.sq.t, q0);
-  load_tile<T, D>(dOs, dop, a.sdo.t, q0);
-  load_row_stats(Ls, Dl, Gl, lse, delta, dlse, a.sl, a.sg, n, h, H, T_len,
-                 q0);
-
-  float dqacc[4][DC];
+// The dense [ROWS x D] rows at raw into a hi and a lo tile, Tile<4D, ROWS>.
+template <int ROWS, int D>
+__device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo,
+                                           const float* raw) {
+  using L = Tile<4 * D, ROWS>;
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CPR % THREADS == 0, "whole rounds");
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dqacc[r][c] = 0.f;
+  for (int e0 = 0; e0 < ROWS * CPR; e0 += THREADS) {
+    const int e = e0 + (int)threadIdx.x;
+    const int r = e / CPR, c = e % CPR;
+    hop::put4(hi, lo, L::chunk(r, c),
+              *reinterpret_cast<const float4*>(raw + r * D + 4 * c));
+  }
+}
 
-  const int nkb = causal ? qb + 1 : T_len / BK;
+// The dense [ROWS x D] rows at raw into a hi and a lo tile of their
+// transpose, Tile<4 ROWS, D>: row d holds column d, each group of 8 rows in
+// hop::key_order. A thread writes one 16-byte chunk; neighbouring threads
+// read neighbouring columns.
+template <int ROWS, int D>
+__device__ __forceinline__ void split_cols(uint32_t hi, uint32_t lo,
+                                           const float* raw) {
+  using L = Tile<4 * ROWS, D>;
+  constexpr int CPR = ROWS / 4;
+  static_assert(D * CPR % THREADS == 0, "whole rounds");
+#pragma unroll
+  for (int e0 = 0; e0 < D * CPR; e0 += THREADS) {
+    const int e = e0 + (int)threadIdx.x;
+    const int d = e % D, c = e / D;  // chunk c: positions 4c .. 4c+3
+    const float* g = raw + 8 * (c >> 1) * D + d;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = g[hop::key_order(4 * (c & 1) + i) * D];
+    hop::put4(hi, lo, L::chunk(d, c), make_float4(x[0], x[1], x[2], x[3]));
+  }
+}
+
+// Rows [r0, r0 + 64) of a [T x D] f32 view into a hi and a lo tile
+// (Tile<4D>), through registers: the block's own rows, loaded once.
+template <int D, int VEC>
+__device__ __forceinline__ void load_split(uint32_t hi, uint32_t lo,
+                                           const float* src, long long ts,
+                                           int r0) {
+  using L = Tile<4 * D>;
+  constexpr int CPR = D / 4;
+  static_assert(64 * CPR % THREADS == 0, "whole rounds");
+#pragma unroll
+  for (int e0 = 0; e0 < 64 * CPR; e0 += THREADS) {
+    const int e = e0 + (int)threadIdx.x;
+    const int r = e / CPR, c = e % CPR;
+    const float* g = src + (long long)(r0 + r) * ts + 4 * c;
+    float4 x;
+    if constexpr (VEC == 4) x = *reinterpret_cast<const float4*>(g);
+    else x = make_float4(g[0], g[1], g[2], g[3]);
+    hop::put4(hi, lo, L::chunk(r, c), x);
+  }
+}
+
+// Store two neighbouring values of one row (column even).
+template <int VEC>
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+
+template <int D>
+constexpr size_t fwd_smem() {  // q, k, v^T (hi, lo); raw k, v
+  using C = Cfg<D>;
+  return 1024 + 2 * C::Rows::BYTES + 2 * C::Strm::BYTES +
+         2 * C::Tr::BYTES + 2 * C::RAW;
+}
+template <int D>
+constexpr size_t dq_smem() {  // q, do, k, v, k^T (hi, lo); raw k, v
+  using C = Cfg<D>;
+  return 1024 + 4 * C::Rows::BYTES + 4 * C::Strm::BYTES +
+         2 * C::Tr::BYTES + 2 * C::RAW;
+}
+template <int D>
+constexpr size_t dkdv_smem() {  // k, v, q, do, q^T, do^T (hi, lo); raw q,
+                                // do; two (lse, delta, dlse) x S
+  using C = Cfg<D>;
+  return 1024 + 4 * C::Rows::BYTES + 4 * C::Strm::BYTES +
+         4 * C::Tr::BYTES + 2 * C::RAW + 2 * 3 * C::S * sizeof(float);
+}
+
+// Forward, B1/B3: one block per (head, batch row, query tile); o and lse
+// for its 64 query rows, one pass over the key rows, S at a time.
+template <int D, int VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                Strides so, Strides sl, int T_len, int causal, float scale) {
+  using C = Cfg<D>;
+  constexpr int S = C::S;
+  extern __shared__ __align__(16) uint8_t xsmem[];
+  const uint32_t Qh = smem_base(xsmem), Ql = Qh + C::Rows::BYTES;
+  const uint32_t Kh = Ql + C::Rows::BYTES, Kl = Kh + C::Strm::BYTES;
+  const uint32_t Vh = Kl + C::Strm::BYTES, Vl = Vh + C::Tr::BYTES;  // v^T
+  const uint32_t Rk = Vl + C::Tr::BYTES, Rv = Rk + C::RAW;
+
+  const int nt = T_len / 64;
+  const int h = blockIdx.x;
+  const long long n = blockIdx.y;
+  const int qb = nt - 1 - (int)blockIdx.z;  // heaviest causal tiles first
+  const int q0 = qb * 64;
+  const float* kp = k + n * sk.n + h * sk.h;
+  const float* vp = v + n * sv.n + h * sv.h;
+  const Lane ln;
+  const int nkb = (causal ? q0 + 64 : T_len) / S;
+
+  copy_raw<S, D, VEC>(Rk, kp, sk.t, 0);
+  copy_raw<S, D, VEC>(Rv, vp, sv.t, 0);
+  hop::cp_async_commit();
+  load_split<D, VEC>(Qh, Ql, q + n * sq.n + h * sq.h, sq.t, q0);
+
+  const float c2 = scale * hop::LOG2E;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2], s[S / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();
-    load_tile<T, D>(Ks, kp, a.sk.t, k0);
-    load_tile<T, D>(Vs, vp, a.sv.t, k0);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_and_dp<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+    const int k0 = kb * S;
+    hop::cp_async_wait<0>();
+    __syncthreads();  // this step's raw rows have landed, for every thread
+    split_rows<S, D>(Kh, Kl, at(xsmem, Rk));
+    split_cols<S, D>(Vh, Vl, at(xsmem, Rv));
+    hop::fence_async_smem();
+    __syncthreads();  // the tiles are written and the raw buffers free
+    if (kb + 1 < nkb) {
+      copy_raw<S, D, VEC>(Rk, kp, sk.t, k0 + S);
+      copy_raw<S, D, VEC>(Rv, vp, sv.t, k0 + S);
+    }
+    hop::cp_async_commit();
+
+    start(s, acc);
+    hop::mma3_abt<S, D, typename C::Rows, typename C::Strm>(s, Qh, Ql, Kh,
+                                                            Kl);
+    finish(s, acc);
+
+    const bool diag = causal && k0 + S - 1 > q0;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int ri = ty + 16 * r;
-      const int i = q0 + ri;
+    for (int i = 0; i < S / 2; ++i) {
+      const int r = ln.row + 8 * ((i >> 1) & 1);
+      const int c = 8 * (i >> 2) + ln.col + (i & 1);
+      s[i] = (diag && k0 + c > q0 + r) ? -INFINITY : s[i] * c2;
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx + 16 * c;
-        float p = 0.f;
-        if (!causal || j <= i) p = expf(s[r][c] * scale - Ls[ri]);
-        const float ds = p * (dp[r][c] - Dl[ri] + Gl[ri]) * scale;
-        dSs[ri * LDP + tx + 16 * c] = round_to(ds, q);
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < S / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+      // finite: every row sees key 0 on the first step
+      const float mnew = fmaxf(m[rr], row_max4(mx));
+      const float alpha = exp2f(m[rr] - mnew);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < S / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * rr + e;
+          s[i] = exp2f(s[i] - mnew);
+          sum += s[i];
+        }
+      l[rr] = l[rr] * alpha + row_sum4(sum);
+      m[rr] = mnew;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * rr] *= alpha;
+        acc[4 * j + 2 * rr + 1] *= alpha;
       }
     }
-    __syncthreads();
-    // dq += ds @ k for query rows ty + 16r
-    for (int j = 0; j < BK; ++j) {
-      float kv[DC];
+    uint32_t ph[S / 8][4], pl[S / 8][4];
+    hop::frags<S>(s, ph, pl);
+    hop::mma3_pb_add<D, S, typename C::Tr>(acc, ph, pl, Vh, Vl);  // o += p v
+  }
+
+  float* op = o + n * so.n + h * so.h;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[j * LD + tx + 16 * c];
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+    const float inv = 1.f / l[rr];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float ds = dSs[(ty + 16 * r) * LDP + j];
+    for (int j = 0; j < D / 8; ++j)
+      store_pair<VEC>(op + i * so.t + 8 * j + ln.col, acc[4 * j + 2 * rr] * inv,
+                      acc[4 * j + 2 * rr + 1] * inv);
+    if ((threadIdx.x & 3) == 0)
+      lse[n * sl.n + h * sl.h + i * sl.t] = m[rr] * hop::LN2 + logf(l[rr]);
+  }
+}
+
+// dq, B2/B4/B5b: one block per (head, batch row, query tile), over the key
+// rows its rows see, S at a time. Its prologue computes delta =
+// rowsum(do * o) for its rows and writes it for the dk/dv kernel, launched
+// after it.
+template <int D, int VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ o,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ dlse, float* __restrict__ delta,
+               float* __restrict__ dq, BwdArgs a, Strides so, int T_len,
+               int causal, float scale) {
+  using C = Cfg<D>;
+  constexpr int S = C::S;
+  extern __shared__ __align__(16) uint8_t xsmem[];
+  const uint32_t Qh = smem_base(xsmem), Ql = Qh + C::Rows::BYTES;
+  const uint32_t dOh = Ql + C::Rows::BYTES, dOl = dOh + C::Rows::BYTES;
+  const uint32_t Kh = dOl + C::Rows::BYTES, Kl = Kh + C::Strm::BYTES;
+  const uint32_t Vh = Kl + C::Strm::BYTES, Vl = Vh + C::Strm::BYTES;
+  const uint32_t KTh = Vl + C::Strm::BYTES, KTl = KTh + C::Tr::BYTES;
+  const uint32_t Rk = KTl + C::Tr::BYTES, Rv = Rk + C::RAW;
+
+  const int nt = T_len / 64;
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long n = blockIdx.y;
+  const int qb = nt - 1 - (int)blockIdx.z;  // heaviest causal tiles first
+  const int q0 = qb * 64;
+  const float* kp = k + n * a.sk.n + h * a.sk.h;
+  const float* vp = v + n * a.sv.n + h * a.sv.h;
+  const float* dop = dout + n * a.sdo.n + h * a.sdo.h;
+  const float* op = o + n * so.n + h * so.h;
+  const Lane ln;
+  const int nkb = (causal ? q0 + 64 : T_len) / S;
+
+  copy_raw<S, D, VEC>(Rk, kp, a.sk.t, 0);
+  copy_raw<S, D, VEC>(Rv, vp, a.sv.t, 0);
+  hop::cp_async_commit();
+  load_split<D, VEC>(Qh, Ql, q + n * a.sq.n + h * a.sq.h, a.sq.t, q0);
+  load_split<D, VEC>(dOh, dOl, dop, a.sdo.t, q0);
+
+  // row statistics of rows ln.row + 8 rr: lse in log2 units, delta, and the
+  // lse cotangent (0 without one)
+  float lse2[2], dl[2], g[2];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) dqacc[r][c] = fmaf(ds, kv[c], dqacc[r][c]);
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+    lse2[rr] = lse[n * a.sl.n + h * a.sl.h + i * a.sl.t] * hop::LOG2E;
+    g[rr] = dlse ? dlse[n * a.sg.n + h * a.sg.h + i * a.sg.t] : 0.f;
+    const float* orow = op + i * so.t;
+    const float* drow = dop + i * a.sdo.t;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + ln.col + e;
+        sum = fmaf(drow[c], orow[c], sum);
       }
+    dl[rr] = row_sum4(sum);
+    if ((threadIdx.x & 3) == 0)
+      delta[((long long)n * H + h) * T_len + i] = dl[rr];
+  }
+
+  const float c2 = scale * hop::LOG2E;
+  float acc[D / 2], s[S / 2], dp[S / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * S;
+    hop::cp_async_wait<0>();
+    __syncthreads();  // this step's raw rows have landed, for every thread
+    split_rows<S, D>(Kh, Kl, at(xsmem, Rk));
+    split_rows<S, D>(Vh, Vl, at(xsmem, Rv));
+    split_cols<S, D>(KTh, KTl, at(xsmem, Rk));
+    hop::fence_async_smem();
+    __syncthreads();  // the tiles are written and the raw buffers free
+    if (kb + 1 < nkb) {
+      copy_raw<S, D, VEC>(Rk, kp, a.sk.t, k0 + S);
+      copy_raw<S, D, VEC>(Rv, vp, a.sv.t, k0 + S);
+    }
+    hop::cp_async_commit();
+
+    start(s, dp);
+    hop::mma3_abt<S, D, typename C::Rows, typename C::Strm>(s, Qh, Ql, Kh,
+                                                            Kl);  // q k^T
+    hop::mma3_abt<S, D, typename C::Rows, typename C::Strm>(dp, dOh, dOl, Vh,
+                                                            Vl);  // do v^T
+    finish(s, dp);
+
+    const bool diag = causal && k0 + S - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i) {  // ds, in place of s
+      const int rr = (i >> 1) & 1;
+      const int r = ln.row + 8 * rr, c = 8 * (i >> 2) + ln.col + (i & 1);
+      const float p = (diag && k0 + c > q0 + r)
+                          ? 0.f
+                          : exp2f(fmaf(s[i], c2, -lse2[rr]));
+      s[i] = p * (dp[i] - dl[rr] + g[rr]) * scale;
+    }
+    uint32_t dsh[S / 8][4], dsl[S / 8][4];
+    hop::frags<S>(s, dsh, dsl);
+    hop::mma3_pb_add<D, S, typename C::Tr>(acc, dsh, dsl, KTh, KTl);  // ds k
+  }
+
+  float* dqp = dq + n * a.sdq.n + h * a.sdq.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long i = q0 + ln.row + 8 * rr;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair<VEC>(dqp + i * a.sdq.t + 8 * j + ln.col, acc[4 * j + 2 * rr],
+                      acc[4 * j + 2 * rr + 1]);
+  }
+}
+
+// dk, dv, B2/B4/B5b: one block per (head, batch row, key tile), over the
+// query rows that see it, S at a time. Key-major: s^T = k q^T and dp^T =
+// v do^T put p^T and ds^T in registers as the A operands of dv += p^T do
+// and dk += ds^T q, whose B tiles are do^T and q^T.
+template <int D, int VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_dkdv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ dlse, float* __restrict__ dk,
+                 float* __restrict__ dv, BwdArgs a, int T_len, int causal,
+                 float scale) {
+  using C = Cfg<D>;
+  constexpr int S = C::S;
+  extern __shared__ __align__(16) uint8_t xsmem[];
+  const uint32_t Kh = smem_base(xsmem), Kl = Kh + C::Rows::BYTES;
+  const uint32_t Vh = Kl + C::Rows::BYTES, Vl = Vh + C::Rows::BYTES;
+  const uint32_t Qh = Vl + C::Rows::BYTES, Ql = Qh + C::Strm::BYTES;
+  const uint32_t dOh = Ql + C::Strm::BYTES, dOl = dOh + C::Strm::BYTES;
+  const uint32_t QTh = dOl + C::Strm::BYTES, QTl = QTh + C::Tr::BYTES;
+  const uint32_t dOTh = QTl + C::Tr::BYTES, dOTl = dOTh + C::Tr::BYTES;
+  const uint32_t Rq = dOTl + C::Tr::BYTES, Rdo = Rq + C::RAW;
+  const uint32_t St = Rdo + C::RAW;  // two x (lse, delta, dlse) x S
+  const float* stats = at(xsmem, St);
+
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long n = blockIdx.y;
+  const int k0 = blockIdx.z * 64;  // key tile 0 is seen by every query
+  const float* qp = q + n * a.sq.n + h * a.sq.h;
+  const float* dop = dout + n * a.sdo.n + h * a.sdo.h;
+  const float* lp = lse + n * a.sl.n + h * a.sl.h;
+  const float* dlp = delta + ((long long)n * H + h) * T_len;
+  const float* gp = dlse ? dlse + n * a.sg.n + h * a.sg.h : nullptr;
+  const Lane ln;
+
+  auto copy_q = [&](int q0, int buf) {
+    copy_raw<S, D, VEC>(Rq, qp, a.sq.t, q0);
+    copy_raw<S, D, VEC>(Rdo, dop, a.sdo.t, q0);
+    for (int e = threadIdx.x; e < 3 * S; e += THREADS) {
+      const int which = e / S, r = e % S;
+      const long long i = q0 + r;
+      const float* src = which == 0   ? lp + i * a.sl.t
+                         : which == 1 ? dlp + i
+                                      : gp + i * a.sg.t;
+      if (which < 2 || gp)
+        hop::cp_async4(St + 4 * ((buf * 3 + which) * S + r), src);
+    }
+  };
+
+  const int qs = causal ? k0 / S : 0;  // the first query rows that see k0
+  const int nq = T_len / S - qs;
+  copy_q(qs * S, 0);
+  hop::cp_async_commit();
+  load_split<D, VEC>(Kh, Kl, k + n * a.sk.n + h * a.sk.h, a.sk.t, k0);
+  load_split<D, VEC>(Vh, Vl, v + n * a.sv.n + h * a.sv.h, a.sv.t, k0);
+
+  const float c2 = scale * hop::LOG2E;
+  float dka[D / 2], dva[D / 2], s[S / 2], dp[S / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < nq; ++it) {
+    const int q0 = (qs + it) * S, buf = it & 1;
+    hop::cp_async_wait<0>();
+    __syncthreads();  // this step's raw rows have landed, for every thread
+    split_rows<S, D>(Qh, Ql, at(xsmem, Rq));
+    split_rows<S, D>(dOh, dOl, at(xsmem, Rdo));
+    split_cols<S, D>(QTh, QTl, at(xsmem, Rq));
+    split_cols<S, D>(dOTh, dOTl, at(xsmem, Rdo));
+    hop::fence_async_smem();
+    __syncthreads();  // the tiles are written and the raw buffers free
+    if (it + 1 < nq) copy_q(q0 + S, buf ^ 1);
+    hop::cp_async_commit();
+    const float* Ls = stats + buf * 3 * S;
+    const float* Dl = Ls + S;
+    const float* Gl = Ls + 2 * S;
+
+    start(s, dp);
+    hop::mma3_abt<S, D, typename C::Rows, typename C::Strm>(s, Kh, Kl, Qh,
+                                                            Ql);  // k q^T
+    hop::mma3_abt<S, D, typename C::Rows, typename C::Strm>(dp, Vh, Vl, dOh,
+                                                            dOl);  // v do^T
+    finish(s, dp);
+
+    const bool diag = causal && q0 < k0 + 63;
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i) {  // p^T and ds^T, in place of s, dp
+      const int r = ln.row + 8 * ((i >> 1) & 1);     // key row
+      const int c = 8 * (i >> 2) + ln.col + (i & 1);  // query column
+      const float p = (diag && k0 + r > q0 + c)
+                          ? 0.f
+                          : exp2f(fmaf(s[i], c2, -Ls[c] * hop::LOG2E));
+      s[i] = p;
+      dp[i] = p * (dp[i] - Dl[c] + (gp ? Gl[c] : 0.f)) * scale;
+    }
+    {  // dv += p^T do
+      uint32_t fh[S / 8][4], fl[S / 8][4];
+      hop::frags<S>(s, fh, fl);
+      hop::mma3_pb_add<D, S, typename C::Tr>(dva, fh, fl, dOTh, dOTl);
+    }
+    {  // dk += ds^T q
+      uint32_t fh[S / 8][4], fl[S / 8][4];
+      hop::frags<S>(dp, fh, fl);
+      hop::mma3_pb_add<D, S, typename C::Tr>(dka, fh, fl, QTh, QTl);
     }
   }
 
-  T* dqp = dq + n * a.sdq.n + h * a.sdq.h;
+  float* dkp = dk + n * a.sdk.n + h * a.sdk.h;
+  float* dvp = dv + n * a.sdv.n + h * a.sdv.h;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long i = q0 + ty + 16 * r;
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long j = k0 + ln.row + 8 * rr;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store_f(dqp + i * a.sdq.t + tx + 16 * c, dqacc[r][c]);
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + ln.col;
+      store_pair<VEC>(dkp + j * a.sdk.t + col, dka[4 * c + 2 * rr],
+                      dka[4 * c + 2 * rr + 1]);
+      store_pair<VEC>(dvp + j * a.sdv.t + col, dva[4 * c + 2 * rr],
+                      dva[4 * c + 2 * rr + 1]);
+    }
   }
 }
 
-// ------------------------------------------------------------- launchers
-
-// dynamic shared memory of each kernel, in bytes
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
-}
-template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * LDP + 3 * BQ);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * LDP + 3 * BQ);
+// f32 views that the 16-byte copies take: base and every stride 16-byte
+// aligned; any other view takes the 4-byte copies
+bool aligned16_f32(const void* p, Strides s) {
+  return ((uintptr_t)p & 15) == 0 && s.n % 4 == 0 && s.h % 4 == 0 &&
+         s.t % 4 == 0;
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, const long long* st, int N, int H, int T_len,
-                       int causal, float scale, cudaStream_t stream) {
+template <int D, int VEC>
+cudaError_t launch_fwd_vec(const float* q, const float* k, const float* v,
+                           float* o, float* lse, const long long* st, int N,
+                           int H, int T_len, int causal, float scale,
+                           cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  auto kern = attn_fwd_kernel<T, D>;
+  auto kern = attn_fwd_tf32x3<D, VEC>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(T_len / BQ, H, N);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), T_len, causal, scale);
+  dim3 grid(H, N, T_len / 64);
+  kern<<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), T_len, causal,
+      scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const long long* st, int N, int H, int T_len,
+                       int causal, float scale, cudaStream_t stream) {
+  const bool vec = aligned16_f32(q, strides_at(st, 0)) &&
+                   aligned16_f32(k, strides_at(st, 1)) &&
+                   aligned16_f32(v, strides_at(st, 2)) &&
+                   aligned16_f32(o, strides_at(st, 3));
+  if (vec)
+    return launch_fwd_vec<D, 4>((const float*)q, (const float*)k,
+                                (const float*)v, (float*)o, (float*)lse, st,
+                                N, H, T_len, causal, scale, stream);
+  return launch_fwd_vec<D, 1>((const float*)q, (const float*)k,
+                              (const float*)v, (float*)o, (float*)lse, st, N,
+                              H, T_len, causal, scale, stream);
+}
+
+template <int D, int VEC>
+cudaError_t launch_bwd_vec(const float* q, const float* k, const float* v,
+                           const float* o, const float* dout,
+                           const float* lse, const float* dlse, float* dq,
+                           float* dk, float* dv, float* delta,
+                           const long long* st, int N, int H, int T_len,
+                           int causal, float scale, cudaStream_t stream) {
+  // strides: q k v o do dq dk dv lse dlse
+  BwdArgs a{strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+            strides_at(st, 4), strides_at(st, 5), strides_at(st, 6),
+            strides_at(st, 7), strides_at(st, 8), strides_at(st, 9)};
+  dim3 grid(H, N, T_len / 64);
+  const size_t smem_q = dq_smem<D>();
+  auto kdq = attn_dq_tf32x3<D, VEC>;
+  cudaError_t err = set_smem(kdq, smem_q);
+  if (err != cudaSuccess) return err;
+  kdq<<<grid, THREADS, smem_q, stream>>>(q, k, v, o, dout, lse, dlse, delta,
+                                         dq, a, strides_at(st, 3), T_len,
+                                         causal, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t smem_kv = dkdv_smem<D>();
+  auto kdkdv = attn_dkdv_tf32x3<D, VEC>;
+  if ((err = set_smem(kdkdv, smem_kv)) != cudaSuccess) return err;
+  kdkdv<<<grid, THREADS, smem_kv, stream>>>(q, k, v, dout, lse, delta, dlse,
+                                            dk, dv, a, T_len, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const void* lse,
                        const void* dlse, void* dq, void* dk, void* dv,
                        void* delta, const long long* st, int N, int H,
                        int T_len, int causal, float scale,
                        cudaStream_t stream) {
-  // strides: q k v o do dq dk dv lse dlse
-  BwdArgs a{strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-            strides_at(st, 4), strides_at(st, 5), strides_at(st, 6),
-            strides_at(st, 7), strides_at(st, 8), strides_at(st, 9)};
-  const long long rows = (long long)N * H * T_len;
-  const int tpb = 256;
-  attn_delta_kernel<T><<<(unsigned)((rows + tpb - 1) / tpb), tpb, 0, stream>>>(
-      (const T*)o, (const T*)dout, (float*)delta, strides_at(st, 3),
-      strides_at(st, 4), H, T_len, D, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t smem_kv = dkdv_smem<D>();
-  auto kdkdv = attn_dkdv_kernel<T, D>;
-  if ((err = set_smem(kdkdv, smem_kv)) != cudaSuccess) return err;
-  dim3 grid(T_len / 64, H, N);
-  kdkdv<<<grid, NTHREADS, smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const float*)dlse, (T*)dk,
-      (T*)dv, a, H, T_len, causal, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t smem_q = dq_smem<D>();
-  auto kdq = attn_dq_kernel<T, D>;
-  if ((err = set_smem(kdq, smem_q)) != cudaSuccess) return err;
-  kdq<<<grid, NTHREADS, smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const float*)dlse, (T*)dq, a,
-      H, T_len, causal, scale);
-  return cudaGetLastError();
+  const void* views[7] = {q, k, v, dout, dq, dk, dv};
+  const int which[7] = {0, 1, 2, 4, 5, 6, 7};
+  bool vec = true;
+  for (int i = 0; i < 7; ++i)
+    vec = vec && aligned16_f32(views[i], strides_at(st, which[i]));
+  if (vec)
+    return launch_bwd_vec<D, 4>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+        (const float*)dout, (const float*)lse, (const float*)dlse, (float*)dq,
+        (float*)dk, (float*)dv, (float*)delta, st, N, H, T_len, causal, scale,
+        stream);
+  return launch_bwd_vec<D, 1>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, (const float*)lse, (const float*)dlse, (float*)dq,
+      (float*)dk, (float*)dv, (float*)delta, st, N, H, T_len, causal, scale,
+      stream);
 }
+
+}  // namespace x3
 
 // ============================================================ bf16: wgmma
 
@@ -563,7 +687,7 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 using hop::Lane;
-using hop::Tile;
+using hop::BfTile;
 using hop::finish;
 using hop::mma_abt;
 using hop::mma_pb;
@@ -581,21 +705,17 @@ __device__ __forceinline__ void tiles_ready() {
   __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t smem_base(uint8_t* smem) {
-  return (hop::smem_u32(smem) + 1023) & ~1023u;
-}
-
 template <int D>
 constexpr size_t fwd_smem() {  // q, two k and two v tiles, 1024-aligned
-  return 1024 + 5 * Tile<D>::BYTES;
+  return 1024 + 5 * BfTile<D>::BYTES;
 }
 template <int D>
 constexpr size_t dq_smem() {  // q, do, two k and two v tiles
-  return 1024 + 6 * Tile<D>::BYTES;
+  return 1024 + 6 * BfTile<D>::BYTES;
 }
 template <int D>
 constexpr size_t dkdv_smem() {  // k, v, two q and two do tiles, two stats
-  return 1024 + 6 * Tile<D>::BYTES + 2 * 3 * 64 * sizeof(float);
+  return 1024 + 6 * BfTile<D>::BYTES + 2 * 3 * 64 * sizeof(float);
 }
 
 // Forward, B1/B3: one block per (head, batch row, query tile); o and lse
@@ -608,7 +728,7 @@ attn_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
                float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                Strides so, Strides sl, int T_len, int causal, float scale) {
-  using L = Tile<D>;
+  using L = BfTile<D>;
   extern __shared__ __align__(16) uint8_t wsmem[];
   const uint32_t Qs = smem_base(wsmem);
   const uint32_t Ks = Qs + L::BYTES;      // two buffers
@@ -718,7 +838,7 @@ attn_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const float* __restrict__ dlse, float* __restrict__ delta,
               bf16* __restrict__ dq, BwdArgs a, Strides so, int T_len,
               int causal, float scale) {
-  using L = Tile<D>;
+  using L = BfTile<D>;
   extern __shared__ __align__(16) uint8_t wsmem[];
   const uint32_t Qs = smem_base(wsmem);
   const uint32_t dOs = Qs + L::BYTES;
@@ -833,7 +953,7 @@ attn_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const float* __restrict__ dlse, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, BwdArgs a, int T_len, int causal,
                 float scale) {
-  using L = Tile<D>;
+  using L = BfTile<D>;
   extern __shared__ __align__(16) uint8_t wsmem[];
   const uint32_t Ks = smem_base(wsmem);
   const uint32_t Vs = Ks + L::BYTES;
@@ -1008,21 +1128,22 @@ extern "C" {
 
 // o = softmax(mask(q k^T * scale)) v and lse = logsumexp of the scores.
 // strides: 15 element strides, (batch, head, token) for q, k, v, o, lse.
-// bf16 takes T / 64 <= 65535 (query tiles are the grid's z axis), as the
-// long-context forward does, and views whose base and strides are 16-byte
-// aligned (both entries).
+// Takes T / 64 <= 65535 (query tiles are the grid's z axis), as the
+// long-context forward does; bf16 takes views whose base and strides are
+// 16-byte aligned (both entries), f32 any view.
 int gym_attn_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, const long long* strides, int N, int H, int T_len,
                  int D, int causal, float scale, int dtype, void* stream) {
-  if (T_len % 64 != 0 || N <= 0 || H <= 0 || N > 65535 || H > 65535)
+  if (T_len % 64 != 0 || T_len / 64 > 65535 || N <= 0 || H <= 0 ||
+      N > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && T_len / 64 <= 65535) {
+  if (dtype == 1) {
     GYM_HEAD_DIM(D, (wg::launch_fwd<D>(q, k, v, o, lse, strides, N, H, T_len,
                                        causal, scale, s)));
   } else if (dtype == 0) {
-    GYM_HEAD_DIM(D, (launch_fwd<float, D>(q, k, v, o, lse, strides, N, H,
-                                          T_len, causal, scale, s)));
+    GYM_HEAD_DIM(D, (x3::launch_fwd<D>(q, k, v, o, lse, strides, N, H, T_len,
+                                       causal, scale, s)));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1036,17 +1157,18 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                  void* dk, void* dv, void* delta, const long long* strides,
                  int N, int H, int T_len, int D, int causal, float scale,
                  int dtype, void* stream) {
-  if (T_len % 64 != 0 || N <= 0 || H <= 0 || N > 65535 || H > 65535)
+  if (T_len % 64 != 0 || T_len / 64 > 65535 || N <= 0 || H <= 0 ||
+      N > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && T_len / 64 <= 65535) {
+  if (dtype == 1) {
     GYM_HEAD_DIM(D, (wg::launch_bwd<D>(q, k, v, o, dout, lse, dlse, dq, dk,
                                        dv, delta, strides, N, H, T_len,
                                        causal, scale, s)));
   } else if (dtype == 0) {
-    GYM_HEAD_DIM(D, (launch_bwd<float, D>(q, k, v, o, dout, lse, dlse, dq, dk,
-                                          dv, delta, strides, N, H, T_len,
-                                          causal, scale, s)));
+    GYM_HEAD_DIM(D, (x3::launch_bwd<D>(q, k, v, o, dout, lse, dlse, dq, dk,
+                                       dv, delta, strides, N, H, T_len,
+                                       causal, scale, s)));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1054,7 +1176,7 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
 long long gym_flash_smem_bytes(int D, int wgmma);  // flash_attention.cu
 
 // dynamic shared memory of one block: kernel 0 = forward, 1 = dk/dv,
-// 2 = dq (f32, scalar), 3 = the long-context forward (f32, scalar),
+// 2 = dq (f32, 3xTF32 wgmma), 3 = the long-context forward (f32, scalar),
 // 4 = forward, 5 = dk/dv, 6 = dq (bf16, wgmma), 7 = the long-context
 // forward (bf16, wgmma); -1 for an unsupported head dim or kernel
 long long gym_attn_smem_bytes(int kernel, int D) {
@@ -1062,9 +1184,9 @@ long long gym_attn_smem_bytes(int kernel, int D) {
   if (kernel < 0 || kernel > 6) return -1;
 #define GYM_SMEM_ROW(DD)                                                     \
   case DD: {                                                                 \
-    const long long b[7] = {(long long)fwd_smem<DD>(),                      \
-                            (long long)dkdv_smem<DD>(),                     \
-                            (long long)dq_smem<DD>(), 0,                    \
+    const long long b[7] = {(long long)x3::fwd_smem<DD>(),                  \
+                            (long long)x3::dkdv_smem<DD>(),                 \
+                            (long long)x3::dq_smem<DD>(), 0,                \
                             (long long)wg::fwd_smem<DD>(),                  \
                             (long long)wg::dkdv_smem<DD>(),                 \
                             (long long)wg::dq_smem<DD>()};                  \

@@ -224,8 +224,8 @@ def _projection_views(dt, skew=0, extra=0):
 ])
 def test_check_refuses_unaligned_bf16_views(case, dt, refused):
     """The bf16 kernels copy rows with 16-byte cp.async: ``_check`` refuses
-    a bf16 view whose base or strides are not 16-byte aligned; f32 (the
-    scalar kernels) takes any such view."""
+    a bf16 view whose base or strides are not 16-byte aligned; f32 takes
+    any such view (its kernels then copy 4 bytes at a time)."""
     skew = 1 if case == "base one element in" else 0
     extra = 2 if case == "token stride not 16 bytes" else 0
     q = _projection_views(dt, skew, extra)

@@ -6,8 +6,9 @@ card, where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-One case for each head dim (16, 32, 64, 128), dtype (bf16 runs the wgmma
-kernels, f32 the scalar ones) and layout: the packed pair (B1/B2) on
+One case for each head dim (16, 32, 64, 128), dtype (bf16 runs the bf16
+wgmma kernels, f32 the split-precision TF32 wgmma kernels) and layout: the
+packed pair (B1/B2) on
 strided column slices of a ``[N, T, 3C]`` projection, the per-head pair
 (B3/B4) on per-head views of one, causal and full-block with a random lse
 cotangent, at T=128 and T=384; and the long-context pair (B5) at T=1152
@@ -17,10 +18,11 @@ bf16 forward its 128-row query blocks against 64-key tiles).
 Tolerance, elementwise on o, dq, dk and dv, as ``chip_smoke.py`` states it:
 |kernel − plain| <= atol + rms_frac·rms(plain) + rtol·|plain|, bf16 atol 0,
 rms_frac 5e-2, rtol 2e-2; f32 atol 5e-5, rtol 1e-4; lse within 1e-4. The
-bf16 backward has no atomics, so two runs on the same inputs agree bit for
-bit, and so do two runs of the bf16 long-context forward. The bf16 kernels
-copy rows with 16-byte ``cp.async`` or TMA and refuse views that are not
-16-byte aligned; the f32 kernels take them. The long-context pair refuses
+backward kernels have no atomics, so two runs on the same inputs agree bit
+for bit in both dtypes, and so do two runs of the f32 forward and of the
+bf16 long-context forward. The bf16 kernels copy rows with 16-byte
+``cp.async`` or TMA and refuse views that are not 16-byte aligned; the f32
+kernels take them, through 4-byte copies. The long-context pair refuses
 T % 128 != 0 on the card as on the CPU. The threefry kernels (random bits
 and the fused Bernoulli mask) equal their plain twin bit for bit, at
 lengths that end inside and on a 4-element group; so does the per-row mask
@@ -146,6 +148,24 @@ def test_bf16_backward_is_bit_reproducible(layout, t):
     first = _bwd(layout, qkv, o, do, lse, dlse, h, plain=False)
     second = _bwd(layout, qkv, o, do, lse, dlse, h, plain=False)
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,t", [("packed", 384), ("heads_causal", 384),
+                                      ("heads_full_dlse", 384),
+                                      ("long", 1152)])
+def test_f32_forward_and_backward_are_bit_reproducible(layout, t):
+    """Two runs of the f32 forward and backward on the same inputs give
+    identical o, lse, dq, dk and dv: each output row has one owner block,
+    summed in a fixed order, no atomics."""
+    g = _card()
+    qkv, do, dlse, h = _inputs(g, layout, t, 64, torch.float32)
+    o, lse = _fwd(layout, qkv, h, plain=False)
+    again = _fwd(layout, qkv, h, plain=False)
+    first = _bwd(layout, qkv, o, do, lse, dlse, h, plain=False)
+    second = _bwd(layout, qkv, o, do, lse, dlse, h, plain=False)
+    for a, b in zip((o, lse, *first), (*again, *second)):
         assert torch.equal(a, b)
 
 
