@@ -12,28 +12,30 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``cuobjdump -sass``, each kernel's count of ``HGMMA`` (wgmma), ``HMMA``,
    ``FFMA`` and ``ATOM``/``RED`` instructions; fails if a bf16 forward,
    dk/dv, dq or long-context forward kernel, or an f32 (3xTF32) forward,
-   dq or dk/dv kernel at any head dim and copy width, has no ``HGMMA``, or
-   any kernel an atomic; the long-context forward's register split and
-   blocks per SM;
+   dq, dk/dv or long-context forward kernel at any head dim and copy width,
+   has no ``HGMMA``, if any kernel has an atomic, or if a kernel that the
+   long-context f32 forward and T1's segments replaced is still built; the
+   long-context forwards' register split and blocks per SM;
 3. every kernel against its plain PyTorch version on the card, bf16 and f32:
    the packed pair (B1/B2) at the flagship shape with q, k and v as strided
    views of the ``[N, T, 3C]`` projection, the per-head pair (B3/B4) at the
    GPT-2-base shape, causal and full-block with a random lse cotangent, the
    long-context pair (B5) at N=2 H=12 T=8192 D=64 on per-head views of the
    projection, at T=2048 (the tuned blocks) and at T=1152 (the default-block
-   rule); the bf16 forward and backward, each run twice at the B5 shape,
-   and the f32 forward and backward, each run twice at the packed and
-   per-head shapes, must agree bit for bit;
+   rule); the bf16 forward and backward and the f32 forward, each run
+   twice at the B5 shape, and the f32 forward and backward, each run twice
+   at the packed and per-head shapes, must agree bit for bit;
 4. flagship training through ``Trainer.fit``: GPT 4L/4H/128d, vocab 65,
    T=256, K=64 nodes × 16 rows, bf16, DiLoCo (H=2) with the lambda_cosine
    warmup, 6 steps on random tokens; the packed kernels must have launched;
 5. GPT-2 base (12L/12H/768, vocab 50304, T=1024, K=2 × 4 rows, 3 steps,
    DiLoCo H=2); the per-head kernels must have launched;
 5b. long context: GPT-2 base at T=8192 with ``remat`` and ``loss_chunk=2048``,
-   K=2 × 1 row, 4 steps (the steady rate counts the last two); the B5 pair must have launched exactly as often as
-   the steps and evals need (the forward twice a layer a step under remat);
-   then one step without ``remat`` and ``loss_chunk``, whose peak memory
-   must be higher;
+   K=2 × 1 row, 4 steps (the steady rate counts the last two); the B5 pair
+   must have launched exactly as often as the steps and evals need (the
+   bf16 forward twice a layer a step under remat, the f32 forward twice a
+   layer an eval), and one f32 eval is timed; then one step without
+   ``remat`` and ``loss_chunk``, whose peak memory must be higher;
 6. card against CPU: tiny GPTs through ``Trainer.fit`` on ``cuda`` and on
    ``cpu`` from the same weights and batches, in bf16 and in f32, at T=128
    and at T=2048 (where the card runs B5 and the CPU dense attention); at
@@ -45,16 +47,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    (``scaled_dot_product_attention``, timed only as a yardstick), the bound
    at 3.35 TB/s and 989 TFLOP/s and the TFLOP/s of the tiles the kernel
    computes; the f32 long-context forward's time beside f32 SDPA's and its
-   bound; T1, the
-   threefry Bernoulli masks of every GPT-2 base leaf (one SPARTA step),
-   against its twin and its bound (bytes, or the SASS's integer instructions
+   bound, with its pre-pass timed alone, and beside the whole-context f32
+   forward (``attn_fwd_tf32x3``) at the same shape; T1, the threefry
+   Bernoulli masks of every GPT-2 base leaf (one SPARTA step, one launch),
+   against its twin and its bound (bytes, or the least integer instructions
    at the dispatch limit of 128 lanes a clock an SM at the card's highest SM
    clock);
 8. the stochastic strategies through ``Trainer.fit`` (random tokens, bf16),
    each with its steady steps/s, exact launch counts of B1-B4 and T1 and
    peak memory: 8a GPT-2 base, K=4 × 4 rows, SPARTA-DiLoCo (p 0.005, H 2,
    participation 0.75), 4 steps, whose step-0 ``comm_bytes`` must equal
-   the prediction from the twin's mask counts; 8b the flagship, K=64 × 16,
+   the prediction from the twin's mask counts, and T1 launched once a step; 8b the flagship, K=64 × 16,
    FedAvg (H 2, islands of 16), 6 steps; 8c GPT-2 base, K=4 × 4, ZeRO-1
    then SimpleReduce (AdamW), 3 steps each, where ZeRO must peak lower;
 9. the BASELINE configs through ``Trainer.fit`` at
@@ -64,7 +67,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    64, Adam 1e-3, lambda_cosine warmup 100, 8 steps): 9a K=2 SimpleReduce,
    9b K=8 DiLoCo (H cut from 100 to 2 so that outer steps fire), 9c K=8
    SPARTA (p 0.005), the dropout masks from the per-row T1 (3 launches a
-   microbatch) and SPARTA's from T1 (one a leaf a step), evals at step 0
+   microbatch) and SPARTA's from T1 (one launch a step), evals at step 0
    and after the last step (the configs eval 5 times in 300 steps, so the
    steady window holds none); 9d nanoGPT "small" 4L/4H/128d, vocab 66,
    T=256, K=16 × 16 rows, FedAvg AdamW 3e-4 (H cut to 2), 6 steps on the
@@ -80,11 +83,13 @@ Phase 3 also holds the threefry kernels (random bits and the fused
 Bernoulli mask, T1) to their plain twin bit for bit at 1, 4097, 786,432
 (``wpe``) and 38,633,472 (``wte``) elements and, at 2³² + 4097 elements,
 where the counter's high word is 1, on the last 8192; and the card's
-permutation to the twin's at 38,633,472, and the mask at the CNN's 20
-leaves under SPARTA's keys of phase 9c's 8 steps; and the per-row mask
-(one launch for a table of keys, as dropout draws it) at phase 9's
-dropouts (K = 8 and 2 rows of 64 × 64, 128 and 256 elements, the keys of
-two steps) and at 32 rows of 4096 and of 191 elements. Phase 7 also times the f32
+permutation to the twin's at 38,633,472; T1's segments (one launch for a
+table of keys, sizes and places) on a mixed table (sizes 0, 1, 3, 4, 5,
+1023, 4097 and GPT-2 base's 148 leaves), at the CNN's 20 leaves under
+SPARTA's keys of phase 9c's 8 steps, and as dropout draws them (a row a
+node) at phase 9's dropouts (K = 8 and 2 rows of 64 × 64, 128 and 256
+elements, the keys of two steps) and at 32 rows of 4096 and of 191
+elements. Phase 7 also times the f32
 packed pair at config 4's shape (N=256) and the f32 per-head pair at B3/B4's
 shape, each beside f32 SDPA, its plain version, its bound (bytes, or three
 times the products at TF32's 495 TFLOP/s: the kernels run split-precision
@@ -92,9 +97,10 @@ TF32) and the products at the 67 TFLOP/s of f32 FMAs, for comparison only;
 the per-row mask at config 2's dropout shapes and the host's key algebra a
 step. The launch counts in the
 ``kernels`` line are those of the training runs of phases 4 (B1/B2), 5
-(B3/B4), 5b (B5), 8a (T1), 9b (T1's per-row entry) and 9d (the f32 B1/B2),
-each counted from zero; the packed pair counts its bf16 and f32 kernels
-apart (every eval runs in f32).
+(B3/B4), 5b (B5, its f32 forward in the evals), 8a (T1), 9b (T1's per-row
+entry) and 9d (the f32 B1/B2), each counted from zero; the packed pair and
+B5's forward count their bf16 and f32 kernels apart (every eval runs in
+f32).
 """
 
 from __future__ import annotations
@@ -145,13 +151,13 @@ KERNELS = {
                    "gym_tpu/ops/fused_attention.py:137"),
     "B4_blk_bwd": ("fused", "_blk_bwd", "launches", FUSED_CU,
                    "gym_tpu/ops/fused_attention.py:153"),
-    "B5f_flash_fwd": ("flash", "_flash_fwd", "launches", FLASH_CU,
+    "B5f_flash_fwd": ("flash", "_flash_fwd", "launches_bf16", FLASH_CU,
                       f"{BUNDLED}:758"),
     "B5b_flash_bwd": ("flash", "_flash_bwd", "launches", FUSED_CU,
                       f"{BUNDLED}:1121 and :1456"),
     # no pallas_call: XLA's threefry2x32 lowering of jax.random.bernoulli,
-    # which SPARTA's masks reach
-    "T1_threefry_bernoulli": ("threefry", "bernoulli", "launches",
+    # which SPARTA's masks reach, all of a step's in one launch
+    "T1_threefry_bernoulli": ("threefry", "bernoulli_segments", "launches",
                               THREEFRY_CU, "gym_tpu/strategy/sparta.py:60"),
     # the f32 instantiations of the packed pair: the path of config 4,
     # which trains without autocast, and of every eval
@@ -159,12 +165,18 @@ KERNELS = {
                           "gym_tpu/ops/fused_attention.py:246"),
     "B2_bwd_packed_f32": ("fused", "_bwd_packed", "launches_f32", FUSED_CU,
                           "gym_tpu/ops/fused_attention.py:267"),
+    # the f32 long-context forward: every eval of the long-context config
+    "B5f_flash_fwd_f32": ("flash", "_flash_fwd", "launches_f32", FLASH_CU,
+                          f"{BUNDLED}:758"),
     # T1 with a key per row: flax nn.Dropout's jax.random.bernoulli, one
     # mask a node, drawn for all the nodes in one launch
     "T1_threefry_bernoulli_rows": ("threefry", "bernoulli_rows", "launches",
                                    THREEFRY_CU,
                                    "gym_tpu/models/mnist_cnn.py:36,45"),
 }
+# GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
+GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
+                 n_embd=768, attn_impl="flash")
 # the bits of the (fold_in(fold_in(PRNGKey(7), leaf), 0), step) keys
 # SPARTA's masks use; three leaves and steps for phase 3
 THREEFRY_KEYS = ((0, 0), (146, 3), (37, 1000))
@@ -274,9 +286,14 @@ def sass_counts(nvcc, lib_path):
     return counts
 
 
+# kernels the f32 long-context forward and T1's segments replaced
+GONE = ("flash_fwd_kernel", "threefry_rows_kernel", "threefry_kernel<true>",
+        "threefry_kernel<(bool)1>")
+
+
 def check_sass(counts):
     """Every bf16 wgmma kernel and every f32 3xTF32 kernel uses the tensor
-    cores; no kernel has an atomic."""
+    cores; no kernel has an atomic; the replaced kernels are gone."""
     wgmma = [k for k in counts if "wgmma" in k]
     check(len(wgmma) == 16, f"expected 16 bf16 wgmma kernels (forward, dq, "
           f"dk/dv and the long-context forward at 4 head dims), found "
@@ -284,10 +301,19 @@ def check_sass(counts):
     flash = [k for k in wgmma if "flash_fwd_wgmma" in k]
     check(len(flash) == 4, f"expected flash_fwd_wgmma at 4 head dims, found "
           f"{flash}")
-    tf32 = [k for k in counts if "tf32x3" in k]
-    check(len(tf32) == 24, f"expected 24 f32 3xTF32 kernels (forward, dq and "
-          f"dk/dv at 4 head dims and 2 copy widths), found {len(tf32)}: "
-          f"{tf32}")
+    # the products of the f32 kernels; the long-context forward's pre-pass
+    # (split_kv_tf32x3) only splits k and v
+    tf32 = [k for k in counts if "tf32x3" in k and "split_kv" not in k]
+    check(len(tf32) == 32, f"expected 32 f32 3xTF32 kernels (forward, dq, "
+          f"dk/dv and the long-context forward at 4 head dims and 2 copy "
+          f"widths), found {len(tf32)}: {tf32}")
+    # the head dim: the first template argument, demangled or not
+    long_f32 = {re.search(r"flash_fwd_tf32x3(?:<\D*|ILi)(\d+)", k).group(1)
+                for k in tf32 if "flash_fwd_tf32x3" in k}
+    check(long_f32 == {"16", "32", "64", "128"}, f"expected "
+          f"flash_fwd_tf32x3 at D = 16, 32, 64, 128, found {long_f32}")
+    gone = [k for k in counts if any(g in k for g in GONE)]
+    check(not gone, f"replaced kernels still built: {gone}")
     for k in sorted(counts):
         c = counts[k]
         log("  " + k + ": " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -299,7 +325,8 @@ def check_sass(counts):
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores")
-_TF32_KERNEL = re.compile(r"attn_(fwd|dq|dkdv)_tf32x3ILi(\d+)ELi(\d+)E")
+_TF32_KERNEL = re.compile(
+    r"(attn_fwd|attn_dq|attn_dkdv|flash_fwd|split_kv)_tf32x3ILi(\d+)ELi(\d+)E")
 
 
 def f32_kernel_report(build_log, lib):
@@ -320,7 +347,9 @@ def f32_kernel_report(build_log, lib):
             kind, d, vec = name.groups()
             found[(kind, int(d), int(vec))] = (int(m.group(1)), spill)
             name = None
-    smem_id = {"fwd": 0, "dkdv": 1, "dq": 2}
+    # dynamic shared memory (gym_attn_smem_bytes); the pre-pass has static
+    # shared memory only (the ptxas report)
+    smem_id = {"attn_fwd": 0, "attn_dkdv": 1, "attn_dq": 2, "flash_fwd": 3}
 
     def copies(kind, d, vec):
         regs, spill = found.get((kind, d, vec), ("?", "?"))
@@ -329,9 +358,12 @@ def f32_kernel_report(build_log, lib):
 
     for d in (16, 32, 64, 128):
         log(f"  f32 3xTF32 kernels at D={d}: " + "; ".join(
-            f"{kind} {lib.gym_attn_smem_bytes(smem_id[kind], d)} B smem, "
-            f"{copies(kind, d, 4)}, {copies(kind, d, 1)}"
-            for kind in ("fwd", "dq", "dkdv")))
+            f"{kind}"
+            + (f" {lib.gym_attn_smem_bytes(smem_id[kind], d)} B smem"
+               if kind in smem_id else "")
+            + f", {copies(kind, d, 4)}, {copies(kind, d, 1)}"
+            for kind in ("attn_fwd", "attn_dq", "attn_dkdv", "split_kv",
+                         "flash_fwd")))
 
 
 # -- phase 3: kernels against plain versions --------------------------------
@@ -378,12 +410,12 @@ def check_long_context(torch, tflash, shapes, g, dtype):
         ro, rl = tflash.plain_flash_fwd(*heads, scale)
         ef = max(compare("B5f o", o, ro, "out", dtype),
                  compare("B5f lse", lse, rl, "lse", dtype))
-        if dtype == torch.bfloat16 and not errs:
+        if not errs:
             o2, lse2 = tflash._flash_fwd(*heads, scale)
             same = torch.equal(o, o2) and torch.equal(lse, lse2)
-            log(f"  B5f bf16 run twice: o, lse "
+            log(f"  B5f {dn} run twice: o, lse "
                 f"{'bit-identical' if same else 'DIFFER'}")
-            check(same, "B5f: two runs of the bf16 forward differ")
+            check(same, f"B5f: two runs of the {dn} forward differ")
             del o2, lse2
         got = tflash._flash_bwd(*heads, o, do, lse, scale)
         ref = tflash.plain_flash_bwd(*heads, o, do, lse, scale)
@@ -473,6 +505,8 @@ def check_kernels(torch, tfa, tflash, shapes):
         if dtype == torch.bfloat16:  # the training runs' dtype
             errs.update(B1_fwd_packed=e1, B2_bwd_packed=e2, B3_blk_fwd=e3,
                         B4_blk_bwd=e4, B5f_flash_fwd=e5f, B5b_flash_bwd=e5b)
+        else:  # the evals' long-context forward
+            errs["B5f_flash_fwd_f32"] = e5f
     return errs
 
 
@@ -483,8 +517,7 @@ def threefry_ops_per_element(counts):
     kernel's ALU count over its rotations / 20 is the work of one element,
     the loop's and the last group's instructions shared out among the
     evaluations."""
-    name = [k for k in counts if re.search(
-        r"threefry_kernel<(true|\(bool\)1)>", k)]
+    name = [k for k in counts if "threefry_segments_kernel" in k]
     check(len(name) == 1, f"expected one Bernoulli mask kernel in the "
           f"SASS, found {name}")
     c = counts[name[0]]
@@ -493,7 +526,7 @@ def threefry_ops_per_element(counts):
     evals = c["ROT"] // 20
     ops = c["ALU"] / evals
     log(f"  T1 {name[0]}: {c['ALU']} ALU instructions, {c['ROT']} rotations "
-        f"= {evals} threefry evaluations in the code (4 a pass), {ops:.2f} "
+        f"= {evals} threefry evaluations in the code (4 a group), {ops:.2f} "
         f"an element (the least, which the bound counts: "
         f"{THREEFRY_LEAST_OPS})")
     check(THREEFRY_LEAST_OPS <= ops <= 160, f"T1: {ops} ALU instructions an element is "
@@ -504,6 +537,30 @@ def threefry_ops_per_element(counts):
 def threefry_key(tf, leaf, step, seed=7):
     return tf.fold_in(tf.fold_in(tf.fold_in(tf.PRNGKey(seed), leaf), 0),
                       step)
+
+
+# the mixed table's own segment sizes: empty, shorter than a group, one
+# group, a group and one, and lengths that end inside a group
+SEGMENT_SIZES = [0, 1, 3, 4, 5, 1023, 4097]
+
+
+def hold_segments(torch, tf, keys, p, sizes, what):
+    """One ``bernoulli_segments`` launch against the twin's masks, segment
+    by segment; every segment 16-byte aligned. Returns the elements that
+    differ (0)."""
+    before = tf.bernoulli_segments.launches
+    buf, views = tf.bernoulli_segments(keys, p, sizes, "cuda")
+    check(tf.bernoulli_segments.launches == before + 1,
+          f"T1 segments {what}: not one launch")
+    refs = tf.plain_bernoulli_segments(keys, p, sizes, "cuda")
+    diff = 0
+    for i, (got, ref) in enumerate(zip(views, refs)):
+        check((got.data_ptr() - buf.data_ptr()) % 16 == 0,
+              f"T1 segments {what}: segment {i} not 16-byte aligned")
+        diff += int((got != ref).sum())
+    check(diff == 0, f"T1 segments {what}: {diff} elements differ from the "
+          f"twin")
+    return diff
 
 
 def check_threefry(torch, tf):
@@ -543,20 +600,27 @@ def check_threefry(torch, tf):
         f"{'bit-identical to' if diff == 0 else 'DIFFER FROM'} the twin")
     check(diff == 0, f"T1 mask past 2^32: {diff} elements differ")
     del tail, idx, ref
-    # SPARTA's masks of the CNN's leaves over phase 9c's 8 steps
+    # T1's segments: a mixed table, then SPARTA's masks of the CNN's leaves
+    # over phase 9c's 8 steps, each step one launch as SPARTA draws them
+    sizes = SEGMENT_SIZES + [n for _, n in gpt_leaves(GPT2_BASE)]
+    keys = [threefry_key(tf, i, 3) for i in range(len(sizes))]
+    for p in (0.005, 0.5):
+        worst = max(worst, hold_segments(torch, tf, keys, p, sizes,
+                                         f"mixed table p={p}"))
+    log(f"  T1 segments: one launch for {len(sizes)} segments (sizes "
+        f"{SEGMENT_SIZES} and GPT-2 base's {len(sizes) - len(SEGMENT_SIZES)}"
+        f" leaves), p 0.005 and 0.5: bit-identical to the twin, each "
+        f"segment 16-byte aligned")
     leaves = cnn_leaves()
-    for leaf, n in leaves:
-        for step in range(8):
-            key = threefry_key(tf, leaf, step)
-            got = tf.bernoulli(key, 0.005, n, "cuda")
-            ref = tf.plain_bernoulli(key, 0.005, n, "cuda")
-            diff = int((got != ref).sum())
-            worst = max(worst, diff)
-            check(diff == 0, f"T1 mask of CNN leaf {leaf} ({n} elements) "
-                  f"step {step}: {diff} elements differ from the twin")
-    log(f"  T1 threefry at the CNN's {len(leaves)} SPARTA leaves "
+    for step in range(8):
+        keys = [threefry_key(tf, leaf, step) for leaf, _ in leaves]
+        worst = max(worst, hold_segments(
+            torch, tf, keys, 0.005, [n for _, n in leaves],
+            f"CNN leaves step {step}"))
+    log(f"  T1 segments at the CNN's {len(leaves)} SPARTA leaves "
         f"({min(n for _, n in leaves)}-{max(n for _, n in leaves)} "
-        f"elements), p 0.005, steps 0-7: bit-identical to the twin")
+        f"elements), p 0.005, steps 0-7, one launch a step: bit-identical "
+        f"to the twin")
     torch.cuda.empty_cache()
     n = THREEFRY_N[-1]
     key = threefry_key(tf, 0, 0)
@@ -714,18 +778,23 @@ def long_context_phase(torch, mods, cfg_kw, nodes, steps):
     # every eval runs the f32 forward twice (local and global params), one
     # validation microbatch each
     evals = 2 * len(res.history["global_loss"])
-    want_f = layers * (2 * steps + evals)
-    want_b = layers * steps
-    check(counts["B5f_flash_fwd"] == want_f and
-          counts["B5b_flash_bwd"] == want_b,
-          f"{title}: B5 launches {counts['B5f_flash_fwd']}/"
-          f"{counts['B5b_flash_bwd']}, expected {want_f}/{want_b} "
-          f"({layers} layers, {steps} steps under remat, {evals} evals)")
+    want = {"B5f_flash_fwd": layers * 2 * steps,
+            "B5f_flash_fwd_f32": layers * evals,
+            "B5b_flash_bwd": layers * steps}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{title}: B5 launches {got}, expected {want} "
+          f"({layers} layers, {steps} steps under remat, {evals} eval "
+          f"forwards)")
     sps = res.steps_per_second_steady or res.steps_per_second
     mfu = node_mfu(GPTConfig(**cfg_kw), res.node_state.params, nodes,
                    1.0 / sps, peak_flops=BF16_FLOPS)
-    log(f"  B5 launches as expected: forward {want_f} = {layers} x (2 x "
-        f"{steps} steps + {evals} evals), backward {want_b}")
+    log(f"  B5 launches as expected: bf16 forward {want['B5f_flash_fwd']} = "
+        f"{layers} x 2 x {steps} steps, f32 forward "
+        f"{want['B5f_flash_fwd_f32']} = {layers} x {evals} eval forwards, "
+        f"backward {want['B5b_flash_bwd']}")
+    log(f"  one f32 eval (K={nodes} x 1 row, node 0's and the mean params): "
+        f"{time_eval(torch, cfg_kw, nodes):.1f} ms (median of 3; "
+        f"scripts/eval_time.py compares checkouts)")
     log(f"  MFU {mfu:.4%} at {BF16_FLOPS / 1e12:.0f} TFLOP/s (steady "
         f"{sps:.4f} steps/s); peak memory with remat and loss_chunk "
         f"{peak / 2**30:.2f} GiB")
@@ -741,10 +810,42 @@ def long_context_phase(torch, mods, cfg_kw, nodes, steps):
     return counts
 
 
+def time_eval(torch, cfg_kw, nodes, reps=3):
+    """ms of one f32 eval of the GPT at ``cfg_kw`` as ``Trainer.fit`` runs
+    it (``make_eval_step``: node 0's params and the node mean, one
+    validation row a node), on random weights (seed 0) and tokens; the host
+    clock around a synchronise, median of ``reps`` after one warm-up."""
+    import types
+    from gym_tpu_torch.models.base import LossModel
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.parallel.axis import AxisCtx
+    from gym_tpu_torch.train_node import make_eval_step
+    cfg = GPTConfig(**cfg_kw)
+    model = LossModel(GPT(cfg))
+    params, model_state = model.init(nodes, 0, "cuda")
+    state = types.SimpleNamespace(params=params, model_state=model_state)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = tuple(torch.randint(0, cfg.vocab_size,
+                                (nodes, 1, 1, cfg.block_size), device="cuda",
+                                generator=g) for _ in range(2))
+    step = make_eval_step(model, AxisCtx(nodes))
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return sorted(times[1:])[reps // 2]
+
+
 def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=(),
                 strategy_fn=diloco, label=""):
     """Train losses and global evals of the same fit on the card and on the
-    CPU; ``want`` names kernels the card run must have launched."""
+    CPU; ``want`` names kernels the card run must have launched, in both
+    modes or ({mode: names}) in each."""
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
     t = f"{cfg_kw['block_size']}{label}"
     init = {n: p[0] for n, p in GPT(GPTConfig(**cfg_kw)).init_params(
@@ -761,7 +862,7 @@ def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=(),
                 l for _, l in res.history["global_loss"]]
             if device == "cuda":
                 counts = read_counts(mods)
-                for name in want:
+                for name in (want[mode] if isinstance(want, dict) else want):
                     check(counts[name] > 0, f"card vs CPU T={t}: {name} "
                           f"never launched on the card")
         rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"],
@@ -945,16 +1046,9 @@ def time_kernels(torch, tfa, tflash, shapes):
             lo, lib, do, retain_graph=True)),
         shape=shape, bound=bound(n, h, t, d, 2, True),
         work=(n, h, t, d, 7))
-    f32 = [x.float() for x in heads]
-    f32_ms = timed(torch, lambda: tflash._flash_fwd(*f32, scale), inner=3)
-    f32_lib = timed(torch, lambda: F.scaled_dot_product_attention(
-        *f32, is_causal=True, scale=scale), inner=3)
-    log_f32("B5f f32 (scalar kernel)", dict(
-        ms=f32_ms, plain_ms=None, library_ms=f32_lib,
-        shape=f"N={n} H={h} T={t} D={d} contiguous",
-        work=(n, h, t, d, 2), backward=False))
-    del heads, do, o, lse, lib, lo, f32
+    del heads, do, o, lse, lib, lo
     torch.cuda.empty_cache()
+    f32 = time_long_f32(torch, tfa, tflash, g, n, h, t, d)
     for name, r in out.items():
         b, by = r["bound"]
         log(f"{name} [{r['shape']}]: kernel_ms {r['ms']:.4f} plain_ms "
@@ -963,7 +1057,61 @@ def time_kernels(torch, tfa, tflash, shapes):
             f"{tile_tflops(*r['work'], r['ms']):.1f} TFLOP/s of computed "
             f"64 x 64 tiles on or below the diagonal ({r['work'][-1]} "
             f"products)")
+    out["B5f_flash_fwd_f32"] = f32
     return out
+
+
+def time_long_f32(torch, tfa, tflash, g, n, h, t, d):
+    """The f32 long-context forward (pre-pass and forward) on per-head
+    views at B5f's shape, its pre-pass alone, its plain version, f32 SDPA,
+    the bound, and the whole-context f32 forward (``attn_fwd_tf32x3``, which
+    computes the same function: launched directly, since ``_blk_fwd``'s gate
+    is for T <= 1024)."""
+    import torch.nn.functional as F
+    from gym_tpu_torch.ops import _build
+    scale = 1.0 / math.sqrt(d)
+    heads, _ = per_head_views(torch, g, n, h, t, d, torch.float32)
+    o = torch.empty(n, h, t, d, device="cuda")
+    lse = torch.empty(n, h, t, 1, device="cuda")
+    strides = [int(v) for x in (*heads, o, lse)
+               for v in tfa._strides(x, "blk")]
+    work = torch.empty(16 * n * h * t * d, dtype=torch.uint8, device="cuda")
+    lib = _build.load()
+    st = (ctypes.c_longlong * 15)(*strides)
+
+    def split():
+        code = lib.gym_flash_split_kv(*(x.data_ptr() for x in (*heads, o)),
+                                      work.data_ptr(), st, n, h, t, d,
+                                      tfa._stream(o))
+        _build.check(lib, code, "gym_flash_split_kv")
+
+    r = dict(ms=timed(torch, lambda: tflash._flash_fwd(*heads, scale),
+                      inner=3),
+             plain_ms=timed(torch, lambda: tflash.plain_flash_fwd(
+                 *heads, scale), reps=3, inner=1),
+             library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+                 *heads, is_causal=True, scale=scale), inner=3),
+             shape=f"N={n} H={h} T={t} D={d} f32 per-head views",
+             bound=bound(n, h, t, d, 4, False), work=(n, h, t, d, 2),
+             backward=False)
+    split_ms = timed(torch, split, inner=3)
+    whole_ms = timed(torch, lambda: tfa._launch_fwd(
+        *heads, o, lse, strides, n, h, t, d, True, scale), inner=3)
+    log_f32("B5f_flash_fwd_f32 (pre-pass and flash_fwd_tf32x3)", r)
+    # the pre-pass reads k and v and writes four split copies of them
+    split_bytes = 6 * n * h * t * d * 4
+    log(f"  B5f f32 pre-pass split_kv_tf32x3 alone: {split_ms:.4f} ms "
+        f"({split_bytes / 1e6:.0f} MB, bound "
+        f"{split_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), "
+        f"{split_ms / r['ms']:.1%} of the forward; the whole-context "
+        f"attn_fwd_tf32x3 at this shape {whole_ms:.4f} ms, "
+        f"{whole_ms / r['ms']:.2f}x the long-context forward's time")
+    check(r["ms"] < whole_ms and r["ms"] < r["library_ms"],
+          f"B5f f32: {r['ms']:.4f} ms is not faster than attn_fwd_tf32x3 "
+          f"({whole_ms:.4f}) and f32 SDPA ({r['library_ms']:.4f})")
+    del heads, o, lse, work
+    torch.cuda.empty_cache()
+    return r
 
 
 def gpt_leaves(cfg_kw):
@@ -978,39 +1126,29 @@ def gpt_leaves(cfg_kw):
 
 def time_threefry(torch, tf, leaves, sass_ops, int32_ops_per_s, p=0.005):
     """T1 at phase 8a's shapes: the masks of every leaf for one SPARTA
-    step, one launch a leaf; its twin on the card; the bound, from the
-    least operations an element (the compiled kernel's ``sass_ops`` is
-    printed beside it)."""
-    keys = [(threefry_key(tf, i, 0), n) for i, n in leaves]
-
-    def kernel():
-        for key, n in keys:
-            tf.bernoulli(key, p, n, "cuda")
-
-    def plain():
-        for key, n in keys:
-            tf.plain_bernoulli(key, p, n, "cuda")
-
-    total = sum(n for _, n in leaves)
+    step, in one launch (``bernoulli_segments``, the segment table's upload
+    included); its twin on the card; the bound, from the least operations
+    an element (the compiled kernel's ``sass_ops`` is printed beside it);
+    and the largest leaf alone."""
+    keys = [threefry_key(tf, i, 0) for i, _ in leaves]
+    sizes = [n for _, n in leaves]
+    total = sum(sizes)
     t_bytes = total / HBM_BYTES_PER_S  # one byte written an element
     t_ops = total * THREEFRY_LEAST_OPS / int32_ops_per_s
-    # two steps' masks a timed run (296 launches) stay inside the card's
-    # queue of pending launches; ten (1480) fill it, and the host's launch
-    # rate then shows in the events
-    r = dict(ms=timed(torch, kernel, inner=2),
-             plain_ms=timed(torch, plain, reps=3, inner=1),
+    r = dict(ms=timed(torch, lambda: tf.bernoulli_segments(
+                 keys, p, sizes, "cuda")),
+             plain_ms=timed(torch, lambda: tf.plain_bernoulli_segments(
+                 keys, p, sizes, "cuda"), reps=3, inner=1),
              library_ms=None,
              bound=(max(t_bytes, t_ops) * 1e3,
                     "bytes" if t_bytes >= t_ops else "operations"))
-    ten = timed(torch, kernel)
-    key, n = max(keys, key=lambda kn: kn[1])
+    n = max(sizes)
+    key = keys[sizes.index(n)]
     one = timed(torch, lambda: tf.bernoulli(key, p, n, "cuda"))
-    log(f"T1 at 10 steps a timed run ({10 * len(keys)} launches): "
-        f"{ten:.4f} ms a step; the largest leaf alone ({n} elements): "
-        f"{one:.4f} ms, bound "
+    log(f"T1 the largest leaf alone ({n} elements): {one:.4f} ms, bound "
         f"{n * THREEFRY_LEAST_OPS / int32_ops_per_s * 1e3:.4f} ms")
     log(f"T1_threefry_bernoulli [{len(leaves)} leaves, {total} elements, "
-        f"p {p}, one launch a leaf]: kernel_ms {r['ms']:.4f} plain_ms "
+        f"p {p}, one launch]: kernel_ms {r['ms']:.4f} plain_ms "
         f"{r['plain_ms']:.4f} (twin, int64) library_ms none (no PyTorch "
         f"call computes threefry2x32) bound_ms {r['bound'][0]:.4f} "
         f"({r['bound'][1]}: {THREEFRY_LEAST_OPS} ops an element at "
@@ -1183,7 +1321,7 @@ def expected_launches(res, cfg_kw, steps, packed, t1_per_step=0):
     """Exact launches of a bf16 fit: the attention pair's forward and
     backward once a layer a step in bf16, the forward twice a layer an eval
     in f32 (local and global params, one validation microbatch; evals run
-    in f32 whatever autocast says); T1 once a leaf a SPARTA step."""
+    in f32 whatever autocast says); T1 once a SPARTA step."""
     layers = cfg_kw["n_layer"]
     train = layers * steps
     evals = 2 * layers * len(res.history["global_loss"])
@@ -1223,7 +1361,7 @@ def stochastic_phase(torch, mods, tf, card, base, flagship):
     strat = SPARTADiLoCoStrategy(adamw, p_sparta=0.005, H=2,
                                  participation=0.75, **SCHED)
     c8a, res = run("phase 8a gpt2-base SPARTA-DiLoCo", base, 4, 4, 4, strat,
-                   False, t1=len(gpt_leaves(base)))
+                   False, t1=1)
     # step 0's comm_bytes: the twin's realized mask count over every leaf
     order = jax_leaf_order(res.node_state.params)
     count = 0
@@ -1392,7 +1530,7 @@ def baseline_phase(torch, mods, card):
                               ("9b", "diloco", 8), ("9c", "sparta", 8)):
         want = {"T1_threefry_bernoulli_rows": rows}
         if which == "sparta":
-            want["T1_threefry_bernoulli"] = len(cnn_leaves()) * steps
+            want["T1_threefry_bernoulli"] = steps  # every leaf in one
         counts[tag], _ = baseline_run(
             torch, mods, card,
             f"phase {tag} MNIST K={nodes} {which} (batch {MNIST_BATCH}, "
@@ -1512,19 +1650,20 @@ def main() -> int:
             log(f"  dynamic shared memory per block at D={d}: " + ", ".join(
                 f"{name} {lib.gym_attn_smem_bytes(i, d)} B" for i, name in
                 enumerate(("attn_fwd_tf32x3 f32", "attn_dkdv_tf32x3 f32",
-                           "attn_dq_tf32x3 f32", "flash_fwd f32",
+                           "attn_dq_tf32x3 f32", "flash_fwd_tf32x3 f32",
                            "attn_fwd_wgmma bf16", "attn_dkdv_wgmma bf16",
                            "attn_dq_wgmma bf16", "flash_fwd_wgmma bf16"))))
         f32_kernel_report(_build.build_log, lib)
         for d in (16, 32, 64, 128):
-            regs = (ctypes.c_int * 3)()
-            per_sm = lib.gym_flash_occupancy(d, regs)
-            check(per_sm >= 1, f"flash_fwd_wgmma<{d}> cannot be resident "
-                  f"({per_sm})")
-            log(f"  flash_fwd_wgmma<{d}>: 384 threads at {regs[2]} registers "
-                f"a thread at launch, setmaxnreg to {regs[0]} (producer "
-                f"warpgroup) and {regs[1]} (two consumer warpgroups); "
-                f"{per_sm} block(s) per SM")
+            for bf16, kern in ((1, "flash_fwd_wgmma"), (0, "flash_fwd_tf32x3")):
+                regs = (ctypes.c_int * 3)()
+                per_sm = lib.gym_flash_occupancy(d, bf16, regs)
+                check(per_sm >= 1, f"{kern}<{d}> cannot be resident "
+                      f"({per_sm})")
+                log(f"  {kern}<{d}>: 384 threads at {regs[2]} registers a "
+                    f"thread at launch, setmaxnreg to {regs[0]} (producer "
+                    f"warpgroup) and {regs[1]} (two consumer warpgroups); "
+                    f"{per_sm} block(s) per SM")
         log("  SASS instructions per kernel (cuobjdump -sass):")
         sass = sass_counts(_build._nvcc(), path)
         check_sass(sass)
@@ -1537,8 +1676,7 @@ def main() -> int:
 
         flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
                         n_embd=128, attn_impl="flash")
-        base = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
-                    n_embd=768, attn_impl="flash")
+        base = GPT2_BASE
         long_ctx = dict(base, block_size=8192, remat=True, loss_chunk=2048)
         c4 = train_phase(torch, mods, "phase 4 flagship", flagship, 64, 16,
                          6, ("B1_fwd_packed", "B2_bwd_packed"))[0]
@@ -1551,6 +1689,7 @@ def main() -> int:
                     "B3_blk_fwd": c5["B3_blk_fwd"],
                     "B4_blk_bwd": c5["B4_blk_bwd"],
                     "B5f_flash_fwd": c5b["B5f_flash_fwd"],
+                    "B5f_flash_fwd_f32": c5b["B5f_flash_fwd_f32"],
                     "B5b_flash_bwd": c5b["B5b_flash_bwd"]}
 
         log("phase 6: card against CPU")
@@ -1560,7 +1699,9 @@ def main() -> int:
         card_vs_cpu(torch, mods, dict(block_size=2048, vocab_size=65,
                                       n_layer=2, n_head=2, n_embd=128,
                                       attn_impl="flash"), 2, 1, 2, 100_000,
-                    want=("B5f_flash_fwd", "B5b_flash_bwd"))
+                    want={"bf16": ("B5f_flash_fwd", "B5f_flash_fwd_f32",
+                                   "B5b_flash_bwd"),
+                          "f32": ("B5f_flash_fwd_f32", "B5b_flash_bwd")})
 
         def sparta_diloco():
             from gym_tpu_torch.strategy import (OptimSpec,

@@ -115,20 +115,21 @@ def load() -> ctypes.CDLL:
         lib.gym_attn_bwd.argtypes = [vp] * 11 + [strides] + [i32] * 5 + [
             f32, i32, vp]
         lib.gym_attn_bwd.restype = i32
-        lib.gym_flash_fwd.argtypes = [vp] * 5 + [strides] + [i32] * 4 + [
+        lib.gym_flash_fwd.argtypes = [vp] * 6 + [strides] + [i32] * 4 + [
             f32, i32, vp]
         lib.gym_flash_fwd.restype = i32
-        lib.gym_flash_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.gym_flash_split_kv.argtypes = [vp] * 5 + [strides] + [
+            i32] * 4 + [vp]
+        lib.gym_flash_split_kv.restype = i32
+        lib.gym_flash_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.gym_flash_occupancy.restype = i32
         lib.gym_attn_smem_bytes.argtypes = [i32, i32]
         lib.gym_attn_smem_bytes.restype = ctypes.c_longlong
         u32, i64 = ctypes.c_uint, ctypes.c_longlong
         lib.gym_threefry_bits.argtypes = [u32, u32, i64, vp, vp]
         lib.gym_threefry_bits.restype = i32
-        lib.gym_bernoulli_mask.argtypes = [u32, u32, i64, f32, vp, vp]
-        lib.gym_bernoulli_mask.restype = i32
-        lib.gym_bernoulli_rows.argtypes = [vp, i32, i64, f32, vp, vp]
-        lib.gym_bernoulli_rows.restype = i32
+        lib.gym_bernoulli_segments.argtypes = [vp, i32, i64, f32, vp, vp]
+        lib.gym_bernoulli_segments.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

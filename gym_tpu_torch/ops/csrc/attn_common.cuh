@@ -1,7 +1,6 @@
 // Shared by the attention kernels of this directory: element strides, the
-// head-dim dispatch of the C entries, and the tile sizes, dtype conversions
-// and shared-memory tile loader of the scalar f32 long-context forward
-// (flash_attention.cu).
+// head-dim dispatch of the C entries, the dynamic shared-memory opt-in and
+// the views' alignment tests.
 
 #pragma once
 
@@ -12,38 +11,9 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int NTHREADS = 256; // 16 x 16 threads, 4 x 4 micro-tile each
-constexpr int LDP = BK + 1;   // padded row stride of score tiles in smem
-
 struct Strides {
   long long n, h, t;
 };
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// round an f32 value to the storage dtype and back (the Pallas .astype)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Copy rows [r0, r0 + 64) of one (batch, head) slice into a padded smem tile.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long tstride, int r0) {
-  for (int e = threadIdx.x; e < 64 * D; e += NTHREADS) {
-    const int r = e / D, d = e - (e / D) * D;
-    dst[r * (D + 1) + d] = load_f(src + (long long)(r0 + r) * tstride + d);
-  }
-}
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -63,6 +33,13 @@ Strides strides_at(const long long* s, int i) {
 bool aligned16(const void* p, Strides s) {
   return ((uintptr_t)p & 15) == 0 && s.n % 8 == 0 && s.h % 8 == 0 &&
          s.t % 8 == 0;
+}
+
+// f32 views that the 16-byte copies take: base and every stride 16-byte
+// aligned; any other view takes the 4-byte copies
+bool aligned16_f32(const void* p, Strides s) {
+  return ((uintptr_t)p & 15) == 0 && s.n % 4 == 0 && s.h % 4 == 0 &&
+         s.t % 4 == 0;
 }
 
 }  // namespace

@@ -205,17 +205,6 @@ __device__ __forceinline__ void load_split(uint32_t hi, uint32_t lo,
   }
 }
 
-// Store two neighbouring values of one row (column even).
-template <int VEC>
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = a;
-    p[1] = b;
-  }
-}
-
 template <int D>
 constexpr size_t fwd_smem() {  // q, k, v^T (hi, lo); raw k, v
   using C = Cfg<D>;
@@ -337,8 +326,9 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l[rr];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store_pair<VEC>(op + i * so.t + 8 * j + ln.col, acc[4 * j + 2 * rr] * inv,
-                      acc[4 * j + 2 * rr + 1] * inv);
+      hop::store_pair<VEC>(op + i * so.t + 8 * j + ln.col,
+                           acc[4 * j + 2 * rr] * inv,
+                           acc[4 * j + 2 * rr + 1] * inv);
     if ((threadIdx.x & 3) == 0)
       lse[n * sl.n + h * sl.h + i * sl.t] = m[rr] * hop::LN2 + logf(l[rr]);
   }
@@ -455,8 +445,8 @@ attn_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     const long long i = q0 + ln.row + 8 * rr;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store_pair<VEC>(dqp + i * a.sdq.t + 8 * j + ln.col, acc[4 * j + 2 * rr],
-                      acc[4 * j + 2 * rr + 1]);
+      hop::store_pair<VEC>(dqp + i * a.sdq.t + 8 * j + ln.col,
+                           acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
   }
 }
 
@@ -576,19 +566,12 @@ attn_dkdv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int col = 8 * c + ln.col;
-      store_pair<VEC>(dkp + j * a.sdk.t + col, dka[4 * c + 2 * rr],
-                      dka[4 * c + 2 * rr + 1]);
-      store_pair<VEC>(dvp + j * a.sdv.t + col, dva[4 * c + 2 * rr],
-                      dva[4 * c + 2 * rr + 1]);
+      hop::store_pair<VEC>(dkp + j * a.sdk.t + col, dka[4 * c + 2 * rr],
+                           dka[4 * c + 2 * rr + 1]);
+      hop::store_pair<VEC>(dvp + j * a.sdv.t + col, dva[4 * c + 2 * rr],
+                           dva[4 * c + 2 * rr + 1]);
     }
   }
-}
-
-// f32 views that the 16-byte copies take: base and every stride 16-byte
-// aligned; any other view takes the 4-byte copies
-bool aligned16_f32(const void* p, Strides s) {
-  return ((uintptr_t)p & 15) == 0 && s.n % 4 == 0 && s.h % 4 == 0 &&
-         s.t % 4 == 0;
 }
 
 template <int D, int VEC>
@@ -1173,10 +1156,10 @@ int gym_attn_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-long long gym_flash_smem_bytes(int D, int wgmma);  // flash_attention.cu
+long long gym_flash_smem_bytes(int D, int bf16);  // flash_attention.cu
 
 // dynamic shared memory of one block: kernel 0 = forward, 1 = dk/dv,
-// 2 = dq (f32, 3xTF32 wgmma), 3 = the long-context forward (f32, scalar),
+// 2 = dq (f32, 3xTF32 wgmma), 3 = the long-context forward (f32, 3xTF32),
 // 4 = forward, 5 = dk/dv, 6 = dq (bf16, wgmma), 7 = the long-context
 // forward (bf16, wgmma); -1 for an unsupported head dim or kernel
 long long gym_attn_smem_bytes(int kernel, int D) {

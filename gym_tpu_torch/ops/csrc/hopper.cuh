@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the attention kernels: swizzled
 // shared-memory tiles, wgmma matrix descriptors, instructions and the
 // products built on them (bf16, and f32 in split-precision TF32), cp.async
-// copies, TMA loads with the mbarriers that report them, and the fences
-// between them.
+// copies, TMA and bulk loads with the mbarriers that report them, and the
+// fences between them.
 //
 // A tile is ROWS rows of RB bytes (64 rows of D bf16 values, a 64-row block
 // of q, k, v or do; or rows of f32 values) in the layout wgmma reads with a
@@ -135,6 +135,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// f32: one 8-byte store (VEC = 4: the view 16-byte aligned) or two 4-byte
+// ones (VEC = 1: any view)
+template <int VEC>
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -449,6 +460,23 @@ __device__ __forceinline__ void mma3_abt(float (&s)[N / 2], uint32_t ah,
     wgmma_tf32_ss<N>(s, desc_k<LA>(ah, ks), desc_k<LB>(bh, ks), 1);
 }
 
+// s = a b^T in 3xTF32 as mma3_abt, a [64 x DEPTH] in registers as hi and
+// lo A fragments (four values a thread a depth step, the layout above).
+template <int N, int DEPTH, class LB>
+__device__ __forceinline__ void mma3_rbt(float (&s)[N / 2],
+                                         const uint32_t (&ah)[DEPTH / 8][4],
+                                         const uint32_t (&al)[DEPTH / 8][4],
+                                         uint32_t bh, uint32_t bl) {
+#pragma unroll
+  for (int ks = 0; ks < DEPTH / 8; ++ks) {
+    wgmma_tf32_rs<N>(s, ah[ks], desc_k<LB>(bl, ks), ks > 0);
+    wgmma_tf32_rs<N>(s, al[ks], desc_k<LB>(bh, ks), 1);
+  }
+#pragma unroll
+  for (int ks = 0; ks < DEPTH / 8; ++ks)
+    wgmma_tf32_rs<N>(s, ah[ks], desc_k<LB>(bh, ks), 1);
+}
+
 // acc += p b in 3xTF32: p [64 x DEPTH] as hi and lo A fragments (frags), b
 // given as its transpose [N x DEPTH] (tiles LB, depth in key_order). The
 // terms of each block of at most 64 columns are summed on the tensor cores
@@ -535,6 +563,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bytes bytes (a multiple of 16) from global memory at src (16-byte
+// aligned) into shared memory at dst as they are: a 1-D bulk copy, whose
+// bytes complete on the barrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -11,10 +11,13 @@ CUDA kernels do not take (a head dim outside 16/32/64/128) raises on the
 card; nothing falls back quietly.
 
 The pair: ``_flash_fwd`` launches ``gym_flash_fwd`` (``csrc/
-flash_attention.cu``, a single-pass online-softmax forward) and
-``_flash_bwd`` the FA2 backward kernels of ``csrc/fused_attention.cu``
-given lse. Each counts its launches in ``launches`` and runs its plain
-version (``plain_flash_fwd`` / ``plain_flash_bwd``) only for CPU tensors.
+flash_attention.cu``, a single-pass online-softmax forward; in f32 a
+pre-pass that splits k and v once into a workspace the wrapper allocates,
+then the forward) and ``_flash_bwd`` the FA2 backward kernels of
+``csrc/fused_attention.cu`` given lse. Each counts its calls in
+``launches`` (``_flash_fwd`` also ``launches_f32`` and ``launches_bf16``)
+and runs its plain version (``plain_flash_fwd`` / ``plain_flash_bwd``)
+only for CPU tensors.
 The plain versions follow the TPU kernel's arithmetic block by block, at the
 block sizes the JAX package would pick for the shape.
 
@@ -33,8 +36,8 @@ import numpy as np
 import torch
 
 from .attention import dense_causal_attention
-from .fused_attention import (_DTYPES, _check, _check_stats, _grad_layout,
-                              _launch_bwd, _stream, _strides,
+from .fused_attention import (_DTYPES, _check, _check_stats, _count,
+                              _grad_layout, _launch_bwd, _stream, _strides,
                               fused_causal_attention,
                               fused_causal_attention_packed, fused_supported,
                               packed_supported)
@@ -179,7 +182,9 @@ def _check_flash(tensors, what):
 
 def _flash_fwd(q, k, v, scale):
     """Causal forward on [N, H, T, D] (strided views with a unit last
-    stride), T % 128 == 0 → (o [N, H, T, D], lse [N, H, T, 1] f32)."""
+    stride), T % 128 == 0 → (o [N, H, T, D], lse [N, H, T, 1] f32). In f32
+    the kernel's split copies of k and v (hi and lo of k and of vᵀ) go to a
+    workspace of 16·N·H·T·D bytes; one call counts as one launch."""
     what = "flash attention forward"
     _check_blocks(q, what)
     if not q.is_cuda:
@@ -188,15 +193,19 @@ def _flash_fwd(q, k, v, scale):
     n, h, t, d = _check_flash((q, k, v), what)
     o = torch.empty((n, h, t, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, t, 1), dtype=torch.float32, device=q.device)
+    work = (torch.empty(16 * n * h * t * d, dtype=torch.uint8,
+                        device=q.device) if q.dtype == torch.float32 else None)
     lib = _build.load()
     st = (ctypes.c_longlong * 15)(*[int(s) for x in (q, k, v, o, lse)
                                     for s in _strides(x, "blk")])
     with torch.cuda.device(q.device):
         code = lib.gym_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), st, n, h, t, d,
-                                 float(scale), _DTYPES[q.dtype], _stream(q))
+                                 o.data_ptr(), lse.data_ptr(),
+                                 None if work is None else work.data_ptr(),
+                                 st, n, h, t, d, float(scale),
+                                 _DTYPES[q.dtype], _stream(q))
     _build.check(lib, code, "gym_flash_fwd")
-    _flash_fwd.launches += 1
+    _count(_flash_fwd, q.dtype)
     return o, lse
 
 
@@ -219,13 +228,13 @@ def _flash_bwd(q, k, v, o, do, lse, scale):
     return dq, dk, dv
 
 
-_flash_fwd.launches = 0
-_flash_bwd.launches = 0
-
-
 def reset_launch_counts() -> None:
-    _flash_fwd.launches = 0
+    _flash_fwd.launches = _flash_fwd.launches_f32 = 0
+    _flash_fwd.launches_bf16 = 0
     _flash_bwd.launches = 0
+
+
+reset_launch_counts()
 
 
 class _FlashAttention(torch.autograd.Function):

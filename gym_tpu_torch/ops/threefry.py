@@ -22,12 +22,14 @@ row-major flat index. ``uniform`` is ``bitcast_f32((bits >> 9) |
 ``permutation`` is ``ceil(3·ln n / ln(2³²−1))`` rounds of a stable sort by
 fresh bits, each round's key split off the last.
 
-``random_bits``, ``bernoulli`` and ``bernoulli_rows`` dispatch on the
-device: on the card they launch ``csrc/threefry.cu`` (``gym_threefry_bits``,
-``gym_bernoulli_mask``, ``gym_bernoulli_rows``) or raise; on the CPU they run
-the plain twin, threefry in int64 tensors masked to 32 bits. ``launches`` on
-each counts its kernel launches. Bits are returned as int32 tensors holding
-the uint32 pattern (PyTorch has no usable uint32 arithmetic).
+``random_bits``, ``bernoulli``, ``bernoulli_rows`` and ``bernoulli_segments``
+dispatch on the device: on the card they launch ``csrc/threefry.cu``
+(``gym_threefry_bits``; the masks all through ``gym_bernoulli_segments``,
+one launch for a table of keys, each with its own length and place in the
+output) or raise; on the CPU they run the plain twin, threefry in int64
+tensors masked to 32 bits. ``launches`` on each counts its kernel
+launches. Bits are returned as int32 tensors holding the uint32 pattern
+(PyTorch has no usable uint32 arithmetic).
 
 flax derives a module's dropout key from the step key with
 ``fold_in_static``: the SHA-1 of the module path and the scope's call
@@ -35,6 +37,7 @@ counter, folded in (``flax/core/scope.py`` ``_fold_in_static``, flax 0.12.3,
 ``flax_fix_rng_separator`` off). The K simulated nodes each hold a key, so
 the key algebra also runs on key tables, ``[R, 2]`` numpy uint32 arrays
 (``fold_in_rows``), and ``bernoulli_rows`` draws one mask a row in one
+launch; SPARTA draws one mask a leaf, all in one ``bernoulli_segments``
 launch.
 """
 
@@ -197,6 +200,12 @@ def plain_bernoulli_rows(keys, p: float, n: int, device="cpu"):
     return torch.stack(rows)
 
 
+def plain_bernoulli_segments(keys, p: float, sizes, device="cpu"):
+    """[plain_bernoulli(keys[s], p, sizes[s]) for each segment s]."""
+    return [plain_bernoulli((int(k0), int(k1)), p, int(n), device)
+            for (k0, k1), n in zip(key_table(keys), sizes)]
+
+
 def _f32(p: float) -> torch.Tensor:
     return torch.tensor(p, dtype=torch.float32)
 
@@ -234,63 +243,103 @@ def random_bits(key: Key, n: int, device) -> torch.Tensor:
     return out
 
 
+# segments a launch: the kernel keeps their table in shared memory
+MAX_SEGMENTS = 1536
+
+
+def _draw_segments(keys: np.ndarray, p: float, sizes, offsets,
+                   out: torch.Tensor) -> None:
+    """One launch of ``gym_bernoulli_segments``: the mask of ``keys[s]``
+    over ``sizes[s]`` elements into ``out``'s bytes from ``offsets[s]``.
+    The segment table goes to the card from pinned memory without blocking
+    the host."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    if len(sizes) > MAX_SEGMENTS:
+        raise ValueError(f"{len(sizes)} segments: at most {MAX_SEGMENTS} a "
+                         f"launch")
+    groups = (sizes + 3) // 4
+    if not groups.sum():
+        return
+    first = np.concatenate([[0], np.cumsum(groups)[:-1]])
+    key = keys[:, 0].astype(np.int64) | (keys[:, 1].astype(np.int64) << 32)
+    table = np.stack([first, key, sizes,
+                      np.asarray(offsets, dtype=np.int64)])
+    from . import _build
+    lib = _build.load()
+    dev = out.device
+    table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        code = lib.gym_bernoulli_segments(
+            table.data_ptr(), len(sizes), int(groups.sum()), float(p),
+            out.data_ptr(), _stream(dev))
+    _build.check(lib, code, "gym_bernoulli_segments")
+
+
 def bernoulli(key: Key, p: float, n: int, device) -> torch.Tensor:
     """[n] bool: ``jax.random.bernoulli(key, p, (n,))``; on the card one
     fused pass (bits, uniform, compare) writing one byte an element."""
     device = _check_n(n, device)
     if device.type == "cpu":
         return plain_bernoulli(key, p, n, device)
-    from . import _build
-    lib = _build.load()
     out = torch.empty(n, dtype=torch.bool, device=device)
     if n:
-        with torch.cuda.device(device):
-            code = lib.gym_bernoulli_mask(key[0], key[1], n, float(p),
-                                          out.data_ptr(), _stream(device))
-        _build.check(lib, code, "gym_bernoulli_mask")
+        _draw_segments(key_table([key]), p, [n], [0], out)
         bernoulli.launches += 1
     return out
 
 
-# gridDim.y of the per-row launch
-MAX_ROWS = 65535
-
-
 def bernoulli_rows(keys, p: float, n: int, device) -> torch.Tensor:
     """[R, n] bool: row r is ``jax.random.bernoulli(keys[r], p, (n,))``, the
-    R rows of a key table in one launch on the card. The table goes to the
-    card from pinned memory without blocking the host."""
+    R rows of a key table in one launch on the card (R segments of n)."""
     device = _check_n(n, device)
     keys = key_table(keys)
     if device.type == "cpu":
         return plain_bernoulli_rows(keys, p, n, device)
     rows = keys.shape[0]
-    if rows > MAX_ROWS:
-        raise ValueError(f"{rows} rows: at most {MAX_ROWS} a launch")
-    from . import _build
-    lib = _build.load()
     out = torch.empty(rows, n, dtype=torch.bool, device=device)
     if rows and n:
-        host = torch.from_numpy(np.ascontiguousarray(keys).view(np.int32))
-        table = host.pin_memory().to(device, non_blocking=True)
-        with torch.cuda.device(device):
-            code = lib.gym_bernoulli_rows(table.data_ptr(), rows, n,
-                                          float(p), out.data_ptr(),
-                                          _stream(device))
-        _build.check(lib, code, "gym_bernoulli_rows")
+        _draw_segments(keys, p, [n] * rows, np.arange(rows) * n, out)
         bernoulli_rows.launches += 1
     return out
+
+
+def bernoulli_segments(keys, p: float, sizes, device):
+    """Segment s is ``jax.random.bernoulli(keys[s], p, (sizes[s],))``, all
+    in one launch on the card → (one flat bool buffer, [a view of it per
+    segment]). Each segment starts 16-byte aligned in the buffer; the
+    bytes between segments are not written."""
+    keys = key_table(keys)
+    sizes = [int(n) for n in sizes]
+    for n in sizes:
+        _check_n(n, device)
+    device = torch.device(device)
+    if keys.shape[0] != len(sizes):
+        raise ValueError(f"{keys.shape[0]} keys for {len(sizes)} segments")
+    offsets = np.concatenate([[0], np.cumsum([(n + 15) // 16 * 16
+                                              for n in sizes])])
+    out = torch.empty(int(offsets[-1]), dtype=torch.bool, device=device)
+    views = [out[a:a + n] for a, n in zip(offsets.tolist(), sizes)]
+    if device.type == "cpu":
+        for view, mask in zip(views, plain_bernoulli_segments(keys, p, sizes,
+                                                               device)):
+            view.copy_(mask)
+    elif sum(sizes):
+        _draw_segments(keys, p, sizes, offsets[:-1], out)
+        bernoulli_segments.launches += 1
+    return out, views
 
 
 random_bits.launches = 0
 bernoulli.launches = 0
 bernoulli_rows.launches = 0
+bernoulli_segments.launches = 0
 
 
 def reset_launch_counts() -> None:
     random_bits.launches = 0
     bernoulli.launches = 0
     bernoulli_rows.launches = 0
+    bernoulli_segments.launches = 0
 
 
 # -- composites --------------------------------------------------------------

@@ -8,8 +8,9 @@ arithmetic, ``where(mask, mean(θ), θ)``. The masks are JAX's, bit for bit
 the K nodes), with each leaf keyed by its index in ``jax.tree.flatten``'s
 order (``convert.jax_leaf_order``), not by its place in the port's dict.
 On the card the Bernoulli masks come from the fused threefry kernel
-(``csrc/threefry.cu``), one launch a leaf. ``comm_bytes`` counts the
-realized masked bytes, so it stays on the device as a 0-d tensor.
+(``csrc/threefry.cu``), every leaf's in one launch a step
+(``RandomIndexSelector.masks``). ``comm_bytes`` counts the realized masked
+bytes, so it stays on the device as a 0-d tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..convert import jax_leaf_order
@@ -59,10 +61,31 @@ class IndexSelector:
 class RandomIndexSelector(IndexSelector):
     """Bernoulli(p) mask per step."""
 
+    def __init__(self, p: float, seed: int = 7):
+        super().__init__(p, seed)
+        self._tables: Dict[int, np.ndarray] = {}
+
     def mask(self, x, leaf_idx, iteration):
         key = threefry.fold_in(self._leaf_key(leaf_idx), iteration)
         return threefry.bernoulli(key, self.p, x.numel(),
                                   x.device).view(x.shape)
+
+    def masks(self, params, iteration: int):
+        """Every leaf's mask in one draw: the leaf keys (a cached [L, 2]
+        table in JAX leaf order) folded with the iteration in one
+        ``fold_in_rows``, one ``bernoulli_segments`` launch on the card."""
+        order = jax_leaf_order(params)
+        table = self._tables.get(len(order))
+        if table is None:
+            table = self._tables[len(order)] = threefry.key_table(
+                [self._leaf_key(i) for i in range(len(order))])
+        names = list(params)
+        keys = threefry.fold_in_rows(table, iteration)[
+            [order[n] for n in names]]
+        x = params[names[0]]
+        _, views = threefry.bernoulli_segments(
+            keys, self.p, [params[n].numel() for n in names], x.device)
+        return {n: v.view(params[n].shape) for n, v in zip(names, views)}
 
 
 class ShuffledSequentialIndexSelector(IndexSelector):
@@ -130,7 +153,6 @@ class SparseCommunicator(CommunicationModule):
         if k == 1 or step % self.interval:
             return params, mstate, 0.0
         iteration = step // self.interval
-        order = jax_leaf_order(params)
         alive, group = participation_round(self.fault_seed, step,
                                            self.participation, k)
         dev = next(iter(params.values())).device
@@ -139,9 +161,11 @@ class SparseCommunicator(CommunicationModule):
             avg = masked_mean(params, alive_t)
         else:
             avg = {n: p.mean(dim=0) for n, p in params.items()}
+        masks = self.index_selector.masks(
+            {n: p[0] for n, p in params.items()}, iteration)
         new_params, nbytes = {}, 0
         for name, p in params.items():
-            m = self.index_selector.mask(p[0], order[name], iteration)
+            m = masks[name]
             nbytes = nbytes + m.sum() * p.element_size()
             if self.participation < 1.0:
                 m = m & alive_t.view(-1, *([1] * m.dim()))

@@ -7,8 +7,9 @@ with ``nvcc``:
 Builds each tree's kernel library (into TREE/build/, each in its own
 process) and counts, from ``cuobjdump -sass``, each kernel's ``HGMMA``,
 ``HMMA``, ``FFMA``, ``ATOM``/``RED`` and ALU instructions
-(``chip_smoke.sass_counts``). Prints the kernels only one tree has and
-every kernel of both whose counts differ; exits non-zero if any does.
+(``chip_smoke.sass_counts``). Prints the kernels only one tree has, with
+their counts, and every kernel of both whose counts differ; exits non-zero
+if any does.
 A change that must leave some kernels as they were (a refactor of shared
 headers) shows here that their code is the same to the instruction count.
 """
@@ -40,7 +41,8 @@ def main() -> int:
 
     a, b = (cs.sass_counts(_build._nvcc(), library(os.path.abspath(t)))
             for t in sys.argv[1:])
-    only = {"only_a": sorted(set(a) - set(b)), "only_b": sorted(set(b) - set(a))}
+    only = {"only_a": {k: a[k] for k in sorted(set(a) - set(b))},
+            "only_b": {k: b[k] for k in sorted(set(b) - set(a))}}
     differ = {k: {"a": a[k], "b": b[k]} for k in sorted(set(a) & set(b))
               if a[k] != b[k]}
     print(json.dumps({"kernels_a": len(a), "kernels_b": len(b),

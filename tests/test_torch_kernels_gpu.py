@@ -183,6 +183,16 @@ def test_bf16_long_forward_is_bit_reproducible(t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_f32_long_on_unaligned_views_on_card(d):
+    """The long-context pair in f32 on per-head views of a projection
+    started one element in (not 16-byte aligned): the pre-pass and the
+    forward take 4-byte copies, and match their plain versions at the f32
+    tolerance, as do the backward kernels."""
+    _match_plain("long", 1152, d, "f32", skew=1)
+
+
+@pytest.mark.gpu
 def test_long_pair_refuses_t_not_multiple_of_128_on_card():
     """T = 1088 (a multiple of 64, not of 128): both B5 wrappers raise on
     the card, as on the CPU, before any launch."""
@@ -255,6 +265,44 @@ def test_permutation_on_card_matches_twin(n):
     key = tf.fold_in(tf.PRNGKey(7), 3)
     got = tf.permutation(key, n, "cuda").cpu()
     assert torch.equal(got, tf.permutation(key, n, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.005, 0.5])
+def test_bernoulli_segments_match_twin_bit_for_bit(p):
+    """One launch for a table of segments (sizes 0, 1, 3, 5, 1023, 4097 and
+    70,001: not multiples of 4, each start 16-byte aligned) equals the
+    twin's mask of each segment's key alone."""
+    _card()
+    sizes = [0, 1, 3, 5, 1023, 4097, 70_001]
+    keys = tf.fold_in_rows(tf.node_keys(7, len(sizes)), 9)
+    before = tf.bernoulli_segments.launches
+    buf, views = tf.bernoulli_segments(keys, p, sizes, "cuda")
+    assert tf.bernoulli_segments.launches == before + 1
+    for got, ref in zip(views, tf.plain_bernoulli_segments(keys, p, sizes,
+                                                           "cuda")):
+        assert (got.data_ptr() - buf.data_ptr()) % 16 == 0
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_sparta_masks_are_one_launch_on_card():
+    """``RandomIndexSelector.masks`` draws every leaf's mask in one launch,
+    and each equals the leaf's own draw (one launch a leaf)."""
+    from gym_tpu_torch.convert import jax_leaf_order
+    from gym_tpu_torch.strategy.sparta import RandomIndexSelector
+    _card()
+    shapes = {"wte": (65, 48), "h_0.attn.bias": (144,), "ln_f.scale": (48,),
+              "h_0.mlp.w": (48, 192), "lm_head": (3,)}
+    params = {n: torch.zeros(s, device="cuda") for n, s in shapes.items()}
+    order = jax_leaf_order(params)
+    sel = RandomIndexSelector(0.3)
+    before = tf.bernoulli_segments.launches
+    masks = sel.masks(params, 4)
+    assert tf.bernoulli_segments.launches == before + 1
+    for n, x in params.items():
+        assert masks[n].shape == x.shape
+        assert torch.equal(masks[n], sel.mask(x, order[n], 4))
 
 
 @pytest.mark.gpu

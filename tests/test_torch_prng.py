@@ -91,6 +91,49 @@ def test_bernoulli_rows_match_jax(n):
                 got[r].numpy(), np.asarray(jax.random.bernoulli(jk, p, (n,))))
 
 
+SEGMENT_SIZES = [0, 1, 3, 4, 5, 1023, 4097]
+
+
+@pytest.mark.parametrize("p", [0.005, 0.5])
+def test_bernoulli_segments_match_jax(p):
+    """Segment s of ``bernoulli_segments`` is ``jax.random.bernoulli(keys[s],
+    p, (sizes[s],))``, bit for bit, on sizes that are empty, shorter than a
+    4-element group, one group, and end inside a group; each segment's view
+    starts 16-byte aligned in the one flat buffer."""
+    keys = tf.fold_in_rows(tf.node_keys(7, len(SEGMENT_SIZES)), 5)
+    buf, views = tf.bernoulli_segments(keys, p, SEGMENT_SIZES, "cpu")
+    assert buf.dtype == torch.bool and len(views) == len(SEGMENT_SIZES)
+    for (k0, k1), n, got in zip(keys, SEGMENT_SIZES, views):
+        assert got.shape == (n,)
+        assert (got.data_ptr() - buf.data_ptr()) % 16 == 0
+        jk = jax.random.wrap_key_data(np.array([k0, k1], np.uint32))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax.random.bernoulli(jk, p, (n,))))
+
+
+def test_sparta_masks_in_one_draw_match_per_leaf_and_jax():
+    """``RandomIndexSelector.masks`` draws every leaf of the GPT's tree in
+    one ``bernoulli_segments`` call; its masks equal the per-leaf
+    ``mask()`` draws and ``gym_tpu``'s ``masks`` leaf for leaf, bit for
+    bit, at several iterations, on a dict whose order differs from JAX's
+    leaf order (the keys follow the JAX leaf index)."""
+    from gym_tpu.strategy.sparta import RandomIndexSelector as JSelector
+    from gym_tpu_torch.strategy.sparta import RandomIndexSelector
+    tree = _gpt_tree()
+    flat = flatten_tree(tree)
+    params = {n: torch.tensor(np.asarray(flat[n])) for n in reversed(flat)}
+    order = jax_leaf_order(params)
+    sel, jsel = RandomIndexSelector(0.3), JSelector(0.3)
+    for it in (0, 1, 17):
+        got = sel.masks(params, it)
+        assert list(got) == list(params)
+        jm = flatten_tree(jsel.masks(tree, it))
+        for n, x in params.items():
+            assert got[n].shape == x.shape and got[n].dtype == torch.bool
+            assert torch.equal(got[n], sel.mask(x, order[n], it))
+            np.testing.assert_array_equal(got[n].numpy(), np.asarray(jm[n]))
+
+
 @pytest.mark.parametrize("n", [0, 1, 3, 4097, 100_003])
 def test_bits_uniform_bernoulli_match_jax_bit_for_bit(n):
     for seed in SEEDS:

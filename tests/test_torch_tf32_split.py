@@ -270,3 +270,165 @@ def test_single_pass_tf32_fails_the_lse_tolerance(layout, d):
     for _, ref_lse in _reference_fwd(layout, arrs, scale):
         assert _outside(lse, ref_lse, LSE_TOL) > N * H * T // 4
         assert _outside(lse3, ref_lse, LSE_TOL) == 0
+
+
+# -- the long-context forward (B5f) in the kernel's order ------------------
+#
+# ``csrc/flash_attention.cu``'s f32 forward: a pre-pass splits k and v once
+# into hi and lo TF32 tiles of S keys (S = 64, or 16 at D = 128), v
+# transposed with each group of 8 keys in ``hop::key_order``; a block owns
+# 128 query rows, two warpgroups of 64, and walks the key steps up to its
+# last row (warpgroup 0 skips the block's last 64 keys, which its rows do
+# not see); each step: s = q kᵀ in 3xTF32, the online softmax in log2
+# units in f32, p split from its f32 value and read in place as the A
+# fragment (position p of each 8-key group holds key ``key_order(p)``),
+# p·v in 3xTF32 summed apart and added to the unnormalised accumulator in
+# f32; o = acc / l and lse = m·ln 2 + log l at the end.
+
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+LONG_CASES = [(2048, 64), (1152, 64), (256, 16), (256, 32), (256, 128)]
+# (K nodes × B rows, H) by T: the interpreter's time grows with the grid
+LONG_NH = {2048: (1, 2), 1152: (2, 1), 256: (2, 2)}
+
+
+def split_none(x):
+    """Single-pass TF32: each operand rounded once, no lo part."""
+    return tf32(x), torch.zeros_like(x)
+
+
+def key_positions(t, order=KEY_ORDER):
+    """[t] key index held at each position of a transposed tile."""
+    return torch.tensor([8 * (i // 8) + order[i % 8] for i in range(t)])
+
+
+def split_kv_twin(k, v, split_fn=split, order=KEY_ORDER):
+    """The pre-pass's output as plain tensors: k's hi and lo [N, H, T, D]
+    and vᵀ's hi and lo [N, H, D, T], vᵀ's columns in ``order`` within each
+    8-key group."""
+    vt = v.transpose(-1, -2)[..., key_positions(v.shape[-2], order)]
+    return (*split_fn(k), *split_fn(vt.contiguous()))
+
+
+def prod3(ah, al, bh, bl):
+    """a bᵀ from hi and lo parts, the three TF32 products (small terms
+    first) summed in float64, then rounded to f32."""
+    f64 = lambda u, w: torch.matmul(u.double(),  # noqa: E731
+                                    w.double().transpose(-1, -2))
+    return (f64(ah, bl) + f64(al, bh) + f64(ah, bh)).float()
+
+
+def emulated_long_fwd(q, k, v, scale, split_fn=split, order=KEY_ORDER):
+    """(o, lse) of the f32 long-context forward, block by block, warpgroup
+    by warpgroup, key step by key step, as the kernel computes them."""
+    n, h, t, d = q.shape
+    s_keys = 64 if d <= 64 else 16
+    kh, kl, vth, vtl = split_kv_twin(k, v, split_fn, order)
+    # the A fragment of p·v reads the accumulator in place: position p of
+    # each 8-key group is key KEY_ORDER[p], whatever the pre-pass wrote
+    frag = key_positions(s_keys)
+    c2 = np.float32(scale * 1.4426950408889634)
+    o = torch.empty_like(q)
+    lse = torch.empty((n, h, t, 1))
+    for qb in range(t // 128):
+        for w in range(2):
+            r0 = 128 * qb + 64 * w
+            qh, ql = split_fn(q[:, :, r0:r0 + 64])
+            m = torch.full((n, h, 64, 1), -np.inf)
+            l = torch.zeros((n, h, 64, 1))
+            acc = torch.zeros((n, h, 64, d))
+            for kb in range((r0 + 64) // s_keys):
+                k0 = kb * s_keys
+                keys = slice(k0, k0 + s_keys)
+                s = prod3(qh, ql, kh[:, :, keys], kl[:, :, keys]) * c2
+                rows = torch.arange(r0, r0 + 64)[:, None]
+                s = s.masked_fill(torch.arange(k0, k0 + s_keys) > rows,
+                                  -np.inf)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                ph, pl = split_fn(p[..., frag])
+                acc = acc * alpha + prod3(ph, pl, vth[..., keys],
+                                          vtl[..., keys])
+                m = m_new
+            o[:, :, r0:r0 + 64] = acc / l
+            lse[:, :, r0:r0 + 64] = m * np.float32(np.log(2)) + torch.log(l)
+    return o, lse
+
+
+def _long_inputs(t, d):
+    nb, h = LONG_NH[t]
+    rng = np.random.default_rng(t + d)
+    return [rng.standard_normal((nb, h, t, d)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _bundled_fwd(arrs, monkeypatch):
+    """o of the JAX package's flash attention at T > 1024 (the bundled
+    Pallas TPU kernel, interpreted on the CPU; below 1024 the same kernel
+    called as the package calls it past 1024) and lse = m + log l from the
+    kernel's saved residuals, at the package's block sizes."""
+    import jax
+    import gym_tpu.ops.flash_attention as jflash
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as bundled
+    import gym_tpu_torch.ops.flash_attention as tflash
+    q, k, v = map(jnp.asarray, arrs)
+    t, d = q.shape[-2:]
+    bq, bk = tflash._block_sizes(t, d)[:2]
+    monkeypatch.setattr(jflash, "_on_tpu", lambda: True)
+    with pltpu.force_tpu_interpret_mode():
+        o, l, m = bundled._flash_attention_impl(
+            q, k, v, None, None, True, True, 1.0 / np.sqrt(d), 1, bq, bk, bk,
+            False)
+        if t > 1024:  # the package's own entry agrees with the impl
+            np.testing.assert_array_equal(
+                np.asarray(jflash.flash_causal_attention(q, k, v)),
+                np.asarray(o))
+    lse = np.asarray(m) + np.log(np.asarray(l))  # [N, H, T]
+    return torch.tensor(np.asarray(o)), torch.tensor(lse)[..., None]
+
+
+@pytest.mark.parametrize("t,d", LONG_CASES)
+def test_3xtf32_long_forward_within_f32_tolerance(t, d, monkeypatch):
+    """The long-context forward emulated in the kernel's order (3xTF32, k
+    and vᵀ from a plain twin of the pre-pass) against ``plain_flash_fwd``
+    and the bundled Pallas kernel in interpret mode, at phase 3's f32
+    tolerance (o atol 5e-5 + rtol 1e-4, lse atol 1e-5 + rtol 1e-6: see the
+    module docstring)."""
+    import gym_tpu_torch.ops.flash_attention as tflash
+    arrs = _long_inputs(t, d)
+    q, k, v = map(torch.tensor, arrs)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = emulated_long_fwd(q, k, v, scale)
+    for ref_o, ref_lse in (tflash.plain_flash_fwd(q, k, v, scale),
+                           _bundled_fwd(arrs, monkeypatch)):
+        assert _outside(o, ref_o, OUT_TOL) == 0
+        assert _outside(lse, ref_lse, LSE_TOL) == 0
+
+
+@pytest.mark.parametrize("t,d", LONG_CASES)
+def test_single_pass_tf32_long_forward_fails_the_lse_tolerance(t, d):
+    """The same forward with single-pass TF32 (lo = 0 everywhere): lse
+    falls outside phase 3's tolerance of ``plain_flash_fwd`` on the same
+    inputs, for more than a quarter of the rows."""
+    import gym_tpu_torch.ops.flash_attention as tflash
+    q, k, v = map(torch.tensor, _long_inputs(t, d))
+    scale = 1.0 / np.sqrt(d)
+    _, lse = emulated_long_fwd(q, k, v, scale, split_fn=split_none)
+    _, ref_lse = tflash.plain_flash_fwd(q, k, v, scale)
+    assert _outside(lse, ref_lse, LSE_TOL) > lse.numel() // 4
+
+
+@pytest.mark.parametrize("d", (16, 64))
+def test_long_forward_needs_the_key_permutation(d):
+    """vᵀ written in plain key order while p is read in place as the A
+    fragment: o is far outside phase 3's tolerance (lse, which p·v does not
+    touch, stays inside)."""
+    import gym_tpu_torch.ops.flash_attention as tflash
+    q, k, v = map(torch.tensor, _long_inputs(256, d))
+    scale = 1.0 / np.sqrt(d)
+    o, lse = emulated_long_fwd(q, k, v, scale, order=tuple(range(8)))
+    ref_o, ref_lse = tflash.plain_flash_fwd(q, k, v, scale)
+    assert _outside(o, ref_o, OUT_TOL) > o.numel() // 4
+    assert _outside(lse, ref_lse, LSE_TOL) == 0
