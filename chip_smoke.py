@@ -76,8 +76,32 @@ Phases (any failure exits non-zero before the result lines are printed):
    microbatches of 4, 3 steps from the same weights, f32 and bf16 (plain
    SGD: under Adam the conv biases ahead of BatchNorm get gradients of
    pure rounding noise, which Adam scales to steps of ±lr, so two
-   summation orders part after a step; PERF.md);
+   summation orders part after a step; PERF.md); 9f BASELINE config 5:
+   nanoGPT "small" (vocab 66, T=256) at K=64 × 16 rows, DeMo (SGD 1e-3,
+   top-k 32, chunk 64, lambda_cosine warmup 60), f32, 6 steps on ``docs``,
+   evals at step 0 and after the last step: exact launches of the f32
+   B1/B2 and of D1 (3 a step, one a tile signature), step 0's
+   ``comm_bytes`` 79,872 and ``comm_recv_bytes`` 5,031,936, a finite loss
+   that falls (the last eval's global loss below step 0's);
 10. the ``kernels`` JSON line, then the result line.
+
+Phase 8d trains the other compression strategies on the flagship (bf16,
+random tokens, K=16 × 16, 4 steps, H 2): decoupled outer momentum (top-k),
+NoLoCo dense and int8, DynamiQ int8 and top-k, DiLoCo with ``codec="int8"``;
+each with its steady steps/s and peak memory, every step's ``comm_bytes``
+equal to the prediction from the codec's wire bytes, and exact launches of
+B1/B2 and of the threefry bits kernel (the int8 rounding: DynamiQ one a hop,
+2 a step; NoLoCo and DiLoCo one a node a round). Phase 6 also runs DeMo at
+K=8 on a tiny GPT (the dense decode, so D1 on the card and its twin on the
+CPU), f32, and prints the update signs that differ between card and CPU
+each step. Phase 2 also requires D1 (``scatter_mean_kernel``) to be built;
+phase 3 holds D1 to its twin bit for bit at config 5's three signatures
+((G, m, E) = (200, 2048, 4096), (108, 2048, 64), (4, 2048, 2112)) and at
+m = 64 (K = 2's picks), two runs bit-identical, and on a planted table (v
+and −v at one slot give exactly 0.0, an untouched slot +0.0); phase 7 times
+D1 at the 64 × 64 signature beside its twin, its byte bound and the
+yardstick ``index_put_(accumulate=True)`` twice (sums, counts) and a divide,
+and the bits kernel at DynamiQ's hop-1 length on the flagship.
 
 Phase 3 also holds the threefry kernels (random bits and the fused
 Bernoulli mask, T1) to their plain twin bit for bit at 1, 4097, 786,432
@@ -137,6 +161,7 @@ THREEFRY_LEAST_OPS = 73 + 2
 FUSED_CU = "gym_tpu_torch/ops/csrc/fused_attention.cu"
 FLASH_CU = "gym_tpu_torch/ops/csrc/flash_attention.cu"
 THREEFRY_CU = "gym_tpu_torch/ops/csrc/threefry.cu"
+SCATTER_CU = "gym_tpu_torch/ops/csrc/scatter_mean.cu"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
 BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -173,6 +198,13 @@ KERNELS = {
     "T1_threefry_bernoulli_rows": ("threefry", "bernoulli_rows", "launches",
                                    THREEFRY_CU,
                                    "gym_tpu/models/mnist_cnn.py:36,45"),
+    # T1's bits kernel: jax.random.uniform of the codecs' stochastic
+    # rounding (XLA's threefry lowering, no pallas_call)
+    "T1_threefry_bits": ("threefry", "random_bits", "launches", THREEFRY_CU,
+                         "gym_tpu/strategy/compress.py:121"),
+    # no pallas_call: XLA's serial scatter-add of DeMo's dense decode
+    "D1_scatter_mean": ("scatter_mean", "scatter_mean_decode", "launches",
+                        SCATTER_CU, "gym_tpu/ops/topk_compress.py:83-99"),
 }
 # GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
 GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
@@ -314,6 +346,8 @@ def check_sass(counts):
           f"flash_fwd_tf32x3 at D = 16, 32, 64, 128, found {long_f32}")
     gone = [k for k in counts if any(g in k for g in GONE)]
     check(not gone, f"replaced kernels still built: {gone}")
+    d1 = [k for k in counts if "scatter_mean_kernel" in k]
+    check(len(d1) == 1, f"expected D1's scatter_mean_kernel, found {d1}")
     for k in sorted(counts):
         c = counts[k]
         log("  " + k + ": " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -639,6 +673,98 @@ def check_threefry(torch, tf):
     return float(worst)
 
 
+def check_threefry_bits_path(torch, tf, flagship, nodes=16, steps=4):
+    """The bits kernel against its twin, bit for bit, at the lengths and
+    keys of phase 8d's stochastic rounding on the flagship: DynamiQ's
+    shared hop keys at hop 1 (the flat gradient) and hop 2 (a node's
+    shard), each padded to whole tiles, and NoLoCo's and DiLoCo's per-node
+    link keys at hop 1's length, over the phase's steps. Returns the
+    largest |kernel − twin| (0)."""
+    from gym_tpu_torch.strategy import (DiLoCoStrategy, DynamiQStrategy,
+                                        NoLoCoStrategy, OptimSpec)
+    from gym_tpu_torch.strategy.compress import QuantizeCodec, hop_keys
+    adamw = OptimSpec("adamw", lr=3e-4)
+    codec = QuantizeCodec(bits=8)
+    n = flagship_params(flagship)
+    hop1 = codec._tiles(n) * codec.tile
+    hop2 = codec._tiles(-(-n // nodes)) * codec.tile
+    dynamiq = DynamiQStrategy(adamw, codec="int8")
+    draws = []                                   # (what, key, length)
+    for step in range(steps):
+        k1, k2 = hop_keys(dynamiq.seed, step)
+        draws += [(f"DynamiQ hop 1 step {step}", k1, hop1),
+                  (f"DynamiQ hop 2 step {step}", k2, hop2)]
+        for title, strat in (("NoLoCo", NoLoCoStrategy(adamw, codec="int8")),
+                             ("DiLoCo", DiLoCoStrategy(adamw, codec="int8"))):
+            link = strat.communication_modules[0].link
+            draws += [(f"{title} step {step} node {i}", key, hop1)
+                      for i, key in enumerate(link.node_keys(step, nodes))]
+    worst = 0
+    for what, key, length in draws:
+        got = tf.random_bits(key, length, "cuda").to(torch.int64)
+        ref = tf.plain_random_bits(key, length, "cuda").to(torch.int64)
+        err = int((got - ref).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"T1 bits {what} ({length} elements): max |kernel "
+              f"- twin| {err}")
+    log(f"  T1 bits at phase 8d's draws ({n} params a node, K={nodes}, "
+        f"steps 0-{steps - 1}): {len(draws)} draws, DynamiQ's shared hop "
+        f"keys at {hop1} and {hop2} elements and NoLoCo's and DiLoCo's "
+        f"per-node keys at {hop1}: bit-identical to the twin")
+    torch.cuda.empty_cache()
+    return float(worst)
+
+
+# D1 at config 5's three tile signatures (64 nodes × top-k 32 = 2048 picks a
+# chunk row) and at K = 2's 64 picks: (rows G, picks m, slots E)
+D1_SHAPES = ((200, 2048, 4096), (108, 2048, 64), (4, 2048, 2112),
+             (200, 64, 4096))
+
+
+def same_bits(torch, a, b):
+    """Bit-identical f32 tensors (NaN patterns and signed zeros included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_scatter_mean(torch, tsm):
+    """D1 against its twin bit for bit at ``D1_SHAPES`` (random slots, so
+    a 64-slot row holds 32 picks a slot), two runs bit-identical, and a
+    planted row: v and −v at one slot with picks between them give exactly
+    0.0, an untouched slot +0.0. Returns the largest |kernel − twin| (0)."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for rows, m, e in D1_SHAPES:
+        idx = torch.randint(0, e, (rows, m), device="cuda", generator=g,
+                            dtype=torch.int32)
+        val = torch.randn(rows, m, device="cuda", generator=g)
+        got = tsm.scatter_mean_decode(idx, val, e)
+        ref = tsm.plain_scatter_mean_decode(idx, val, e)
+        check(same_bits(torch, got, ref), f"D1 (G, m, E) = ({rows}, {m}, "
+              f"{e}): {int((got != ref).sum())} slots differ from the twin")
+        check(same_bits(torch, got, tsm.scatter_mean_decode(idx, val, e)),
+              f"D1 ({rows}, {m}, {e}): two runs differ")
+        log(f"  D1 scatter-mean (G, m, E) = ({rows}, {m}, {e}): "
+            f"bit-identical to the twin; two runs bit-identical")
+    idx = torch.randint(0, 4096, (3, 2048), device="cuda", generator=g,
+                        dtype=torch.int32)
+    val = torch.randn(3, 2048, device="cuda", generator=g)
+    idx[1] = torch.where(idx[1] < 2, 2, idx[1])
+    idx[1, [0, 1000, 2047]] = 0
+    val[1, 1000] = 0.0
+    val[1, 2047] = -val[1, 0]
+    out = tsm.scatter_mean_decode(idx, val, 4096)
+    check(out[1, 0].item() == 0.0, f"D1: v, 0 and −v at one slot gave "
+          f"{out[1, 0].item()!r}, not 0.0")
+    check(out[1, 1].view(torch.int32).item() == 0, f"D1: an untouched slot "
+          f"gave {out[1, 1].item()!r}, not +0.0")
+    check(same_bits(torch, out, tsm.plain_scatter_mean_decode(idx, val,
+                                                              4096)),
+          "D1 planted table differs from the twin")
+    log("  D1 planted table: v, 0, −v at one slot decode to exactly 0.0, "
+        "an untouched slot to +0.0, bit-identical to the twin")
+    torch.cuda.empty_cache()
+    return 0.0
+
+
 def dropout_tables(tf, nodes, step, n_micro=4, seed=0):
     """A step's dropout key tables as the training step derives them from
     the K node keys: [microbatch][dropout] of [K, 2]."""
@@ -862,9 +988,13 @@ def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=(),
                 l for _, l in res.history["global_loss"]]
             if device == "cuda":
                 counts = read_counts(mods)
-                for name in (want[mode] if isinstance(want, dict) else want):
+                names = want[mode] if isinstance(want, dict) else want
+                for name in names:
                     check(counts[name] > 0, f"card vs CPU T={t}: {name} "
                           f"never launched on the card")
+                if names:
+                    log(f"  card launches T={t} {mode}: "
+                        f"{ {n: counts[n] for n in names} }")
         rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"],
                                                       out["cpu"]))
         log(f"card vs CPU T={t} {mode}: cuda "
@@ -873,6 +1003,193 @@ def card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens, want=(),
         log(f"  max rel diff {rel:.3e} (band {LOSS_RTOL[mode]})")
         check(rel <= LOSS_RTOL[mode], f"card vs CPU {mode}: losses differ "
               f"by {rel:.3e} > {LOSS_RTOL[mode]}")
+
+
+# card against CPU under DeMo: its evals after sign-SGD steps. A gradient
+# that differs in the last bits (cuBLAS's and the CPU's f32 sums, the
+# 3xTF32 attention) can move a pick of the packed top-k key across a tie,
+# which changes every decoded value of that chunk and flips the signs near
+# 0; each flipped sign moves a parameter by 2·lr, and the flips cascade
+# (PERF.md §6: 58, 141 and 2,711 of 112,448 in steps 1-3, the last eval
+# 1.128e-4 apart). ``demo_flips_witness`` shows the cause each run: the CPU
+# step from the card's inputs flips no sign, and the picks that the card's
+# and the CPU's inputs give are counted beside the gaps in those inputs.
+# The train losses keep the f32 band.
+DEMO_EVAL_RTOL = 1e-3
+
+
+def demo_step_card_vs_cpu(torch, strategy_cls, shapes, nodes, steps=3):
+    """DeMo's step alone on the card and on the CPU from the same state and
+    gradients (numpy, seeded): the update signs that differ, a step. Only
+    the DCT products' rounding differs (cuBLAS against the CPU), and the
+    decode is exact on both, so none may differ."""
+    import numpy as np
+    from gym_tpu_torch.parallel.axis import AxisCtx
+    from gym_tpu_torch.strategy import OptimSpec
+    rng = np.random.default_rng(8)
+    p0 = {n: rng.standard_normal((nodes,) + s).astype(np.float32)
+          for n, s in shapes.items()}
+    grads = [{n: 1e-2 * rng.standard_normal(v.shape).astype(np.float32)
+              for n, v in p0.items()} for _ in range(steps)]
+    signs = {}
+    for device in ("cuda", "cpu"):
+        strat = strategy_cls(OptimSpec("sgd", lr=1e-3)).finalize(steps)
+        params = {n: torch.tensor(v, device=device) for n, v in p0.items()}
+        state, ctx, out = strat.init(params), AxisCtx(nodes), []
+        for step, g in enumerate(grads):
+            new, state, _ = strat.step(
+                {n: torch.tensor(v, device=device) for n, v in g.items()},
+                params, state, step, ctx)
+            out.append(torch.cat([torch.sign(params[n][0] - new[n][0])
+                                  .flatten() for n in sorted(new)]).cpu())
+            params = new
+        signs[device] = out
+    return [int((a != b).sum()) for a, b in zip(signs["cuda"],
+                                                signs["cpu"])]
+
+
+def on_cpu(tree):
+    """A copy on the CPU of a dict of tensors, nested."""
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def demo_flips_witness(torch, strategy_cls, inputs, card_signs, nodes,
+                       steps):
+    """Where the fit's flipped signs come from. Each step of the card's fit
+    is replayed on the CPU from the card's own inputs (gradients, params,
+    DeMo's residual): its signs must equal the card's, so the step itself is
+    device-independent. Then each step runs on the CPU from the card's
+    inputs and from the CPU fit's: the chunk rows whose top-k picks differ
+    between the two, beside the largest gap in the gradients and in the
+    residual, a step."""
+    import gym_tpu_torch.strategy.demo as demo_mod
+    from gym_tpu_torch.parallel.axis import AxisCtx
+    ctx = AxisCtx(nodes)
+
+    def cpu_step(step, grads, params, state):
+        """One CPU step: its update sign and the picks of every chunk row,
+        each row's picks sorted."""
+        strat, picks = strategy_cls().finalize(steps), []
+        select = demo_mod.topk_compress
+
+        def spy(coeffs, k):
+            idx, val = select(coeffs, k)
+            picks.append(torch.sort(idx.reshape(-1, idx.shape[-1]),
+                                    dim=-1).values)
+            return idx, val
+
+        demo_mod.topk_compress = spy
+        try:
+            strat.step(grads, params, state, step, ctx)
+        finally:
+            demo_mod.topk_compress = select
+        return strat.signs[0], picks
+
+    def gap(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+    replay, moved, g_gap, d_gap = [], [], [], []
+    for step in range(steps):
+        card, cpu = inputs["cuda"][step], inputs["cpu"][step]
+        sign, picks = cpu_step(step, *card)
+        replay.append(int((sign != card_signs[step]).sum()))
+        _, own = cpu_step(step, *cpu)
+        moved.append(sum(int((a != b).any(dim=-1).sum())
+                         for a, b in zip(picks, own)))
+        g_gap.append(gap(card[0], cpu[0]))
+        d_gap.append(gap(card[2]["delta"], cpu[2]["delta"]))
+    log(f"  CPU step from the card's inputs: update signs that differ from "
+        f"the card's, a step: {replay}")
+    log(f"  CPU step from the card's inputs against the CPU fit's: chunk "
+        f"rows whose picks differ, a step: {moved} (of "
+        f"{sum(a.shape[0] for a in picks)}); "
+        f"largest gap in the gradients {['%.3e' % x for x in g_gap]}, in "
+        f"the residual {['%.3e' % x for x in d_gap]}")
+    check(replay == [0] * steps, f"DeMo step on the CPU from the card's "
+          f"inputs: {replay} update signs differ from the card's")
+
+
+def demo_card_vs_cpu(torch, mods, cfg_kw, nodes, batch, steps, tokens):
+    """DeMo (SGD 1e-3, top-k 32, chunk 64) at K = ``nodes`` on a tiny GPT:
+    K·32 > 128 picks a chunk, so the dense decode runs, D1 on the card and
+    its twin on the CPU. First the strategy step alone from the same state
+    and gradients (no sign may differ); then ``Trainer.fit`` on the card and
+    on the CPU from the same weights and batches, f32: the train losses in
+    the f32 band, the evals in ``DEMO_EVAL_RTOL``, the update signs that
+    differ counted each step."""
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.strategy import DeMoStrategy, OptimSpec
+
+    class SignLog(DeMoStrategy):
+        """DeMo that keeps each step's update sign of node 0 (every node
+        steps by the same sign)."""
+
+        def __init__(self, optim=None):
+            super().__init__(optim or OptimSpec("sgd", lr=1e-3), **SCHED)
+            self.signs, self.inputs = [], []
+
+        def step(self, grads, params, state, step, ctx):
+            self.inputs.append(tuple(on_cpu(x) for x in (grads, params,
+                                                         state)))
+            out = super().step(grads, params, state, step, ctx)
+            self.signs.append(torch.cat([
+                torch.sign(params[n][0] - out[0][n][0]).flatten()
+                for n in sorted(params)]).cpu())
+            return out
+
+    shapes = {n: shape for n, (shape, _) in
+              GPT(GPTConfig(**cfg_kw))._param_specs().items()}
+    reset_counts(mods)
+    flips = demo_step_card_vs_cpu(torch, SignLog, shapes, nodes)
+    log(f"card vs CPU DeMo step alone, K={nodes}, same state and gradients: "
+        f"update signs that differ, a step: {flips} (D1 launched "
+        f"{read_counts(mods)['D1_scatter_mean']} times)")
+    check(flips == [0] * len(flips), f"DeMo step on the card against the "
+          f"CPU: {flips} update signs differ")
+
+    init = {n: p[0] for n, p in GPT(GPTConfig(**cfg_kw)).init_params(
+        1, seed=11, device="cpu").items()}
+    out, signs, inputs = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        reset_counts(mods)
+        strat = SignLog()
+        res = gpt_fit(torch, cfg_kw, nodes, batch, steps, device, False, 5,
+                      f"card_vs_cpu_demo_{device}", init_params=init,
+                      tokens=tokens, strategy=strat)
+        out[device] = ([l for _, l in res.history["train_loss"]],
+                       [l for _, l in res.history["global_loss"]])
+        signs[device], inputs[device] = strat.signs, strat.inputs
+        if device == "cuda":
+            _, groups = strat._groups(shapes)
+            want = len(groups) * steps
+            got = read_counts(mods)["D1_scatter_mean"]
+            check(got == want, f"card vs CPU DeMo: D1 launched {got} times, "
+                  f"expected {want} ({len(groups)} tile signatures x "
+                  f"{steps} steps)")
+    flips = [int((a != b).sum()) for a, b in zip(signs["cuda"],
+                                                 signs["cpu"])]
+
+    def rel(i):
+        return max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][i],
+                                                        out["cpu"][i]))
+
+    log(f"card vs CPU DeMo K={nodes} T={cfg_kw['block_size']} f32 (dense "
+        f"decode, D1 {want} launches): train, evals cuda "
+        f"{['%.6f' % x for x in out['cuda'][0] + out['cuda'][1]]}")
+    log(f"                  cpu  "
+        f"{['%.6f' % x for x in out['cpu'][0] + out['cpu'][1]]}")
+    log(f"  update signs that differ, a step: {flips} (of "
+        f"{len(signs['cpu'][0])} params)")
+    log(f"  max rel diff train {rel(0):.3e} (band {LOSS_RTOL['f32']}), "
+        f"evals {rel(1):.3e} (band {DEMO_EVAL_RTOL})")
+    demo_flips_witness(torch, SignLog, inputs, signs["cuda"], nodes, steps)
+    check(rel(0) <= LOSS_RTOL["f32"], f"card vs CPU DeMo f32: train losses "
+          f"differ by {rel(0):.3e} > {LOSS_RTOL['f32']}")
+    check(rel(1) <= DEMO_EVAL_RTOL, f"card vs CPU DeMo f32: evals differ by "
+          f"{rel(1):.3e} > {DEMO_EVAL_RTOL}")
+    return flips
 
 
 # -- phase 7: timing --------------------------------------------------------
@@ -1160,6 +1477,66 @@ def time_threefry(torch, tf, leaves, sass_ops, int32_ops_per_s, p=0.005):
     return r
 
 
+def time_scatter_mean(torch, tsm, rows=200, m=2048, e=4096):
+    """D1 at config 5's 64 × 64 signature: the kernel, its twin, the
+    yardstick (``index_put_(accumulate=True)`` of the sums and of the
+    counts into flat slots, then the divide: one PyTorch call for each,
+    in no fixed order on the card; timed only) and the byte bound (each
+    pick read once, 8 bytes, each output written once, 4)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, e, (rows, m), device="cuda", generator=g,
+                        dtype=torch.int32)
+    val = torch.randn(rows, m, device="cuda", generator=g)
+    flat = (idx.long() + torch.arange(rows, device="cuda")[:, None] * e
+            ).view(-1)
+    ones = torch.ones(rows * m, device="cuda")
+
+    def yardstick():
+        z = torch.zeros(rows * e, device="cuda")
+        sums = z.index_put_((flat,), val.view(-1), accumulate=True)
+        cnts = torch.zeros(rows * e, device="cuda").index_put_(
+            (flat,), ones, accumulate=True)
+        return torch.where(cnts > 0, sums / cnts.clamp(min=1.0), 0.0)
+
+    nbytes = rows * m * 8 + rows * e * 4
+    r = dict(ms=timed(torch, lambda: tsm.scatter_mean_decode(idx, val, e)),
+             plain_ms=timed(torch, lambda: tsm.plain_scatter_mean_decode(
+                 idx, val, e), reps=3, inner=1),
+             library_ms=timed(torch, yardstick),
+             bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"D1_scatter_mean [(G, m, E) = ({rows}, {m}, {e}), config 5's 64 x 64 "
+        f"signature]: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"(twin) library_ms {r['library_ms']:.4f} (index_put_ accumulate x2 "
+        f"+ divide, a yardstick) bound_ms {r['bound'][0]:.6f} (bytes: "
+        f"{nbytes / 1e6:.2f} MB at 3.35 TB/s) -> "
+        f"{r['bound'][0] / r['ms']:.2%} of bound")
+    del idx, val, flat, ones
+    torch.cuda.empty_cache()
+    return r
+
+
+def time_threefry_bits(torch, tf, n, int32_ops_per_s):
+    """The bits kernel at DynamiQ's hop-1 length on the flagship (the
+    flat gradient padded to whole 256-element tiles): its twin, the bound
+    (4 bytes written an element, or the 73 int32 operations of threefry2x32
+    and its final xor at the dispatch limit)."""
+    key = tf.fold_in(tf.PRNGKey(2602), 3)
+    t_bytes = 4 * n / HBM_BYTES_PER_S
+    t_ops = n * (THREEFRY_LEAST_OPS - 2) / int32_ops_per_s
+    r = dict(ms=timed(torch, lambda: tf.random_bits(key, n, "cuda")),
+             plain_ms=timed(torch, lambda: tf.plain_random_bits(key, n,
+                                                                 "cuda"),
+                            reps=3, inner=1),
+             library_ms=None,
+             bound=(max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    log(f"T1_threefry_bits [{n} elements, DynamiQ's hop 1 on the flagship]: "
+        f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} (twin) "
+        f"library_ms none bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}) -> "
+        f"{r['bound'][0] / r['ms']:.1%} of bound")
+    return r
+
+
 def log_f32(name, r):
     """One f32 timing line: the kernel beside its plain version, f32 SDPA
     and its bound (bytes, or three TF32 products each), and the products at
@@ -1395,6 +1772,69 @@ def stochastic_phase(torch, mods, tf, card, base, flagship):
     return c8a
 
 
+def flagship_params(flagship):
+    """A node's parameter count of the GPT at ``flagship``."""
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    return sum(math.prod(shape) for shape, _ in
+               GPT(GPTConfig(**flagship))._param_specs().values())
+
+
+def compression_phase(torch, mods, card, flagship, nodes=16, batch=16,
+                      steps=4):
+    """8d: the compression strategies at the flagship, K=16 × 16, 4 steps,
+    H 2: every step's ``comm_bytes`` against the prediction from the
+    codec's wire bytes, exact launches of B1/B2 and of the bits kernel.
+    Returns DynamiQ int8's counts (the bits kernel, 2 a step)."""
+    from gym_tpu_torch.strategy import (DecoupledMomentumStrategy,
+                                        DiLoCoStrategy, DynamiQStrategy,
+                                        NoLoCoStrategy, OptimSpec)
+    from gym_tpu_torch.strategy.compress import QuantizeCodec, TopKCodec
+    adamw = OptimSpec("adamw", lr=3e-4)
+    n, k = flagship_params(flagship), nodes
+    shard = -(-n // k)
+    int8, topk = QuantizeCodec(bits=8).wire_bytes, TopKCodec().wire_bytes
+    ring = 2.0 * (k - 1) / k
+    rounds = [s % 2 == 0 and s > 0 for s in range(steps)]
+    # (title, strategy, comm_bytes a step, bits launches)
+    runs = [
+        ("decoupled momentum top-k",
+         DecoupledMomentumStrategy(adamw, H=2, **SCHED),
+         [ring * topk(n) * r for r in rounds], 0),
+        ("NoLoCo dense", NoLoCoStrategy(adamw, H=2, **SCHED),
+         [4.0 * n * r for r in rounds], 0),
+        ("NoLoCo int8", NoLoCoStrategy(adamw, H=2, codec="int8", **SCHED),
+         [int8(n) * r for r in rounds], k * sum(rounds)),
+        ("DynamiQ int8", DynamiQStrategy(adamw, codec="int8", **SCHED),
+         [(k - 1) / k * (int8(n) + k * int8(shard))] * steps, 2 * steps),
+        ("DynamiQ top-k", DynamiQStrategy(adamw, codec="topk", **SCHED),
+         [(k - 1) / k * (topk(n) + k * topk(shard))] * steps, 0),
+        ("DiLoCo int8", DiLoCoStrategy(adamw, H=2, codec="int8", **SCHED),
+         [ring * int8(n) * r for r in rounds], k * sum(rounds)),
+    ]
+    dynamiq_int8 = None
+    for title, strat, comm, bits in runs:
+        title = f"phase 8d flagship {title}"
+        counts, res = train_phase(torch, mods, title, flagship, k, batch,
+                                  steps, (), strategy=strat)
+        want = expected_launches(res, flagship, steps, True)
+        want["T1_threefry_bits"] = bits
+        log(f"  {title} on {card}: steady steps/s "
+            f"{res.steps_per_second_steady}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(counts == want, f"{title}: launches {counts}, expected {want}")
+        got = [c for _, c in res.history["comm_bytes"]]
+        log(f"  comm_bytes a step {got}, predicted from the codec's wire "
+            f"bytes ({n} params a node) {[float(x) for x in comm]}")
+        check(all(abs(a - b) <= 1e-6 * max(b, 1.0) for a, b in
+                  zip(got, comm)) and len(got) == steps,
+              f"{title}: comm_bytes {got} != predicted {comm}")
+        log(f"  launches exactly as expected: {want}")
+        if title.endswith("DynamiQ int8"):
+            dynamiq_int8 = counts
+        del res
+    return dynamiq_int8
+
+
 # -- phase 9: the BASELINE configs ------------------------------------------
 
 LOGS = os.path.join(HERE, "build", "chip_smoke_logs")
@@ -1501,6 +1941,39 @@ def config4_fit(steps, val_size=256, run_name="9d_fedavg"):
         show_progress=False, log_dir=LOGS, run_name=run_name)
 
 
+# BASELINE config 5 at run_baselines.py's settings (its 300 steps give the
+# warmup min(100, 300 // 5) = 60), cut to 6 steps
+CONFIG5 = dict(block=256, nodes=64, batch=16, n_layer=4, warmup=60)
+# its picks a step: (200 + 108 + 4) chunks × 32 picks × 8 bytes, and the
+# K − 1 = 63 other nodes' picks received
+CONFIG5_COMM, CONFIG5_RECV = 79_872, 5_031_936
+
+
+def config5_fit(steps, val_size=256, run_name="9f_demo"):
+    """nanoGPT "small" on the docs stream, 64-node DeMo (SGD 1e-3, top-k 32,
+    chunk 64), f32, the packed kernels; evals at step 0 and after the last
+    step only."""
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import get_dataset
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.strategy import DeMoStrategy, OptimSpec
+    block, batch = CONFIG5["block"], CONFIG5["batch"]
+    train, vocab = get_dataset("docs", block, end_pc=0.9, data_root=DATA)
+    val, _ = get_dataset("docs", block, start_pc=0.9, data_root=DATA)
+    cfg = GPTConfig.gpt2_size_map("small")
+    cfg.vocab_size, cfg.block_size, cfg.attn_impl = int(vocab), block, \
+        "flash"
+    strategy = DeMoStrategy(
+        optim_spec=OptimSpec("sgd", lr=1e-3), compression_topk=32,
+        compression_chunk=64, lr_scheduler="lambda_cosine",
+        lr_scheduler_kwargs={"warmup_steps": CONFIG5["warmup"]})
+    return Trainer(GPT(cfg), train, val).fit(
+        strategy=strategy, num_nodes=CONFIG5["nodes"], max_steps=steps,
+        batch_size=batch, minibatch_size=batch, device="cuda",
+        val_size=val_size, val_interval=steps,
+        show_progress=False, log_dir=LOGS, run_name=run_name)
+
+
 def cnn_leaves():
     """(JAX leaf index, per-node element count) of every leaf of the CNN,
     as SPARTA keys its masks."""
@@ -1561,6 +2034,30 @@ def baseline_phase(torch, mods, card):
         lambda: config4_fit(steps, val_size), steps, want, math.log(66))
     check(len(res.history["global_loss"]) == evals,
           f"9d: {len(res.history['global_loss'])} evals, expected {evals}")
+    del res
+
+    # 9f: config 5, 64-node DeMo: D1 once a tile signature a step
+    nodes, layers = CONFIG5["nodes"], CONFIG5["n_layer"]
+    fwd = layers * (steps + 2 * evals * (val_size // batch))
+    want = {"B1_fwd_packed_f32": fwd, "B2_bwd_packed_f32": layers * steps,
+            "D1_scatter_mean": 3 * steps}
+    counts["9f"], res = baseline_run(
+        torch, mods, card,
+        f"phase 9f nanoGPT small K={nodes} x {batch} rows T={CONFIG5['block']}"
+        f" vocab 66 DeMo (SGD 1e-3, top-k 32, chunk 64, warmup "
+        f"{CONFIG5['warmup']}, {steps} steps, f32)",
+        lambda: config5_fit(steps, val_size), steps, want, math.log(66))
+    comm = res.history["comm_bytes"][0][1]
+    recv = res.history["comm_recv_bytes"][0][1]
+    log(f"  9f step 0: comm_bytes {comm}, comm_recv_bytes {recv} (expected "
+        f"{CONFIG5_COMM}, {CONFIG5_RECV})")
+    check(comm == CONFIG5_COMM and recv == CONFIG5_RECV,
+          f"9f: step 0 comm_bytes {comm}, comm_recv_bytes {recv}")
+    glob = [l for _, l in res.history["global_loss"]]
+    check(len(glob) == evals and all(math.isfinite(l) for l in glob)
+          and glob[-1] < glob[0], f"9f: the global eval loss did not fall: "
+          f"{glob}")
+    log(f"  9f global eval loss {glob[0]:.6f} -> {glob[-1]:.6f}")
     return counts
 
 
@@ -1615,6 +2112,7 @@ def main() -> int:
     try:
         import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
+        import gym_tpu_torch.ops.scatter_mean as tsm
         import gym_tpu_torch.ops.threefry as tf
         from gym_tpu_torch.ops import _build
     except ImportError as e:
@@ -1630,7 +2128,8 @@ def main() -> int:
               "long_tuned_blocks": (2, 12, 2048, 64),
               "long_default_blocks": (2, 12, 1152, 64),
               "config4": (16 * 16, 256, 128, 4)}
-    mods = {"fused": tfa, "flash": tflash, "threefry": tf}
+    mods = {"fused": tfa, "flash": tflash, "threefry": tf,
+            "scatter_mean": tsm}
     t_all = time.perf_counter()
     try:
         card = card_line()
@@ -1673,9 +2172,11 @@ def main() -> int:
         errs = check_kernels(torch, tfa, tflash, shapes)
         errs["T1_threefry_bernoulli"] = check_threefry(torch, tf)
         errs["T1_threefry_bernoulli_rows"] = check_threefry_rows(torch, tf)
-
         flagship = dict(block_size=256, vocab_size=65, n_layer=4, n_head=4,
                         n_embd=128, attn_impl="flash")
+        errs["T1_threefry_bits"] = check_threefry_bits_path(torch, tf,
+                                                            flagship)
+        errs["D1_scatter_mean"] = check_scatter_mean(torch, tsm)
         base = GPT2_BASE
         long_ctx = dict(base, block_size=8192, remat=True, loss_chunk=2048)
         c4 = train_phase(torch, mods, "phase 4 flagship", flagship, 64, 16,
@@ -1714,6 +2215,10 @@ def main() -> int:
                                       attn_impl="flash"), 4, 4, 3, 20_000,
                     want=("T1_threefry_bernoulli",),
                     strategy_fn=sparta_diloco, label="_sparta_diloco")
+        demo_card_vs_cpu(torch, mods, dict(block_size=128, vocab_size=65,
+                                           n_layer=2, n_head=2, n_embd=64,
+                                           attn_impl="flash"), 8, 4, 4,
+                         20_000)
 
         log("phase 7: timing (CUDA events, median of 5)")
         times = time_kernels(torch, tfa, tflash, shapes)
@@ -1725,10 +2230,16 @@ def main() -> int:
         time_heads_f32(torch, tfa, shapes["base"])
         times["T1_threefry_bernoulli_rows"], _ = time_threefry_rows(
             torch, tf, int32_ops_per_s)
+        times["D1_scatter_mean"] = time_scatter_mean(torch, tsm)
+        times["T1_threefry_bits"] = time_threefry_bits(
+            torch, tf, -(-flagship_params(flagship) // 256) * 256,
+            int32_ops_per_s)
 
         log("phase 8: the stochastic strategies through Trainer.fit")
         c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
         launches["T1_threefry_bernoulli"] = c8a["T1_threefry_bernoulli"]
+        launches["T1_threefry_bits"] = compression_phase(
+            torch, mods, card, flagship)["T1_threefry_bits"]
 
         log("phase 9: the BASELINE configs through Trainer.fit")
         c9 = baseline_phase(torch, mods, card)
@@ -1737,6 +2248,7 @@ def main() -> int:
             c9["9b"]["T1_threefry_bernoulli_rows"]
         launches["B1_fwd_packed_f32"] = c9["9d"]["B1_fwd_packed_f32"]
         launches["B2_bwd_packed_f32"] = c9["9d"]["B2_bwd_packed_f32"]
+        launches["D1_scatter_mean"] = c9["9f"]["D1_scatter_mean"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

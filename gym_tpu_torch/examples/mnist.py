@@ -6,7 +6,8 @@ UCI set as scikit-learn ships it, upscaled to 28×28 and crop-augmented; no
 download). Runs on the card unless ``--device cpu``.
 
     python -m gym_tpu_torch.examples.mnist --strategy sparta --num_nodes 2
-    python -m gym_tpu_torch.examples.mnist --device cpu --max_steps 2
+    python -m gym_tpu_torch.examples.mnist --device cpu --max_steps 2 \\
+        --strategy demo
 """
 
 from __future__ import annotations
@@ -15,19 +16,21 @@ import argparse
 
 from gym_tpu_torch import Trainer
 from gym_tpu_torch.data import load_digits_mnist
-from gym_tpu_torch.examples import LATER_STRATEGIES, refuse_later
+from gym_tpu_torch.examples import refuse_later
 from gym_tpu_torch.models import MnistLossModel
-from gym_tpu_torch.strategy import (DiLoCoStrategy, FedAvgStrategy, OptimSpec,
+from gym_tpu_torch.strategy import (DeMoStrategy, DiLoCoStrategy,
+                                    DynamiQStrategy, FedAvgStrategy,
+                                    NoLoCoStrategy, OptimSpec,
                                     SimpleReduceStrategy, SPARTAStrategy)
 
-STRATEGIES = ("simple_reduce", "sparta", "diloco", "fedavg")
+STRATEGIES = ("simple_reduce", "sparta", "diloco", "fedavg", "demo",
+              "noloco", "dynamiq")
 
 
 def make_strategy(name: str, lr: float):
     """The example's strategies: Adam with the lambda_cosine warmup of 100
-    steps; SPARTA p 0.005; DiLoCo and FedAvg H 100."""
-    if name in LATER_STRATEGIES:
-        refuse_later(f"--strategy {name}", LATER_STRATEGIES[name])
+    steps; SPARTA p 0.005; DiLoCo, FedAvg and NoLoCo H 100; DeMo SGD at
+    ``lr`` (top-k 32, chunk 64); DynamiQ int8."""
     optim = OptimSpec("adam", lr=lr)
     sched = dict(lr_scheduler="lambda_cosine",
                  lr_scheduler_kwargs={"warmup_steps": 100})
@@ -36,13 +39,17 @@ def make_strategy(name: str, lr: float):
         "sparta": lambda: SPARTAStrategy(optim, p_sparta=0.005, **sched),
         "diloco": lambda: DiLoCoStrategy(optim, H=100, **sched),
         "fedavg": lambda: FedAvgStrategy(optim, H=100, **sched),
+        "demo": lambda: DeMoStrategy(
+            optim_spec=OptimSpec("sgd", lr=lr), compression_decay=0.999,
+            compression_topk=32, compression_chunk=64, **sched),
+        "noloco": lambda: NoLoCoStrategy(optim, H=100, **sched),
+        "dynamiq": lambda: DynamiQStrategy(optim, codec="int8", **sched),
     }[name]()
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--strategy", default="sparta",
-                   choices=STRATEGIES + tuple(LATER_STRATEGIES))
+    p.add_argument("--strategy", default="sparta", choices=STRATEGIES)
     p.add_argument("--num_nodes", type=int, default=2)
     p.add_argument("--num_epochs", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)

@@ -4,15 +4,16 @@ The JAX example's flags for what the port has: the ``docs`` corpus (the
 docstrings of the checkout's ``gym_tpu/``, read as text, or of
 ``--docs_root``), the model sizes, ``--dropout``, ``--attn_impl`` (dense or
 flash, the hand-written kernels on the card), ``--autocast`` (bf16) and the
-strategies base, zero, fedavg, diloco, sparta and diloco_sparta with their
-knobs. Flags of a later slice of the port (DeMo, NoLoCo, DynamiQ and the
-codecs; cp/tp/ep/pp; MoE; sampling; network simulation) exit naming it.
-Runs on the card unless ``--device cpu``.
+strategies base, zero, fedavg, diloco, sparta, diloco_sparta, demo,
+demo_outer, noloco and dynamiq with their knobs (``--codec`` for diloco,
+noloco, demo_outer and dynamiq; ``--compression_*`` for demo). Flags of a
+later slice of the port (cp/tp/ep/pp; MoE; sampling; checkpoints; network
+simulation) exit naming it. Runs on the card unless ``--device cpu``.
 
-    python -m gym_tpu_torch.examples.nanogpt --strategy fedavg \\
-        --num_nodes 16 --H 100 --block_size 256 --attn_impl flash
+    python -m gym_tpu_torch.examples.nanogpt --strategy demo \\
+        --num_nodes 64 --lr 1e-3 --block_size 256 --attn_impl flash
     python -m gym_tpu_torch.examples.nanogpt --device cpu --max_steps 2 \\
-        --block_size 64 --batch_size 4
+        --block_size 64 --batch_size 4 --strategy dynamiq --codec int4
 """
 
 from __future__ import annotations
@@ -22,16 +23,18 @@ import argparse
 from gym_tpu_torch import Trainer
 from gym_tpu_torch.data import get_dataset
 from gym_tpu_torch.data.offline import DEFAULT_DOC_ROOTS
-from gym_tpu_torch.examples import LATER_STRATEGIES, refuse_later
+from gym_tpu_torch.examples import refuse_later
 from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
-from gym_tpu_torch.strategy import (DiLoCoStrategy, FedAvgStrategy, OptimSpec,
+from gym_tpu_torch.strategy import (DecoupledMomentumStrategy, DeMoStrategy,
+                                    DiLoCoStrategy, DynamiQStrategy,
+                                    FedAvgStrategy, NoLoCoStrategy, OptimSpec,
                                     SimpleReduceStrategy, SPARTADiLoCoStrategy,
                                     SPARTAStrategy, ZeroReduceStrategy)
 
-STRATEGIES = ("base", "zero", "fedavg", "diloco", "sparta", "diloco_sparta")
+STRATEGIES = ("base", "zero", "fedavg", "diloco", "sparta", "diloco_sparta",
+              "demo", "noloco", "dynamiq", "demo_outer")
 # flag: (value that means "off", what ports it and where it is queued)
 LATER_FLAGS = {
-    "codec": (None, "the outer-loop codecs (ROADMAP Queue A, item 10)"),
     "cp": (1, "context parallelism (ROADMAP Queue A, item 16)"),
     "tp": (1, "tensor parallelism (ROADMAP Queue A, item 16)"),
     "ep": (1, "expert parallelism (ROADMAP Queue A, item 16)"),
@@ -49,20 +52,29 @@ def gen_run_name(args) -> str:
     """Run name as the JAX example builds it."""
     parts = [args.dataset, args.model_size, args.strategy,
              f"{args.num_nodes}n", f"bs{args.batch_size}"]
-    if args.strategy in ("diloco", "diloco_sparta"):
+    if args.strategy in ("diloco", "diloco_sparta", "noloco",
+                         "demo_outer"):
         parts.append(f"H{args.diloco_interval}")
     if args.strategy in ("sparta", "diloco_sparta"):
         parts.append(f"p{args.p_sparta}")
+    if args.strategy == "dynamiq":
+        parts.append(args.codec or "int8")
+    elif args.strategy == "demo_outer":
+        # the default link is top-k: the default run and --codec topk share
+        # a run name
+        codec = args.codec or "topk"
+        if codec != "dense":
+            parts.append(codec)
+    elif (args.strategy in ("diloco", "noloco")
+            and args.codec not in (None, "dense")):
+        parts.append(args.codec)
     if args.participation < 1.0:
         parts.append(f"part{args.participation}")
     return "_".join(str(p) for p in parts)
 
 
 def create_strategy(args):
-    """The JAX example's strategy factory, for the ported strategies."""
-    if args.strategy in LATER_STRATEGIES:
-        refuse_later(f"--strategy {args.strategy}",
-                     LATER_STRATEGIES[args.strategy])
+    """The JAX example's strategy factory."""
     if (args.participation < 1.0
             and args.strategy not in ("fedavg", "diloco", "sparta",
                                       "diloco_sparta")):
@@ -85,18 +97,51 @@ def create_strategy(args):
         return FedAvgStrategy(inner_optim=optim, H=args.H,
                               island_size=args.island_size,
                               participation=args.participation, **sched)
+    # the link's codec, shared by diloco, noloco and demo_outer; "dense"
+    # (or unset) is the identity link
+    link_codec = None if args.codec in (None, "dense") else args.codec
+    link_kw = {"frac": args.topk_frac} if link_codec == "topk" else {}
     if args.strategy == "diloco":
         return DiLoCoStrategy(optim_spec=optim, outer_optim_spec=outer,
                               H=args.diloco_interval,
-                              participation=args.participation, **sched)
+                              participation=args.participation,
+                              codec=link_codec, **link_kw, **sched)
     if args.strategy == "sparta":
         return SPARTAStrategy(inner_optim=optim, p_sparta=args.p_sparta,
                               interval=args.sparta_interval,
                               participation=args.participation, **sched)
-    return SPARTADiLoCoStrategy(
-        optim_spec=optim, outer_optim_spec=outer, p_sparta=args.p_sparta,
-        H=args.diloco_interval, sparta_interval=args.sparta_interval,
-        participation=args.participation, **sched)
+    if args.strategy == "diloco_sparta":
+        return SPARTADiLoCoStrategy(
+            optim_spec=optim, outer_optim_spec=outer, p_sparta=args.p_sparta,
+            H=args.diloco_interval, sparta_interval=args.sparta_interval,
+            participation=args.participation, **sched)
+    if args.strategy == "demo":
+        return DeMoStrategy(
+            optim_spec=OptimSpec("sgd", lr=args.lr),
+            compression_decay=args.compression_decay,
+            compression_topk=args.compression_topk,
+            compression_chunk=args.compression_chunk,
+            weight_decay=args.weight_decay, **sched)
+    if args.strategy == "noloco":
+        return NoLoCoStrategy(optim_spec=optim, outer_optim_spec=outer,
+                              H=args.diloco_interval, codec=link_codec,
+                              **link_kw, **sched)
+    if args.strategy == "demo_outer":
+        # --codec defaults to the DeMo-style top-k extraction
+        codec = link_codec or ("topk" if args.codec is None else None)
+        ckw = {"frac": args.topk_frac} if codec == "topk" else {}
+        return DecoupledMomentumStrategy(
+            optim_spec=optim, H=args.diloco_interval,
+            outer_lr=args.outer_lr, outer_momentum=args.outer_momentum,
+            codec=codec, **ckw, **sched)
+    # dynamiq: DDP's all-reduce with both hops compressed
+    if args.codec == "dense":
+        raise SystemExit(
+            "dynamiq is compressed by definition: --codec dense is plain "
+            "DDP; use --strategy base instead")
+    codec = args.codec or "int8"
+    kw = {"frac": args.topk_frac} if codec == "topk" else {}
+    return DynamiQStrategy(optim_spec=optim, codec=codec, **kw, **sched)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -125,11 +170,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--max_norm", type=float, default=1.0)
     p.add_argument("--warmup_steps", type=int, default=100)
     p.add_argument("--cosine_anneal", action="store_true")
+    p.add_argument("--weight_decay", type=float, default=0.1,
+                   help="DeMo's step weight decay")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--val_size", type=int, default=256)
     p.add_argument("--val_interval", type=int, default=100)
-    p.add_argument("--strategy", default="base",
-                   choices=STRATEGIES + tuple(LATER_STRATEGIES))
+    p.add_argument("--strategy", default="base", choices=STRATEGIES)
     p.add_argument("--H", type=int, default=1)
     p.add_argument("--island_size", type=int, default=None)
     p.add_argument("--p_sparta", type=float, default=0.005)
@@ -141,14 +187,22 @@ def parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--outer_momentum", type=float, default=0.9)
     p.add_argument("--participation", type=float, default=1.0)
+    p.add_argument("--compression_decay", type=float, default=0.999)
+    p.add_argument("--compression_topk", type=int, default=32)
+    p.add_argument("--compression_chunk", type=int, default=64)
+    p.add_argument("--codec", default=None,
+                   choices=["dense", "int8", "int4", "topk"],
+                   help="outer-loop payload codec: diloco, noloco and "
+                        "demo_outer default dense (demo_outer: topk), "
+                        "dynamiq int8")
+    p.add_argument("--topk_frac", type=float, default=0.01,
+                   help="kept fraction for --codec topk")
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring"])
     p.add_argument("--autocast", action="store_true",
                    help="bf16 forward pass")
     p.add_argument("--skip_nonfinite", action="store_true")
     # flags of a later slice: given, they exit naming it
-    p.add_argument("--codec", default=None,
-                   choices=["dense", "int8", "int4", "topk"])
     for name in ("cp", "tp", "ep", "pp", "n_experts", "sample"):
         p.add_argument(f"--{name}", type=int, default=LATER_FLAGS[name][0])
     for name in ("ckpt", "network", "wandb_project"):
@@ -158,8 +212,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.codec == "dense":
-        args.codec = None  # the identity link
     for name, (off, where) in LATER_FLAGS.items():
         if getattr(args, name) != off:
             refuse_later(f"--{name}", where)

@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(_ROOT, "build", "gym_tpu_torch")
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "flash_attention.cu",
-                                                 "threefry.cu"))
+                                                 "threefry.cu",
+                                                 "scatter_mean.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -130,6 +131,8 @@ def load() -> ctypes.CDLL:
         lib.gym_threefry_bits.restype = i32
         lib.gym_bernoulli_segments.argtypes = [vp, i32, i64, f32, vp, vp]
         lib.gym_bernoulli_segments.restype = i32
+        lib.gym_scatter_mean.argtypes = [vp, vp, i32, i32, i32, vp, vp]
+        lib.gym_scatter_mean.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

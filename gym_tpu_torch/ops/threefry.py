@@ -350,6 +350,26 @@ def uniform(key: Key, n: int, device) -> torch.Tensor:
     return bits_to_uniform(random_bits(key, n, device))
 
 
+def _scalar_bits(key: Key) -> int:
+    """``jax.random.bits(key, ())``: the uint32 of counter 0."""
+    b0, b1 = threefry2x32(key, (0, 0))
+    return b0 ^ b1
+
+
+def randint(key: Key, minval: int, maxval: int) -> int:
+    """``jax.random.randint(key, (), minval, maxval)`` (int32), on the host:
+    jax 0.9.0's ``_randint`` — two 32-bit draws from ``split(key)``, each
+    reduced mod the span, combined as ``hi·(2³² mod span) + lo`` in uint32
+    arithmetic and reduced again. ``maxval <= minval`` returns ``minval``."""
+    k1, k2 = split(key)
+    hi, lo = _scalar_bits(k1), _scalar_bits(k2)
+    span = (maxval - minval) & M32 if maxval > minval else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    off = ((((hi % span) * mult) & M32) + lo % span) & M32
+    return minval + off % span
+
+
 def sort_rounds(n: int) -> int:
     """Rounds of ``jax.random.permutation``'s shuffle for n elements."""
     return int(math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1)))

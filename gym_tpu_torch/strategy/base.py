@@ -79,6 +79,8 @@ class CollectiveEvent:
     group: int
     label: str = ""
     tx_bytes: Optional[float] = None  # None: the ring formula for `op`
+    # p2p: the (sender, receiver) node pairs of the exchange
+    pairs: Optional[Tuple[Tuple[int, int], ...]] = None
 
     def __post_init__(self):
         if self.op not in COLLECTIVE_OPS:

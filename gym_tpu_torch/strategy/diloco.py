@@ -17,26 +17,28 @@ which node i keeps and steps only slice i of the master and momentum, and
 one all_gather reassembles the master: 3(K−1)/K·|θ| a round. Its outer
 update is elementwise, so the values are the replicated path's; stored
 once, the replicated state already takes one model's bytes. The port runs
-the replicated path for it and counts the sharded schedule's bytes. The
-compressed outer delta (``codec``) raises: a later slice.
+the replicated path for it and counts the sharded schedule's bytes.
+
+``codec`` ships each node's outer delta ``θ_i − master`` through a
+``CompressedLink`` (``compress.py``) with a per-node error-feedback residual
+``[K, n]`` and per-node rounding keys (the node index folded in); the round
+average is ``master + mean(deltâ)`` and costs 2(K−1)/K of the link's wire
+bytes. It needs the replicated outer state and full participation, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Union
 
-from .base import CollectiveEvent, tree_bytes
+from .base import CollectiveEvent, tree_bytes, tree_num_params
 from .communicate_optimize import (CommunicateOptimizeStrategy,
                                    CommunicationModule)
+from .compress import CompressedLink
 from .faults import (alive_tensor, host_participation, masked_mean,
                      mean_ring_tx, participation_round, sync_alive)
 from .optim import OptimSpec, apply_updates, ensure_optim_spec
-
-
-def _later_slice(what: str):
-    return NotImplementedError(
-        f"DiLoCo {what} is ported in a later slice of gym_tpu_torch "
-        f"(ROADMAP Queue A, Slice 2)")
+from .sharding import ravel_nodes, unshard
 
 
 class DiLoCoCommunicator(CommunicationModule):
@@ -65,18 +67,17 @@ class DiLoCoCommunicator(CommunicationModule):
                 "shard_outer=True cannot be combined with participation<1: "
                 "dead nodes would still have to serve their master shard. "
                 "Use the replicated outer state for fault simulation.")
-        compressed = (codec is not None or error_feedback is not None
-                      or bool(codec_kwargs))
-        if compressed and shard_outer:
+        self.link = CompressedLink(codec, seed=codec_seed,
+                                   error_feedback=error_feedback,
+                                   **codec_kwargs)
+        if self.link.compressed and shard_outer:
             raise ValueError(
                 "codec cannot be combined with shard_outer=True: the "
                 "compressed outer delta needs the replicated outer state")
-        if compressed and participation < 1.0:
+        if self.link.compressed and participation < 1.0:
             raise ValueError(
                 "codec cannot be combined with participation<1: a dead "
                 "node's error-feedback residual would silently freeze")
-        if compressed:
-            raise _later_slice("codec (compressed outer delta)")
         self.H = int(H)
         self.shard_outer = bool(shard_outer)
         self.participation = float(participation)
@@ -90,12 +91,17 @@ class DiLoCoCommunicator(CommunicationModule):
     def init(self, params):
         # replicas start identical, so node 0's params are the master
         master = {n: p[0].clone() for n, p in params.items()}
-        return {"master": master, "outer_opt": self.outer_tx.init(master)}
+        first = next(iter(params.values()))
+        return {"master": master, "outer_opt": self.outer_tx.init(master),
+                **self.link.init(tree_num_params(master), first.shape[0],
+                                 first.device)}
 
     def communicate(self, params, mstate, step, ctx):
         if not (step % self.H == 0 and step > 0):
             return params, mstate, 0.0
         k = ctx.num_nodes
+        if self.link.compressed:
+            return self._communicate_compressed(params, mstate, step, k)
         psize = float(tree_bytes(params) // k)
         alive, group = participation_round(self.fault_seed, step,
                                            self.participation, k)
@@ -120,13 +126,40 @@ class DiLoCoCommunicator(CommunicationModule):
         # master's K slices
         comm = (3.0 * (k - 1) / k * psize if self.shard_outer
                 else mean_ring_tx(k, 1.0, psize))
-        return _on_every_node(master, k), new_state, comm
+        return on_every_node(master, k), new_state, comm
+
+    def _communicate_compressed(self, params, mstate, step, k):
+        """Each node's outer delta through the link; the round average is
+        the master plus the node mean of the delivered deltas."""
+        master = mstate["master"]
+        flat_p = ravel_nodes(params, k)
+        flat_m = ravel_nodes({n: m.unsqueeze(0) for n, m in master.items()},
+                             1)
+        lstate = ({"ef_residual": mstate["ef_residual"]}
+                  if self.link.error_feedback else {})
+        delta_hat, lstate = self.link.send(flat_p - flat_m, lstate,
+                                           self.link.node_keys(step, k))
+        avg_flat = flat_m + delta_hat.mean(dim=0, keepdim=True)
+        avg = unshard(avg_flat, avg_flat.shape[1], params)
+        pseudo = {n: master[n] - avg[n] for n in master}
+        updates, outer_opt = self.outer_tx.update(pseudo, mstate["outer_opt"],
+                                                  master)
+        master = apply_updates(master, updates)
+        comm = 2.0 * (k - 1) / k * self.link.wire_bytes(flat_p.shape[1])
+        return (on_every_node(master, k),
+                {"master": master, "outer_opt": outer_opt, **lstate}, comm)
 
     def comm_events(self, step: int, params,
                     num_nodes: int) -> List[CollectiveEvent]:
         if num_nodes <= 1 or not (step % self.H == 0 and step > 0):
             return []
         psize = float(tree_bytes(params))
+        if self.link.compressed:
+            # the node mean of the compressed outer deltas, at the link's
+            # wire bytes
+            return [CollectiveEvent(
+                "all_reduce", self.link.wire_bytes(tree_num_params(params)),
+                num_nodes, label="outer_delta_compressed")]
         if self.shard_outer:
             # round average + the all_gather of the sharded master
             return [CollectiveEvent("all_reduce", psize, num_nodes,
@@ -147,10 +180,12 @@ class DiLoCoCommunicator(CommunicationModule):
             cfg["shard_outer"] = True
         if self.participation < 1.0:
             cfg["participation"] = self.participation
+        if self.link.compressed:
+            cfg.update(self.link.config())
         return cfg
 
 
-def _on_every_node(tree, k):
+def on_every_node(tree, k):
     """Every node restarts from the same values: [K, ...] copies."""
     return {n: m.unsqueeze(0).repeat(k, *([1] * m.dim()))
             for n, m in tree.items()}

@@ -31,12 +31,29 @@ def shard_size(params: Tree, k: int) -> int:
     return -(-n // k)
 
 
+def ravel_nodes(tree: Tree, k: int, dtype=torch.float32) -> torch.Tensor:
+    """Every node's raveled tree: [K, n]."""
+    return torch.cat([tree[n].reshape(k, -1).to(dtype)
+                      for n in ravel_order(tree)], dim=1)
+
+
 def ravel(tree: Tree, k: int, dtype=torch.float32) -> torch.Tensor:
     """Every node's raveled tree, zero-padded: [K, K·shard]."""
-    flat = torch.cat([tree[n].reshape(k, -1).to(dtype)
-                      for n in ravel_order(tree)], dim=1)
+    flat = ravel_nodes(tree, k, dtype)
     pad = k * shard_size(tree, k) - flat.shape[1]
     return torch.nn.functional.pad(flat, (0, pad))
+
+
+def unravel_nodes(flat: torch.Tensor, like: Tree) -> Tree:
+    """Inverse of ``ravel_nodes``: [K, n] → a node-stacked tree with the
+    names, shapes and dtypes of node-stacked ``like``."""
+    out, off = {}, 0
+    for name in ravel_order(like):
+        ref = like[name]
+        size = ref[0].numel()
+        out[name] = flat[:, off:off + size].reshape(ref.shape).to(ref.dtype)
+        off += size
+    return {name: out[name] for name in like}
 
 
 def take_shard(tree: Tree, k: int,

@@ -3,7 +3,7 @@
 ``torch.profiler`` over a fit of ``--steps`` steps (no evals), after a warm
 fit of two, at ``chip_smoke.py``'s phase-9 settings.
 
-    python3 scripts/profile_fit.py 9b 9d [--steps 8]
+    python3 scripts/profile_fit.py 9b 9d 9f [--steps 8]
 
 Prints, a config, the fit's wall time, the device busy share (the sum of
 the device time of every kernel and copy over the wall time of the
@@ -26,6 +26,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def fit_of(cs, config, steps):
     if config == "9d":
         return lambda: cs.config4_fit(steps, val_size=0, run_name="prof_9d")
+    if config == "9f":
+        return lambda: cs.config5_fit(steps, val_size=0, run_name="prof_9f")
     which, nodes = {"9a": ("simple_reduce", 2), "9b": ("diloco", 8),
                     "9c": ("sparta", 8)}[config]
     return lambda: cs.mnist_fit(cs.mnist_strategy(which), nodes, steps,
@@ -81,7 +83,8 @@ def profile(cs, torch, config, steps):
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("configs", nargs="+", choices=["9a", "9b", "9c", "9d"])
+    p.add_argument("configs", nargs="+",
+                   choices=["9a", "9b", "9c", "9d", "9f"])
     p.add_argument("--steps", type=int, default=8)
     args = p.parse_args()
     import torch

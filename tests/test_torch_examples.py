@@ -1,8 +1,8 @@
 """The port's CLIs, ``python -m gym_tpu_torch.examples.mnist`` and
 ``python -m gym_tpu_torch.examples.nanogpt``, run end to end on the CPU in a
 subprocess (two steps each, from a temporary directory, where they write
-their ``logs/`` and ``data/``), and
-refuse a strategy or flag of a later slice with a message naming it."""
+their ``logs/`` and ``data/``), under the compression strategies too, and
+refuse a flag of a later slice with a message naming it."""
 
 import csv
 import os
@@ -53,11 +53,36 @@ def test_nanogpt_cli_trains_on_the_docs_corpus(tmp_path):
     assert any((tmp_path / "data" / "docs_char").glob("stream_*.npy"))
 
 
+@pytest.mark.parametrize("module,args", [
+    ("nanogpt", ["--strategy", "demo", "--num_nodes", "4",
+                 "--compression_topk", "8", "--compression_chunk", "16"]),
+    ("nanogpt", ["--strategy", "dynamiq", "--codec", "int4",
+                 "--num_nodes", "2"]),
+    ("mnist", ["--strategy", "demo", "--num_nodes", "2"]),
+    ("mnist", ["--strategy", "dynamiq", "--num_nodes", "2"])])
+def test_compression_strategies_train_from_the_cli(tmp_path, module, args):
+    """DeMo and DynamiQ from the CLIs on the CPU, two steps each: int4 on
+    nanoGPT, whose run name carries the codec as in JAX, and the MNIST
+    example's int8."""
+    shape = (["--block_size", "64", "--batch_size", "4", "--val_size", "4"]
+             if module == "nanogpt" else ["--batch_size", "16"])
+    proc = _run(tmp_path, module, "--device", "cpu", "--max_steps", "2",
+                *shape, *args)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "final train loss" in proc.stdout
+    rows = _train_rows(tmp_path / "logs")
+    assert len(rows) == 2 and all(0 < float(r["loss"]) < 10 for r in rows)
+    if "dynamiq" in args:
+        (run,) = (tmp_path / "logs").iterdir()
+        assert run.name.endswith("int4" if module == "nanogpt" else "_2n")
+        assert float(rows[0]["comm_bytes"]) > 0
+
+
 @pytest.mark.parametrize("module,args,word", [
-    ("mnist", ["--strategy", "dynamiq"], "DynamiQ"),
-    ("nanogpt", ["--strategy", "demo"], "DeMo"),
-    ("nanogpt", ["--codec", "int8"], "codec"),
     ("nanogpt", ["--pp", "2"], "pipeline"),
+    ("nanogpt", ["--ckpt", "runs/x"], "checkpoints"),
+    ("nanogpt", ["--network", "wan"], "network simulator"),
+    ("nanogpt", ["--sample", "40"], "sampling"),
     ("nanogpt", ["--dataset", "shakespeare", "--device", "cpu"],
      "shakespeare")])
 def test_later_slices_exit_naming_them(tmp_path, module, args, word):

@@ -1,6 +1,7 @@
 """The CUDA kernels of ``gym_tpu_torch.ops.fused_attention``,
-``gym_tpu_torch.ops.flash_attention`` and ``gym_tpu_torch.ops.threefry``
-against their plain versions on the card. Marked ``gpu``: they skip without a card. This
+``gym_tpu_torch.ops.flash_attention``, ``gym_tpu_torch.ops.threefry`` and
+``gym_tpu_torch.ops.scatter_mean`` against their plain versions on the
+card. Marked ``gpu``: they skip without a card. This
 file imports neither JAX nor ``gym_tpu``, so it runs on the machine with the
 card, where JAX is not installed:
 
@@ -27,7 +28,10 @@ T % 128 != 0 on the card as on the CPU. The threefry kernels (random bits
 and the fused Bernoulli mask) equal their plain twin bit for bit, at
 lengths that end inside and on a 4-element group; so does the per-row mask
 (one launch for a table of keys, as dropout draws it), at row lengths that
-leave a row's start aligned and not.
+leave a row's start aligned and not. D1, DeMo's scatter-mean decode, equals
+its twin bit for bit (both add a slot's picks in pick order) at DeMo's
+shapes, gives the same bits on two runs, and keeps a v/−v slot at exactly
+0.0 and an untouched slot at +0.0.
 """
 
 import pytest
@@ -35,6 +39,7 @@ import torch
 
 import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
+import gym_tpu_torch.ops.scatter_mean as tsm
 import gym_tpu_torch.ops.threefry as tf
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -319,3 +324,64 @@ def test_bernoulli_rows_match_twin_bit_for_bit(rows, n):
         assert got.shape == (rows, n) and got.dtype == torch.bool
         assert torch.equal(got, tf.plain_bernoulli_rows(table, p, n, "cuda"))
     assert tf.bernoulli_rows(table, 0.5, 0, "cuda").shape == (rows, 0)
+
+
+def _picks(g, rows, m, e):
+    idx = torch.randint(0, e, (rows, m), device="cuda", generator=g,
+                        dtype=torch.int32)
+    val = torch.randn(rows, m, device="cuda", generator=g)
+    return idx, val
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m,e", [(200, 2048, 4096), (108, 2048, 64),
+                                      (4, 2048, 2112), (50, 64, 4096),
+                                      (3, 5000, 9000), (1, 1, 1)])
+def test_scatter_mean_matches_twin_bit_for_bit(rows, m, e):
+    """DeMo's signatures at 64 nodes (and K = 2's 64 picks); a row of more
+    picks than one staged chunk and more slots than one tile; one slot."""
+    g = _card()
+    idx, val = _picks(g, rows, m, e)
+    before = tsm.scatter_mean_decode.launches
+    got = tsm.scatter_mean_decode(idx, val, e)
+    assert tsm.scatter_mean_decode.launches == before + 1
+    ref = tsm.plain_scatter_mean_decode(idx, val, e)
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.gpu
+def test_scatter_mean_is_bit_reproducible():
+    g = _card()
+    idx, val = _picks(g, 200, 2048, 64)
+    a = tsm.scatter_mean_decode(idx, val, 64)
+    b = tsm.scatter_mean_decode(idx, val, 64)
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.gpu
+def test_scatter_mean_cancellation_and_untouched_slots():
+    """v and −v at one slot (with picks between them) decode to exactly
+    0.0; a slot no pick names to +0.0; three picks in one slot in pick
+    order ((1 + 1e8) − 1e8 = 0, not 1/3)."""
+    _card()
+    idx = torch.tensor([[5, 2, 7, 5, 9, 9, 9]], dtype=torch.int32,
+                       device="cuda")
+    val = torch.tensor([[0.37, 1.0, 2.0, -0.37, 1.0, 1e8, -1e8]],
+                       device="cuda")
+    out = tsm.scatter_mean_decode(idx, val, 12)[0].cpu()
+    assert out[5].item() == 0.0 and out[9].item() == 0.0
+    assert out[2].item() == 1.0 and out[7].item() == 2.0
+    untouched = [0, 1, 3, 4, 6, 8, 10, 11]
+    assert all(_bits(out[s:s + 1]).item() == 0 for s in untouched)
+
+
+@pytest.mark.gpu
+def test_scatter_mean_refuses_non_contiguous_on_card():
+    g = _card()
+    idx, val = _picks(g, 4, 64, 64)
+    with pytest.raises(ValueError):
+        tsm.scatter_mean_decode(idx.t().contiguous().t(), val, 64)

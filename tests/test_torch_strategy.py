@@ -9,7 +9,12 @@ frameworks may differ in the last bit of pow, sqrt and their sums), rtol
 1e-6 on ``comm_bytes``, the port's node mean against the mean of the JAX
 package's per-node values. The stochastic strategies draw their masks,
 island shuffles and fault draws from JAX's threefry, bit for bit, so the
-same random choices are made on both sides.
+same random choices are made on both sides. The compression strategies
+(DeMo, decoupled outer momentum, NoLoCo, DynamiQ, DiLoCo's codec) run
+there too: DeMo at K = 2 (its sparse decode) and K = 8 (the dense grid, D1's
+twin on the CPU) on shapes whose chunks hold enough picks, with 0 flipped
+update signs against JAX; the codecs' stochastic rounding draws JAX's
+threefry bits.
 """
 
 import jax
@@ -177,12 +182,6 @@ def test_strategy_matches_jax_on_node_mesh(which):
                        for i in range(k))
 
 
-@pytest.mark.parametrize("kwargs", [{"codec": "int8"}])
-def test_later_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        TDiLoCo(TSpec("adamw"), H=2, **kwargs)
-
-
 def _stochastic(pkg, which):
     """The same stochastic strategy from either package (``pkg`` is the
     JAX package's or the port's strategy module)."""
@@ -210,12 +209,40 @@ def _stochastic(pkg, which):
                                         participation=0.75, **sched)
     if name == "diloco":
         kw = {"participation": dict(participation=0.5),
-              "shard_outer": dict(shard_outer=True)}[opt]
+              "shard_outer": dict(shard_outer=True),
+              "int8": dict(codec="int8")}[opt]
         return pkg.DiLoCoStrategy(spec, H=2, **kw, **sched)
     if name == "zero":
         return pkg.ZeroReduceStrategy(
             spec, max_norm=0.5 if opt == "clip" else None, **sched)
+    if name == "demo":
+        kw = {"segments": dict(segment_bytes=600),
+              "wd": dict(weight_decay=0.1, max_norm=2.0)}.get(opt, {})
+        return pkg.DeMoStrategy((JSpec if pkg is J else TSpec)("sgd",
+                                                                lr=1e-2),
+                                compression_topk=20, compression_chunk=8,
+                                **kw, **sched)
+    if name == "demo_outer":
+        return pkg.DecoupledMomentumStrategy(spec, H=2, frac=0.3, **sched)
+    if name == "noloco":
+        kw = {"int8": dict(codec="int8")}.get(opt, {})
+        return pkg.NoLoCoStrategy(spec, H=2, **kw, **sched)
+    if name == "dynamiq":
+        kw = {"topk": dict(frac=0.2)}.get(opt, {})
+        return pkg.DynamiQStrategy(spec, codec=opt, **kw, **sched)
     raise ValueError(which)
+
+
+# DeMo's cases: chunks of 8 × 8 (w, h_10.c), 1 × 8 (h_2.c) and 1 × 5 (b)
+DEMO_SHAPES = {"w": (16, 24), "h_2.c": (24,), "b": (5,), "h_10.c": (3, 8, 8)}
+
+
+def _case(which):
+    """(K, per-node shapes) of a case: DeMo at K = 2 takes the sparse
+    decode (K·k ≤ 128 picks a chunk) and at K = 8 the dense grid."""
+    if which.startswith("demo-"):
+        return (2 if which == "demo-k2" else 8), DEMO_SHAPES
+    return 4, MIXED
 
 
 STOCHASTIC = ["fedavg", "fedavg-islands", "fedavg-islands3",
@@ -223,25 +250,76 @@ STOCHASTIC = ["fedavg", "fedavg-islands", "fedavg-islands3",
               "sparta", "sparta-shuffled", "sparta-partitioned",
               "sparta-interval", "sparta-participation", "sparta_diloco",
               "diloco-participation", "diloco-shard_outer", "zero",
-              "zero-clip"]
+              "zero-clip", "demo-k2", "demo-k8", "demo-segments", "demo-wd",
+              "demo_outer", "noloco", "noloco-int8", "dynamiq-int8",
+              "dynamiq-int4", "dynamiq-topk", "diloco-int8"]
+
+
+def _update_signs(out, p0, k):
+    """Per step, the sign of every node's parameter change."""
+    prev = {n: np.broadcast_to(v, (k,) + v.shape) for n, v in p0.items()}
+    signs = []
+    for params, _ in out:
+        signs.append(np.concatenate([np.sign(prev[n] - params[n]).ravel()
+                                     for n in sorted(params)]))
+        prev = params
+    return signs
 
 
 @pytest.mark.parametrize("which", STOCHASTIC)
 def test_stochastic_strategy_matches_jax_on_node_mesh(which):
     """Params every step and ``comm_bytes`` against the JAX strategy on the
     CPU node mesh, from the same per-node gradients."""
-    k = 4
+    k, shapes = _case(which)
     rng = np.random.default_rng(4)
-    p0 = _grads(rng, shapes=MIXED)
-    grads = [_grads(rng, (k,), MIXED) for _ in range(6)]
+    p0 = _grads(rng, shapes=shapes)
+    grads = [_grads(rng, (k,), shapes) for _ in range(6)]
     jout = _run_jax(_stochastic(J, which), k, p0, grads)
     tout = _run_torch(_stochastic(T, which), k, p0, grads)
     _check_lockstep(jout, tout)
     # the random choices did something: params differ across nodes at
     # some step, or every step was a full average
-    if which.startswith("sparta") or "participation" in which:
+    if (which.startswith(("sparta", "noloco"))
+            or "participation" in which):
         assert any(not np.array_equal(p["w"][0], p["w"][1]) for p, _ in
                    tout)
+    if which.startswith("demo-"):
+        # sign-SGD: every update sign as JAX's (C7), and the nodes moved
+        jsig, tsig = _update_signs(jout, p0, k), _update_signs(tout, p0, k)
+        flips = [int((a != b).sum()) for a, b in zip(jsig, tsig)]
+        assert flips == [0] * len(flips), f"flipped signs a step: {flips}"
+        assert sum(int((s != 0).sum()) for s in tsig[1:]) > 0
+
+
+@pytest.mark.parametrize("delta_dtype", [None, torch.bfloat16])
+def test_demo_segments_change_memory_not_math(delta_dtype):
+    """DeMo in row segments of a few chunks against one segment: params,
+    the momentum residual and comm_bytes bit-identical (with bf16 storage
+    too)."""
+    k, shapes = _case("demo-k8")
+    rng = np.random.default_rng(7)
+    p0 = _grads(rng, shapes=shapes)
+    grads = [_grads(rng, (k,), shapes) for _ in range(4)]
+    runs = []
+    for seg in (600, 0):
+        strat = T.DeMoStrategy(TSpec("sgd", lr=1e-2), compression_topk=20,
+                               compression_chunk=8, segment_bytes=seg,
+                               delta_dtype=delta_dtype)
+        runs.append(_run_torch(strat, k, p0, grads))
+    for (pa, ca), (pb, cb) in zip(*runs):
+        assert ca == cb
+        for n in pa:
+            assert pa[n].tobytes() == pb[n].tobytes()
+
+
+def test_dynamiq_error_feedback_needs_the_node_context():
+    strat = T.DynamiQStrategy(TSpec("adamw"), codec="topk").finalize(1)
+    params = {n: torch.zeros((4,) + s) for n, s in SHAPES.items()}
+    with pytest.raises(StrategyLifecycleError, match="bind_ctx"):
+        strat.init(params)
+    # quantizing codecs carry no residual and need no context
+    assert set(T.DynamiQStrategy(TSpec("adamw")).finalize(1).init(
+        params)) == {"opt"}
 
 
 def test_zero_needs_the_node_context():
@@ -298,9 +376,8 @@ def test_axis_ctx_collectives_match_jax():
 def test_comm_events_reconcile_with_comm_bytes(which):
     """Summing ``per_node_tx`` over a step's events gives that step's
     ``comm_bytes``, on gated and ungated steps alike."""
-    k = 4
+    k, shapes = _case(which) if which in STOCHASTIC else (4, SHAPES)
     rng = np.random.default_rng(3)
-    shapes = MIXED if which in STOCHASTIC else SHAPES
     p0 = _grads(rng, shapes=shapes)
     grads = [_grads(rng, (k,), shapes) for _ in range(5)]
     if which == "diloco":

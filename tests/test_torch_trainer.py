@@ -4,7 +4,8 @@ for 8 steps, from identical ``init_params`` and the same token stream (with
 dropout, the same masks: both draw them from the per-node threefry keys).
 
 The ``train.csv`` losses (node 0) and the ``validation.csv`` local and
-global evals must agree in f32 within rtol 5e-5 (the per-step difference is
+global evals must agree in f32 within rtol 5e-5 (DeMo, NoLoCo and DynamiQ
+too) (the per-step difference is
 summation order; DiLoCo's outer step at lr 0.7 and Adam's normalisation
 carry it forward over the 8 steps). The comm columns must agree within
 rtol 1e-6.
@@ -22,16 +23,22 @@ import torch
 from gym_tpu import Trainer as JTrainer
 from gym_tpu.data import ContiguousGPTTrainDataset as JDataset
 from gym_tpu.models.nanogpt import GPT as JGPT, GPTConfig as JConfig
-from gym_tpu.strategy import (DiLoCoStrategy as JDiLoCo,
-                              FedAvgStrategy as JFedAvg, OptimSpec as JSpec,
+from gym_tpu.strategy import (DeMoStrategy as JDeMo,
+                              DiLoCoStrategy as JDiLoCo,
+                              DynamiQStrategy as JDynamiQ,
+                              FedAvgStrategy as JFedAvg,
+                              NoLoCoStrategy as JNoLoCo, OptimSpec as JSpec,
                               SimpleReduceStrategy as JSimple,
                               SPARTADiLoCoStrategy as JSPARTADiLoCo)
 from gym_tpu_torch import Trainer as TTrainer
 from gym_tpu_torch.convert import params_from_jax
 from gym_tpu_torch.data import ContiguousGPTTrainDataset as TDataset
 from gym_tpu_torch.models.nanogpt import GPT as TGPT, GPTConfig as TConfig
-from gym_tpu_torch.strategy import (DiLoCoStrategy as TDiLoCo,
+from gym_tpu_torch.strategy import (DeMoStrategy as TDeMo,
+                                    DiLoCoStrategy as TDiLoCo,
+                                    DynamiQStrategy as TDynamiQ,
                                     FedAvgStrategy as TFedAvg,
+                                    NoLoCoStrategy as TNoLoCo,
                                     OptimSpec as TSpec,
                                     SimpleReduceStrategy as TSimple,
                                     SPARTADiLoCoStrategy as TSPARTADiLoCo)
@@ -68,6 +75,14 @@ def _strategy(pkg, which):
     if which == "fedavg":
         return (JFedAvg if jax_pkg else TFedAvg)(spec, H=2, island_size=2,
                                                  **sched)
+    if which == "demo":
+        return (JDeMo if jax_pkg else TDeMo)(
+            (JSpec if jax_pkg else TSpec)("sgd", lr=1e-3), **sched)
+    if which == "noloco":
+        return (JNoLoCo if jax_pkg else TNoLoCo)(spec, H=2, **sched)
+    if which == "dynamiq":
+        return (JDynamiQ if jax_pkg else TDynamiQ)(spec, codec="int8",
+                                                   **sched)
     return (JSimple if jax_pkg else TSimple)(spec, **sched)
 
 
@@ -97,6 +112,11 @@ def _fit_port(tmp_path, which, tree, levers=None, **kw):
     # shuffles equal to the JAX package's
     pytest.param("sparta_diloco", {}, id="sparta_diloco"),
     pytest.param("fedavg", {}, id="fedavg"),
+    # the compression strategies: DeMo (K = 4: its sparse decode), NoLoCo's
+    # partner gossip, DynamiQ's int8 hops on the shared threefry keys
+    pytest.param("demo", {}, id="demo"),
+    pytest.param("noloco", {}, id="noloco"),
+    pytest.param("dynamiq", {}, id="dynamiq"),
     # the memory levers: 48-row loss chunks do not divide a microbatch's 64
     pytest.param("diloco", dict(remat=True, loss_chunk=48),
                  id="diloco-remat-loss_chunk"),
