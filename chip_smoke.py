@@ -83,7 +83,45 @@ Phases (any failure exits non-zero before the result lines are printed):
    B1/B2 and of D1 (3 a step, one a tile signature), step 0's
    ``comm_bytes`` 79,872 and ``comm_recv_bytes`` 5,031,936, a finite loss
    that falls (the last eval's global loss below step 0's);
-10. the ``kernels`` JSON line, then the result line.
+10. serving GPT-2 base (12L/12H/768, vocab 50304, block 1024, f32, random
+   weights from a seed) through ``Scheduler`` over the paged engine (page
+   16, 16 slots, ``decode_chunk`` 8): 32 requests of 16-512 prompt tokens
+   (8 share a 256-token system prompt), 32-64 new tokens, temperature 0.9
+   with top-k 40 or top-p 0.95: (a) the workload, its output tokens/s,
+   TTFT p50/p99, peak memory and ``prefix_hit_blocks``, B7, R1, L1 and T1's
+   bits rows launched (counted from zero); (b) ``spec_tokens=4`` over the
+   workload and 8 greedy requests (its accept rate; at least 200 drafts
+   accepted, the greedy streams equal to a run without speculation), (c)
+   unpaged, (d) one request against ``generate_fast``, (e) 16 batch-class
+   requests and an interactive one that parks one of them: every stream
+   equal to (a)'s token for token; then a 32-token
+   prompt and 8 greedy tokens on the card against the CPU (logits within
+   rtol 1e-4 of the largest, tokens equal);
+11. the ``kernels`` JSON line, then the result line.
+
+The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
+the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
+decode attention), R1 (``row_gemm_kernel``, the row-invariant f32 linear
+layer and lm head), L1 (``row_layer_norm_kernel``) and T1's bits rows
+(``threefry_rows_bits_kernel``, the sampler's gumbel bits, keys folded on
+the card). Phase 2 requires all of them built, without atomics. Phase 3
+holds them to their twins at GPT-2 base's shapes (B7: decode b=16 with
+cursors spread over 0-1023 on shuffled pages of 16, a t=5 verify, prefills
+of 512 and 1024, a prefix-hit prefill from position 256 on shared pages,
+unpaged; R1 at M = 1, 16, 80, 1024 on the four dense shapes and the lm head,
+also against ``torch.matmul``; L1; T1's bits rows at 16 and 80 rows of
+50,304 bit for bit), B7 paged against unpaged and a query alone against the
+same query in its batch, verify chunk and prefill bit for bit, every R1 and
+L1 row and the sampler's scan (``row_cumsum``) bit for bit at M = 1, 16, 80
+and 1024 (``torch.matmul``'s, PyTorch's layer norm's and ``torch.cumsum``'s
+rows are printed beside them, for the record), and the decode forward
+end to end (a prompt against its bucket, a row alone against 16 rows, a
+verify chunk against single steps) and the sampler's tokens bit for bit.
+Phase 7 times B7 at the decode and a 512-token prefill shape beside SDPA on
+the gathered, masked window, R1 at M = 16 (and the 3072-to-768 layer and the
+lm head) and M = 1024 beside ``torch.matmul``, L1 beside ``F.layer_norm``,
+and the bits rows at 16 x 50,304, each with its bound (bytes at 3.35 TB/s,
+or f32 FMAs at 67 TFLOP/s, or int32 work at the dispatch limit).
 
 Phase 8d trains the other compression strategies on the flagship (bf16,
 random tokens, K=16 × 16, 4 steps, H 2): decoupled outer momentum (top-k),
@@ -122,7 +160,8 @@ the per-row mask at config 2's dropout shapes and the host's key algebra a
 step. The launch counts in the
 ``kernels`` line are those of the training runs of phases 4 (B1/B2), 5
 (B3/B4), 5b (B5, its f32 forward in the evals), 8a (T1), 9b (T1's per-row
-entry) and 9d (the f32 B1/B2), each counted from zero; the packed pair and
+entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1, T1's
+bits rows), each counted from zero; the packed pair and
 B5's forward count their bf16 and f32 kernels apart (every eval runs in
 f32).
 """
@@ -162,6 +201,9 @@ FUSED_CU = "gym_tpu_torch/ops/csrc/fused_attention.cu"
 FLASH_CU = "gym_tpu_torch/ops/csrc/flash_attention.cu"
 THREEFRY_CU = "gym_tpu_torch/ops/csrc/threefry.cu"
 SCATTER_CU = "gym_tpu_torch/ops/csrc/scatter_mean.cu"
+DECODE_CU = "gym_tpu_torch/ops/csrc/decode_attention.cu"
+ROW_CU = "gym_tpu_torch/ops/csrc/row_gemm.cu"
+NANOGPT_JAX = "gym_tpu/models/nanogpt.py"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
 BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -205,6 +247,18 @@ KERNELS = {
     # no pallas_call: XLA's serial scatter-add of DeMo's dense decode
     "D1_scatter_mean": ("scatter_mean", "scatter_mean_decode", "launches",
                         SCATTER_CU, "gym_tpu/ops/topk_compress.py:83-99"),
+    # the serving path (no pallas_call): XLA's einsum-mask-softmax-einsum
+    # of the decode attends, its dots of nn.Dense and wte.attend and its
+    # nn.LayerNorm under decode=True, and jax.random.categorical's bits
+    "B7_decode_attention": ("decode_attention", "decode_attention",
+                            "launches", DECODE_CU,
+                            f"{NANOGPT_JAX}:370-376 and :478-484"),
+    "R1_row_gemm": ("row_linear", "row_linear", "launches", ROW_CU,
+                    f"{NANOGPT_JAX}:253 and :662"),
+    "L1_row_layer_norm": ("row_linear", "row_layer_norm", "launches", ROW_CU,
+                          f"{NANOGPT_JAX}:515,519,656"),
+    "T1_threefry_bits_rows": ("threefry", "random_bits_rows", "launches",
+                              THREEFRY_CU, f"{NANOGPT_JAX}:905"),
 }
 # GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
 GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
@@ -2098,6 +2152,642 @@ def cnn_card_vs_cpu(torch, mods):
               f"differ by {rel:.3e} > {LOSS_RTOL[mode]}")
 
 
+# -- the serving path: B7, R1, L1 and T1's bits rows (phases 2, 3, 7, 10) ----
+
+
+SERVING_KERNELS = ("B7_decode_attention", "R1_row_gemm", "L1_row_layer_norm",
+                   "T1_threefry_bits_rows")
+# GPT-2 base's serving shapes: heads, head dim, window, page
+SERVE_H, SERVE_HD, SERVE_S, SERVE_PAGE = 12, 64, 1024, 16
+# GPT-2 base's four dense layers (in, out) and the tied lm head
+DENSE_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+LM_HEAD = (768, 50304)
+
+
+def check_serving_sass(counts):
+    """B7, R1, L1 and the bits-rows entry are built, without atomics (the
+    global check above); B7 at 4 head dims, R1 at 2 tilings x 2 layouts."""
+    for name, n in (("decode_attention_kernel", 4), ("row_gemm_kernel", 4),
+                    ("row_layer_norm_kernel", 1),
+                    ("threefry_rows_bits_kernel", 1)):
+        found = [k for k in counts if name in k]
+        check(len(found) == n, f"expected {n} {name}, found {found}")
+        for k in found:
+            log(f"  {k}: FFMA {counts[k]['FFMA']}, ATOM/RED "
+                f"{counts[k]['ATOM/RED']}")
+
+
+def paged_window(torch, g, b, extra=1):
+    """A pool holding b rows' windows on shuffled pages (page 0 the null
+    page) and the same windows as an unpaged [b, S, H, hd] cache."""
+    s, page, h, hd = SERVE_S, SERVE_PAGE, SERVE_H, SERVE_HD
+    nblk = s // page
+    k_rows = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    v_rows = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    pages = 1 + b * nblk + extra
+    perm = 1 + torch.randperm(pages - 1, device="cuda", generator=g)
+    table = perm[:b * nblk].view(b, nblk).to(torch.int32)
+    k_pool = torch.randn(pages, page, h, hd, device="cuda", generator=g)
+    v_pool = torch.randn(pages, page, h, hd, device="cuda", generator=g)
+    k_pool[table.long()] = k_rows.view(b, nblk, page, h, hd)
+    v_pool[table.long()] = v_rows.view(b, nblk, page, h, hd)
+    return k_rows, v_rows, k_pool, v_pool, table
+
+
+def check_b7(torch, tdec, g):
+    """B7 against its twin (phase 3's f32 band) at GPT-2 base's shapes, B7
+    paged against unpaged bit for bit, and a query's bits independent of
+    the batch, the number of queries and its tile."""
+    h, hd, s = SERVE_H, SERVE_HD, SERVE_S
+    k_rows, v_rows, k_pool, v_pool, table = paged_window(torch, g, 16)
+    cursors = torch.randint(0, s, (16,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    cursors[0], cursors[1] = 0, s - 1
+    worst = 0.0
+    cases = []
+    q1 = torch.randn(16, 1, h, hd, device="cuda", generator=g)
+    cases.append(("decode b=16 t=1 (paged, page 16)", q1, k_pool, v_pool,
+                  table, cursors))
+    q5 = torch.randn(16, 5, h, hd, device="cuda", generator=g)
+    vcur = torch.clamp(cursors, max=s - 3)       # two queries clamp at S-1
+    cases.append(("verify b=16 t=5", q5, k_pool, v_pool, table, vcur))
+    for t in (512, 1024):
+        qp = torch.randn(1, t, h, hd, device="cuda", generator=g)
+        cases.append((f"prefill b=1 t={t} start 0", qp, k_pool, v_pool,
+                      table[:1], torch.zeros(1, dtype=torch.int32,
+                                             device="cuda")))
+    # a prefix hit: rows 2 and 3 share row 0's first 16 pages (256
+    # positions) and prefill 256 more from position 256
+    shared = table[:4].clone()
+    shared[1:, :16] = shared[0, :16]
+    qh = torch.randn(4, 256, h, hd, device="cuda", generator=g)
+    cases.append(("prefix-hit prefill b=4 t=256 start 256 (shared pages)",
+                  qh, k_pool, v_pool, shared,
+                  torch.full((4,), 256, dtype=torch.int32, device="cuda")))
+    unp = tdec.unpaged_table(16, "cuda")
+    cases.append(("unpaged decode b=16 t=1", q1, k_rows, v_rows, unp,
+                  cursors))
+    for name, q, kp, vp, tb, cur in cases:
+        got = tdec.decode_attention(q, kp, vp, tb, cur)
+        ref = tdec.plain_decode_attention(q, kp, vp, tb, cur)
+        worst = max(worst, compare(f"B7 {name}", got, ref, "out",
+                                   torch.float32))
+    # paged against unpaged, bit for bit, decode and verify
+    for name, q, cur in (("t=1", q1, cursors), ("t=5", q5, vcur)):
+        a = tdec.decode_attention(q, k_pool, v_pool, table, cur)
+        b = tdec.decode_attention(q, k_rows, v_rows, unp, cur)
+        ok = same_bits(torch, a, b)
+        log(f"  B7 paged vs unpaged {name}: "
+            f"{'bit-identical' if ok else 'DIFFER'}")
+        check(ok, f"B7 paged and unpaged differ at {name}")
+    # a query alone against the same query in the batch, in a verify
+    # chunk and inside a prefill tile
+    full = tdec.decode_attention(q5, k_pool, v_pool, table, vcur)
+    ok = True
+    for r in (0, 5, 15):
+        for j in range(5):
+            one = tdec.decode_attention(
+                q5[r:r + 1, j:j + 1].contiguous(), k_pool, v_pool,
+                table[r:r + 1], vcur[r:r + 1] + j)
+            ok &= same_bits(torch, one[0, 0], full[r, j])
+    pre = cases[3]
+    pfull = tdec.decode_attention(pre[1], k_pool, v_pool, pre[4], pre[5])
+    for j in (0, 1, 37, 511, 1023):
+        one = tdec.decode_attention(pre[1][:, j:j + 1].contiguous(), k_pool,
+                                    v_pool, pre[4], pre[5] + j)
+        ok &= same_bits(torch, one[0, 0], pfull[0, j])
+    log(f"  B7 a query alone vs in its batch, verify chunk and prefill: "
+        f"{'bit-identical' if ok else 'DIFFER'}")
+    check(ok, "B7: a query's bits depend on its batch or tile")
+    torch.cuda.synchronize()
+    return worst
+
+
+def rows_invariant(torch, fn, x, what):
+    """fn on row r alone, bit for bit against row r of fn on the first 16,
+    80 and all of x's rows (x has 1024)."""
+    full = {m: fn(x[:m]) for m in (16, 80, x.shape[0])}
+    ok = True
+    for r in (0, 5, 15):
+        one = fn(x[r:r + 1])[0]
+        ok &= all(same_bits(torch, one, full[m][r]) for m in full)
+    log(f"  {what}: a row alone vs in M = 16, 80, {x.shape[0]}: "
+        f"{'bit-identical' if ok else 'DIFFER'}")
+    return ok
+
+
+def check_r1_l1(torch, trow, g):
+    """R1 against its twin and torch.matmul at M in {1, 16, 80, 1024} x
+    GPT-2 base's dense shapes and lm head, its rows bit for bit across M;
+    L1 likewise; the same row-invariance question put to torch's own
+    layer norm and cumsum, for the record."""
+    worst_r1 = worst_l1 = 0.0
+    for kin, nout in DENSE_SHAPES + (LM_HEAD,):
+        lm = (kin, nout) == LM_HEAD
+        w = torch.randn(*((nout, kin) if lm else (kin, nout)), device="cuda",
+                        generator=g) * 0.02
+        bias = None if lm else torch.randn(nout, device="cuda", generator=g)
+        x = torch.randn(1024, kin, device="cuda", generator=g)
+        for m in (1, 16, 80, 1024):
+            got = trow.row_linear(x[:m], w, bias, w_nk=lm)
+            ref = trow.plain_row_linear(x[:m], w, bias, w_nk=lm)
+            lib = x[:m] @ (w.t() if lm else w)
+            if bias is not None:
+                lib = lib + bias
+            tag = f"R1 [{m}, {kin}] x [{kin}, {nout}]{' (lm head)' if lm else ''}"
+            worst_r1 = max(worst_r1, compare(tag, got, ref, "out",
+                                             torch.float32))
+            compare(tag + " vs torch.matmul", got, lib, "out", torch.float32)
+        ok = rows_invariant(torch, lambda z: trow.row_linear(
+            z, w, bias, w_nk=lm), x, f"R1 {kin}->{nout}")
+        check(ok, f"R1 {kin}->{nout}: a row's bits depend on M")
+        ok = rows_invariant(torch, lambda z: z @ (w.t() if lm else w), x,
+                            f"torch.matmul {kin}->{nout} (for the record)")
+        del w, bias, x
+    x = torch.randn(1024, 768, device="cuda", generator=g) * 3 + 0.5
+    scale = torch.randn(768, device="cuda", generator=g)
+    bias = torch.randn(768, device="cuda", generator=g)
+    for m in (1, 16, 80, 1024):
+        worst_l1 = max(worst_l1, compare(
+            f"L1 [{m}, 768]", trow.row_layer_norm(x[:m], scale, bias),
+            trow.plain_row_layer_norm(x[:m], scale, bias), "out",
+            torch.float32))
+    ok = rows_invariant(torch, lambda z: trow.row_layer_norm(z, scale, bias),
+                        x, "L1 768")
+    check(ok, "L1: a row's bits depend on M")
+    rows_invariant(torch, lambda z: trow.plain_row_layer_norm(z, scale, bias),
+                   x, "torch's layer norm (the twin; for the record)")
+    e = torch.rand(80, 50304, device="cuda", generator=g)
+    e = torch.cat([e, e[:1].repeat(1024 - 80, 1)])
+    ok = rows_invariant(torch, trow.row_cumsum, e, "row_cumsum 50304 (R1 "
+                        "scan)")
+    check(ok, "row_cumsum: a row's bits depend on the row count")
+    rows_invariant(torch, lambda z: torch.cumsum(z, dim=-1), e,
+                   "torch.cumsum 50304 (for the record)")
+    compare("row_cumsum [80, 50304] vs torch.cumsum in f64",
+            trow.row_cumsum(e[:80]), torch.cumsum(e[:80].double(), -1),
+            "out", torch.float32)
+    torch.cuda.synchronize()
+    return worst_r1, worst_l1
+
+
+def check_bits_rows(torch, tf, g):
+    """T1's bits rows bit for bit against the twin at 16 x 50,304 (a decode
+    step's keys folded on the card) and 80 rows (a verify at gamma 4)."""
+    for rows in (16, 80):
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 2), device="cuda",
+                             generator=g, dtype=torch.int32)
+        data = torch.randint(0, 1000, (rows,), device="cuda", generator=g,
+                             dtype=torch.int32)
+        for d in (data, None):
+            got = tf.random_bits_rows(keys, d, 50304)
+            ref = tf.plain_random_bits_rows(keys, d, 50304)
+            ok = torch.equal(got, ref)
+            log(f"  T1 bits rows [{rows}, 50304] "
+                f"{'folded on the card' if d is not None else 'keys as given'}"
+                f": {'bit-identical' if ok else 'DIFFER'}")
+            check(ok, "T1 bits rows differ from the twin")
+    return 0.0
+
+
+def serve_model_cfg(n_layer=12):
+    from gym_tpu_torch.models.nanogpt import GPTConfig
+    return GPTConfig(block_size=1024, vocab_size=50304, n_layer=n_layer,
+                     n_head=12, n_embd=768)
+
+
+def serve_params(n_layer=12, seed=0, device="cuda"):
+    """GPT-2 base's weights at random, f32, from a seed (one model, no
+    node dimension)."""
+    from gym_tpu_torch.convert import serving_params
+    from gym_tpu_torch.models.nanogpt import GPT
+    stacked = GPT(serve_model_cfg(n_layer)).init_params(1, seed, device)
+    return serving_params(stacked, node=0)
+
+
+def check_decode_rows(torch, g):
+    """Every op of the decode forward and the sampler, end to end on a
+    2-layer GPT-2-base-width model (paged, page 16): a row decoded alone
+    against the same row among 16, a prompt against its bucket-padded
+    prefill, one position against a 5-token verify chunk: logits bit for
+    bit; the sampler's tokens for a row alone and among 16 and 80."""
+    import dataclasses
+    from gym_tpu_torch.models.nanogpt import GPT, decode_config, sample_logits
+    from gym_tpu_torch.ops import threefry as tf
+    base = serve_model_cfg(2)
+    v, nblk = base.vocab_size, base.block_size // SERVE_PAGE
+    cfg = dataclasses.replace(decode_config(base), page_size=SERVE_PAGE,
+                              kv_pages=1 + 16 * nblk)
+    model = GPT(cfg)
+    params = serve_params(2, seed=3)
+    ok = True
+    with torch.no_grad():
+        cache = model.init_cache(16, "cuda")
+        table = (1 + torch.arange(16 * nblk, device="cuda",
+                                  dtype=torch.int32)).view(16, nblk)
+        prompts = torch.randint(0, v, (16, 40), device="cuda",
+                                generator=g, dtype=torch.int32)
+        zero = torch.zeros(16, dtype=torch.int32, device="cuda")
+        model.decode(params, prompts, cache, table, zero)
+        # a prompt against its bucket: row 0's 37 tokens padded to 64
+        pad = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
+        pad[0, :37] = prompts[0, :37]
+        c2 = {k: v.clone() for k, v in cache.items()}
+        a = model.decode(params, prompts[:1, :37], c2, table[:1], zero[:1],
+                         logits_at=36)
+        b = model.decode(params, pad, c2, table[:1], zero[:1], logits_at=36)
+        ok_p = same_bits(torch, a, b)
+        # a decode step: row 5 alone against the 16 rows
+        tok = torch.randint(0, v, (16, 1), device="cuda", generator=g,
+                            dtype=torch.int32)
+        cur = torch.full((16,), 40, dtype=torch.int32, device="cuda")
+        c3 = {k: v.clone() for k, v in cache.items()}
+        all16 = model.decode(params, tok, c3, table, cur)
+        c4 = {k: v.clone() for k, v in cache.items()}
+        one = model.decode(params, tok[5:6], c4, table[5:6], cur[5:6])
+        ok_d = same_bits(torch, one[0], all16[5])
+        # a verify chunk of 5 against 5 single steps
+        drafts = torch.randint(0, v, (16, 5), device="cuda", generator=g,
+                               dtype=torch.int32)
+        c5 = {k: v.clone() for k, v in cache.items()}
+        chunk = model.decode(params, drafts, c5, table, cur)
+        c6 = {k: v.clone() for k, v in cache.items()}
+        ok_v = True
+        for j in range(5):
+            step = model.decode(params, drafts[:, j:j + 1], c6, table,
+                                cur + j)
+            ok_v &= same_bits(torch, step[:, 0], chunk[:, j])
+        log(f"  decode forward (2 layers at GPT-2 base width): prompt vs "
+            f"bucket {'bit-identical' if ok_p else 'DIFFER'}, a row alone "
+            f"vs among 16 {'bit-identical' if ok_d else 'DIFFER'}, verify "
+            f"chunk vs single steps {'bit-identical' if ok_v else 'DIFFER'}")
+        ok = ok_p and ok_d and ok_v
+        # the sampler: top-k and top-p rows, alone and among 16 and 80
+        lg = torch.cat([all16[:, 0]] * 5)                       # [80, V]
+        keys = tf.key_tensor([tf.PRNGKey(i) for i in range(80)], "cuda")
+        gidx = torch.arange(80, dtype=torch.int32, device="cuda")
+        temp = torch.full((80,), 0.9, device="cuda")
+        top_k = torch.where(gidx % 2 == 0, 40, v).to(torch.int32)
+        top_p = torch.where(gidx % 2 == 0, 1.0, 0.95).to(torch.float32)
+        full = {m: sample_logits(lg[:m], keys[:m], temp[:m], top_k[:m],
+                                 top_p[:m], gidx[:m]) for m in (16, 80)}
+        ok_s = True
+        for r in (0, 1, 5, 15):
+            s1 = sample_logits(lg[r:r + 1], keys[r:r + 1], temp[r:r + 1],
+                               top_k[r:r + 1], top_p[r:r + 1],
+                               gidx[r:r + 1])
+            ok_s &= all(int(s1[0]) == int(full[m][r]) for m in full)
+        log(f"  sampler (temperature, top-k 40 / top-p 0.95, gumbel argmax):"
+            f" a row alone vs among 16 and 80: "
+            f"{'same tokens' if ok_s else 'DIFFER'}")
+    check(ok and ok_s, "the decode forward or the sampler is not "
+          "row-invariant")
+
+
+def check_serving_kernels(torch, tdec, trow, tf):
+    g = torch.Generator(device="cuda").manual_seed(10)
+    log("phase 3 serving: B7, R1, L1, T1 bits rows (f32, GPT-2 base shapes)")
+    errs = {"B7_decode_attention": check_b7(torch, tdec, g)}
+    errs["R1_row_gemm"], errs["L1_row_layer_norm"] = check_r1_l1(torch,
+                                                                trow, g)
+    errs["T1_threefry_bits_rows"] = check_bits_rows(torch, tf, g)
+    check_decode_rows(torch, g)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
+    """Phase 7 for the serving kernels at phase 10's shapes, each beside
+    its twin, its bound (bytes at 3.35 TB/s, or f32 FMAs at 67 TFLOP/s) and
+    its yardstick: SDPA on the gathered window with its mask for B7,
+    torch.matmul for R1, F.layer_norm for L1."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(11)
+    h, hd, s = SERVE_H, SERVE_HD, SERVE_S
+    _, _, k_pool, v_pool, table = paged_window(torch, g, 16)
+    out = {}
+
+    def b7_case(tag, q, tb, cur):
+        b, t = q.shape[:2]
+        keys = sum(min(int(c) + j, s - 1) + 1 for c in cur.tolist()
+                   for j in range(t))               # (query, key) pairs
+        distinct = sum(min(int(c) + t - 1, s - 1) + 1 for c in cur.tolist())
+        nbytes = 4 * (2 * q.numel() + 2 * distinct * h * hd) + 8 * b
+        flops = 4 * keys * h * hd
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        pages = tb.long()
+
+        def sdpa():
+            kw = k_pool[pages].view(b, s, h, hd).transpose(1, 2)
+            vw = v_pool[pages].view(b, s, h, hd).transpose(1, 2)
+            pos = cur[:, None] + torch.arange(t, device="cuda")
+            mask = torch.arange(s, device="cuda") <= pos[:, :, None]
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kw, vw, attn_mask=mask[:, None])
+
+        r = dict(ms=timed(torch, lambda: tdec.decode_attention(
+                     q, k_pool, v_pool, tb, cur)),
+                 plain_ms=timed(torch, lambda: tdec.plain_decode_attention(
+                     q, k_pool, v_pool, tb, cur), reps=3, inner=1),
+                 library_ms=timed(torch, sdpa),
+                 bound=(max(t_b, t_f) * 1e3,
+                        "bytes" if t_b >= t_f else "operations"))
+        log(f"B7_decode_attention [{tag}]: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} (twin) library_ms {r['library_ms']:.4f} "
+            f"(SDPA on the gathered window, masked) bound_ms "
+            f"{r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP) -> {r['bound'][0] / r['ms']:.2%} of "
+            f"bound")
+        return r
+
+    cur = torch.randint(16, 577, (16,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    out["B7_decode_attention"] = b7_case(
+        "decode b=16 t=1, cursors 16-576, page 16",
+        torch.randn(16, 1, h, hd, device="cuda", generator=g), table, cur)
+    b7_case("prefill b=1 t=512 start 0",
+            torch.randn(1, 512, h, hd, device="cuda", generator=g),
+            table[:1], torch.zeros(1, dtype=torch.int32, device="cuda"))
+    del k_pool, v_pool
+
+    def r1_case(m, kin, nout, lm=False):
+        w = torch.randn(*((nout, kin) if lm else (kin, nout)), device="cuda",
+                        generator=g) * 0.02
+        bias = None if lm else torch.randn(nout, device="cuda", generator=g)
+        x = torch.randn(m, kin, device="cuda", generator=g)
+        wt = w.t() if lm else w
+        nbytes = 4 * (m * kin + kin * nout + m * nout + (0 if lm else nout))
+        flops = 2 * m * kin * nout
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+
+        def lib():
+            y = x @ wt
+            return y if bias is None else y + bias
+
+        r = dict(ms=timed(torch, lambda: trow.row_linear(x, w, bias, lm)),
+                 plain_ms=timed(torch, lambda: trow.plain_row_linear(
+                     x, w, bias, lm), reps=3, inner=1),
+                 library_ms=timed(torch, lib),
+                 bound=(max(t_b, t_f) * 1e3,
+                        "bytes" if t_b >= t_f else "operations"))
+        log(f"R1_row_gemm [{m}, {kin}] x [{kin}, {nout}]"
+            f"{' (lm head)' if lm else ''}: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} (twin, a row at a time) library_ms "
+            f"{r['library_ms']:.4f} (torch.matmul) bound_ms "
+            f"{r['bound'][0]:.6f} ({r['bound'][1]}) -> "
+            f"{r['bound'][0] / r['ms']:.2%} of bound")
+        return r
+
+    out["R1_row_gemm"] = r1_case(16, 768, 3072)
+    r1_case(16, 3072, 768)
+    r1_case(16, *LM_HEAD, lm=True)
+    r1_case(1024, 768, 3072)
+    x = torch.randn(16, 768, device="cuda", generator=g)
+    sc = torch.randn(768, device="cuda", generator=g)
+    bi = torch.randn(768, device="cuda", generator=g)
+    nbytes = 4 * (2 * x.numel() + 2 * 768)
+    out["L1_row_layer_norm"] = r = dict(
+        ms=timed(torch, lambda: trow.row_layer_norm(x, sc, bi)),
+        plain_ms=timed(torch, lambda: trow.plain_row_layer_norm(x, sc, bi)),
+        library_ms=timed(torch, lambda: F.layer_norm(x, (768,), sc, bi)),
+        bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"L1_row_layer_norm [16, 768]: kernel_ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+        f"(F.layer_norm) bound_ms {r['bound'][0]:.6f} (bytes)")
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (16, 2), device="cuda",
+                         generator=g, dtype=torch.int32)
+    data = torch.arange(16, dtype=torch.int32, device="cuda")
+    n = 16 * 50304
+    t_b = 4 * n / HBM_BYTES_PER_S
+    t_o = n * (THREEFRY_LEAST_OPS - 2) / int32_ops_per_s
+    out["T1_threefry_bits_rows"] = r = dict(
+        ms=timed(torch, lambda: tf.random_bits_rows(keys, data, 50304)),
+        plain_ms=timed(torch, lambda: tf.plain_random_bits_rows(
+            keys, data, 50304), reps=3, inner=1),
+        library_ms=None,
+        bound=(max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"))
+    log(f"T1_threefry_bits_rows [16, 50304], a decode step's gumbel bits: "
+        f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+        f"none bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}) -> "
+        f"{r['bound'][0] / r['ms']:.1%} of bound")
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 10's workload: 32 requests, 8 sharing a 256-token system prompt
+SERVE_REQUESTS, SERVE_SHARED, SERVE_SYSTEM = 32, 8, 256
+
+
+def serve_workload(seed=0):
+    """(prompt, SamplingParams kwargs) of phase 10's requests: prompts of
+    16-512 tokens (8 of them a shared 256-token system prompt and a
+    question), 32-64 new tokens, temperature 0.9 with top-k 40, or top-p
+    0.95; each request its own seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, 50304, SERVE_SYSTEM).astype(np.int32)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        if i % (SERVE_REQUESTS // SERVE_SHARED) == 0:
+            q = rng.integers(0, 50304, int(rng.integers(16, 257)))
+            prompt = np.concatenate([system, q.astype(np.int32)])
+        else:
+            prompt = rng.integers(0, 50304, int(rng.integers(16, 513))
+                                  ).astype(np.int32)
+        kw = (dict(temperature=0.9, top_k=40) if i % 2 == 0
+              else dict(top_p=0.95))
+        out.append((prompt, dict(max_new_tokens=int(rng.integers(32, 65)),
+                                 seed=1000 + i, **kw)))
+    return out
+
+
+# (b)'s greedy requests: a random model's greedy stream falls into a loop
+# that the n-gram drafter predicts, so drafts are accepted and rolled back
+SERVE_GREEDY, SPEC_ACCEPTED_FLOOR = 8, 200
+
+
+def serve_greedy(seed=1):
+    """(prompt, SamplingParams kwargs) of (b)'s greedy requests: prompts of
+    16-128 tokens, 64 new tokens, top-k 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 50304, int(rng.integers(16, 129))
+                          ).astype(np.int32),
+             dict(max_new_tokens=64, top_k=1, seed=2000 + i))
+            for i in range(SERVE_GREEDY)]
+
+
+def serve_run(torch, params, cfg, work, label, **engine_kw):
+    """Phase 10's workload through ``Scheduler`` over a fresh engine:
+    the token streams, the engine, the wall time and the handles."""
+    from gym_tpu_torch.serve import (InferenceEngine, RequestStatus,
+                                     SamplingParams, Scheduler)
+    eng = InferenceEngine(params, cfg, device="cuda", **engine_kw)
+    sched = Scheduler(eng, max_queue=256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [sched.submit(p, SamplingParams(**kw)) for p, kw in work]
+    for _ in range(100_000):
+        if all(h.status in (RequestStatus.DONE, RequestStatus.FAILED)
+               for h in handles):
+            break
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    failed = [h for h in handles if h.status is not RequestStatus.DONE]
+    check(not failed, f"phase 10 {label}: {len(failed)} requests failed: "
+          f"{[h.exception for h in failed[:3]]}")
+    return [h.result(timeout=1) for h in handles], eng, sched, wall, handles
+
+
+def card_vs_cpu_serving(torch, params, cfg, steps=8):
+    """A 32-token prompt and 8 greedy tokens through the decode forward on
+    the card and on the CPU from the same weights: logits at every step
+    within phase 6's f32 band (rtol 1e-4 of the largest logit), the
+    greedy tokens identical."""
+    import numpy as np
+    from gym_tpu_torch.models.nanogpt import GPT, decode_config
+    model = GPT(decode_config(cfg))
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 32)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {n: t.to(dev) for n, t in params.items()}
+        cache = model.init_cache(1, dev)
+        lgs, toks = [], []
+        with torch.no_grad():
+            lg = model.decode(p, torch.from_numpy(prompt).to(dev), cache,
+                              logits_at=31)[:, 0]
+            for j in range(steps):
+                lgs.append(lg.float().cpu())
+                tok = torch.argmax(lg, dim=-1)
+                toks.append(int(tok[0]))
+                if j + 1 < steps:
+                    lg = model.decode(p, tok[:, None].to(torch.int32),
+                                      cache)[:, 0]
+        out[dev] = (lgs, toks)
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    log(f"phase 10 card vs CPU (32-token prompt, {steps} greedy tokens, "
+        f"GPT-2 base): max |a-b| / max|b| over the steps' logits "
+        f"{worst:.3e} (band {LOSS_RTOL['f32']}); tokens card "
+        f"{out['cuda'][1]} cpu {out['cpu'][1]}")
+    check(worst <= LOSS_RTOL["f32"], f"phase 10: card and CPU logits differ "
+          f"by {worst:.3e}")
+    check(out["cuda"][1] == out["cpu"][1], "phase 10: card and CPU greedy "
+          "tokens differ")
+
+
+def serving_phase(torch, mods, card):
+    """Phase 10: GPT-2 base (random f32 weights from a seed) served by the
+    paged engine (page 16, 16 slots, decode_chunk 8) through Scheduler:
+    (a) phase 10's workload, the kernels' launches counted; (b) the same
+    and 8 greedy requests with spec_tokens=4, the greedy ones held to a
+    run without speculation and the accepted drafts to a floor; (c)
+    unpaged; each stream equal to (a)'s; (d) one
+    request against generate_fast; (e) 16 batch-class requests of (a) and
+    an interactive one that parks one of them: the parked stream resumes
+    equal to (a)'s; then the card against the CPU."""
+    from gym_tpu_torch.models.nanogpt import generate_fast
+    from gym_tpu_torch.serve import (InferenceEngine, RequestStatus,
+                                     SamplingParams, Scheduler)
+    cfg = serve_model_cfg()
+    params = serve_params()
+    work = serve_workload()
+    paged = dict(num_slots=16, paged=True, page_size=16, decode_chunk=8)
+    log(f"phase 10 serving GPT-2 base (12L/12H/768, vocab 50304, block "
+        f"1024, f32, random weights): {len(work)} requests, prompts "
+        f"{min(len(p) for p, _ in work)}-{max(len(p) for p, _ in work)} "
+        f"tokens ({SERVE_SHARED} share a {SERVE_SYSTEM}-token system "
+        f"prompt), {sum(kw['max_new_tokens'] for _, kw in work)} new tokens;"
+        f" engine paged, page 16, 16 slots, decode_chunk 8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    ref, eng, _, wall, handles = serve_run(torch, params, cfg, work, "(a)",
+                                           **paged)
+    counts = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    ntok = sum(len(t) for t in ref)
+    ttft = sorted(h.ttft_s for h in handles)
+    p50 = ttft[len(ttft) // 2]
+    p99 = ttft[min(len(ttft) - 1, int(math.ceil(0.99 * len(ttft))) - 1)]
+    st = eng.stats
+    log(f"  (a) {ntok} tokens in {wall:.3f} s: {ntok / wall:.1f} output "
+        f"tokens/s, TTFT p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms "
+        f"(all {len(work)} submitted at once), peak memory "
+        f"{peak / 2**30:.3f} GiB; prefills {st.prefills}, prefill_tokens "
+        f"{st.prefill_tokens}, prefix_hit_blocks {st.prefix_hit_blocks}, "
+        f"decode_steps {st.decode_steps} on {card}")
+    log(f"  (a) launches: { {k: counts[k] for k in SERVING_KERNELS} }")
+    for k in SERVING_KERNELS:
+        check(counts[k] > 0, f"phase 10: {k} never launched")
+    check(st.prefix_hit_blocks >= (SERVE_SHARED - 1) * (SERVE_SYSTEM // 16),
+          f"phase 10: prefix_hit_blocks {st.prefix_hit_blocks}")
+    del eng
+    greedy = serve_greedy()
+    gref, eng, _, _, _ = serve_run(torch, params, cfg, greedy,
+                                   "(b) greedy", **paged)
+    del eng
+    got, eng, _, wall_b, _ = serve_run(torch, params, cfg, work + greedy,
+                                       "(b)", spec_tokens=4, **paged)
+    st = eng.stats
+    log(f"  (b) spec_tokens=4, (a)'s requests and {len(greedy)} greedy "
+        f"ones: {sum(len(t) for t in got) / wall_b:.1f} tokens/s, spec "
+        f"accept rate {st.spec_accept_rate():.4f} ({st.spec_accepted}/"
+        f"{st.spec_drafted}); streams "
+        f"{'equal to (a)' if got[:len(work)] == ref else 'DIFFER from (a)'}"
+        f", greedy streams {'equal' if got[len(work):] == gref else 'DIFFER'}"
+        f" without speculation")
+    check(got == ref + gref, "phase 10: speculative streams differ from "
+          "the non-speculative ones")
+    check(st.spec_accepted >= SPEC_ACCEPTED_FLOOR, f"phase 10: only "
+          f"{st.spec_accepted} drafts accepted (floor "
+          f"{SPEC_ACCEPTED_FLOOR}): speculation's rollback went untested")
+    del eng
+    got, eng, _, wall_c, _ = serve_run(torch, params, cfg, work, "(c)",
+                                       num_slots=16, decode_chunk=8)
+    log(f"  (c) unpaged: {sum(len(t) for t in got) / wall_c:.1f} tokens/s; "
+        f"streams {'equal to (a)' if got == ref else 'DIFFER from (a)'}")
+    check(got == ref, "phase 10: unpaged streams differ from (a)")
+    del eng
+    p, kw = work[3]
+    one, _, _, _, _ = serve_run(torch, params, cfg, [(p, kw)], "(d)",
+                                **paged)
+    gen_kw = {k: v for k, v in kw.items() if k != "max_new_tokens"}
+    gf = generate_fast(params, cfg, p[None], kw["max_new_tokens"],
+                       **gen_kw)[0, len(p):].tolist()
+    log(f"  (d) one request ({len(p)}-token prompt) vs generate_fast: "
+        f"{'equal' if one[0] == gf else 'DIFFER'}")
+    check(one[0] == gf and one[0] == ref[3], "phase 10: the engine differs "
+          "from generate_fast")
+    # (e): 16 batch-class requests fill the slots; an interactive one
+    # arrives after the first chunk and parks the least urgent
+    eng = InferenceEngine(params, cfg, device="cuda", **paged)
+    sched = Scheduler(eng, max_queue=64, preempt=True)
+    hs = [sched.submit(p, SamplingParams(**kw), slo_class="batch")
+          for p, kw in work[:16]]
+    sched.step()
+    hi = sched.submit(work[16][0], SamplingParams(**work[16][1]),
+                      slo_class="interactive")
+    for _ in range(100_000):
+        if all(h.status in (RequestStatus.DONE, RequestStatus.FAILED)
+               for h in hs + [hi]):
+            break
+        sched.step()
+    got = [h.result(timeout=1) for h in hs + [hi]]
+    log(f"  (e) park/resume: preemptions {eng.stats.preemptions}, resumes "
+        f"{eng.stats.resumes}; streams "
+        f"{'equal to (a)' if got == ref[:17] else 'DIFFER from (a)'}")
+    check(eng.stats.preemptions >= 1 and eng.stats.resumes >= 1,
+          "phase 10: nothing was parked and resumed")
+    check(got == ref[:17], "phase 10: parked streams differ from (a)")
+    del eng, sched
+    torch.cuda.empty_cache()
+    card_vs_cpu_serving(torch, params, cfg)
+    return {k: counts[k] for k in SERVING_KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -2110,8 +2800,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
+        import gym_tpu_torch.ops.decode_attention as tdec
         import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
+        import gym_tpu_torch.ops.row_linear as trow
         import gym_tpu_torch.ops.scatter_mean as tsm
         import gym_tpu_torch.ops.threefry as tf
         from gym_tpu_torch.ops import _build
@@ -2129,7 +2821,8 @@ def main() -> int:
               "long_default_blocks": (2, 12, 1152, 64),
               "config4": (16 * 16, 256, 128, 4)}
     mods = {"fused": tfa, "flash": tflash, "threefry": tf,
-            "scatter_mean": tsm}
+            "scatter_mean": tsm, "decode_attention": tdec,
+            "row_linear": trow}
     t_all = time.perf_counter()
     try:
         card = card_line()
@@ -2166,6 +2859,7 @@ def main() -> int:
         log("  SASS instructions per kernel (cuobjdump -sass):")
         sass = sass_counts(_build._nvcc(), path)
         check_sass(sass)
+        check_serving_sass(sass)
         t1_ops = threefry_ops_per_element(sass)
 
         log("phase 3: kernels against plain versions on the card")
@@ -2177,6 +2871,7 @@ def main() -> int:
         errs["T1_threefry_bits"] = check_threefry_bits_path(torch, tf,
                                                             flagship)
         errs["D1_scatter_mean"] = check_scatter_mean(torch, tsm)
+        errs.update(check_serving_kernels(torch, tdec, trow, tf))
         base = GPT2_BASE
         long_ctx = dict(base, block_size=8192, remat=True, loss_chunk=2048)
         c4 = train_phase(torch, mods, "phase 4 flagship", flagship, 64, 16,
@@ -2234,6 +2929,8 @@ def main() -> int:
         times["T1_threefry_bits"] = time_threefry_bits(
             torch, tf, -(-flagship_params(flagship) // 256) * 256,
             int32_ops_per_s)
+        times.update(time_serving_kernels(torch, tdec, trow, tf,
+                                          int32_ops_per_s))
 
         log("phase 8: the stochastic strategies through Trainer.fit")
         c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
@@ -2249,6 +2946,9 @@ def main() -> int:
         launches["B1_fwd_packed_f32"] = c9["9d"]["B1_fwd_packed_f32"]
         launches["B2_bwd_packed_f32"] = c9["9d"]["B2_bwd_packed_f32"]
         launches["D1_scatter_mean"] = c9["9f"]["D1_scatter_mean"]
+
+        log("phase 10: serving GPT-2 base through Scheduler")
+        launches.update(serving_phase(torch, mods, card))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

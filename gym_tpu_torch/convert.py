@@ -67,3 +67,26 @@ def model_state_from_jax(tree: Any, num_nodes: int = 1,
             out[coll][name] = t.to(device).unsqueeze(0).repeat(
                 num_nodes, *([1] * t.dim())).contiguous()
     return out
+
+
+def serving_params_from_jax(tree: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """One model's flat f32 parameters, no node dimension, from a flax
+    param tree: what the decode path and the serving engine take, so the
+    port serves what the JAX package trained."""
+    return {name: torch.as_tensor(np.array(arr, dtype=np.float32)).to(device)
+            for name, arr in flatten_tree(tree).items()}
+
+
+def serving_params(fit_params, node=None,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """One model's parameters from node-stacked ``[K, ...]`` parameters
+    (tensors or arrays, e.g. ``FitResult.node_state.params``): the mean
+    over the nodes, as ``FitResult.params`` holds it, or node ``node``'s
+    own; on ``device`` (default: where they are)."""
+    out = {}
+    for name, p in fit_params.items():
+        t = torch.as_tensor(p).float()
+        t = t.mean(dim=0) if node is None else t[node]
+        out[name] = t.to(device if device is not None else t.device
+                         ).contiguous()
+    return out

@@ -6,9 +6,11 @@ docstrings of the checkout's ``gym_tpu/``, read as text, or of
 flash, the hand-written kernels on the card), ``--autocast`` (bf16) and the
 strategies base, zero, fedavg, diloco, sparta, diloco_sparta, demo,
 demo_outer, noloco and dynamiq with their knobs (``--codec`` for diloco,
-noloco, demo_outer and dynamiq; ``--compression_*`` for demo). Flags of a
-later slice of the port (cp/tp/ep/pp; MoE; sampling; checkpoints; network
-simulation) exit naming it. Runs on the card unless ``--device cpu``.
+noloco, demo_outer and dynamiq; ``--compression_*`` for demo) and
+``--sample N`` (after training, N tokens from the node-averaged model
+through ``generate_fast``). Flags of a later slice of the port
+(cp/tp/ep/pp; MoE; checkpoints; network simulation) exit naming it. Runs
+on the card unless ``--device cpu``.
 
     python -m gym_tpu_torch.examples.nanogpt --strategy demo \\
         --num_nodes 64 --lr 1e-3 --block_size 256 --attn_impl flash
@@ -20,11 +22,15 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
+
 from gym_tpu_torch import Trainer
 from gym_tpu_torch.data import get_dataset
 from gym_tpu_torch.data.offline import DEFAULT_DOC_ROOTS
 from gym_tpu_torch.examples import refuse_later
-from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+from gym_tpu_torch.convert import serving_params
+from gym_tpu_torch.data.build_dataset import CHAR_VOCAB
+from gym_tpu_torch.models.nanogpt import GPT, GPTConfig, generate_fast
 from gym_tpu_torch.strategy import (DecoupledMomentumStrategy, DeMoStrategy,
                                     DiLoCoStrategy, DynamiQStrategy,
                                     FedAvgStrategy, NoLoCoStrategy, OptimSpec,
@@ -40,8 +46,6 @@ LATER_FLAGS = {
     "ep": (1, "expert parallelism (ROADMAP Queue A, item 16)"),
     "pp": (1, "pipeline parallelism (ROADMAP Queue A, item 16)"),
     "n_experts": (0, "mixture-of-experts layers (ROADMAP Queue A, item 16)"),
-    "sample": (0, "sampling with the KV-cache decoder (ROADMAP Queue A, "
-                  "item 14)"),
     "ckpt": (None, "checkpoints (ROADMAP Queue A, item 12)"),
     "network": (None, "the network simulator (ROADMAP Queue A, item 13)"),
     "wandb_project": (None, "experiment tracking"),
@@ -203,7 +207,10 @@ def parser() -> argparse.ArgumentParser:
                    help="bf16 forward pass")
     p.add_argument("--skip_nonfinite", action="store_true")
     # flags of a later slice: given, they exit naming it
-    for name in ("cp", "tp", "ep", "pp", "n_experts", "sample"):
+    p.add_argument("--sample", type=int, default=0, metavar="N",
+                   help="after training, sample N tokens from the "
+                        "node-averaged model (KV-cache decoder)")
+    for name in ("cp", "tp", "ep", "pp", "n_experts"):
         p.add_argument(f"--{name}", type=int, default=LATER_FLAGS[name][0])
     for name in ("ckpt", "network", "wandb_project"):
         p.add_argument(f"--{name}", default=None)
@@ -249,7 +256,33 @@ def main(argv=None):
     )
     print(f"final train loss {res.final_train_loss:.4f} "
           f"({res.steps_per_second:.2f} it/s)")
+    if args.sample:
+        # the node mean, as FitResult.params holds it
+        print_sample(serving_params(res.node_state.params,
+                                    device=args.device), cfg,
+                     int(vocab_size), args.sample, args.seed)
     return res
+
+
+def print_sample(params, cfg, vocab_size: int, n: int, seed: int) -> None:
+    """Sample ``n`` tokens from token 0 through ``generate_fast``
+    (temperature 0.8, top-k 40), clamped to the KV cache, and print them:
+    as text for the char-level corpora, token ids otherwise."""
+    prompt = np.zeros((1, 1), np.int64)  # start from token 0
+    n_new = min(n, cfg.block_size - 1)  # KV-cache capacity
+    if n_new < n:
+        print(f"(clamping sample to {n_new} tokens — the KV cache "
+              f"holds block_size={cfg.block_size})")
+    out = generate_fast(params, cfg, prompt, n_new, temperature=0.8,
+                        top_k=40, seed=seed)
+    toks = out[0, 1:].tolist()
+    if int(vocab_size) <= len(CHAR_VOCAB) + 1:  # char-level corpus
+        print("--- sample ---")
+        print("".join(CHAR_VOCAB[t] if t < len(CHAR_VOCAB) else ""
+                      for t in toks))
+    else:
+        print("--- sample (token ids) ---")
+        print(toks)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,19 @@ memory levers of long-context training.
 
 Dropout draws flax's masks: each dropout site's key is the microbatch's
 node keys folded with the site's flax path (``_dropout_paths``), so a
-recomputed block draws its forward's masks again. Decode (KV caches, paging,
-sampling), MoE, quantized weights and sequence sharding belong to later
-slices of the port and raise.
+recomputed block draws its forward's masks again.
+
+KV-cache decode (``decode_config``, ``GPT.decode``): one model's parameters,
+no node dimension, and a cache of per-layer K and V, either per row
+(``[b, S, H, hd]`` with a cursor a row) or a pool of pages shared by the
+rows (``[P, page, H, hd]``, addressed through a block table passed in). The
+attends run on B7 (``ops/decode_attention.py``), the dense layers and the
+tied lm head on R1 and the layer norms on L1 (``ops/row_linear.py``), so a
+row's logits never depend on the other rows, the number of tokens in the
+call or the paging. ``sample_logits``, ``generate`` and ``generate_fast``
+are the JAX package's, with its threefry key schedule. MoE, quantized
+weights and KV caches, and sequence sharding belong to later slices of the
+port and raise.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import threefry
 from ..ops.attention import causal_attention
+from ..ops.decode_attention import decode_attention, unpaged_table
+from ..ops.row_linear import row_cumsum, row_layer_norm, row_linear
 from .base import dropout as _dropout
 
 
@@ -105,7 +117,6 @@ class GPTConfig:
 def _unsupported(cfg: GPTConfig) -> Optional[str]:
     """The config fields of later slices, named if set."""
     checks = (
-        (cfg.decode or cfg.page_size > 0, "KV-cache decode"),
         (cfg.n_experts > 0, "mixture-of-experts layers"),
         (cfg.weights_dtype != "f32" or cfg.kv_dtype != "f32"
          or cfg.quant_embed, "quantized weights and KV caches"),
@@ -337,6 +348,8 @@ class GPT(torch.nn.Module):
             idx, targets = batch
         else:
             idx, targets = batch, None
+        if cfg.decode:
+            raise ValueError("a decode config runs through GPT.decode")
         k, b, t = idx.shape
         if t > cfg.block_size:
             raise ValueError(
@@ -374,6 +387,133 @@ class GPT(torch.nn.Module):
         return x + self._mlp(params, f"{p}.mlp",
                              _layer_norm(params, f"{p}.ln_2", x),
                              train, keys)
+
+    # -- KV-cache decode: one model, no node dimension ----------------------
+
+    def init_cache(self, batch: int, device) -> Dict[str, torch.Tensor]:
+        """Zeroed decode cache. Unpaged: per layer ``{p}.k``/``{p}.v``
+        ``[batch, S, H, hd]`` and one cursor a row, ``pos`` ``[batch]``
+        int32 (the JAX cache's per-layer ``i`` and the model's ``pos``
+        always agree, so one tensor holds them). Paged (``page_size >
+        0``): per layer a pool ``[kv_pages, page_size, H, hd]``, shared
+        by every row whatever ``batch`` is; the cursors are arguments."""
+        cfg = self.config
+        if not cfg.decode:
+            raise ValueError("init_cache needs a decode config "
+                             "(decode_config)")
+        h = cfg.n_head
+        hd = cfg.n_embd // h
+        if cfg.page_size > 0:
+            shape = (cfg.kv_pages, cfg.page_size, h, hd)
+        else:
+            shape = (batch, cfg.block_size, h, hd)
+        cache = {}
+        for i in range(cfg.n_layer):
+            for kv in ("k", "v"):
+                cache[f"h_{i}.attn.{kv}"] = torch.zeros(
+                    shape, dtype=torch.float32, device=device)
+        if cfg.page_size == 0:
+            cache["pos"] = torch.zeros(batch, dtype=torch.int32,
+                                       device=device)
+        return cache
+
+    def decode(self, params, idx: torch.Tensor, cache: Dict[str, torch.Tensor],
+               block_table: Optional[torch.Tensor] = None,
+               cache_pos: Optional[torch.Tensor] = None,
+               logits_at=None) -> torch.Tensor:
+        """One decode call: ``idx`` [b, t] new tokens at each row's cursor,
+        their K and V written into ``cache`` in place, logits [b, t, V]
+        (or [b, 1, V] at the positions ``logits_at`` picks: an int or one
+        index a row, for a prefill that needs only its last token's).
+
+        Unpaged, the cursor is ``cache["pos"]``, advanced by t; writes past
+        the window are clamped into it and the row's output is NaN. Paged,
+        ``block_table`` [b, S // page] and ``cache_pos`` [b] (int32) are
+        arguments; writes past the window go to the null page 0 and those
+        positions' outputs are NaN."""
+        cfg = self.config
+        if not cfg.decode:
+            raise ValueError("GPT.decode needs a decode config "
+                             "(decode_config)")
+        b, t = idx.shape
+        s = cfg.block_size
+        if t > s:
+            raise ValueError(f"sequence length {t} > block_size {s}")
+        steps = torch.arange(t, dtype=torch.int32, device=idx.device)
+        if cfg.page_size > 0:
+            if block_table is None or cache_pos is None:
+                raise ValueError("paged decode (page_size > 0) needs "
+                                 "block_table and cache_pos")
+            cursor = cache_pos.to(torch.int32)
+        else:
+            cursor = cache["pos"]
+            cache["pos"] = cursor + t
+        # XLA's gather clamps a position past the window; those outputs
+        # are NaN below either way
+        pos = torch.clamp(cursor[:, None] + steps, max=s - 1)
+        x = (F.embedding(idx.long(), params["wte.embedding"])
+             + F.embedding(pos.long(), params["wpe.embedding"]))
+        for i in range(cfg.n_layer):
+            p = f"h_{i}"
+            h = self._row_ln(params, f"{p}.ln_1", x)
+            x = x + self._decode_attend(params, f"{p}.attn", h, cache,
+                                        cursor, block_table)
+            h = self._row_ln(params, f"{p}.ln_2", x)
+            h = F.gelu(self._row_dense(params, f"{p}.mlp.c_fc", h),
+                       approximate="tanh")
+            x = x + self._row_dense(params, f"{p}.mlp.c_proj", h)
+        x = self._row_ln(params, "ln_f", x)
+        if logits_at is not None:
+            at = torch.as_tensor(logits_at, device=x.device).long()
+            at = at.expand(b) if at.dim() == 0 else at
+            x = x[torch.arange(b, device=x.device), at][:, None]
+        # weight tying: lm_head = wteᵀ
+        return row_linear(x, params["wte.embedding"], w_nk=True)
+
+    @staticmethod
+    def _row_dense(params, name, x):
+        return row_linear(x, params[f"{name}.kernel"],
+                          params.get(f"{name}.bias"))
+
+    @staticmethod
+    def _row_ln(params, name, x):
+        return row_layer_norm(x, params[f"{name}.scale"],
+                              params.get(f"{name}.bias"))
+
+    def _decode_attend(self, params, p, x, cache, cursor, block_table):
+        cfg = self.config
+        b, t, c = x.shape
+        h = cfg.n_head
+        hd = c // h
+        s = cfg.block_size
+        qkv = self._row_dense(params, f"{p}.c_attn", x)
+        q, k, v = (z.unflatten(-1, (h, hd)) for z in qkv.split(c, dim=-1))
+        kc, vc = cache[f"{p}.k"], cache[f"{p}.v"]
+        wpos = cursor[:, None] + torch.arange(t, dtype=torch.int32,
+                                              device=x.device)
+        if cfg.page_size > 0:
+            page = cfg.page_size
+            lblk = torch.clamp(torch.div(wpos, page, rounding_mode="floor"),
+                               0, s // page - 1)
+            phys = torch.gather(block_table, 1, lblk.long())
+            phys = torch.where(wpos < s, phys, 0).long()
+            off = (wpos % page).long()
+            kc[phys, off] = k
+            vc[phys, off] = v
+            y = decode_attention(q, kc, vc, block_table, cursor)
+            # per-position poison: out-of-window speculative positions
+            ok = (wpos < s)[:, :, None, None]
+        else:
+            rows = torch.arange(b, device=x.device)[:, None].expand(b, t)
+            wclamp = torch.clamp(wpos, max=s - 1).long()
+            kc[rows, wclamp] = k
+            vc[rows, wclamp] = v
+            y = decode_attention(q, kc, vc, unpaged_table(b, x.device),
+                                 cursor)
+            # per-row poison: an overflowing row, never its neighbours
+            ok = (cursor + t <= s)[:, None, None, None]
+        y = y.masked_fill(~ok, float("nan"))
+        return self._row_dense(params, f"{p}.c_proj", y.reshape(b, t, c))
 
 
 # -- model utilities (reference parity helpers) ----------------------------
@@ -413,3 +553,143 @@ def node_mfu(config: GPTConfig, node_params: Dict[str, torch.Tensor],
     ``estimate_mfu``."""
     one = {n: p[0] for n, p in node_params.items()}
     return estimate_mfu(config, one, seqs_per_iter, dt, peak_flops)
+
+
+# -- decode: config, sampling, generation -----------------------------------
+
+
+def decode_config(config: GPTConfig) -> GPTConfig:
+    """A training config made fit for single-model KV-cache decode (the
+    JAX package's rule, shared by ``generate_fast`` and the serving
+    engine): dropout off, dense attention, no sequence sharding, no remat,
+    ``moe_impl`` back to 'auto' with ``expert_axis`` cleared."""
+    return dataclasses.replace(config, decode=True, dropout=0.0,
+                               attn_impl="dense", seq_axis=None,
+                               remat=False, expert_axis=None,
+                               moe_impl="auto")
+
+
+def _per_row(x, rows: int, dtype, device) -> torch.Tensor:
+    """A python scalar or a per-row tensor as an [rows, 1] tensor: the
+    sampler divides and compares by tensors only (a CUDA division by a
+    host scalar multiplies by its reciprocal, which rounds otherwise)."""
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    return t.reshape(-1, 1).expand(rows, 1)
+
+
+def sample_logits(logits: torch.Tensor, keys: torch.Tensor,
+                  temperature=1.0, top_k=None, top_p=None,
+                  key_data=None) -> torch.Tensor:
+    """Temperature → top-k → top-p (nucleus) → categorical, in f32, for
+    logits [R, V] → [R] int64 tokens. ``keys`` is an [R, 2] int32 tensor of
+    keys, one a row, or [1, 2], one key for all the rows (``threefry.
+    categorical``); ``key_data`` [R] or [1] int32 folds into them first.
+    ``temperature``/``top_k``/``top_p`` are scalars (``None`` disables a
+    filter) or [R] tensors; ``top_k >= V`` and ``top_p >= 1`` are the
+    tensors' "disabled" and give exactly the ``None`` paths. Every step is
+    row-invariant: sorts, gathers and elementwise ops, and the nucleus mass
+    scanned by ``row_cumsum``."""
+    r, v = logits.shape
+    dev = logits.device
+    lg = logits.float() / _per_row(temperature, r, torch.float32, dev)
+    k = v if top_k is None else top_k
+    kidx = torch.clamp(_per_row(k, r, torch.int64, dev), 1, v) - 1
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    lg = torch.where(lg < torch.gather(srt, 1, kidx), -torch.inf, lg)
+    if top_p is not None:
+        # exclusive cumulative mass of the (top-k filtered) descending
+        # probabilities under top_p; the top token is always kept, and p >=
+        # 1 keeps every token
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        e = torch.exp(srt - srt[:, :1])
+        probs = e / row_cumsum(e)[:, -1:]
+        cum = row_cumsum(probs) - probs
+        p_eff = _per_row(top_p, r, torch.float32, dev)
+        keep = cum < torch.where(p_eff >= 1.0, torch.inf, p_eff)
+        n_keep = torch.clamp(keep.sum(dim=-1, keepdim=True), min=1)
+        thr = torch.gather(srt, 1, n_keep - 1)
+        lg = torch.where(lg < thr, -torch.inf, lg)
+    return threefry.categorical(lg, keys, key_data)
+
+
+def generate(params, config: GPTConfig, idx: np.ndarray,
+             max_new_tokens: int, temperature: float = 1.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             seed: int = 0) -> np.ndarray:
+    """The reference's sampler: the full forward over the context (cropped
+    to the last ``block_size`` tokens) every token, temperature, top-k and
+    top-p in numpy, a categorical draw under ``split(key)`` each step. So
+    it continues past ``block_size``, where ``generate_fast`` raises.
+    ``params`` is one model's flat parameters (``convert.serving_params``);
+    it runs where they are."""
+    cfg = dataclasses.replace(config, decode=False, page_size=0,
+                              kv_pages=0)
+    model = GPT(cfg)
+    device = params["wte.embedding"].device
+    stacked = {n: p[None] for n, p in params.items()}
+    key = threefry.PRNGKey(seed)
+    idx = np.asarray(idx)
+    for _ in range(max_new_tokens):
+        ctx = torch.from_numpy(idx[:, -config.block_size:]).to(device)
+        with torch.no_grad():
+            logits = model(stacked, ctx[None], train=False)[0]
+        logits = logits[:, -1, :].float().cpu().numpy() / temperature
+        if top_k is not None:
+            kth = np.sort(logits, axis=-1)[:, -min(top_k, logits.shape[-1])]
+            logits = np.where(logits < kth[:, None], -np.inf, logits)
+        if top_p is not None and top_p < 1.0:
+            srt = np.sort(logits, axis=-1)[:, ::-1]
+            e = np.exp(srt - srt[:, :1])
+            probs = e / e.sum(axis=-1, keepdims=True)
+            cum = np.cumsum(probs, axis=-1) - probs
+            n_keep = np.maximum((cum < top_p).sum(axis=-1), 1)
+            thr = np.take_along_axis(srt, (n_keep - 1)[:, None], axis=-1)
+            logits = np.where(logits < thr, -np.inf, logits)
+        key, sub = threefry.split(key)
+        nxt = threefry.categorical(
+            torch.from_numpy(logits.astype(np.float32)).to(device),
+            threefry.key_tensor([sub], device))
+        idx = np.concatenate([idx, nxt.cpu().numpy()[:, None]], axis=1)
+    return idx
+
+
+def generate_fast(params, config: GPTConfig, idx: np.ndarray,
+                  max_new_tokens: int, temperature: float = 1.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None,
+                  seed: int = 0) -> np.ndarray:
+    """KV-cache sampling: prefill the prompt, then one token a step, with
+    ``generate``'s sampling and the key schedule ``fold_in(PRNGKey(seed),
+    j)`` for the j-th new token, one key for all the rows (the serving
+    engine reproduces it token by token). Raises ``ValueError`` when the
+    prompt and the new tokens do not fit ``block_size``. ``params`` is one
+    model's flat parameters; it runs where they are."""
+    idx = np.asarray(idx)
+    b, t0 = idx.shape
+    if t0 + max_new_tokens > config.block_size:
+        raise ValueError(
+            f"prompt {t0} + {max_new_tokens} new tokens exceeds the KV "
+            f"cache (block_size {config.block_size}); crop the prompt to "
+            f"block_size - max_new_tokens, or use `generate`, whose "
+            f"full-context resampling slides the context window past "
+            f"block_size (the reference's crop semantics)")
+    model = GPT(decode_config(config))
+    device = params["wte.embedding"].device
+    key = threefry.key_tensor([threefry.PRNGKey(seed)], device)
+    cache = model.init_cache(b, device)
+
+    def step(j):
+        return torch.tensor([j], dtype=torch.int32, device=device)
+
+    with torch.no_grad():
+        logits = model.decode(params, torch.from_numpy(idx).to(device),
+                              cache, logits_at=t0 - 1)
+        tok = sample_logits(logits[:, -1], key, temperature, top_k, top_p,
+                            step(0))
+        toks = [tok]
+        for j in range(1, max_new_tokens):
+            logits = model.decode(params, tok[:, None], cache)
+            tok = sample_logits(logits[:, -1], key, temperature, top_k,
+                                top_p, step(j))
+            toks.append(tok)
+    new = torch.stack(toks, dim=1).cpu().numpy().astype(idx.dtype)
+    return np.concatenate([idx, new], axis=1)

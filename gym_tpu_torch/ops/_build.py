@@ -26,7 +26,9 @@ _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "flash_attention.cu",
                                                  "threefry.cu",
-                                                 "scatter_mean.cu"))
+                                                 "scatter_mean.cu",
+                                                 "decode_attention.cu",
+                                                 "row_gemm.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,6 +135,15 @@ def load() -> ctypes.CDLL:
         lib.gym_bernoulli_segments.restype = i32
         lib.gym_scatter_mean.argtypes = [vp, vp, i32, i32, i32, vp, vp]
         lib.gym_scatter_mean.restype = i32
+        lib.gym_threefry_bits_rows.argtypes = [vp, vp, i32, i64, vp, vp]
+        lib.gym_threefry_bits_rows.restype = i32
+        lib.gym_decode_attention.argtypes = [vp, i64, i64] + [vp] * 3 + [
+            i32, i32, vp] + [i32] * 4 + [f32, vp, vp]
+        lib.gym_decode_attention.restype = i32
+        lib.gym_row_gemm.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.gym_row_gemm.restype = i32
+        lib.gym_row_layer_norm.argtypes = [vp] * 4 + [i32, i32, f32, vp]
+        lib.gym_row_layer_norm.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

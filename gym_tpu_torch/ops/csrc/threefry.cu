@@ -33,6 +33,12 @@
 // the segments' first groups, from a copy of the table in shared memory.
 // A group stores one 4-byte word where it is whole and 4-byte aligned,
 // byte by byte otherwise.
+//
+// The serving path's sampler (jax.random.categorical's gumbel noise,
+// gym_tpu/models/nanogpt.py:905) draws R rows of bits in one launch
+// (gym_threefry_bits_rows): row r under fold_in(keys[r], data[r]), the keys
+// and the slots' step indices read on the card, so a decode chunk needs no
+// host read for its keys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +77,28 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
+// threefry2x32 of the counter (c0, c1): both words (a fold_in is the key
+// (x0, x1) of the counter (0, data))
+__device__ __forceinline__ void threefry_pair(uint32_t k0, uint32_t k1,
+                                              uint32_t c0, uint32_t c1,
+                                              uint32_t* y0, uint32_t* y1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = c0 + k0;
+  uint32_t x1 = c1 + k1;
+  GYM_TF_ROUND(13) GYM_TF_ROUND(15) GYM_TF_ROUND(26) GYM_TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  GYM_TF_ROUND(17) GYM_TF_ROUND(29) GYM_TF_ROUND(16) GYM_TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  GYM_TF_ROUND(13) GYM_TF_ROUND(15) GYM_TF_ROUND(26) GYM_TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  GYM_TF_ROUND(17) GYM_TF_ROUND(29) GYM_TF_ROUND(16) GYM_TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  GYM_TF_ROUND(13) GYM_TF_ROUND(15) GYM_TF_ROUND(26) GYM_TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  *y0 = x0;
+  *y1 = x1;
+}
+
 #undef GYM_TF_ROUND
 
 __device__ __forceinline__ bool bernoulli_of(uint32_t bits, float p) {
@@ -99,6 +127,42 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kPerThread; ++j)
         if (base + j < n) o[j] = b[j];
     }
+  }
+}
+
+// Bits of R rows of n, one key a row, one launch: row r is the bits of the
+// key fold_in(keys[r], data[r]) (keys[r] itself when data is null). The
+// serving path's sampler draws every slot's gumbel noise this way, its keys
+// the slots' base keys and the step indices held on the card. Grid: (blocks
+// over the row's 4-element groups, R); thread 0 of a block folds the key.
+__global__ void __launch_bounds__(kThreads)
+    threefry_rows_bits_kernel(const uint32_t* __restrict__ keys,
+                              const int* __restrict__ data, uint64_t n,
+                              uint32_t* out) {
+  __shared__ uint32_t key[2];
+  const int r = blockIdx.y;
+  if (threadIdx.x == 0) {
+    uint32_t k0 = keys[2 * r], k1 = keys[2 * r + 1];
+    if (data != nullptr) threefry_pair(k0, k1, 0u, (uint32_t)data[r], &k0, &k1);
+    key[0] = k0;
+    key[1] = k1;
+  }
+  __syncthreads();
+  const uint32_t k0 = key[0], k1 = key[1];
+  const uint64_t groups = (n + kPerThread - 1) / kPerThread;
+  const uint64_t g = (uint64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= groups) return;
+  const uint64_t base = g * kPerThread;
+  uint32_t b[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) b[j] = threefry_bits(k0, k1, base + j);
+  uint32_t* o = out + (uint64_t)r * n + base;
+  if (base + kPerThread <= n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    *reinterpret_cast<uint4*>(o) = make_uint4(b[0], b[1], b[2], b[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      if (base + j < n) o[j] = b[j];
   }
 }
 
@@ -206,6 +270,25 @@ int gym_threefry_bits(unsigned int k0, unsigned int k1, long long n,
     return err;
   threefry_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       k0, k1, (uint64_t)n, out);
+  return (int)cudaGetLastError();
+}
+
+// out[r, i] = bits of element i under fold_in(keys[r], data[r]) (uint32),
+// i < n, r < R; keys [R, 2] uint32 and data [R] int32 (or null: keys[r]
+// itself) on the card.
+int gym_threefry_bits_rows(const void* keys, const void* data, int R,
+                           long long n, void* out, void* stream) {
+  if (R < 0 || R > 65535 || n < 0) return (int)cudaErrorInvalidValue;
+  if (R == 0 || n == 0) return 0;
+  if (keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned long long groups =
+      ((unsigned long long)n + kPerThread - 1) / kPerThread;
+  const unsigned long long bx = (groups + kThreads - 1) / kThreads;
+  if (bx > 2147483647ull) return (int)cudaErrorInvalidValue;
+  threefry_rows_bits_kernel<<<dim3((unsigned)bx, (unsigned)R), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const int*>(data),
+      (uint64_t)n, static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }
 

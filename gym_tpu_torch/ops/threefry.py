@@ -31,6 +31,11 @@ tensors masked to 32 bits. ``launches`` on each counts its kernel
 launches. Bits are returned as int32 tensors holding the uint32 pattern
 (PyTorch has no usable uint32 arithmetic).
 
+``random_bits_rows`` draws R rows of bits, row r under ``fold_in(keys[r],
+data[r])`` with the keys and data on the device (one launch of
+``gym_threefry_bits_rows``): the serving sampler's ``categorical``, the
+argmax of logits plus ``jax.random.gumbel``'s noise.
+
 flax derives a module's dropout key from the step key with
 ``fold_in_static``: the SHA-1 of the module path and the scope's call
 counter, folded in (``flax/core/scope.py`` ``_fold_in_static``, flax 0.12.3,
@@ -329,10 +334,67 @@ def bernoulli_segments(keys, p: float, sizes, device):
     return out, views
 
 
+def key_tensor(keys, device) -> torch.Tensor:
+    """A key table ([R, 2] uint32, or keys) as the int32 tensor the rows
+    entry reads: the same bit patterns."""
+    return torch.from_numpy(key_table(keys).view(np.int32).copy()).to(device)
+
+
+def plain_random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
+    """[R, n]: row r is ``plain_random_bits(fold_in(keys[r], data[r]),
+    n)`` (``keys[r]`` itself when ``data`` is None), vectorised over the
+    rows."""
+    k = keys.long() & M32
+    k0, k1 = k[:, 0:1], k[:, 1:2]
+    if data is not None:
+        d = data.long().view(-1, 1) & M32
+        k0, k1 = threefry2x32((k0, k1), (torch.zeros_like(d), d))
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32((k0, k1), (idx >> 32, idx & M32))
+    return _signed32(b0 ^ b1)
+
+
+def random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
+    """[R, n] int32 bit patterns: row r is ``jax.random.bits(fold_in(
+    keys[r], data[r]), (n,))``, or of ``keys[r]`` when ``data`` is None.
+    ``keys`` is an [R, 2] int32 tensor of key words (``key_tensor``) and
+    ``data`` an [R] int32 tensor, both on the device that draws: on the
+    card the keys are folded there too, in one launch for all the rows
+    (``gym_threefry_bits_rows``), so a decode step's keys need no read
+    back to the host."""
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
+        raise ValueError(f"keys must be an [R, 2] int32 tensor, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    r = keys.shape[0]
+    if data is not None and (data.shape != (r,) or data.dtype != torch.int32
+                             or data.device != keys.device):
+        raise ValueError(f"data must be an [{r}] int32 tensor on "
+                         f"{keys.device}")
+    device = _check_n(n, keys.device)
+    if device.type == "cpu":
+        return plain_random_bits_rows(keys, data, n)
+    out = torch.empty(r, n, dtype=torch.int32, device=device)
+    if r and n:
+        if r > 65535:
+            raise ValueError(f"{r} rows: at most 65535 a launch")
+        from . import _build
+        lib = _build.load()
+        keys = keys.contiguous()
+        data = None if data is None else data.contiguous()
+        with torch.cuda.device(device):
+            code = lib.gym_threefry_bits_rows(
+                keys.data_ptr(), None if data is None else data.data_ptr(),
+                r, n, out.data_ptr(), _stream(device))
+        _build.check(lib, code, "gym_threefry_bits_rows")
+        random_bits_rows.launches += 1
+    return out
+
+
 random_bits.launches = 0
 bernoulli.launches = 0
 bernoulli_rows.launches = 0
 bernoulli_segments.launches = 0
+random_bits_rows.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -340,6 +402,7 @@ def reset_launch_counts() -> None:
     bernoulli.launches = 0
     bernoulli_rows.launches = 0
     bernoulli_segments.launches = 0
+    random_bits_rows.launches = 0
 
 
 # -- composites --------------------------------------------------------------
@@ -394,3 +457,35 @@ def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
     pos[perm] = torch.arange(perm.shape[0], dtype=torch.int32,
                              device=perm.device)
     return pos
+
+
+# the smallest normal float32, jnp.finfo(float32).tiny
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s values from its bits: ``-log(-log(u))`` with
+    u ``uniform(minval=tiny, maxval=1)``, which is the [0, 1) uniform with
+    0 raised to tiny (the affine map is exact in f32: 1 − tiny rounds to
+    1, and adding tiny to a nonzero uniform changes nothing)."""
+    u = torch.clamp(bits_to_uniform(bits), min=F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(logits: torch.Tensor, keys: torch.Tensor,
+                data=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for logits [R, V]:
+    argmax of logits plus gumbel noise, the first index on ties. ``keys``
+    is an [R, 2] int32 tensor, one key a row, each row's noise the bits of
+    its own key over V (as ``jax.vmap`` over rows draws them), or a [1, 2]
+    tensor, one key for all of ``logits``, its noise the bits over the flat
+    R·V elements (as one call on [R, V] draws them); ``data`` folds into
+    the keys first (``random_bits_rows``). Returns [R] int64."""
+    r, v = logits.shape
+    if keys.shape[0] == r:
+        bits = random_bits_rows(keys, data, v)
+    elif keys.shape[0] == 1:
+        bits = random_bits_rows(keys, data, r * v).view(r, v)
+    else:
+        raise ValueError(f"{keys.shape[0]} keys for {r} rows")
+    return torch.argmax(gumbel_from_bits(bits) + logits, dim=-1)

@@ -1,8 +1,9 @@
 """The port's CLIs, ``python -m gym_tpu_torch.examples.mnist`` and
 ``python -m gym_tpu_torch.examples.nanogpt``, run end to end on the CPU in a
 subprocess (two steps each, from a temporary directory, where they write
-their ``logs/`` and ``data/``), under the compression strategies too, and
-refuse a flag of a later slice with a message naming it."""
+their ``logs/`` and ``data/``), under the compression strategies too, sample
+after training (``--sample``), and refuse a flag of a later slice with a
+message naming it."""
 
 import csv
 import os
@@ -53,6 +54,19 @@ def test_nanogpt_cli_trains_on_the_docs_corpus(tmp_path):
     assert any((tmp_path / "data" / "docs_char").glob("stream_*.npy"))
 
 
+def test_nanogpt_cli_samples_after_training(tmp_path):
+    """``--sample N`` prints N characters of the docs corpus from the node
+    mean through ``generate_fast``, clamped to the KV cache."""
+    proc = _run(tmp_path, "nanogpt", "--device", "cpu", "--max_steps", "1",
+                "--block_size", "32", "--batch_size", "4", "--val_size", "4",
+                "--num_nodes", "2", "--sample", "40")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = proc.stdout
+    assert "clamping sample to 31 tokens" in out
+    text = out.split("--- sample ---\n", 1)[1]
+    assert 0 < len(text.rstrip("\n")) <= 31
+
+
 @pytest.mark.parametrize("module,args", [
     ("nanogpt", ["--strategy", "demo", "--num_nodes", "4",
                  "--compression_topk", "8", "--compression_chunk", "16"]),
@@ -82,7 +96,7 @@ def test_compression_strategies_train_from_the_cli(tmp_path, module, args):
     ("nanogpt", ["--pp", "2"], "pipeline"),
     ("nanogpt", ["--ckpt", "runs/x"], "checkpoints"),
     ("nanogpt", ["--network", "wan"], "network simulator"),
-    ("nanogpt", ["--sample", "40"], "sampling"),
+    ("nanogpt", ["--n_experts", "2"], "mixture-of-experts"),
     ("nanogpt", ["--dataset", "shakespeare", "--device", "cpu"],
      "shakespeare")])
 def test_later_slices_exit_naming_them(tmp_path, module, args, word):

@@ -3,7 +3,8 @@ neither JAX nor the ``gym_tpu`` package nor scikit-learn (absent on the
 machine with the card), call no library attention kernel and no
 ``torch.compile``, and the numpy modules they copy from ``gym_tpu`` stay
 pinned to their originals (same batches, same CSV columns, the same offline
-text units)."""
+text units; the serving scheduler and the fault registry line for line,
+the scheduler's imports apart)."""
 
 import ast
 import csv
@@ -171,3 +172,44 @@ def test_offline_copies_yield_the_same_text_units(tmp_path):
     assert len(want) == 3
     assert tbuild.CHAR_VOCAB == jbuild.CHAR_VOCAB
     assert tbuild.char_vocab_size() == jbuild.char_vocab_size()
+
+
+def _non_import_lines(path):
+    return [line for line in path.read_text().splitlines()
+            if not line.startswith(("from ", "import "))]
+
+
+def test_serving_copies_pinned_to_their_originals():
+    """``utils/resilience.py`` is a byte copy; ``serve/scheduler.py`` equals
+    its original line for line but for its import lines (which name the
+    port's engine and resilience) and one comment, whose closing words
+    name the reference's history and are reworded in the copy."""
+    for rel in ("utils/resilience.py",):
+        assert (PORT / rel).read_bytes() == \
+            (ROOT / "gym_tpu" / rel).read_bytes(), rel
+    port = PORT / "serve" / "scheduler.py"
+    got = _non_import_lines(port)
+    want = _non_import_lines(ROOT / "gym_tpu" / "serve" / "scheduler.py")
+    assert len(got) == len(want)
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert len(differ) == 1
+    stem = "        # present → the first prefix_window requests (the "
+    assert got[differ[0]] == stem + "prefix window)"
+    assert want[differ[0]].startswith(stem)
+    imports = [ln for ln in port.read_text().splitlines()
+               if ln.startswith(("from ", "import "))]
+    assert "from .engine import InferenceEngine, NoFreeBlocksError, " \
+        "SamplingParams" in imports
+
+
+def test_serve_package_is_walked_and_standalone():
+    """The isolation walk reaches ``gym_tpu_torch.serve``; it exports only
+    what exists in the port."""
+    import pkgutil
+    import gym_tpu_torch
+    import gym_tpu_torch.serve as tserve
+    names = {m.name for m in pkgutil.walk_packages(gym_tpu_torch.__path__,
+                                                   "gym_tpu_torch.")}
+    assert {"gym_tpu_torch.serve.engine", "gym_tpu_torch.serve.scheduler",
+            "gym_tpu_torch.serve.programs"} <= names
+    assert all(hasattr(tserve, n) for n in tserve.__all__)

@@ -32,13 +32,23 @@ leave a row's start aligned and not. D1, DeMo's scatter-mean decode, equals
 its twin bit for bit (both add a slot's picks in pick order) at DeMo's
 shapes, gives the same bits on two runs, and keeps a v/−v slot at exactly
 0.0 and an untouched slot at +0.0.
+
+The serving path's kernels: B7 (decode attention) against its twin in the
+f32 band at page sizes 4/8/16 and 1, 5 and 64 queries a row, paged against
+unpaged bit for bit, a query alone against the same query in its batch and
+chunk bit for bit; R1 (the row-invariant linear layer) against its twin and
+``torch.matmul`` in the f32 band, in both weight layouts, its rows bit for
+bit at M = 1, 16, 80 and 1024; L1 (the row layer norm) likewise; T1's bits
+rows bit for bit against the twin.
 """
 
 import pytest
 import torch
 
+import gym_tpu_torch.ops.decode_attention as tdec
 import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
+import gym_tpu_torch.ops.row_linear as trow
 import gym_tpu_torch.ops.scatter_mean as tsm
 import gym_tpu_torch.ops.threefry as tf
 
@@ -385,3 +395,101 @@ def test_scatter_mean_refuses_non_contiguous_on_card():
     idx, val = _picks(g, 4, 64, 64)
     with pytest.raises(ValueError):
         tsm.scatter_mean_decode(idx.t().contiguous().t(), val, 64)
+
+
+# -- the serving path: B7, R1, L1, T1's bits rows ----------------------------
+
+
+def _f32_close(got, ref):
+    err = (got - ref).abs()
+    bad = err > 5e-5 + 1e-4 * ref.abs()
+    assert not bad.any(), f"{int(bad.sum())} elements outside, max {err.max()}"
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _pool(g, b, s, page, h, hd):
+    """b rows' windows on shuffled pages of a pool, and the same windows as
+    an unpaged [b, S, H, hd] cache."""
+    nblk = s // page
+    rows_k = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    rows_v = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    pages = 2 + b * nblk
+    perm = 1 + torch.randperm(pages - 1, device="cuda", generator=g)
+    table = perm[:b * nblk].view(b, nblk).to(torch.int32)
+    kp = torch.randn(pages, page, h, hd, device="cuda", generator=g)
+    vp = torch.randn(pages, page, h, hd, device="cuda", generator=g)
+    kp[table.long()] = rows_k.view(b, nblk, page, h, hd)
+    vp[table.long()] = rows_v.view(b, nblk, page, h, hd)
+    return rows_k, rows_v, kp, vp, table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("t", [1, 5, 64])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_decode_attention_matches_twin_and_unpaged(page, t, hd):
+    g = _card()
+    b, h, s = 4, 3, 128
+    rows_k, rows_v, kp, vp, table = _pool(g, b, s, page, h, hd)
+    cur = torch.tensor([0, 17, s - t, s - 2], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=g)
+    q = qkv[..., :h * hd].unflatten(-1, (h, hd))      # a strided view
+    got = tdec.decode_attention(q, kp, vp, table, cur)
+    _f32_close(got, tdec.plain_decode_attention(q, kp, vp, table, cur))
+    unp = tdec.decode_attention(q, rows_k, rows_v,
+                                tdec.unpaged_table(b, "cuda"), cur)
+    assert _same_bits(got, unp)
+    for r, j in ((1, 0), (2, t - 1)):
+        one = tdec.decode_attention(q[r:r + 1, j:j + 1].contiguous(), kp,
+                                    vp, table[r:r + 1], cur[r:r + 1] + j)
+        assert _same_bits(one[0, 0], got[r, j])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_nk", [False, True])
+@pytest.mark.parametrize("k,n", [(96, 200), (768, 64), (33, 7)])
+def test_row_linear_matches_twin_and_rows_bit_for_bit(w_nk, k, n):
+    g = _card()
+    x = torch.randn(1024, k, device="cuda", generator=g)
+    w = torch.randn(*((n, k) if w_nk else (k, n)), device="cuda",
+                    generator=g) * 0.1
+    bias = None if w_nk else torch.randn(n, device="cuda", generator=g)
+    full = {m: trow.row_linear(x[:m], w, bias, w_nk) for m in (16, 80, 1024)}
+    for m, y in full.items():
+        _f32_close(y, trow.plain_row_linear(x[:m], w, bias, w_nk))
+        ref = x[:m] @ (w.t() if w_nk else w)
+        _f32_close(y, ref if bias is None else ref + bias)
+    for r in (0, 7, 15):
+        one = trow.row_linear(x[r:r + 1], w, bias, w_nk)[0]
+        assert all(_same_bits(one, y[r]) for y in full.values())
+
+
+@pytest.mark.gpu
+def test_row_layer_norm_matches_twin_and_rows_bit_for_bit():
+    g = _card()
+    x = torch.randn(1024, 768, device="cuda", generator=g) * 2 + 1
+    sc, bi = (torch.randn(768, device="cuda", generator=g) for _ in "ab")
+    full = {m: trow.row_layer_norm(x[:m], sc, bi) for m in (16, 80, 1024)}
+    for m, y in full.items():
+        _f32_close(y, trow.plain_row_layer_norm(x[:m], sc, bi))
+    for r in (0, 9):
+        one = trow.row_layer_norm(x[r:r + 1], sc, bi)[0]
+        assert all(_same_bits(one, y[r]) for y in full.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(1, 3), (16, 50304), (80, 65)])
+@pytest.mark.parametrize("fold", [False, True])
+def test_bits_rows_match_twin_bit_for_bit(rows, n, fold):
+    g = _card()
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 2), device="cuda",
+                         generator=g, dtype=torch.int32)
+    data = (torch.randint(0, 10 ** 6, (rows,), device="cuda", generator=g,
+                          dtype=torch.int32) if fold else None)
+    assert torch.equal(tf.random_bits_rows(keys, data, n),
+                       tf.plain_random_bits_rows(keys, data, n))

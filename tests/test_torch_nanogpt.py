@@ -192,5 +192,14 @@ def test_init_scales_and_names():
     ("decode", True), ("n_experts", 4), ("weights_dtype", "int8"),
     ("seq_axis", "seq"), ("kv_dtype", "int8"), ("attn_impl", "ring")])
 def test_later_slice_features_raise(field, value):
+    if field == "decode":
+        # KV-cache decode is ported (GPT.decode): a decode config builds,
+        # and its training forward refuses, naming the decode entry point
+        model = TGPT(TConfig(**SMALL, decode=True))
+        params = model.init_params(1, 0, "cpu")
+        idx = torch.zeros(1, 1, 8, dtype=torch.int64)
+        with pytest.raises(ValueError, match="GPT.decode"):
+            model(params, idx, train=False)
+        return
     with pytest.raises(NotImplementedError):
         TGPT(TConfig(**SMALL, **{field: value}))
