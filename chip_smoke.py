@@ -97,7 +97,30 @@ Phases (any failure exits non-zero before the result lines are printed):
    equal to (a)'s token for token; then a 32-token
    prompt and 8 greedy tokens on the card against the CPU (logits within
    rtol 1e-4 of the largest, tokens equal);
-11. the ``kernels`` JSON line, then the result line.
+11. checkpoints (run dirs under ``build/chip_smoke_ckpt/``, removed
+   after): 11a GPT-2 base, K=2 × 4 rows, bf16, DiLoCo H=2, 6 steps on
+   random tokens, B3/B4 launched: run 1 straight without checkpoints,
+   run 2 with ``checkpoint_interval=3``, the async writer and the
+   prefetcher to step 3 and then ``resume="auto"`` to 6, whose
+   ``train.csv`` must be byte-identical to run 1's and its node params
+   bit-equal; the bytes of a step dir against the state's tensors, one
+   synchronous save and one restore timed, the resumed run's steady
+   steps/s beside phase 5's, peak memory with and without checkpoints;
+   11b-11c the same recipe at 4L/4H/256d, each drill in a worker process
+   (``chip_smoke.py --ckpt-worker SPEC``, all four started together)
+   under ``GYM_TPU_FAULTS``: ``dispatch.boundary:sigterm@4`` (exit 0,
+   ``preempted``, an emergency checkpoint), ``checkpoint.write:kill@2``,
+   ``checkpoint.bytes:bitflip=8@2`` (quarantined as ``6.corrupt-0`` at the
+   relaunch) and ``dispatch.state:bitflip=4@4`` under
+   ``Guard(fingerprint_interval=1)`` (one rollback); every relaunch, and
+   the guarded run, byte-identical to an uninterrupted run in this
+   process; 11d ``load_for_serving`` of 11a's run dir through the
+   paged engine (page 16, 16 slots, ``decode_chunk`` 8) over 8 of phase
+   10's requests, the streams equal token for token to those of
+   ``serving_params`` of 11a's in-process result, B7, R1, L1 and T1's bits
+   rows launched, and ``python -m gym_tpu_torch.examples.nanogpt --ckpt
+   RUN_DIR --sample 32``, started beside 11b;
+12. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -2788,6 +2811,347 @@ def serving_phase(torch, mods, card):
     return {k: counts[k] for k in SERVING_KERNELS}
 
 
+# -- phase 11: checkpoints, resume, preemption, the guard, a run dir served --
+
+
+CKPT_ROOT = os.path.join(HERE, "build", "chip_smoke_ckpt")
+# 11b and 11c: 11a's recipe at 4L/4H/256d (vocab 50304, T=1024)
+CKPT_SMALL = dict(GPT2_BASE, n_layer=4, n_head=4, n_embd=256)
+CKPT_STEPS, CKPT_EVERY = 6, 3
+
+
+def ckpt_fit(torch, cfg_kw, steps, tag, **kw):
+    """Phase 11's fit: K=2 × 4 rows, bf16, DiLoCo (H=2, AdamW 3e-4,
+    lambda_cosine warmup 2) on random tokens from seed 0, checkpoints every
+    3 steps into ``CKPT_ROOT/ckpt/<tag>`` through the async writer, the
+    prefetcher on, no evals; ``kw`` passes on (max_steps via ``steps``)."""
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import ContiguousGPTTrainDataset
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    import numpy as np
+    cfg = GPTConfig(**cfg_kw)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 200_000).astype(np.int32)
+    fit_kw = dict(checkpoint_interval=CKPT_EVERY,
+                  save_dir=os.path.join(CKPT_ROOT, "ckpt"), run_name=tag,
+                  log_dir=os.path.join(CKPT_ROOT, "logs"), device="cuda")
+    fit_kw.update(kw)
+    return Trainer(GPT(cfg), ContiguousGPTTrainDataset(
+        toks, cfg.block_size)).fit(
+        strategy=diloco(), num_nodes=2, max_steps=steps, batch_size=4,
+        autocast=True, seed=0, val_size=0, show_progress=False, **fit_kw)
+
+
+def ckpt_csv(tag) -> bytes:
+    with open(os.path.join(CKPT_ROOT, "logs", tag, "train.csv"), "rb") as f:
+        return f.read()
+
+
+def ckpt_dir(tag) -> str:
+    return os.path.join(CKPT_ROOT, "ckpt", tag)
+
+
+def ckpt_worker(spec: dict) -> int:
+    """``chip_smoke.py --ckpt-worker SPEC``: one ``ckpt_fit`` in a process
+    of its own (armed through ``GYM_TPU_FAULTS``; under
+    ``Guard(**spec["guard"])`` if given), its steps, ``preempted`` and the
+    guard's rollbacks and trips written to ``spec["result"]``."""
+    import torch
+    sys.path.insert(0, HERE)
+    from gym_tpu_torch.utils.integrity import Guard, GuardRuntime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    rt = (GuardRuntime(Guard(**spec["guard"])) if spec.get("guard")
+          else None)
+    res = ckpt_fit(torch, spec["cfg"], spec["steps"], spec["tag"], guard=rt)
+    with open(spec["result"], "w") as f:
+        json.dump({"steps": res.steps, "preempted": res.preempted,
+                   "rollbacks": rt.rollbacks if rt else 0,
+                   "trips": rt.trips if rt else []}, f)
+    return 0
+
+
+def start_ckpt_worker(tag, faults, guard=None):
+    """A worker process running 11b's fit under the ``GYM_TPU_FAULTS``
+    spec ``faults`` (and ``Guard(**guard)``); ``finish_ckpt_worker``
+    collects it."""
+    spec = {"cfg": CKPT_SMALL, "steps": CKPT_STEPS, "tag": tag,
+            "result": os.path.join(CKPT_ROOT, f"{tag}.json"),
+            "guard": guard}
+    env = dict(os.environ, GYM_TPU_FAULTS=faults, GYM_TPU_IO_RETRIES="2",
+               GYM_TPU_IO_RETRY_BASE_S="0.01")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--ckpt-worker", json.dumps(spec)], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), spec
+
+
+def finish_ckpt_worker(started, timeout=300):
+    """(returncode, result or None, stderr tail) of a started worker."""
+    proc, spec = started
+    _, err = proc.communicate(timeout=timeout)
+    out = None
+    if os.path.exists(spec["result"]):
+        with open(spec["result"]) as f:
+            out = json.load(f)
+    return proc.returncode, out, err[-3000:]
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, n))
+               for r, _, names in os.walk(path) for n in names)
+
+
+def tree_bytes(tree) -> int:
+    import torch
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+def same_params(torch, a, b) -> bool:
+    return list(a) == list(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def checkpoint_full_width(torch, mods, card, base_sps):
+    """11a: GPT-2 base, 6 steps straight without checkpoints, then 3 with
+    and a resume to 6: the train.csv byte-identical and the node params
+    bit-equal; the bytes of a step dir, one synchronous save and one
+    restore timed, the steady steps/s with checkpoints beside the straight
+    run's and phase 5's, the peak memory with and without them."""
+    import shutil
+    from gym_tpu_torch.trainer import _state_tree
+    from gym_tpu_torch.utils.checkpoint import CheckpointManager
+    title = "phase 11a gpt2-base checkpoints"
+    log(f"{title}: K=2 x 4 rows, bf16, DiLoCo H=2, {CKPT_STEPS} steps; "
+        f"run 1 straight without checkpoints, run 2 with "
+        f"checkpoint_interval={CKPT_EVERY}, the async writer and the "
+        f"prefetcher, to step {CKPT_EVERY} and then resumed")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    run1 = ckpt_fit(torch, GPT2_BASE, CKPT_STEPS, "a",
+                    checkpoint_interval=None)
+    peak1 = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in run1.history["train_loss"]]
+    check(len(losses) == CKPT_STEPS and all(math.isfinite(l)
+                                            for l in losses),
+          f"{title}: losses {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt_fit(torch, GPT2_BASE, CKPT_EVERY, "b")
+    run2 = ckpt_fit(torch, GPT2_BASE, CKPT_STEPS, "b")
+    wall2 = time.perf_counter() - t0
+    peak2 = torch.cuda.max_memory_allocated()
+    counts = read_counts(mods)
+    for name in ("B3_blk_fwd", "B4_blk_bwd"):
+        check(counts[name] > 0, f"{title}: {name} never launched")
+    first = [s for s, _ in run2.history["train_loss"]]
+    check(first == list(range(CKPT_EVERY, CKPT_STEPS)),
+          f"{title}: the resumed run logged steps {first}")
+    same_csv = ckpt_csv("b") == ckpt_csv("a")
+    same = same_params(torch, run1.node_state.params,
+                       run2.node_state.params)
+    log(f"  run 1 (0->6) and run 2 (0->3, then resume 3->6): train.csv "
+        f"{'byte-identical' if same_csv else 'DIFFERS'}, node params "
+        f"{'bit-equal' if same else 'DIFFER'}; losses {losses}")
+    check(same_csv, f"{title}: the resumed train.csv differs:\n"
+          f"{ckpt_csv('a').decode()}\n{ckpt_csv('b').decode()}")
+    check(same, f"{title}: the resumed node params differ")
+    st = run2.node_state
+    sstate = st.strategy_state
+    parts = {"params": tree_bytes(st.params),
+             "AdamW moments": tree_bytes(sstate["opt"]),
+             "DiLoCo outer state": tree_bytes(sstate["modules"])}
+    step_dir = os.path.join(ckpt_dir("b"), str(CKPT_STEPS))
+    disk = dir_bytes(step_dir)
+    log(f"  step dir {os.path.relpath(step_dir, HERE)}: {disk:,} bytes on "
+        f"disk (" + ", ".join(f"{k} {v:,}" for k, v in parts.items())
+        + f"; predicted {sum(parts.values()):,})")
+    check(sum(parts.values()) <= disk < sum(parts.values()) + (1 << 24),
+          f"{title}: step dir of {disk} bytes, tensors {parts}")
+    mgr = CheckpointManager(os.path.join(CKPT_ROOT, "sync"), "s",
+                            async_save=False)
+    tree = _state_tree(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(CKPT_STEPS, tree, {"epoch": 0}, {})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, got, _, _ = mgr.restore(tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    mgr.close()
+    check(same_params(torch, got["params"], st.params),
+          f"{title}: a restored state differs from the saved one")
+    del got, run1
+    shutil.rmtree(os.path.join(CKPT_ROOT, "sync"), ignore_errors=True)
+    log(f"  one synchronous save {save_s:.2f} s ({disk / save_s / 1e9:.2f} "
+        f"GB/s: the copy to pinned memory, torch.save, fsync, crc32c), one "
+        f"restore {restore_s:.2f} s (crc32c verify, torch.load, to the "
+        f"card); steady steps/s of the resumed run with its save at step "
+        f"{CKPT_STEPS}: {run2.steps_per_second_steady} (phase 5 without "
+        f"checkpoints: {base_sps}); run 2's fits {wall2:.1f} s, the "
+        f"writer's closes included; peak memory {peak2 / 2**30:.2f} GiB "
+        f"with checkpoints, {peak1 / 2**30:.2f} GiB without; MFU "
+        f"{run2.mfu:.4%} at 989 TFLOP/s on {card}")
+    log(f"  launches (runs 1 and 2): "
+        f"{ {k: counts[k] for k in ('B3_blk_fwd', 'B4_blk_bwd')} }")
+    return run2
+
+
+def checkpoint_faults(torch, card, workers):
+    """11b and 11c at 4L/4H/256d, each drill in a worker process of its
+    own (started by the caller, all together): SIGTERM, SIGKILL in a
+    checkpoint write, a corrupt step, a corrupted live state under the
+    guard; each ends byte-identical to an uninterrupted run in this
+    process, the first three through a relaunch here."""
+    small = (f"{CKPT_SMALL['n_layer']}L/{CKPT_SMALL['n_head']}H/"
+             f"{CKPT_SMALL['n_embd']}d")
+    ckpt_fit(torch, CKPT_SMALL, CKPT_STEPS, "base")
+    oracle = ckpt_csv("base")
+
+    rc, out, err = finish_ckpt_worker(workers["term"])
+    check(rc == 0 and out is not None and out["preempted"]
+          and 0 < out["steps"] < CKPT_STEPS,
+          f"phase 11b: the SIGTERM drill gave rc {rc}, {out}\n{err}")
+    check(os.path.isdir(os.path.join(ckpt_dir("term"), str(out["steps"]))),
+          "phase 11b: no emergency checkpoint")
+    res = ckpt_fit(torch, CKPT_SMALL, CKPT_STEPS, "term")
+    check(res.history["train_loss"][0][0] == out["steps"]
+          and ckpt_csv("term") == oracle,
+          "phase 11b: the relaunch after SIGTERM is not byte-identical")
+    log(f"phase 11b {small}: SIGTERM at the 4th dispatch boundary: exit 0, "
+        f"preempted at step {out['steps']} with an emergency checkpoint; "
+        f"the relaunch resumed there, train.csv byte-identical")
+    rc, out, err = finish_ckpt_worker(workers["kill"])
+    check(rc == -9 and out is None,
+          f"phase 11b: checkpoint.write:kill@2 gave rc {rc}\n{err}")
+    res = ckpt_fit(torch, CKPT_SMALL, CKPT_STEPS, "kill")
+    first = res.history["train_loss"][0][0]
+    check(first > 0 and first % CKPT_EVERY == 0
+          and ckpt_csv("kill") == oracle,
+          f"phase 11b: the relaunch after SIGKILL (resumed at {first}) is "
+          f"not byte-identical")
+    log(f"  SIGKILL in the second checkpoint write: the relaunch resumed at "
+        f"step {first}, train.csv byte-identical")
+
+    rc, out, err = finish_ckpt_worker(workers["bytes"])
+    check(rc == 0 and out is not None and out["steps"] == CKPT_STEPS,
+          f"phase 11c: the checkpoint.bytes run gave rc {rc}, {out}\n{err}")
+    res = ckpt_fit(torch, CKPT_SMALL, CKPT_STEPS, "bytes")
+    names = sorted(os.listdir(ckpt_dir("bytes")))
+    first = res.history["train_loss"][0][0]
+    check(f"{CKPT_STEPS}.corrupt-0" in names and first == CKPT_EVERY
+          and ckpt_csv("bytes") == oracle,
+          f"phase 11c: corrupt step: {names}, resumed at {first}")
+    log(f"phase 11c {small}: 8 bits flipped in step {CKPT_STEPS}'s state.pt "
+        f"after its sidecar: quarantined as {CKPT_STEPS}.corrupt-0, resumed "
+        f"at step {first}, train.csv byte-identical; run dir {names}")
+    rc, out, err = finish_ckpt_worker(workers["guard"])
+    check(rc == 0 and out is not None and out["rollbacks"] == 1
+          and out["steps"] == CKPT_STEPS and ckpt_csv("guard") == oracle,
+          f"phase 11c: guard: rc {rc}, {out}\n{err}")
+    log(f"  4 exponent bits flipped in the live state at the 4th dispatch: "
+        f"the guard tripped ({out['trips'][0][1]}), rolled back once, and "
+        f"the replay's train.csv is byte-identical on {card}")
+
+
+def serve_run_dir(torch, mods, card, run2, cli):
+    """11d: 11a's run dir through load_for_serving, served by phase 10's
+    paged engine over 8 seeded requests: the streams equal, token for
+    token, those of ``serving_params`` of 11a's in-process result (the
+    resumed run's); and
+    ``cli`` (started by the caller: the nanoGPT CLI sampling from the run
+    dir) must have restored it."""
+    from gym_tpu_torch.convert import serving_params
+    from gym_tpu_torch.serve.load import load_for_serving
+    run_dir = ckpt_dir("b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, cfg, info = load_for_serving(run_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = serving_params(run2.node_state.params)
+    check(info["step"] == CKPT_STEPS and same_params(torch, params, live),
+          f"phase 11d: the run dir's params differ from the fit's "
+          f"(step {info['step']})")
+    work = serve_workload()[:8]
+    paged = dict(num_slots=16, paged=True, page_size=16, decode_chunk=8)
+    reset_counts(mods)
+    got, eng, _, wall, _ = serve_run(torch, params, cfg, work, "(11d)",
+                                     **paged)
+    counts = read_counts(mods)
+    del eng
+    want, eng, _, _, _ = serve_run(torch, live, cfg, work, "(11d live)",
+                                   **paged)
+    del eng
+    ntok = sum(len(t) for t in got)
+    log(f"phase 11d: load_for_serving of step {info['step']} "
+        f"({info['num_nodes']}-node average) in {load_s:.2f} s; {len(work)} "
+        f"requests, {ntok} tokens in {wall:.3f} s ({ntok / wall:.1f} output "
+        f"tokens/s) through the paged engine; streams "
+        f"{'equal to' if got == want else 'DIFFER from'} the in-process "
+        f"weights' on {card}")
+    log(f"  launches: { {k: counts[k] for k in SERVING_KERNELS} }")
+    check(got == want, "phase 11d: the run dir serves other tokens than the "
+          "in-process weights")
+    for k in SERVING_KERNELS:
+        check(counts[k] > 0, f"phase 11d: {k} never launched")
+    proc, t0 = cli
+    stdout, stderr = proc.communicate(timeout=300)
+    check(proc.returncode == 0 and f"restored step {CKPT_STEPS}" in stdout,
+          f"phase 11d: the --ckpt CLI failed ({proc.returncode}):\n"
+          f"{stdout[-2000:]}{stderr[-2000:]}")
+    log(f"  python -m gym_tpu_torch.examples.nanogpt --ckpt "
+        f"{os.path.relpath(run_dir, HERE)} "
+        f"--sample 32, beside 11b-11d: "
+        + " | ".join(stdout.strip().splitlines()[:1])
+        + f" ({time.perf_counter() - t0:.1f} s after its start)")
+    return {k: counts[k] for k in SERVING_KERNELS}
+
+
+def checkpoint_phase(torch, mods, card, base_sps):
+    """Phase 11 (11a-11d); the run dirs are removed after it."""
+    import shutil
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        run2 = checkpoint_full_width(torch, mods, card, base_sps)
+        # 11b-11c's four workers and 11d's CLI start together and run
+        # beside the in-process fits
+        cli_t0 = time.perf_counter()
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "gym_tpu_torch.examples.nanogpt",
+             "--ckpt", ckpt_dir("b"), "--sample", "32"], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(cli)
+        workers = {
+            "term": start_ckpt_worker("term", "dispatch.boundary:sigterm@4"),
+            "kill": start_ckpt_worker("kill", "checkpoint.write:kill@2"),
+            "bytes": start_ckpt_worker("bytes",
+                                       "checkpoint.bytes:bitflip=8@2"),
+            "guard": start_ckpt_worker(
+                "guard", "dispatch.state:bitflip=4@4",
+                guard=dict(fingerprint_interval=1, max_rollbacks=2))}
+        procs += [w[0] for w in workers.values()]
+        checkpoint_faults(torch, card, workers)
+        serve_run_dir(torch, mods, card, run2, (cli, cli_t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2862,7 +3226,8 @@ def main() -> int:
         check_serving_sass(sass)
         t1_ops = threefry_ops_per_element(sass)
 
-        log("phase 3: kernels against plain versions on the card")
+        log(f"phase 3: kernels against plain versions on the card "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
         errs = check_kernels(torch, tfa, tflash, shapes)
         errs["T1_threefry_bernoulli"] = check_threefry(torch, tf)
         errs["T1_threefry_bernoulli_rows"] = check_threefry_rows(torch, tf)
@@ -2876,8 +3241,10 @@ def main() -> int:
         long_ctx = dict(base, block_size=8192, remat=True, loss_chunk=2048)
         c4 = train_phase(torch, mods, "phase 4 flagship", flagship, 64, 16,
                          6, ("B1_fwd_packed", "B2_bwd_packed"))[0]
-        c5 = train_phase(torch, mods, "phase 5 gpt2-base", base, 2, 4, 3,
-                         ("B3_blk_fwd", "B4_blk_bwd"))[0]
+        c5, res5 = train_phase(torch, mods, "phase 5 gpt2-base", base, 2, 4,
+                               3, ("B3_blk_fwd", "B4_blk_bwd"))
+        sps5 = res5.steps_per_second_steady
+        del res5
         c5b = long_context_phase(torch, mods, long_ctx, 2, 4)
         torch.cuda.empty_cache()
         launches = {"B1_fwd_packed": c4["B1_fwd_packed"],
@@ -2888,7 +3255,8 @@ def main() -> int:
                     "B5f_flash_fwd_f32": c5b["B5f_flash_fwd_f32"],
                     "B5b_flash_bwd": c5b["B5b_flash_bwd"]}
 
-        log("phase 6: card against CPU")
+        log(f"phase 6: card against CPU ({time.perf_counter() - t_all:.1f} s "
+            f"since the start)")
         card_vs_cpu(torch, mods, dict(block_size=128, vocab_size=65,
                                       n_layer=2, n_head=2, n_embd=64,
                                       attn_impl="flash"), 4, 4, 3, 20_000)
@@ -2915,7 +3283,8 @@ def main() -> int:
                                            attn_impl="flash"), 8, 4, 4,
                          20_000)
 
-        log("phase 7: timing (CUDA events, median of 5)")
+        log(f"phase 7: timing (CUDA events, median of 5; "
+            f"{time.perf_counter() - t_all:.1f} s since the start)")
         times = time_kernels(torch, tfa, tflash, shapes)
         times["T1_threefry_bernoulli"] = time_threefry(
             torch, tf, gpt_leaves(base), t1_ops, int32_ops_per_s)
@@ -2932,13 +3301,15 @@ def main() -> int:
         times.update(time_serving_kernels(torch, tdec, trow, tf,
                                           int32_ops_per_s))
 
-        log("phase 8: the stochastic strategies through Trainer.fit")
+        log(f"phase 8: the stochastic strategies through Trainer.fit "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
         c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
         launches["T1_threefry_bernoulli"] = c8a["T1_threefry_bernoulli"]
         launches["T1_threefry_bits"] = compression_phase(
             torch, mods, card, flagship)["T1_threefry_bits"]
 
-        log("phase 9: the BASELINE configs through Trainer.fit")
+        log(f"phase 9: the BASELINE configs through Trainer.fit "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
         c9 = baseline_phase(torch, mods, card)
         cnn_card_vs_cpu(torch, mods)
         launches["T1_threefry_bernoulli_rows"] = \
@@ -2947,8 +3318,14 @@ def main() -> int:
         launches["B2_bwd_packed_f32"] = c9["9d"]["B2_bwd_packed_f32"]
         launches["D1_scatter_mean"] = c9["9f"]["D1_scatter_mean"]
 
-        log("phase 10: serving GPT-2 base through Scheduler")
+        log(f"phase 10: serving GPT-2 base through Scheduler "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
         launches.update(serving_phase(torch, mods, card))
+
+        log(f"phase 11: checkpoints, resume, preemption, the guard and a "
+            f"run dir served ({time.perf_counter() - t_all:.1f} s since the "
+            f"start)")
+        checkpoint_phase(torch, mods, card, sps5)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2973,4 +3350,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-worker"]:
+        sys.exit(ckpt_worker(json.loads(sys.argv[2])))
     sys.exit(main())

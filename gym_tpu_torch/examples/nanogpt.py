@@ -8,9 +8,11 @@ strategies base, zero, fedavg, diloco, sparta, diloco_sparta, demo,
 demo_outer, noloco and dynamiq with their knobs (``--codec`` for diloco,
 noloco, demo_outer and dynamiq; ``--compression_*`` for demo) and
 ``--sample N`` (after training, N tokens from the node-averaged model
-through ``generate_fast``). Flags of a later slice of the port
-(cp/tp/ep/pp; MoE; checkpoints; network simulation) exit naming it. Runs
-on the card unless ``--device cpu``.
+through ``generate_fast``); ``--ckpt RUN_DIR`` samples from a fit's run
+dir instead of training (a missing or wholly corrupt one is a one-line
+exit); ``--no_prefetch`` and ``--sync_checkpoint`` select the serial
+paths. Flags of a later slice of the port (cp/tp/ep/pp; MoE; network
+simulation) exit naming it. Runs on the card unless ``--device cpu``.
 
     python -m gym_tpu_torch.examples.nanogpt --strategy demo \\
         --num_nodes 64 --lr 1e-3 --block_size 256 --attn_impl flash
@@ -36,6 +38,8 @@ from gym_tpu_torch.strategy import (DecoupledMomentumStrategy, DeMoStrategy,
                                     FedAvgStrategy, NoLoCoStrategy, OptimSpec,
                                     SimpleReduceStrategy, SPARTADiLoCoStrategy,
                                     SPARTAStrategy, ZeroReduceStrategy)
+from gym_tpu_torch.serve.load import load_for_serving
+from gym_tpu_torch.utils.checkpoint import CheckpointNotFoundError
 
 STRATEGIES = ("base", "zero", "fedavg", "diloco", "sparta", "diloco_sparta",
               "demo", "noloco", "dynamiq", "demo_outer")
@@ -46,7 +50,6 @@ LATER_FLAGS = {
     "ep": (1, "expert parallelism (ROADMAP Queue A, item 16)"),
     "pp": (1, "pipeline parallelism (ROADMAP Queue A, item 16)"),
     "n_experts": (0, "mixture-of-experts layers (ROADMAP Queue A, item 16)"),
-    "ckpt": (None, "checkpoints (ROADMAP Queue A, item 12)"),
     "network": (None, "the network simulator (ROADMAP Queue A, item 13)"),
     "wandb_project": (None, "experiment tracking"),
 }
@@ -209,10 +212,22 @@ def parser() -> argparse.ArgumentParser:
     # flags of a later slice: given, they exit naming it
     p.add_argument("--sample", type=int, default=0, metavar="N",
                    help="after training, sample N tokens from the "
-                        "node-averaged model (KV-cache decoder)")
+                        "node-averaged model (KV-cache decoder); with "
+                        "--ckpt, sample from that run dir instead of "
+                        "training")
+    p.add_argument("--ckpt", default=None, metavar="RUN_DIR",
+                   help="skip training: params-only restore from this "
+                        "checkpoint run dir (fit save_dir/<run_name>) "
+                        "and --sample from it")
+    p.add_argument("--no_prefetch", action="store_true",
+                   help="assemble and copy every batch on the dispatch "
+                        "path (the prefetcher off)")
+    p.add_argument("--sync_checkpoint", action="store_true",
+                   help="blocking checkpoint saves instead of the "
+                        "writer thread")
     for name in ("cp", "tp", "ep", "pp", "n_experts"):
         p.add_argument(f"--{name}", type=int, default=LATER_FLAGS[name][0])
-    for name in ("ckpt", "network", "wandb_project"):
+    for name in ("network", "wandb_project"):
         p.add_argument(f"--{name}", default=None)
     return p
 
@@ -224,6 +239,23 @@ def main(argv=None):
             refuse_later(f"--{name}", where)
     if args.attn_impl == "ring":
         refuse_later("--attn_impl ring", LATER_FLAGS["cp"][1])
+    if args.ckpt:
+        # sampling only: the params-only restore, no optimizer state, no
+        # dataset, no training
+        try:
+            params, cfg, info = load_for_serving(args.ckpt,
+                                                 device=args.device)
+        except (CheckpointNotFoundError, FileNotFoundError,
+                ValueError) as e:
+            # ValueError: a non-GPT config.json or a num_nodes / node-axis
+            # mismatch, the same one-line contract
+            raise SystemExit(f"nanogpt: cannot sample from {args.ckpt}: "
+                             f"{e}")
+        print(f"restored step {info['step']} "
+              f"({info['num_nodes']}-node average) from {args.ckpt}")
+        print_sample(params, cfg, cfg.vocab_size, args.sample or 200,
+                     args.seed)
+        return None
     strategy = create_strategy(args)
 
     roots = tuple(args.docs_root) if args.docs_root else DEFAULT_DOC_ROOTS
@@ -249,6 +281,8 @@ def main(argv=None):
         minibatch_size=args.minibatch_size,
         skip_nonfinite=args.skip_nonfinite,
         autocast=args.autocast,
+        prefetch=not args.no_prefetch,
+        async_checkpoint=not args.sync_checkpoint,
         seed=args.seed,
         val_size=args.val_size,
         val_interval=args.val_interval,

@@ -28,7 +28,8 @@ SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "threefry.cu",
                                                  "scatter_mean.cu",
                                                  "decode_attention.cu",
-                                                 "row_gemm.cu"))
+                                                 "row_gemm.cu",
+                                                 "crc32c.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,6 +145,11 @@ def load() -> ctypes.CDLL:
         lib.gym_row_gemm.restype = i32
         lib.gym_row_layer_norm.argtypes = [vp] * 4 + [i32, i32, f32, vp]
         lib.gym_row_layer_norm.restype = i32
+        # host code: the checkpoint sidecars' crc32c (utils/integrity.py)
+        lib.gym_crc32c.argtypes = [ctypes.c_char_p, i64, u32]
+        lib.gym_crc32c.restype = u32
+        lib.gym_crc32c_hw.argtypes = []
+        lib.gym_crc32c_hw.restype = i32
         lib.gym_attn_error_string.argtypes = [i32]
         lib.gym_attn_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -9,16 +9,20 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
   backpressure, deadlines, admission control, prefix-aware ordering and
   preemption.
 - ``programs``: the engine's device programs as plain PyTorch callables.
+- ``load``: a fit's run dir → node-averaged params and its ``GPTConfig``
+  (``load_for_serving``), and the checkpoint-dir watcher.
 
 The fleet and HTTP tier (metrics, supervisor, router, worker, wire,
-autoscale, ``__main__``), checkpoint loading and quantized serving belong
-to later slices of the port.
+autoscale, ``__main__``) and quantized serving belong to later slices of
+the port.
 """
 
 from .engine import (BlockAllocator, EngineStats, InferenceEngine,
                      NoFreeBlocksError, NoFreeSlotError, ParkedSlot,
                      SamplingParams, TokenEvent, max_prefill_buckets,
                      prompt_bucket)
+from .load import (CheckpointWatcher, gpt_config_from_run,
+                   latest_checkpoint_step, load_for_serving, read_run_config)
 from .scheduler import (AdmissionRejectedError, DeadlineExceededError,
                         EngineFailedError, QueueFullError, Request,
                         RequestCancelledError, RequestStatus, Scheduler,
@@ -32,4 +36,6 @@ __all__ = [
     "SchedulerClosedError", "DeadlineExceededError",
     "AdmissionRejectedError", "EngineFailedError",
     "SlotQuarantinedError", "RequestCancelledError",
+    "load_for_serving", "read_run_config", "gpt_config_from_run",
+    "latest_checkpoint_step", "CheckpointWatcher",
 ]

@@ -11,26 +11,51 @@ global eval of the node-mean params, in f32 whatever ``autocast`` says),
 the same ``train.csv``/``validation.csv`` rows, and the loss of a step read
 back one step late so the host never waits on the card in between.
 
-The fit kwargs of later slices (checkpointing, guard, network simulation,
-cp/tp/ep/pp, ...) keep their names and raise when set.
+Checkpoints, resume, preemption, the watchdog, the SDC guard with
+rollback-and-replay and the batch prefetcher are the JAX trainer's
+(``gym_tpu/trainer.py``): a fit checkpointed every ``checkpoint_interval``
+steps into ``save_dir`` can be killed, preempted (SIGTERM/SIGINT take one
+emergency checkpoint at the next dispatch boundary and return
+``preempted=True``), corrupted and resumed (``resume="auto"``), and each
+time its ``train.csv`` ends byte-identical to an uninterrupted run's.
+
+The fit kwargs of later slices (network simulation, cp/tp/ep/pp, ...) keep
+their names and raise when set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import signal
+import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from .data.prefetch import HostPrefetcher, dispatch_schedule
 from .data.sampler import NodeBatchIterator, resolve_node_datasets
 from .models.base import LossModel, as_loss_model
 from .parallel.mesh import NodeRuntime
 from .strategy.base import Strategy, tree_num_params
-from .train_node import (default_device, make_eval_step, make_init_fn,
-                         make_multi_train_step, make_train_step)
-from .utils.logger import CSVLogger
+from .train_node import (TrainState, default_device, make_eval_step,
+                         make_init_fn, make_multi_train_step, make_train_step)
+from .utils.checkpoint import (STACKED_LAYOUT, CheckpointLayoutError,
+                               CheckpointManager, CheckpointNotFoundError)
+from .utils.integrity import (Guard, GuardRuntime, GuardTrippedError,
+                              _InnerGuard, corrupt_state_tree,
+                              tree_fingerprint)
+from .utils.logger import CSVLogger, _jsonable
+from .utils.resilience import (Watchdog, WatchdogTimeoutError, fault_point,
+                               faults, watch_or_null)
+
+# the dense bf16 peak of one H100 (SXM, NVIDIA's data sheet) that MFU is
+# stated against; gym_tpu's default of 197e12 is a TPU's
+H100_BF16_PEAK_FLOPS = 989e12
 
 
 @dataclasses.dataclass
@@ -47,7 +72,13 @@ class FitResult:
     steps_per_second: float
     final_train_loss: float
     history: Dict[str, List]
+    # model-FLOPs utilization (GPT models) against H100_BF16_PEAK_FLOPS
+    mfu: Optional[float] = None
     steps_per_second_steady: Optional[float] = None
+    # True when SIGTERM/SIGINT cut the run short: an emergency checkpoint
+    # was taken (when checkpointing is configured), `steps` reads the step
+    # reached, and a later fit(resume="auto") continues from exactly there
+    preempted: bool = False
 
 
 def _model_config(module) -> Dict[str, Any]:
@@ -69,29 +100,19 @@ def _due(interval, step_idx: int, s: int) -> bool:
     )
 
 
-def dispatch_schedule(start_step: int, max_steps: int, steps_per_call: int,
-                      has_multi: bool) -> List[int]:
-    """Steps taken by each call of the fit loop, in order: full calls run
-    ``steps_per_call`` steps, any remainder single steps."""
-    sched = []
-    i = start_step
-    while i < max_steps:
-        s = min(steps_per_call, max_steps - i)
-        if s < steps_per_call or not has_multi:
-            s = 1
-        sched.append(s)
-        i += s
-    return sched
-
-
 # fit kwargs of later slices: name -> value that means "off"
 _LATER = {
     "devices": None, "cp": 1, "tp": 1, "ep": 1, "pp": 1,
     "correlation_interval": None, "compilation_cache_dir": None,
-    "profile_dir": None, "checkpoint_interval": None, "save_dir": None,
-    "watchdog_timeout": None, "network": None, "network_overlap": False,
-    "wandb_project": None, "guard": None,
+    "profile_dir": None, "network": None, "network_overlap": False,
+    "wandb_project": None,
 }
+
+
+def _state_tree(state: TrainState) -> Dict[str, Any]:
+    """The checkpointed form of a ``TrainState``: a plain dict."""
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(TrainState)}
 
 
 class Trainer:
@@ -100,6 +121,28 @@ class Trainer:
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.kwargs = kwargs
+
+    @staticmethod
+    def _guard_shutdown(ckpt, logger, wd) -> None:
+        """Release run resources after a guard trip: the checkpoint
+        writer (letting any in-flight PRE-corruption write complete —
+        that is the state the replay resumes from), the log handles
+        (the replay fit reopens them with resume truncation), and the
+        watchdog. No save happens here: corrupt state must never be
+        committed. Best-effort closes — the GuardTrippedError in flight
+        is the error that matters."""
+        if ckpt is not None:
+            try:
+                ckpt.close()
+            except Exception:
+                pass
+        try:
+            logger.log_event("training guard tripped: rolling back")
+            logger.close()
+        except Exception:
+            pass
+        if wd is not None:
+            wd.close()
 
     def fit(
         self,
@@ -142,10 +185,55 @@ class Trainer:
         **extra,
     ) -> FitResult:
         """Train K = ``num_nodes`` simulated nodes; see the module docstring.
-        ``device`` defaults to the card and raises where there is none;
-        ``prefetch`` and ``async_checkpoint`` are accepted for signature
-        parity (the loop assembles batches synchronously, with identical
-        contents)."""
+        ``device`` defaults to the card and raises where there is none.
+        ``prefetch`` runs the batch prefetcher (``data/prefetch.py``);
+        ``checkpoint_interval`` with ``save_dir`` checkpoints into
+        ``<save_dir>/<run_name>`` (``async_checkpoint``: on the writer
+        thread), ``resume`` is ``"auto"`` (the newest valid checkpoint),
+        ``"never"``/``False`` (purge and start over) or a step;
+        ``watchdog_timeout`` (or ``GYM_TPU_WATCHDOG_S``) deadline-protects
+        the blocking regions; ``guard`` (a ``Guard``, ``GuardRuntime`` or
+        True) runs the fit under the SDC guard with rollback-and-replay."""
+        # captured BEFORE any parameter is normalized: the rollback-and-
+        # replay wrapper below re-invokes fit with these exact arguments
+        _fit_kwargs = {k: v for k, v in locals().items()
+                       if k not in ("self", "extra", "guard")}
+        # The SDC guard: this OUTER call owns the replay loop; the
+        # recursive call carries an _InnerGuard marker so the inner fit
+        # only observes (and the monitor state survives attempts). The
+        # loop is bit-deterministic and CSVLogger resume truncates rows >=
+        # the restored step, so a replayed train.csv is byte-identical to
+        # an uninterrupted run.
+        if guard is not None and guard is not False \
+                and not isinstance(guard, _InnerGuard):
+            if isinstance(guard, GuardRuntime):
+                _rt = guard
+            elif isinstance(guard, Guard):
+                _rt = GuardRuntime(guard)
+            elif guard is True:
+                _rt = GuardRuntime()
+            else:
+                raise ValueError(
+                    f"guard must be a Guard, GuardRuntime, or True; "
+                    f"got {guard!r}")
+            while True:
+                try:
+                    return self.fit(guard=_InnerGuard(_rt), **_fit_kwargs)
+                except GuardTrippedError as e:
+                    if _rt.rollbacks >= _rt.cfg.max_rollbacks:
+                        raise
+                    _rt.note_rollback()
+                    sys.stderr.write(
+                        f"gym_tpu_torch: {e} — rolling back to the last "
+                        f"verified checkpoint and replaying (attempt "
+                        f"{_rt.rollbacks}/{_rt.cfg.max_rollbacks})\n")
+                    sys.stderr.flush()
+                    # the replay resumes from the newest CHECKSUM-VERIFIED
+                    # checkpoint; without checkpointing it replays from
+                    # scratch
+                    _fit_kwargs["resume"] = "auto"
+        guard_rt: Optional[GuardRuntime] = (
+            guard.runtime if isinstance(guard, _InnerGuard) else None)
         if strategy is None:
             raise ValueError("fit requires a strategy")
         if extra:
@@ -156,10 +244,22 @@ class Trainer:
                 raise NotImplementedError(
                     f"fit({name}=...) is ported in a later slice of "
                     f"gym_tpu_torch")
-        if resume not in ("auto", "never", True, False):
-            raise NotImplementedError(
-                "fit(resume=<step>) needs checkpointing, which is ported in "
-                "a later slice of gym_tpu_torch")
+        # int (and not bool) FIRST: resume=0 means "checkpoint step 0",
+        # not the `0 == False` membership below
+        resume_step_pin = (resume if isinstance(resume, int)
+                           and not isinstance(resume, bool) else None)
+        if resume_step_pin is None and resume not in ("auto", "never",
+                                                      True, False):
+            raise ValueError(
+                f"resume must be 'auto', 'never'/False, or a checkpoint "
+                f"step int; got {resume!r}")
+        if resume_step_pin is not None and not (
+                save_dir is not None and checkpoint_interval):
+            # a pinned step with no checkpoint store would silently train
+            # from scratch
+            raise ValueError(
+                f"resume={resume} requires save_dir and "
+                f"checkpoint_interval to locate the checkpoint")
         dev = default_device(device)
         minibatch_size = minibatch_size or batch_size
         if batch_size % minibatch_size != 0:
@@ -205,6 +305,78 @@ class Trainer:
                                init_params=init_params, device=dev,
                                ctx=runtime.ctx)
         state = runtime.init_state(init_fn)
+
+        # Watchdog: deadline-protects the host operations that can hang
+        # (a dispatch drain, a prefetch get, a checkpoint write); off
+        # unless asked for through the kwarg or GYM_TPU_WATCHDOG_S
+        wd = None
+        wd_timeout = watchdog_timeout
+        if wd_timeout is None:
+            env_wd = os.environ.get("GYM_TPU_WATCHDOG_S")
+            wd_timeout = float(env_wd) if env_wd else None
+        if wd_timeout:
+            wd = Watchdog(wd_timeout).start()
+
+        ckpt = None
+        start_step = 0
+        restored_extra: Dict[str, Any] = {}
+        layout = {"num_nodes": num_nodes, "layout": STACKED_LAYOUT}
+        if save_dir is not None and checkpoint_interval:
+            if getattr(strategy, "shard_checkpoint", False):
+                if wd is not None:
+                    wd.close()
+                raise CheckpointLayoutError(
+                    f"{type(strategy).__name__} asks for sharded checkpoints"
+                    f" (shard_checkpoint=True), whose layout is elastic "
+                    f"membership's (ROADMAP Queue A, item 13)")
+            # checkpointed runs pin the run name: the manager and the
+            # logger must agree on it, or a resume would find the
+            # checkpoint while the logger opens a fresh run dir
+            run_name = run_name or "default"
+            ckpt = CheckpointManager(save_dir, run_name,
+                                     async_save=async_checkpoint, watchdog=wd)
+            if resume_step_pin is None and resume in (False, "never"):
+                if ckpt.latest_step() is not None:
+                    ckpt.purge()
+            else:
+                want_step = resume_step_pin
+                peek = (ckpt.peek_meta(step=want_step)
+                        if ckpt.latest_step() is not None else None)
+                saved = ((peek or {}).get("extra") or {}).get("elastic")
+                try:
+                    if saved is not None and (
+                            int(saved["num_nodes"]) != num_nodes
+                            or saved.get("layout") != STACKED_LAYOUT):
+                        # read before any restore: a template restore
+                        # would quarantine perfectly valid steps
+                        raise CheckpointLayoutError(
+                            f"checkpoint under {ckpt.directory} was saved at"
+                            f" {saved['num_nodes']} nodes in the "
+                            f"{saved.get('layout')!r} layout; this fit runs "
+                            f"{num_nodes} nodes: a membership change needs "
+                            f"elastic resharding (ROADMAP Queue A, item 13)")
+                    start_step, restored, data_state, restored_extra = \
+                        ckpt.restore(_state_tree(state), step=want_step)
+                except CheckpointNotFoundError:
+                    if want_step is not None:
+                        ckpt.close()
+                        if wd is not None:
+                            wd.close()
+                        raise
+                    # fresh run: nothing (valid) to resume from
+                except BaseException:
+                    ckpt.close()
+                    if wd is not None:
+                        wd.close()
+                    raise
+                else:
+                    state = TrainState(**restored)
+                    train_iter.load_state(data_state)
+            if async_checkpoint and dev.type == "cuda":
+                # the pinned buffers saves copy into, pinned before the
+                # loop: a second or so of page-locking, once
+                ckpt.reserve(_state_tree(state))
+
         train_step = make_train_step(loss_model, strategy, runtime.ctx,
                                      skip_nonfinite)
         multi_step = (make_multi_train_step(loss_model, strategy, runtime.ctx,
@@ -227,12 +399,21 @@ class Trainer:
             "device": str(dev),
             **strategy.config(),
         }
+        if ckpt is not None:
+            # the run config NEXT TO the step dirs: serve.load's
+            # params-only restore rebuilds the model from it
+            with open(os.path.join(ckpt.directory, "config.json"), "w") as f:
+                json.dump(_jsonable(config), f, indent=2, default=str)
         logger = CSVLogger(max_steps, run_name, log_dir, config,
-                           show_progress)
+                           show_progress, resume_step=start_step,
+                           resume_cum_comm=restored_extra.get(
+                               "cum_comm_bytes"))
         history: Dict[str, List] = {
             "train_loss": [], "local_loss": [], "global_loss": [],
             "comm_bytes": [], "comm_recv_bytes": [], "nonfinite": [],
         }
+        # deferred host reads (evals, the guard's fingerprints): dispatched
+        # at once, read after the next dispatch is queued
         pending_host: List = []
 
         def drain_host():
@@ -260,11 +441,19 @@ class Trainer:
             pending_host.append(fetch) if defer else fetch()
 
         last_loss = float("nan")
+        logger.step = start_step
+        if getattr(logger, "pbar", None) is not None and start_step:
+            logger.pbar.update(start_step)
 
         def drain(p):
             nonlocal last_loss
             first_idx, m, count = p
-            loss_a = m["loss"][0].reshape(count).cpu().numpy()
+            loss_all = m["loss"].float().cpu()
+            loss_a = loss_all[0].reshape(count).numpy()
+            # the worst loss over the nodes is the guard's trip channel
+            # (max propagates NaN: one non-finite replica is seen too)
+            worst_a = (loss_all.max(dim=0).values.reshape(count).numpy()
+                       if guard_rt is not None else None)
             # the node mean; a count of random masks is still on the device
             # and is read here, one step late, as the loss is
             comm_a = np.array([float(c) for c in m["comm_bytes"]],
@@ -279,6 +468,11 @@ class Trainer:
                 step_j = first_idx + j
                 loss = float(loss_a[j])
                 comm = float(comm_a[j])
+                # observe BEFORE the row is logged: a tripped step's
+                # corrupt loss must never land in train.csv
+                if guard_rt is not None:
+                    guard_rt.observe_loss(step_j, loss,
+                                          worst=float(worst_a[j]))
                 last_loss = loss
                 logger.log_train(loss, strategy.lr_at(step_j), comm,
                                  step=step_j)
@@ -292,25 +486,107 @@ class Trainer:
                     logger.log_event(f"quarantined {int(nf_a[j])} node(s) "
                                      f"with non-finite gradients")
 
-        sched = dispatch_schedule(0, max_steps, steps_per_call,
+        first_retired = False
+        t_steady, steady_from = None, start_step
+        # the dispatch schedule is fixed by (start_step, max_steps,
+        # steps_per_call): the prefetch worker walks it on its own
+        sched = dispatch_schedule(start_step, max_steps, steps_per_call,
                                   multi_step is not None)
+        prefetcher = None
+        if prefetch and sched:
+            prefetcher = HostPrefetcher(
+                train_iter, dev, sched, n_micro=n_micro,
+                micro_bs=minibatch_size).start()
         pending = None
+
+        def save_checkpoint(at_step: int, sync: bool = False) -> None:
+            nonlocal pending, first_retired, t_steady, steady_from
+            # A checkpoint at step N must durably cover every logged row
+            # with step < N: the rows of the dispatch ending at N are
+            # normally drained one dispatch LATER, so drain them now (a
+            # small host bubble at checkpoint boundaries), then fsync the
+            # log streams.
+            if pending is not None:
+                with watch_or_null(wd, "dispatch.drain"):
+                    drain(pending)
+                pending = None
+                if not first_retired:
+                    first_retired = True
+                    t_steady = time.perf_counter()
+                    steady_from = at_step
+            drain_host()
+            # with prefetch the worker has drawn AHEAD of the consumed
+            # position: consumed_state() is the synchronous loop's state
+            data_state = (prefetcher.consumed_state()
+                          if prefetcher is not None else train_iter.state())
+            logger.sync()
+            # the EXACT comm accumulator rides in the meta so a resume
+            # continues it bit-exactly
+            extra_meta = {"cum_comm_bytes": logger.cum_comm_bytes,
+                          "elastic": layout}
+            if sync:
+                # the preemption handler's emergency save: durable before
+                # fit returns (ckpt.save waits out any async write first)
+                ckpt.save(at_step, _state_tree(state), data_state,
+                          extra_meta)
+            else:
+                ckpt.save_async(at_step, _state_tree(state), data_state,
+                                extra_meta)
+
+        # Preemption (SIGTERM from a scheduler, SIGINT from a keyboard):
+        # the handler only RECORDS the signal; the loop notices at the next
+        # dispatch boundary, takes one emergency synchronous checkpoint,
+        # closes the writer and the prefetcher, and returns with
+        # preempted=True. The handler re-installs the previous one on first
+        # delivery, so a second signal takes the default path.
+        preempt_signum: List[int] = []
+        prev_handlers: Dict[int, Any] = {}
+
+        def _request_preempt(signum, frame):
+            preempt_signum.append(signum)
+            try:
+                signal.signal(signum,
+                              prev_handlers.get(signum, signal.SIG_DFL))
+            except (ValueError, OSError):
+                pass
+
+        if threading.current_thread() is threading.main_thread():
+            for _sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    prev_handlers[_sig] = signal.signal(_sig,
+                                                        _request_preempt)
+                except (ValueError, OSError):
+                    pass
+
+        fp_due = (guard_rt.cfg.fingerprint_interval
+                  if guard_rt is not None else 0)
         t_start = time.perf_counter()
-        t_steady, steady_from = None, 0
-        step_idx = 0
+        step_idx = start_step
+        preempted = False
         try:
             for s in sched:
+                fault_point("dispatch.boundary")
+                if faults.active:
+                    # the dispatch.state site: an armed bitflip flips
+                    # exponent bits in the live state — the SDC the guard
+                    # (not any crc) must catch
+                    state = corrupt_state_tree(state)
                 if _due(val_interval, step_idx, s):
                     run_eval(defer=True)
-                if s > 1:
+                if prefetcher is not None:
+                    with watch_or_null(wd, "prefetch.get"):
+                        batch = prefetcher.get()
+                elif s > 1:
                     stacked = [train_iter.next_batch(n_micro, minibatch_size)
                                for _ in range(s)]
                     batch = feed(tuple(np.stack(xs, axis=1)
                                        for xs in zip(*stacked)))
-                    state, metrics = multi_step(state, batch)
                 else:
                     batch = feed(train_iter.next_batch(n_micro,
                                                        minibatch_size))
+                if s > 1:
+                    state, metrics = multi_step(state, batch)
+                else:
                     state, metrics = train_step(state, batch)
                     metrics = {k: ([v] if k == "comm_bytes" else v[:, None])
                                for k, v in metrics.items()}
@@ -318,48 +594,154 @@ class Trainer:
                     # the previous call's loss; reading it waits for all the
                     # work queued on the device, this call's included, so
                     # the steady clock counts from the next call on
-                    drain(pending)
-                    if t_steady is None:
+                    with watch_or_null(wd, "dispatch.drain"):
+                        drain(pending)
+                    if not first_retired:
+                        first_retired = True
                         t_steady = time.perf_counter()
                         steady_from = step_idx + s
                 drain_host()
                 pending = (step_idx, metrics, s)
+                if fp_due and _due(fp_due, step_idx, s):
+                    # the probe stays on the card; its read is deferred
+                    # past the next dispatch, as the evals' are
+                    fp_dev = tree_fingerprint(_state_tree(state))
+
+                    def _check_fp(fp=fp_dev, st=step_idx + s):
+                        guard_rt.observe_fingerprint(st, float(fp))
+
+                    pending_host.append(_check_fp)
                 for _ in range(s):
                     logger.increment_step()
-                step_idx += s
-            if pending is not None:
-                drain(pending)
-            drain_host()
-        except BaseException:
-            logger.close()
+                prev_idx, step_idx = step_idx, step_idx + s
+                if ckpt is not None and (
+                        step_idx // checkpoint_interval
+                        > prev_idx // checkpoint_interval):
+                    save_checkpoint(step_idx)
+                if preempt_signum:
+                    if wd is not None and wd.fired:
+                        # the "signal" was the watchdog's interrupt_main
+                        # through our SIGINT handler: a hang, not a
+                        # preemption; abort loudly (stacks already dumped)
+                        raise WatchdogTimeoutError(
+                            f"watchdog timeout in '{wd.fired}' — aborting")
+                    preempted = True
+                    break
+        except GuardTrippedError:
+            # close everything WITHOUT saving: corrupt state must never be
+            # committed (save_checkpoint drains the pending losses BEFORE
+            # it saves, so a trip always aborts ahead of the write)
+            self._guard_shutdown(ckpt, logger, wd)
             raise
+        except BaseException:
+            if ckpt is not None:
+                try:
+                    ckpt.close()
+                except Exception:
+                    pass
+            logger.close()
+            if wd is not None:
+                wd.close()
+            raise
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            for _sig, _h in prev_handlers.items():
+                try:
+                    signal.signal(_sig, _h)
+                except (ValueError, OSError):
+                    pass
+
+        try:
+            if pending is not None:
+                with watch_or_null(wd, "dispatch.drain"):
+                    drain(pending)
+                pending = None
+            drain_host()
+        except GuardTrippedError:
+            # the final drain can still observe a corrupt step
+            self._guard_shutdown(ckpt, logger, wd)
+            raise
+        if preempted:
+            sig_name = signal.Signals(preempt_signum[0]).name
+            logger.log_event(
+                f"preempted by {sig_name}: emergency checkpoint at step "
+                f"{step_idx}, then clean shutdown")
+            if ckpt is not None and step_idx > start_step:
+                try:
+                    save_checkpoint(step_idx, sync=True)
+                except BaseException:
+                    # an unwritable disk must not leak the writer, the CSV
+                    # handles or the watchdog on top of losing the
+                    # checkpoint
+                    for closer in (ckpt.close, logger.close):
+                        try:
+                            closer()
+                        except Exception:
+                            pass
+                    if wd is not None:
+                        wd.close()
+                    raise
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            with watch_or_null(wd, "final.synchronize"):
+                torch.cuda.synchronize(dev)
+        end_step = step_idx
         t_end = time.perf_counter()
         elapsed = t_end - t_start
         sps_steady = None
-        if t_steady is not None and step_idx > steady_from \
+        if t_steady is not None and end_step > steady_from \
                 and t_end > t_steady:
-            sps_steady = (step_idx - steady_from) / (t_end - t_steady)
+            sps_steady = (end_step - steady_from) / (t_end - t_steady)
+        # after a resume both rates count only the steps this fit ran
+        steps_done = end_step - start_step
+        mfu, tokens_per_second = None, None
+        gpt_cfg = getattr(loss_model.module, "config", None)
+        block = getattr(gpt_cfg, "block_size", 0)
+        if elapsed > 0 and block:
+            tokens_per_second = (batch_size * num_nodes * block * steps_done
+                                 / elapsed)
+        from .models.nanogpt import GPT, node_mfu
+        if isinstance(loss_model.module, GPT) and steps_done > 0 \
+                and elapsed > 0:
+            # over the whole fit loop, evals and logging included, as the
+            # JAX trainer measures it
+            mfu = node_mfu(gpt_cfg, state.params, batch_size * num_nodes,
+                           elapsed / steps_done,
+                           peak_flops=H100_BF16_PEAK_FLOPS)
         logger.log_summary({
-            "steps_per_second": step_idx / elapsed if elapsed else 0.0,
+            "steps_per_second": steps_done / elapsed if elapsed else 0.0,
             "steps_per_second_steady": sps_steady,
+            "mfu": mfu,
+            "mfu_peak_flops": H100_BF16_PEAK_FLOPS,
+            "tokens_per_second": tokens_per_second,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
             "cum_comm_bytes": logger.cum_comm_bytes,
             "final_train_loss": last_loss,
         })
-        run_eval()
-        logger.close()
+        try:
+            if not preempted:
+                run_eval()
+            if ckpt is not None:
+                if (not preempted and end_step % checkpoint_interval != 0
+                        and end_step > start_step):
+                    save_checkpoint(end_step)
+                ckpt.close()
+        finally:
+            logger.close()
+            if wd is not None:
+                wd.close()
         return FitResult(
             params=runtime.average_over_nodes(state.params),
             model_state=runtime.average_over_nodes(state.model_state),
             node_state=state,
-            steps=step_idx,
-            steps_per_second=step_idx / elapsed if elapsed > 0 else 0.0,
+            steps=end_step,
+            steps_per_second=steps_done / elapsed if elapsed > 0 else 0.0,
             final_train_loss=last_loss,
             history=history,
+            mfu=mfu,
             steps_per_second_steady=sps_steady,
+            preempted=preempted,
         )
 
 

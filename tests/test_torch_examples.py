@@ -94,7 +94,7 @@ def test_compression_strategies_train_from_the_cli(tmp_path, module, args):
 
 @pytest.mark.parametrize("module,args,word", [
     ("nanogpt", ["--pp", "2"], "pipeline"),
-    ("nanogpt", ["--ckpt", "runs/x"], "checkpoints"),
+    ("nanogpt", ["--tp", "2"], "tensor parallelism"),
     ("nanogpt", ["--network", "wan"], "network simulator"),
     ("nanogpt", ["--n_experts", "2"], "mixture-of-experts"),
     ("nanogpt", ["--dataset", "shakespeare", "--device", "cpu"],

@@ -213,3 +213,64 @@ def test_serve_package_is_walked_and_standalone():
     assert {"gym_tpu_torch.serve.engine", "gym_tpu_torch.serve.scheduler",
             "gym_tpu_torch.serve.programs"} <= names
     assert all(hasattr(tserve, n) for n in tserve.__all__)
+
+
+def _body(path, start, stop=None):
+    """The lines of ``path`` from the first starting with ``start`` up to
+    the first starting with ``stop`` (or the end), import lines apart."""
+    lines = path.read_text().splitlines()
+    i = next(n for n, ln in enumerate(lines) if ln.startswith(start))
+    j = (next(n for n, ln in enumerate(lines) if n > i
+              and ln.startswith(stop)) if stop else len(lines))
+    while not lines[j - 1].strip():
+        j -= 1
+    return [ln for ln in lines[i:j]
+            if not ln.startswith(("from ", "import "))]
+
+
+def test_checkpoint_layer_copies_pinned_to_their_originals():
+    """``utils/chaos.py`` equals its original line for line after its
+    module docstring (the port's own). ``utils/integrity.py``'s stdlib
+    part (crc32c, ``checksum_file``, the errors, the sidecars,
+    ``corrupt_checkpoint_files``) and its guard (``Guard``,
+    ``GuardRuntime``, ``_InnerGuard``) equal the original's line for line,
+    imports apart, but for two docstring lines that named the JAX
+    package's store and history; the tree functions between them are the
+    port's torch versions, and the C ``crc32c`` replaces the Python one
+    only after the copy."""
+    jdir, tdir = ROOT / "gym_tpu" / "utils", PORT / "utils"
+    assert _body(tdir / "chaos.py", "from __future__") == \
+        _body(jdir / "chaos.py", "from __future__")
+    for start, stop in (("from __future__", "# -- tree fingerprints"),
+                        ("# -- training guard", "# -- crc32c in C")):
+        got = _body(tdir / "integrity.py", start, stop)
+        want = _body(jdir / "integrity.py", start,
+                     stop if stop != "# -- crc32c in C" else None)
+        assert len(got) == len(want) > 60
+        differ = [(a, b) for a, b in zip(got, want) if a != b]
+        if start == "# -- training guard":
+            assert differ == []
+            continue
+        assert [a for a, _ in differ] == [
+            "    right after the step's files are written; the sidecar "
+            "travels with the",
+            "    verified, False when no sidecar exists (a sidecar-less "
+            "checkpoint:"]
+        assert "Orbax save finalizes" in differ[0][1]
+        assert differ[1][1].startswith(
+            "    verified, False when no sidecar exists (pre-")
+
+
+def test_checkpoint_layer_modules_are_scanned():
+    """The forbidden-import scan and the import walk reach every module of
+    the checkpoint layer."""
+    import pkgutil
+    import gym_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gym_tpu_torch.__path__,
+                                                   "gym_tpu_torch.")}
+    mods = {"utils.checkpoint", "utils.integrity", "utils.chaos",
+            "data.prefetch", "serve.load"}
+    assert {f"gym_tpu_torch.{m}" for m in mods} <= names
+    scanned = {str(p.relative_to(PORT)) for p in _port_sources()
+               if PORT in p.parents}
+    assert {m.replace(".", "/") + ".py" for m in mods} <= scanned

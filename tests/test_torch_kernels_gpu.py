@@ -40,6 +40,14 @@ chunk bit for bit; R1 (the row-invariant linear layer) against its twin and
 ``torch.matmul`` in the f32 band, in both weight layouts, its rows bit for
 bit at M = 1, 16, 80 and 1024; L1 (the row layer norm) likewise; T1's bits
 rows bit for bit against the twin.
+
+The checkpoint layer on the card: a save and restore of CUDA tensors (f32,
+bf16, int64, a host uint32 key table) is bit-equal with device and dtype
+kept, through the synchronous and the async writer (whose copy waits on the
+snapshot's event while the live tensors change), and the C ``crc32c`` the
+library builds equals the Python one; a small fit resumed at 3 ends
+byte-identical to a straight run; the prefetcher's batches on the card
+equal the synchronous path's.
 """
 
 import pytest
@@ -493,3 +501,125 @@ def test_bits_rows_match_twin_bit_for_bit(rows, n, fold):
                           dtype=torch.int32) if fold else None)
     assert torch.equal(tf.random_bits_rows(keys, data, n),
                        tf.plain_random_bits_rows(keys, data, n))
+
+
+# -- the checkpoint layer on the card ---------------------------------------
+
+
+def _tiny_fit(base, steps, tag, **kw):
+    import os
+
+    import numpy as np
+
+    from gym_tpu_torch import Trainer
+    from gym_tpu_torch.data import ContiguousGPTTrainDataset
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.strategy import DiLoCoStrategy, OptimSpec
+    toks = np.random.default_rng(0).integers(0, 65, 20_000).astype(np.int32)
+    return Trainer(GPT(GPTConfig(block_size=128, vocab_size=65, n_layer=2,
+                                 n_head=2, n_embd=64, attn_impl="flash")),
+                   ContiguousGPTTrainDataset(toks, 128)).fit(
+        strategy=DiLoCoStrategy(OptimSpec("adamw", lr=3e-4), H=2),
+        num_nodes=2, max_steps=steps, batch_size=4, val_size=0, seed=0,
+        show_progress=False, autocast=True, checkpoint_interval=3,
+        save_dir=os.path.join(str(base), "ckpt"), run_name=tag,
+        log_dir=os.path.join(str(base), "logs"), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_of_card_tensors_is_bit_equal(tmp_path, async_save):
+    import numpy as np
+
+    from gym_tpu_torch.utils.checkpoint import CheckpointManager
+    g = _card()
+    state = {"w": torch.randn(2, 300, 70, device="cuda", generator=g),
+             "h": torch.randn(2, 64, device="cuda",
+                              generator=g).bfloat16(),
+             "n": torch.arange(10, device="cuda"),
+             "rng": np.array([[1, 2 ** 32 - 1]], dtype=np.uint32),
+             "count": 4, "trace": None}
+    want = {k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in state.items()}
+    mgr = CheckpointManager(str(tmp_path), "card", async_save=async_save)
+    mgr.save_async(3, state, {"pos": [1, 2]})
+    state["w"].mul_(2.0)  # the live tensor changes behind the writer
+    mgr.wait()
+    step, got, data, _ = mgr.restore(want)
+    mgr.close()
+    assert step == 3 and data == {"pos": [1, 2]}
+    for k in ("w", "h", "n"):
+        assert got[k].device == want[k].device
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+    assert got["rng"].dtype == np.uint32
+    assert np.array_equal(got["rng"], want["rng"])
+    assert got["count"] == 4 and got["trace"] is None
+    # the params-only read straight onto the card, numpy leaves to the host
+    from gym_tpu_torch.utils.checkpoint import restore_params
+    mgr = CheckpointManager(str(tmp_path), "p", async_save=False)
+    mgr.save(1, {"params": {"w": want["w"]}, "rng": want["rng"]}, {})
+    mgr.close()
+    step, params, _ = restore_params(mgr.directory, device="cuda")
+    assert step == 1 and params["w"].is_cuda
+    assert torch.equal(params["w"], want["w"])
+
+
+@pytest.mark.gpu
+def test_native_crc32c_equals_the_python_one():
+    import os
+
+    from gym_tpu_torch.utils import integrity
+    _card()
+    for n in (0, 1, 7, 8, 9, 4097, 1 << 20):
+        data = os.urandom(n)
+        for crc in (0, 0xDEADBEEF):
+            assert integrity.crc32c(data, crc) == \
+                integrity._crc32c_python(data, crc)
+    assert integrity.crc32c(b"123456789") == 0xE3069283
+
+
+@pytest.mark.gpu
+def test_resumed_fit_is_byte_identical_on_card(tmp_path):
+    _card()
+    straight = _tiny_fit(tmp_path / "s", 6, "run")
+    _tiny_fit(tmp_path / "r", 3, "run")
+    resumed = _tiny_fit(tmp_path / "r", 6, "run")
+    assert [s for s, _ in resumed.history["train_loss"]] == [3, 4, 5]
+    read = lambda b: (b / "logs" / "run" / "train.csv").read_bytes()
+    assert read(tmp_path / "r") == read(tmp_path / "s")
+    for n, p in straight.node_state.params.items():
+        assert torch.equal(p, resumed.node_state.params[n]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spc,steps", [(1, 4), (3, 7)])
+def test_prefetched_batches_equal_the_sync_path_on_card(spc, steps):
+    import numpy as np
+
+    from gym_tpu_torch.data import ContiguousGPTTrainDataset
+    from gym_tpu_torch.data.prefetch import HostPrefetcher, dispatch_schedule
+    from gym_tpu_torch.data.sampler import (NodeBatchIterator,
+                                            resolve_node_datasets)
+    _card()
+
+    def it():
+        toks = np.random.default_rng(1).integers(0, 65, 9000)
+        d, sh = resolve_node_datasets(
+            ContiguousGPTTrainDataset(toks.astype(np.int32), 64), 4, False)
+        return NodeBatchIterator(d, 4, sharded=sh, shuffle=True, seed=2)
+
+    sched = dispatch_schedule(0, steps, spc, True)
+    pf = HostPrefetcher(it(), "cuda", sched, n_micro=2, micro_bs=3).start()
+    sync = it()
+    try:
+        for s in sched:
+            got = pf.get()
+            draws = [sync.next_batch(2, 3) for _ in range(s)]
+            for f, g in enumerate(got):
+                want = (np.stack([d[f] for d in draws], axis=1) if s > 1
+                        else draws[0][f])
+                assert g.is_cuda
+                assert np.array_equal(g.cpu().numpy(), want)
+            assert pf.consumed_state() == sync.state()
+    finally:
+        pf.close()

@@ -270,7 +270,7 @@ def test_fit_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kwarg,value", [
-    ("guard", True), ("network", "wan"), ("checkpoint_interval", 2),
+    ("correlation_interval", 2), ("network", "wan"), ("profile_dir", "p"),
     ("cp", 2), ("tp", 2), ("pp", 2), ("ep", 2)])
 def test_later_slice_kwargs_raise(kwarg, value):
     with pytest.raises(NotImplementedError):
