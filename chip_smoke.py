@@ -120,7 +120,27 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``serving_params`` of 11a's in-process result, B7, R1, L1 and T1's bits
    rows launched, and ``python -m gym_tpu_torch.examples.nanogpt --ckpt
    RUN_DIR --sample 32``, started beside 11b;
-12. the ``kernels`` JSON line, then the result line.
+12. the engine's CUDA graphs and the HTTP server, on 11a's run dir before
+   it is removed: 12a phase 10's workload through the paged engine with
+   its programs as CUDA graphs and eagerly, three runs each in turns, each
+   engine's family built first (14 graphs captured), every stream equal;
+   output tokens/s, TTFT p50/p99, peak memory, the warmup's seconds,
+   launch calls and device kernels a decode step (one chunk under
+   ``torch.profiler``) and the device busy share
+   (``scripts/profile_serve.py``'s ``profile_workload``) of each; 12b
+   ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir ``--num_slots 16
+   --decode_chunk 8`` in a subprocess with no ``--device``: its warmup
+   done, 11d's 8 requests sent together over HTTP, each stream equal to
+   the eager in-process engine's on ``load_for_serving`` of the run dir,
+   ``/stats`` with ``requests_done`` 8 and prefix hits, the SIGTERM drill
+   (rc 0, "shut down cleanly", ``tokens_per_s``, ``serve.csv``'s
+   ``ts_s,kind`` header), then a restart against the same kernel build
+   directory: the first request 200 and equal, ``programs_compiled`` 0,
+   the family's 14 graphs captured again; 12c ``create_server`` with two
+   in-process replicas, ``POST /reload`` to steps 3, 6 and 3: streams
+   after equal to a fresh engine's on step 3, peak memory after three
+   reloads within 5% of the peak after one;
+13. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -2640,12 +2660,10 @@ def serve_greedy(seed=1):
             for i in range(SERVE_GREEDY)]
 
 
-def serve_run(torch, params, cfg, work, label, **engine_kw):
-    """Phase 10's workload through ``Scheduler`` over a fresh engine:
-    the token streams, the engine, the wall time and the handles."""
-    from gym_tpu_torch.serve import (InferenceEngine, RequestStatus,
-                                     SamplingParams, Scheduler)
-    eng = InferenceEngine(params, cfg, device="cuda", **engine_kw)
+def serve_loop(torch, eng, work, label):
+    """``work`` through ``Scheduler`` over ``eng``, all submitted at once:
+    the token streams, the scheduler, the wall time and the handles."""
+    from gym_tpu_torch.serve import RequestStatus, SamplingParams, Scheduler
     sched = Scheduler(eng, max_queue=256)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2658,9 +2676,21 @@ def serve_run(torch, params, cfg, work, label, **engine_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     failed = [h for h in handles if h.status is not RequestStatus.DONE]
-    check(not failed, f"phase 10 {label}: {len(failed)} requests failed: "
+    check(not failed, f"{label}: {len(failed)} requests failed: "
           f"{[h.exception for h in failed[:3]]}")
-    return [h.result(timeout=1) for h in handles], eng, sched, wall, handles
+    return [h.result(timeout=1) for h in handles], sched, wall, handles
+
+
+def serve_run(torch, params, cfg, work, label, **engine_kw):
+    """Phase 10's workload through ``Scheduler`` over a fresh engine (its
+    programs CUDA graphs, captured at first use, unless ``cuda_graphs=
+    False``): the token streams, the engine, the wall time and the
+    handles."""
+    from gym_tpu_torch.serve import InferenceEngine
+    eng = InferenceEngine(params, cfg, device="cuda", **engine_kw)
+    got, sched, wall, handles = serve_loop(torch, eng, work,
+                                           f"phase 10 {label}")
+    return got, eng, sched, wall, handles
 
 
 def card_vs_cpu_serving(torch, params, cfg, steps=8):
@@ -3116,8 +3146,9 @@ def serve_run_dir(torch, mods, card, run2, cli):
     return {k: counts[k] for k in SERVING_KERNELS}
 
 
-def checkpoint_phase(torch, mods, card, base_sps):
-    """Phase 11 (11a-11d); the run dirs are removed after it."""
+def checkpoint_phase(torch, mods, card, base_sps, t_all):
+    """Phase 11 (11a-11d), then phase 12 on 11a's run dir; the run dirs
+    are removed after them."""
     import shutil
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3143,13 +3174,424 @@ def checkpoint_phase(torch, mods, card, base_sps):
         procs += [w[0] for w in workers.values()]
         checkpoint_faults(torch, card, workers)
         serve_run_dir(torch, mods, card, run2, (cli, cli_t0))
+        del run2
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+        log(f"phase 12: CUDA graphs against eager, the HTTP server and a "
+            f"hot swap ({time.perf_counter() - t_all:.1f} s since the "
+            f"start)")
+        graphs_phase(torch, mods, card)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 12: CUDA graphs and the HTTP server --------------------------------
+
+
+SERVE_ENGINE = dict(num_slots=16, paged=True, page_size=16, decode_chunk=8)
+# the paged family at decode_chunk 8 and block 1024: the decode chunk,
+# copy-on-write, the chunk-1 twin and the prefill buckets 1, 2, ..., 1024
+SERVE_FAMILY = 3 + 11
+# peak memory after three hot swaps against after one
+RELOAD_PEAK_RATIO = 1.05
+
+
+def pctl(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(math.ceil(q * len(xs))) - 1))]
+
+
+def step_launches(torch, params, cfg, graphs, work):
+    """Host calls that queue work on the card (kernel and graph launches,
+    copies) and device kernels and copies, per decode step: one decode
+    chunk of 16 active slots under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from gym_tpu_torch.serve import InferenceEngine, SamplingParams
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_serve import LAUNCH_CALLS
+    eng = InferenceEngine(params, cfg, device="cuda", cuda_graphs=graphs,
+                          **SERVE_ENGINE)
+    for p, kw in work[:SERVE_ENGINE["num_slots"]]:
+        eng.admit(p, SamplingParams(**kw))
+    eng.step()                        # builds the decode chunk's program
+    check(eng._active.all(), "phase 12a: a slot finished in chunk 1")
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    dev = sum(e.count for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    eng.close()
+    chunk = SERVE_ENGINE["decode_chunk"]
+    return host / chunk, dev / chunk
+
+
+def graphs_vs_eager(torch, mods, card):
+    """12a: phase 10's workload through the paged engine, eager and CUDA
+    graphs in turn (eager, graphs, three times), each engine's family
+    built first (the warmup: graphs captured, eager programs run once).
+    Every stream equal; output tokens/s, TTFT p50/p99 and peak memory of
+    each run, the warmup's seconds and captures; launches per decode
+    step; the device busy share through ``scripts/profile_serve.py``."""
+    from gym_tpu_torch.programs import (graphs_captured_counter,
+                                        warm_engine_programs)
+    from gym_tpu_torch.serve import InferenceEngine
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_serve import profile_workload
+    cfg, params, work = serve_model_cfg(), serve_params(), serve_workload()
+    runs = {False: [], True: []}
+    streams, launches = {}, {}
+    t_start = time.perf_counter()
+    for graphs in (False, True) * 3:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine(params, cfg, device="cuda",
+                              cuda_graphs=graphs, **SERVE_ENGINE)
+        g0 = graphs_captured_counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = warm_engine_programs(eng, start=False)
+        warm.run()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        captured = graphs_captured_counter() - g0
+        check(warm.stats()["warmed"] == SERVE_FAMILY,
+              f"phase 12a: warmup built {warm.stats()}")
+        check(captured == (SERVE_FAMILY if graphs else 0),
+              f"phase 12a: {captured} graphs captured (graphs={graphs})")
+        label = "graphs" if graphs else "eager"
+        reset_counts(mods)
+        got, _, wall, handles = serve_loop(torch, eng, work,
+                                           f"phase 12a {label}")
+        counts = read_counts(mods)
+        launches[graphs] = {k: counts[k] for k in SERVING_KERNELS}
+        for k in SERVING_KERNELS:
+            check(counts[k] > 0, f"phase 12a: {k} never launched ({label})")
+        ttft = [h.ttft_s for h in handles]
+        ntok = sum(len(t) for t in got)
+        runs[graphs].append(dict(
+            tps=ntok / wall, p50=pctl(ttft, 0.5), p99=pctl(ttft, 0.99),
+            peak=torch.cuda.max_memory_allocated(), warm_s=warm_s,
+            captured=captured, steps=eng.stats.decode_steps))
+        streams.setdefault(graphs, got)
+        check(got == streams[graphs], f"phase 12a: {label} streams differ "
+              f"from run to run")
+        eng.close()
+        del eng
+    check(streams[True] == streams[False], "phase 12a: the CUDA graphs' "
+          "streams differ from the eager engine's")
+    t_runs = time.perf_counter()
+    per_step = {g: step_launches(torch, params, cfg, g, work)
+                for g in (False, True)}
+    t_steps = time.perf_counter()
+    prof, tables = {}, {}
+    for g in (False, True):
+        text, prof[g] = profile_workload(torch, sys.modules[__name__],
+                                         SERVE_ENGINE, graphs=g,
+                                         warm_pass=False)
+        tables[g] = text.splitlines()[1:8]     # the top six by device time
+    t_prof = time.perf_counter()
+    log(f"phase 12a graphs against eager, phase 10's workload ({len(work)} "
+        f"requests, {sum(len(t) for t in streams[True])} tokens, paged, "
+        f"page 16, 16 slots, decode_chunk 8; three runs each, in turns; "
+        f"streams equal token for token) on {card}:")
+    for g in (False, True):
+        r = runs[g]
+        label = "graphs" if g else "eager "
+        log(f"  {label}: output tokens/s "
+            + ", ".join(f"{x['tps']:.1f}" for x in r)
+            + "; TTFT p50 " + ", ".join(f"{x['p50'] * 1e3:.1f}" for x in r)
+            + " ms, p99 " + ", ".join(f"{x['p99'] * 1e3:.1f}" for x in r)
+            + " ms; peak memory " + ", ".join(f"{x['peak'] / 2**30:.3f}"
+                                             for x in r)
+            + " GiB; warmup " + ", ".join(f"{x['warm_s']:.2f}" for x in r)
+            + f" s, {r[0]['captured']} graphs captured; "
+            f"{r[0]['steps']} decode steps; the last run's launches "
+            f"{launches[g]}")
+        host, dev = per_step[g]
+        p = prof[g]
+        log(f"    per decode step (16 slots active, one chunk profiled): "
+            f"{host:.1f} host launch calls, {dev:.1f} device kernels and "
+            f"copies; profiled run (scripts/profile_serve.py): device busy "
+            f"{p['busy']:.1%}, {p['tokens_per_s']:.1f} tokens/s under the "
+            f"profiler, host time in launches and copies "
+            f"{p['launch_ms']:.1f} ms, {p['launch_calls']} launch calls; "
+            f"its kernels by device time:")
+        for line in tables[g]:
+            log("    " + line)
+    med = {g: sorted(x["tps"] for x in runs[g])[1] for g in (False, True)}
+    log(f"  median output tokens/s: graphs {med[True]:.1f}, eager "
+        f"{med[False]:.1f} ({med[True] / med[False]:.2f}x); 12a's six runs "
+        f"{t_runs - t_start:.1f} s, the launch counts "
+        f"{t_steps - t_runs:.1f} s, "
+        f"the two profiles {t_prof - t_steps:.1f} s")
+    return {"tps": med, "busy": {g: prof[g]["busy"] for g in prof}}
+
+
+def http_json(port, path, payload=None, timeout=300):
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def generate_body(prompt, kw):
+    return {"prompt": [int(t) for t in prompt], **kw}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_server(run_dir, port, log_path):
+    """``python -m gym_tpu_torch.serve`` on 11a's run dir, with no
+    ``--device`` flag (the card by default)."""
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gym_tpu_torch.serve", "--ckpt", run_dir,
+         "--num_slots", "16", "--decode_chunk", "8", "--port", str(port)],
+        cwd=HERE, stdout=out, stderr=subprocess.STDOUT, text=True)
+    out.close()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 300:
+        with open(log_path) as f:
+            text = f.read()
+        if "listening" in text:
+            return proc, time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    proc.kill()
+    proc.communicate()
+    with open(log_path) as f:
+        raise SmokeFailure(f"phase 12b: the server did not start:\n"
+                           f"{f.read()[-3000:]}")
+
+
+def wait_warmup(port, timeout=300):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        code, stats = http_json(port, "/stats")
+        if code == 200 and stats["warmup"] and stats["warmup"]["done"]:
+            return stats
+        time.sleep(0.2)
+    raise SmokeFailure(f"phase 12b: warmup never finished: {stats}")
+
+
+def stop_server(proc, log_path, what):
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    with open(log_path) as f:
+        text = f.read()
+    check(rc == 0 and "shut down cleanly" in text and "tokens_per_s" in
+          text, f"phase 12b: {what}: SIGTERM drill failed (rc {rc}):\n"
+          f"{text[-3000:]}")
+    return next(ln for ln in text.splitlines() if "shut down cleanly" in ln)
+
+
+def server_subprocess(torch, card):
+    """12b: ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir on the
+    card (its family captured by the warmup), 11d's 8 requests sent
+    together over HTTP, each stream equal to the eager in-process engine's
+    on ``load_for_serving`` of the same run dir; ``/stats`` with prefix
+    hits; the SIGTERM drill; a restart against the same kernel build
+    directory: the first request equal, ``programs_compiled`` 0 and the
+    family captured again."""
+    import concurrent.futures
+    from gym_tpu_torch.serve.load import load_for_serving
+    run_dir = ckpt_dir("b")
+    work = serve_workload()[:8]
+    params, cfg, info = load_for_serving(run_dir)
+    want, eng, _, _, _ = serve_run(torch, params, cfg, work,
+                                   "(12b eager reference)",
+                                   cuda_graphs=False, **SERVE_ENGINE)
+    eng.close()
+    del eng, params
+    torch.cuda.empty_cache()
+    port = free_port()
+    logs = [os.path.join(CKPT_ROOT, f"server{i}.log") for i in (1, 2)]
+    t0 = time.perf_counter()
+    proc, up_s = start_server(run_dir, port, logs[0])
+    try:
+        stats = wait_warmup(port)
+        warm = stats["warmup"]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(work)) as ex:
+            outs = list(ex.map(lambda w: http_json(
+                port, "/generate", generate_body(*w)), work))
+        wall = time.perf_counter() - t1
+        check(all(c == 200 for c, _ in outs),
+              f"phase 12b: {[(c, b) for c, b in outs if c != 200][:2]}")
+        got = [b["tokens"] for _, b in outs]
+        _, stats = http_json(port, "/stats")
+    finally:
+        line = stop_server(proc, logs[0], "first server")
+    ntok = sum(len(t) for t in got)
+    log(f"phase 12b python -m gym_tpu_torch.serve --ckpt "
+        f"{os.path.relpath(run_dir, HERE)} --num_slots 16 --decode_chunk 8 "
+        f"(step {info['step']}, no --device: on {card}): listening after "
+        f"{up_s:.1f} s, warmup {warm['warmed']}/{warm['total']} programs "
+        f"in {warm['seconds']:.2f} s; {len(work)} requests together over "
+        f"HTTP, {ntok} tokens in {wall:.3f} s ({ntok / wall:.1f} output "
+        f"tokens/s); streams {'equal to' if got == want else 'DIFFER from'}"
+        f" the eager in-process engine's; /stats requests_done "
+        f"{stats['requests_done']}, prefix_hit_blocks "
+        f"{stats['prefix_hit_blocks']}, programs_compiled "
+        f"{stats['programs_compiled']}, graphs_captured "
+        f"{stats['graphs_captured']}")
+    check(got == want, "phase 12b: the server's streams differ from the "
+          "eager engine's")
+    check(stats["requests_done"] == len(work) and
+          stats["prefix_hit_blocks"] > 0 and stats["paged"],
+          f"phase 12b: /stats {stats}")
+    check(warm["warmed"] == warm["total"] == SERVE_FAMILY and
+          stats["graphs_captured"] == SERVE_FAMILY,
+          f"phase 12b: warmup {warm}, graphs {stats['graphs_captured']}")
+    csv_path = os.path.join(run_dir, "serve", "serve.csv")
+    with open(csv_path) as f:
+        header = f.readline()
+    check(header.startswith("ts_s,kind"), f"phase 12b: serve.csv header "
+          f"{header!r}")
+    log(f"  SIGTERM: rc 0, {line.split('—')[-1].strip()}; "
+        f"{os.path.relpath(csv_path, HERE)} starts {header[:10]!r}")
+    proc, up_s = start_server(run_dir, port, logs[1])
+    try:
+        code, body = http_json(port, "/generate", generate_body(*work[0]))
+        first = time.perf_counter() - t0
+        stats = wait_warmup(port)
+    finally:
+        stop_server(proc, logs[1], "restarted server")
+    log(f"  restart against build/gym_tpu_torch/: listening after "
+        f"{up_s:.1f} s, first request {code} "
+        f"({'equal' if body.get('tokens') == want[0] else 'DIFFERS'}), "
+        f"programs_compiled {stats['programs_compiled']}, graphs_captured "
+        f"{stats['graphs_captured']} (the family: {SERVE_FAMILY}); 12b "
+        f"took {first:.1f} s to the restart's first reply")
+    check(code == 200 and body["tokens"] == want[0],
+          f"phase 12b: the restart's first request {code} {body}")
+    check(stats["programs_compiled"] == 0 and
+          stats["graphs_captured"] == SERVE_FAMILY,
+          f"phase 12b: restart /stats {stats}")
+
+
+def hot_swap(torch, mods, card):
+    """12c: ``create_server`` with two in-process replicas on the card
+    over 11a's run dir (step 6); ``POST /reload`` to step 3, 6 and 3: each
+    new engine captures its family before it serves, its predecessor
+    closed; afterwards 11d's requests equal a fresh eager engine's on step
+    3's weights, and the peak memory after three reloads is within 5% of
+    the peak after one."""
+    import gc
+    import threading
+    from gym_tpu_torch.serve.__main__ import create_server
+    from gym_tpu_torch.serve.load import load_for_serving
+    run_dir = ckpt_dir("b")
+    work = serve_workload()[:8]
+
+    def reload_source(body):
+        p, _, i = load_for_serving(run_dir, step=body.get("step"))
+        return p, f"step-{i['step']}"
+
+    params, cfg, info = load_for_serving(run_dir)
+    handle = create_server(params, cfg, port=0, replicas=2,
+                           metrics_dir=os.path.join(CKPT_ROOT, "serve12c"),
+                           info=info, reload_source=reload_source,
+                           **{k: v for k, v in SERVE_ENGINE.items()
+                              if k not in ("paged", "page_size")})
+    del params
+    t = threading.Thread(target=handle.httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        check(handle.warmup.wait(timeout=300), "phase 12c: warmup hung")
+        code, _ = http_json(handle.port, "/generate",
+                            generate_body(*work[1]))
+        check(code == 200, f"phase 12c: {code} before the reloads")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        peaks, walls = [], []
+        for step in (3, CKPT_STEPS, 3):
+            code, body = http_json(handle.port, "/reload", {"step": step})
+            check(code == 200 and sorted(body["swapped"]) == [0, 1],
+                  f"phase 12c: reload to {step}: {code} {body}")
+            walls.append(body["wall_s"])
+            gc.collect()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+        reset_counts(mods)
+        outs = [http_json(handle.port, "/generate", generate_body(*w))
+                for w in work]
+        counts = read_counts(mods)
+        _, stats = http_json(handle.port, "/stats")
+    finally:
+        handle.close()
+        t.join(timeout=30)
+    del handle
+    gc.collect()
+    got = [b.get("tokens") for _, b in outs]
+    params3, _, _ = load_for_serving(run_dir, step=3)
+    want, eng, _, _, _ = serve_run(torch, params3, cfg, work,
+                                   "(12c fresh engine)", cuda_graphs=False,
+                                   **SERVE_ENGINE)
+    eng.close()
+    del eng, params3
+    log(f"phase 12c hot swap, 2 in-process replicas x 16 slots on {card}: "
+        f"POST /reload to steps 3, {CKPT_STEPS}, 3 in "
+        + ", ".join(f"{w:.2f}" for w in walls) + " s (each replica drained, "
+        f"its new engine's {SERVE_FAMILY} graphs captured, the old engine "
+        f"closed); peak memory after each reload "
+        + ", ".join(f"{p / 2**30:.3f}" for p in peaks)
+        + f" GiB ({peaks[-1] / peaks[0]:.4f}x after three, limit "
+        f"{RELOAD_PEAK_RATIO}); {len(work)} requests after: streams "
+        f"{'equal to' if got == want else 'DIFFER from'} a fresh engine's "
+        f"on step 3; /stats weight_reloads {stats['weight_reloads']}, "
+        f"step {stats['step']}, graphs_captured {stats['graphs_captured']};"
+        f" launches { {k: counts[k] for k in SERVING_KERNELS} }")
+    check(got == want, "phase 12c: streams after the hot swap differ from "
+          "a fresh engine's on the new weights")
+    check(peaks[-1] <= RELOAD_PEAK_RATIO * peaks[0],
+          f"phase 12c: peak memory grew {peaks}")
+    check(stats["weight_reloads"] == 3 and stats["step"] == 3,
+          f"phase 12c: /stats {stats}")
+    for k in SERVING_KERNELS:
+        check(counts[k] > 0, f"phase 12c: {k} never launched")
+
+
+def graphs_phase(torch, mods, card):
+    """Phase 12 (12a-12c), inside phase 11 before its run dirs go; 12a's
+    and 12c's launches counted from zero (12b's server is a process of its
+    own)."""
+    t0 = time.perf_counter()
+    graphs_vs_eager(torch, mods, card)
+    t1 = time.perf_counter()
+    server_subprocess(torch, card)
+    t2 = time.perf_counter()
+    hot_swap(torch, mods, card)
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s (12a {t1 - t0:.1f} s, "
+        f"12b {t2 - t1:.1f} s, 12c {time.perf_counter() - t2:.1f} s)")
 
 
 def main() -> int:
@@ -3325,7 +3767,7 @@ def main() -> int:
         log(f"phase 11: checkpoints, resume, preemption, the guard and a "
             f"run dir served ({time.perf_counter() - t_all:.1f} s since the "
             f"start)")
-        checkpoint_phase(torch, mods, card, sps5)
+        checkpoint_phase(torch, mods, card, sps5, t_all)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,10 +4,13 @@ compiled by its own ``nvcc``, all started together, and the objects are
 linked into one library.
 
 The library is built at first use into ``build/gym_tpu_torch/`` at the root
-of the checkout, keyed by a hash of the sources and flags, so a fresh
-checkout builds it on its first kernel launch and later processes reuse it.
-Nothing here runs at import time: the CPU tests import every module on a
-machine without ``nvcc``.
+of the checkout (``use_build_dir`` names another directory before the first
+load), keyed by a hash of the sources and flags, so a fresh checkout builds
+it on its first kernel launch and later processes reuse it. ``stats`` counts
+this process's ``nvcc`` builds and its loads from the cache: the program
+registry reports them as ``programs_compiled`` and its cache hits. Nothing
+here runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -37,8 +40,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib = None
+_build_dir = BUILD_DIR
 # the ptxas report (registers, shared memory, spills) of the last build
 build_log = ""
+# this process's builds that ran nvcc, and builds answered by the cache
+stats = {"nvcc_builds": 0, "cache_hits": 0}
 
 
 def _nvcc() -> str:
@@ -59,8 +65,23 @@ def _tag() -> str:
     return h.hexdigest()[:16]
 
 
+def use_build_dir(path: str) -> str:
+    """Build and look up the library in ``path`` from now on (a server's
+    ``--program-cache-dir``: the one artifact a restart can reuse). Raises
+    if this process already loaded the library from another directory."""
+    global _build_dir
+    path = os.path.abspath(path)
+    with _lock:
+        if _lib is not None and path != _build_dir:
+            raise RuntimeError(
+                f"the kernel library is already loaded from {_build_dir}; "
+                f"name the build directory before the first kernel launch")
+        _build_dir = path
+    return path
+
+
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"gym_kernels_{_tag()}.so")
+    return os.path.join(_build_dir, f"gym_kernels_{_tag()}.so")
 
 
 def build() -> str:
@@ -74,8 +95,9 @@ def build() -> str:
         if os.path.exists(log_path):
             with open(log_path) as f:
                 build_log = f.read()
+        stats["cache_hits"] += 1
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{path}.tmp{os.getpid()}"
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
@@ -101,6 +123,7 @@ def build() -> str:
     with open(log_path, "w") as f:
         f.write(build_log)
     os.replace(tmp, path)
+    stats["nvcc_builds"] += 1
     return path
 
 

@@ -4,17 +4,26 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
 - ``engine``: a fixed-capacity slot batch with per-slot KV caches or a
   shared page pool (prefix sharing, copy-on-write), one decode program a
   chunk shared by every request, bucketed prefill, speculative decoding and
-  park/resume, on the port's kernels (B7, R1, L1, T1's bits rows).
+  park/resume, on the port's kernels (B7, R1, L1, T1's bits rows); each
+  program staged through one pinned buffer and, on the card, a CUDA graph
+  owned by the program registry (``gym_tpu_torch.programs``).
 - ``scheduler``: the JAX package's request layer, copied: FCFS queue with
   backpressure, deadlines, admission control, prefix-aware ordering and
   preemption.
-- ``programs``: the engine's device programs as plain PyTorch callables.
+- ``programs``: the engine's device programs as plain PyTorch functions.
 - ``load``: a fit's run dir → node-averaged params and its ``GPTConfig``
   (``load_for_serving``), and the checkpoint-dir watcher.
+- ``supervisor``: the driver loop under a watchdog, rebuilding a failed or
+  wedged engine.
+- ``router``: N in-process replicas behind one health-aware router
+  (least-loaded, prefix-affine dispatch, failover, rolling hot swap).
+- ``metrics``: ``serve.csv`` and the headline (the JAX module's columns).
+- ``wire``: the length-prefixed frame codec (a copy of the JAX module's).
+- ``__main__``: ``python -m gym_tpu_torch.serve --ckpt RUN_DIR``, the HTTP
+  server.
 
-The fleet and HTTP tier (metrics, supervisor, router, worker, wire,
-autoscale, ``__main__``) and quantized serving belong to later slices of
-the port.
+The out-of-process fleet (worker processes, the process router, the
+autoscaler) is ROADMAP item 15; quantized serving is item 14a.
 """
 
 from .engine import (BlockAllocator, EngineStats, InferenceEngine,
@@ -23,10 +32,14 @@ from .engine import (BlockAllocator, EngineStats, InferenceEngine,
                      prompt_bucket)
 from .load import (CheckpointWatcher, gpt_config_from_run,
                    latest_checkpoint_step, load_for_serving, read_run_config)
+from .metrics import ServeMetrics, read_headline
+from .router import (FleetReloadError, FleetRequest, NoHealthyReplicaError,
+                     Replica, Router, build_fleet)
 from .scheduler import (AdmissionRejectedError, DeadlineExceededError,
                         EngineFailedError, QueueFullError, Request,
                         RequestCancelledError, RequestStatus, Scheduler,
                         SchedulerClosedError, SlotQuarantinedError)
+from .supervisor import Supervisor
 
 __all__ = [
     "InferenceEngine", "SamplingParams", "EngineStats", "TokenEvent",
@@ -38,4 +51,7 @@ __all__ = [
     "SlotQuarantinedError", "RequestCancelledError",
     "load_for_serving", "read_run_config", "gpt_config_from_run",
     "latest_checkpoint_step", "CheckpointWatcher",
+    "ServeMetrics", "read_headline", "Supervisor", "Router", "Replica",
+    "FleetRequest", "build_fleet", "NoHealthyReplicaError",
+    "FleetReloadError",
 ]

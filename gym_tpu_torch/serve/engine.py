@@ -41,13 +41,30 @@ sampling configuration.
 **Park/resume**: a paged slot's whole state is host bookkeeping over pinned
 pages, so a preempted request resumes byte-identical to an uncontended run.
 
-Quantized weights and KV (``weights_dtype``/``kv_dtype``) and the program
-registry's warmup (``warmup_defs``) belong to later slices and raise.
+**Programs, staged and captured.** Every device program of the engine is a
+``programs.graphs.StagedProgram`` owned by the process's program registry
+(``programs.registry``) under a key that names this engine: its inputs are
+staged through one pinned host buffer in one copy, its outputs come back in
+one copy, and on the card (``cuda_graphs=True``, the default) it is a CUDA
+graph, captured at its first use or by the background warmup over
+``warmup_defs`` (the family of the JAX engine: the prefill buckets, the
+decode chunk, the spec chunk, the chunk-1 twin, copy-on-write or admit).
+A graph holds the addresses of this engine's parameters, caches and
+staging buffers, so it belongs to this engine: ``close`` frees them all. A
+build takes ``dispatch_lock``, which ``admit`` and ``step`` hold, so a
+capture never overlaps this engine's dispatches.
+
+Quantized weights and KV (``weights_dtype``/``kv_dtype``) belong to a later
+slice and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
+import threading
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,10 +72,22 @@ import torch
 
 from ..models.nanogpt import GPT, GPTConfig, decode_config
 from ..ops import threefry
+from ..programs import (ProgramDef, ProgramOwnerClosedError, StagedProgram,
+                        default_registry)
 from ..utils.resilience import fault_point
 from . import programs
 
 PyTree = Any
+
+_ENGINE_IDS = itertools.count()
+
+
+def _release_programs(registry, keys: set) -> None:
+    """Drop an engine's registry entries and free the programs built for
+    it (graphs, their pools, the staging buffers): at ``close`` or when
+    the engine is collected, whichever comes first."""
+    for prog in registry.discard(keys):
+        prog.close()
 
 
 class NoFreeSlotError(RuntimeError):
@@ -331,7 +360,8 @@ class InferenceEngine:
                  num_slots: int = 8, decode_chunk: int = 1,
                  paged: bool = False, page_size: int = 16,
                  kv_pages: Optional[int] = None, spec_tokens: int = 0,
-                 weights_tag: Optional[str] = None, device="cuda"):
+                 weights_tag: Optional[str] = None, device="cuda",
+                 cuda_graphs: bool = True, registry=None):
         """``params``: one model's flat f32 parameters (``convert.
         serving_params`` or ``serving_params_from_jax``), moved to
         ``device`` (the card unless the caller says otherwise).
@@ -346,7 +376,12 @@ class InferenceEngine:
         allocator and a prefix hash table. ``spec_tokens=γ > 0`` (paged
         only) adds self-drafting speculative decoding with streams equal
         to the non-speculative engine's. ``weights_tag`` names the
-        parameter set served (observability only)."""
+        parameter set served (observability only).
+
+        ``cuda_graphs``: on the card, run each program as a CUDA graph
+        (False runs the same staged programs eagerly, for comparison);
+        ignored on the CPU. ``registry``: the program registry (the
+        process's by default)."""
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if decode_chunk < 1:
@@ -414,23 +449,25 @@ class InferenceEngine:
                        for n, p in params.items()}
         self.weights_bytes = int(sum(p.numel() * p.element_size()
                                      for p in self.params.values()))
-        cfg, s, chunk = self.config, self.num_slots, self.decode_chunk
-        if self.paged:
-            self._admit_prog = None
-            self._decode_prog = programs.build_paged_decode(cfg, s, chunk)
-            self._cow_prog = programs.build_cow(cfg)
-            self._spec_prog = (
-                programs.build_spec_decode(cfg, s, chunk, self.spec_tokens)
-                if self.spec_tokens else None)
-        else:
-            self._admit_prog = programs.build_slot_admit(cfg, s)
-            self._decode_prog = programs.build_slot_decode(cfg, s, chunk)
-            self._cow_prog = None
-            self._spec_prog = None
-        self._step1_prog = None          # lazy chunk-1 twin (teacher forcing)
-        self._prefill_progs: Dict[int, Any] = {}   # bucket → program
+        s = self.num_slots
+        self.uid = next(_ENGINE_IDS)
+        self.capture = bool(cuda_graphs) and self.device.type == "cuda"
+        self._registry = (registry if registry is not None
+                          else default_registry())
+        self.dispatch_lock = threading.RLock()
+        self.closed = False
+        self._handles: Dict[Tuple[str, int], Any] = {}
+        self._def_keys: set = set()
+        # the registry's entries reach this engine only weakly (their
+        # builders), so an engine dropped without close frees its
+        # programs too
+        self._release = weakref.finalize(self, _release_programs,
+                                         self._registry, self._def_keys)
         self._seen_buckets: set = set()
         self._cache = self._model.init_cache(s, self.device)
+        # unpaged: the prefill's single-row cache, admitted into a slot
+        self._row_cache = (None if self.paged
+                           else self._model.init_cache(1, self.device))
         if self.paged:
             self._bt = np.zeros((s, self.max_blocks), np.int32)
             self._pos = np.zeros(s, np.int32)          # per-slot KV cursor
@@ -453,29 +490,170 @@ class InferenceEngine:
 
     # -- device programs --------------------------------------------------
 
-    def warmup_defs(self) -> List[Any]:
-        raise NotImplementedError(
-            "the program registry's warmup (a CUDA-graph capture analog) "
-            "is ported in a later slice of gym_tpu_torch")
+    def _def(self, kind: str, n: int = 0) -> ProgramDef:
+        """The ``ProgramDef`` of one program of this engine: ``kind`` is
+        ``decode`` (``n`` its chunk), ``spec``, ``cow``, ``admit`` or
+        ``prefill`` (``n`` its bucket). Its inputs are the builder's
+        arguments that vary per call, each staged by name; the warm values
+        make the run before a capture harmless (inactive rows write only
+        the null page or their own cursor position, which a live row
+        overwrites before reading)."""
+        cfg, s, v = self.config, self.num_slots, self.config.vocab_size
+        i32, f32 = np.int32, np.float32
+        sampling_warm = {"temp": 1.0, "top_k": v, "top_p": 1.0}
+
+        def sampling(rows, key):
+            return {key: ((rows, 2), i32), "temp": ((rows,), f32),
+                    "top_k": ((rows,), i32), "top_p": ((rows,), f32)}
+
+        warm: Dict[str, Any] = {}
+        if kind in ("decode", "spec"):
+            inputs = {"tok": ((s,), i32), "active": ((s,), np.bool_),
+                      "gen_idx": ((s,), i32), "remaining": ((s,), i32),
+                      "eos": ((s,), i32), **sampling(s, "base_keys")}
+            warm = dict(sampling_warm, eos=-1)
+            if self.paged:
+                inputs.update(bt=((s, self.max_blocks), i32),
+                              pos=((s,), i32))
+            if kind == "spec":
+                inputs["hist"] = ((s, self.block_size), i32)
+                build = programs.build_spec_decode(cfg, s, n,
+                                                   self.spec_tokens)
+                name = (f"serve.spec_decode[slots={s},chunk={n},"
+                        f"gamma={self.spec_tokens}]")
+            elif self.paged:
+                build = programs.build_paged_decode(cfg, s, n)
+                name = f"serve.paged_decode[slots={s},chunk={n}]"
+            else:
+                build = programs.build_slot_decode(cfg, s, n)
+                name = f"serve.decode[slots={s},chunk={n}]"
+            fn = functools.partial(build, self.params, self._cache)
+        elif kind == "prefill":
+            inputs = {"tokens": ((1, n), i32), **sampling(1, "key")}
+            warm = sampling_warm
+            if self.paged:
+                inputs.update(bt_row=((1, self.max_blocks), i32),
+                              start=((1,), i32), true_suffix=((1,), i32))
+                warm = dict(warm, true_suffix=1)
+                name = f"serve.paged_prefill[bucket={n}]"
+                fn = functools.partial(programs.build_paged_prefill(cfg, n),
+                                       self.params, self._cache)
+            else:
+                inputs["true_len"] = ((1,), i32)
+                warm = dict(warm, true_len=1)
+                name = f"serve.prefill[bucket={n}]"
+                fn = functools.partial(programs.build_prefill(cfg, n),
+                                       self.params, self._row_cache)
+        elif kind == "cow":
+            inputs = {"src": ((1,), i32), "dst": ((1,), i32)}
+            name = f"serve.cow[page={self.page_size}]"
+            fn = functools.partial(programs.build_cow(cfg), self._cache)
+        elif kind == "admit":
+            inputs = {"slot": ((1,), i32), "true_len": ((1,), i32)}
+            name = f"serve.admit[slots={s}]"
+            fn = functools.partial(programs.build_slot_admit(cfg, s),
+                                   self._cache, self._row_cache)
+        else:
+            raise ValueError(f"unknown program kind {kind!r}")
+
+        owner = weakref.ref(self)
+        uid, device, capture = self.uid, self.device, self.capture
+
+        def builder():
+            eng = owner()
+            if eng is None or eng.closed:
+                raise ProgramOwnerClosedError(
+                    f"{name}: engine {uid} was closed")
+            w = warm
+            if kind == "admit":
+                # the run before a capture writes the slot it names: a
+                # free one (an admit is built before every slot fills)
+                free = eng.free_slots()
+                if not free:
+                    raise RuntimeError(f"{name}: no free slot to warm on")
+                w = {"slot": free[0], "true_len": 1}
+            return StagedProgram(name, fn, inputs, device,
+                                 capture=capture, warm=w)
+
+        pdef = ProgramDef(
+            name=name, config={"engine": self.uid, "config": self.config,
+                    "device": str(self.device), "graph": self.capture},
+            args=tuple(inputs.items()), builder=builder,
+            lock=self.dispatch_lock)
+        self._def_keys.add(pdef.key()[1])
+        return pdef
+
+    def _program(self, kind: str, n: int = 0):
+        """This engine's registry handle for one program, pinned for the
+        engine's lifetime."""
+        h = self._handles.get((kind, n))
+        if h is None:
+            if self.closed:
+                raise ProgramOwnerClosedError(
+                    f"engine {self.uid} was closed")
+            h = self._registry.acquire(self._def(kind, n), pin_owner=self)
+            self._handles[(kind, n)] = h
+        return h
+
+    def warmup_defs(self) -> List[ProgramDef]:
+        """This engine's complete program family, which the background
+        warmup builds so that no request pays a capture: the decode chunk
+        (and the spec chunk), copy-on-write (paged) or admit (unpaged),
+        the chunk-1 twin (teacher forcing) where it differs, and every
+        power-of-two prefill bucket up to ``block_size``, traffic-critical
+        first."""
+        buckets: List[int] = []
+        b = 1
+        while b < self.block_size:
+            buckets.append(b)
+            b <<= 1
+        buckets.append(self.block_size)
+        chunk = self.decode_chunk
+        defs = [self._def("decode", chunk)]
+        if self.paged:
+            if self.spec_tokens:
+                defs.append(self._def("spec", chunk))
+            defs.append(self._def("cow"))
+            if chunk != 1 or self.spec_tokens:
+                defs.append(self._def("decode", 1))
+        else:
+            defs.append(self._def("admit"))
+            if chunk != 1:
+                defs.append(self._def("decode", 1))
+        defs.extend(self._def("prefill", b) for b in buckets)
+        return defs
 
     def _prefill_prog(self, bucket: int):
-        """This bucket's prefill program; ``stats.prefill_compiles`` counts
-        the buckets this engine built one for (the bounded-program
-        observable: nothing compiles, but each bucket is one shape)."""
-        prog = self._prefill_progs.get(bucket)
-        if prog is None:
-            prog = (programs.build_paged_prefill(self.config, bucket)
-                    if self.paged
-                    else programs.build_prefill(self.config, bucket))
-            self._prefill_progs[bucket] = prog
+        """This bucket's prefill program, ensured built;
+        ``stats.prefill_compiles`` counts the buckets whose program this
+        engine's own request built (a program the warmup built first is a
+        hit, not a build)."""
+        h = self._program("prefill", bucket)
+        if h.ensure_reporting():
             self.stats.prefill_compiles += 1
-        return prog
+        return h
 
-    def _dev(self, x) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-    def _keys(self, keys: np.ndarray) -> torch.Tensor:
-        return self._dev(keys.view(np.int32))
+    def close(self, wait_s: float = 30.0) -> None:
+        """Tear the engine down: drop its registry entries and free its
+        graphs, staging buffers and caches. Waits up to ``wait_s`` for a
+        dispatch in flight; a wedged one (past it) keeps what it runs on
+        until its thread lets go. Idempotent."""
+        got = self.dispatch_lock.acquire(timeout=max(0.0, wait_s))
+        try:
+            self.closed = True
+            self._handles.clear()
+            if got:
+                self._release()
+                self.params = {}
+                self._cache.clear()
+            else:
+                # what the wedged thread runs on stays until it lets go
+                self._registry.discard(self._def_keys)
+                if self._row_cache is not None:
+                    self._row_cache.clear()
+        finally:
+            if got:
+                self.dispatch_lock.release()
 
     # -- slot lifecycle ---------------------------------------------------
 
@@ -627,6 +805,10 @@ class InferenceEngine:
         Returns ``(slot, event)``; when the first token already finishes
         the request (``max_new_tokens == 1`` or instant EOS) the slot is
         released before returning."""
+        with self.dispatch_lock:
+            return self._admit(prompt, sp)
+
+    def _admit(self, prompt, sp: SamplingParams) -> Tuple[int, TokenEvent]:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.validate(prompt, sp)
         free = self.free_slots()
@@ -650,14 +832,11 @@ class InferenceEngine:
             prefill = self._prefill_prog(bucket)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :n] = prompt
-            with torch.no_grad():
-                tok, row_cache = prefill(
-                    self.params, self._dev(padded), n,
-                    self._keys(base_key[None]),
-                    *self._sampling_row(sp.temperature, top_k, top_p))
-                self._cache = self._admit_prog(self._cache, row_cache,
-                                               slot, n)
-            first = int(tok.cpu()[0])
+            tok, = prefill(tokens=padded, true_len=n,
+                           **self._sampling_row(base_key, sp.temperature,
+                                                top_k, top_p))
+            self._program("admit")(slot=slot, true_len=n)
+            first = int(tok[0])
             self.stats.prefill_tokens += bucket
         self.stats.prefills += 1
         self.stats.tokens_generated += 1
@@ -728,8 +907,7 @@ class InferenceEngine:
                 held.append(dst)
                 row[next_b] = dst
                 next_b += 1
-                with torch.no_grad():
-                    self._cache = self._cow_prog(self._cache, cow_src, dst)
+                self._program("cow")(src=cow_src, dst=dst)
                 al.decref(cow_src)       # pinned only for the copy
                 held.remove(cow_src)
             for k in range(n_new):
@@ -742,13 +920,10 @@ class InferenceEngine:
             prefill = self._prefill_prog(bucket)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :suffix] = prompt[start:]
-            with torch.no_grad():
-                tok, self._cache = prefill(
-                    self.params, self._cache,
-                    self._dev(self._bt[slot][None]),
-                    self._dev(np.asarray([start], np.int32)),
-                    self._dev(padded), suffix, self._keys(base_key[None]),
-                    *self._sampling_row(sp.temperature, top_k, top_p))
+            tok, = prefill(bt_row=self._bt[slot][None], start=start,
+                           tokens=padded, true_suffix=suffix,
+                           **self._sampling_row(base_key, sp.temperature,
+                                                top_k, top_p))
         except BaseException:
             for pg in held:
                 al.decref(pg)
@@ -777,7 +952,7 @@ class InferenceEngine:
         self.stats.prefill_tokens += bucket
         self.stats.kv_blocks_in_use = al.in_use()
         self.stats.kv_blocks_cached = al.cached()
-        return int(tok.cpu()[0])
+        return int(tok[0])
 
     def _release_pages(self, slot: int) -> None:
         """Drop this slot's block-table references (idempotent: an
@@ -887,11 +1062,12 @@ class InferenceEngine:
         self.stats.kv_blocks_in_use = self._alloc.in_use()
         self.stats.kv_blocks_cached = self._alloc.cached()
 
-    def _sampling_row(self, temp: float, top_k: int, top_p: float):
-        """One request's sampling parameters as [1] tensors."""
-        return (self._dev(np.asarray([temp], np.float32)),
-                self._dev(np.asarray([top_k], np.int32)),
-                self._dev(np.asarray([top_p], np.float32)))
+    @staticmethod
+    def _sampling_row(base_key, temp: float, top_k: int, top_p: float):
+        """One request's key and sampling parameters, the prefill's staged
+        inputs."""
+        return {"key": base_key[None].view(np.int32), "temp": temp,
+                "top_k": top_k, "top_p": top_p}
 
     def step(self, override_tokens: Optional[Dict[int, int]] = None
              ) -> List[TokenEvent]:
@@ -906,65 +1082,50 @@ class InferenceEngine:
         (``self.last_logits``) are the model's prediction conditioned on
         the forced history, while sampling proceeds normally.
         """
-        prog = self._decode_prog
-        spec_run = self._spec_prog is not None
+        with self.dispatch_lock:
+            return self._step(override_tokens)
+
+    def _step(self, override_tokens) -> List[TokenEvent]:
+        kind, chunk = "decode", self.decode_chunk
+        spec_run = bool(self.spec_tokens)
         if override_tokens:
             for slot, tok in override_tokens.items():
                 self._next_tok[slot] = int(tok)
-            spec_run = False
-            if self.decode_chunk != 1 or self._spec_prog is not None:
-                if self._step1_prog is None:
-                    self._step1_prog = (
-                        programs.build_paged_decode(self.config,
-                                                    self.num_slots, 1)
-                        if self.paged
-                        else programs.build_slot_decode(self.config,
-                                                        self.num_slots, 1))
-                prog = self._step1_prog
+            spec_run, chunk = False, 1
         elif spec_run:
-            prog = self._spec_prog
+            kind = "spec"
         if not self._active.any():
             return []
         # hit-counted AFTER the idle early-out so hit N is the Nth REAL
         # decode dispatch — "hang at dispatch 2" reproduces exactly
         fault_point("serve.decode")
         was_active = self._active.copy()
-        remaining = (self._max_new - self._generated).astype(np.int32)
-        tail = (self._dev(self._next_tok), self._dev(self._active),
-                self._keys(self._base_keys), self._dev(self._gen_idx),
-                self._dev(remaining), self._dev(self._eos.astype(np.int32)),
-                self._dev(self._temp), self._dev(self._top_k),
-                self._dev(self._top_p))
-        with torch.no_grad():
-            if self.paged:
-                head = (self.params, self._cache, self._dev(self._bt))
-                if spec_run:
-                    head += (self._dev(self._hist),)
-                tok_a, act_a, keys_a, gidx_a, rem_a, eos_a, t_a, k_a, p_a = \
-                    tail
-                toks, emitted, lg, final_tok, final_active, final_pos, \
-                    nan_seen, cache = prog(*head, tok_a, act_a,
-                                           self._dev(self._pos), keys_a,
-                                           gidx_a, rem_a, eos_a, t_a, k_a,
-                                           p_a)
-                self._pos = final_pos.cpu().numpy().astype(np.int32)
-                nan_seen = nan_seen.cpu().numpy()
-            else:
-                toks, emitted, lg, final_tok, final_active, cache = prog(
-                    self.params, self._cache, *tail)
-                nan_seen = None
-        self._cache = cache
-        toks = toks.cpu().numpy()
-        emitted = emitted.cpu().numpy()
+        rows = dict(tok=self._next_tok, active=self._active,
+                    base_keys=self._base_keys.view(np.int32),
+                    gen_idx=self._gen_idx,
+                    remaining=self._max_new - self._generated,
+                    eos=self._eos, temp=self._temp, top_k=self._top_k,
+                    top_p=self._top_p)
+        prog = self._program(kind, chunk)
+        if self.paged:
+            rows.update(bt=self._bt, pos=self._pos)
+            if spec_run:
+                rows["hist"] = self._hist
+            toks, emitted, lg, final_tok, final_active, final_pos, \
+                nan_seen = prog(**rows)
+            self._pos = final_pos
+        else:
+            toks, emitted, lg, final_tok, final_active = prog(**rows)
+            nan_seen = None
         if toks.ndim == 2:
             # non-speculative programs emit one token per scanned step;
             # widen to the speculative [chunk, S, γ+1] layout so ONE host
             # replay path routes both
             toks = toks[..., None]
             emitted = emitted[..., None]
-        self.last_logits = lg.float().cpu().numpy()
-        self._next_tok = final_tok.cpu().numpy().astype(np.int32)
-        self._active = final_active.cpu().numpy().copy()
+        self.last_logits = lg
+        self._next_tok = final_tok
+        self._active = final_active
         # numerical quarantine: non-finite logits fail ONLY their own
         # slot — the model's per-row cache math keeps rows isolated (and
         # the decode attends NaN-poison an overflowing row/position on

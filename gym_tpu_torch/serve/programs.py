@@ -1,21 +1,24 @@
 """The serving engine's device programs (counterpart of
 ``gym_tpu/programs/serve_defs.py``'s builders).
 
-Each ``build_*`` returns a plain PyTorch callable with the JAX builder's
-arguments and returns: the bucketed prefill, the admit scatter, the fused
-``decode_chunk`` loop, and the paged family (prefix-aware paged prefill,
-copy-on-write page copy, paged decode, fused draft-and-verify speculative
-decode). Nothing compiles: the builder closes over the model. The caches
-are updated in place where the JAX programs donate them, and each callable
-returns the cache it was given.
+Each ``build_*`` returns a plain PyTorch function of device tensors with
+the JAX builder's arguments: the bucketed prefill, the admit scatter, the
+fused ``decode_chunk`` loop, and the paged family (prefix-aware paged
+prefill, copy-on-write page copy, paged decode, fused draft-and-verify
+speculative decode). The caches are updated in place where the JAX
+programs donate them, and a function returns only what the host reads.
+
+Every input that varies from call to call is a device tensor, never a host
+scalar (the prefill's true length, the admitted slot, the copy-on-write
+pages), and no function reads anything back to the host: each is one
+``programs.graphs.StagedProgram``, which stages its inputs in one copy and,
+on the card, captures it as a CUDA graph. The engine's ``warmup_defs``
+names the family for the registry.
 
 A decode chunk keeps the slots' lifecycle on the device (active, remaining,
 EOS, the latched NaN quarantine): its ``chunk`` steps read nothing back to
 the host, and their keys are folded on the card from the slots' base keys
 and step indices (``threefry.random_bits_rows``).
-
-The registry's ``ProgramDef``s are not ported: there is nothing to compile
-ahead of time (CUDA graphs are a later slice's).
 """
 
 from __future__ import annotations
@@ -32,32 +35,38 @@ def _col(x: torch.Tensor) -> torch.Tensor:
 def build_prefill(cfg: GPTConfig, bucket: int):
     model = GPT(cfg)
 
-    def prefill(params, tokens, true_len, key, temp, top_k, top_p):
-        """tokens [1, bucket] right-padded; returns the sampled first token
-        [1] and a fresh single-row cache filled by the prompt. The first
-        token is sampled at the true last prompt position with key index 0
-        of the request's schedule."""
-        cache = model.init_cache(1, tokens.device)
-        logits = model.decode(params, tokens, cache,
-                              logits_at=int(true_len) - 1)[:, 0]
+    def prefill(params, row_cache, tokens, true_len, key, temp, top_k,
+                top_p):
+        """tokens [1, bucket] right-padded, ``true_len`` [1]; fills the
+        single-row cache ``row_cache`` from position 0 and returns the
+        sampled first token [1], at the true last prompt position with key
+        index 0 of the request's schedule. The row's K/V past the bucket
+        are left from an earlier prompt: nothing reads a position past a
+        row's cursor."""
+        pos = row_cache["pos"]
+        pos.zero_()
+        logits = model.decode(params, tokens, row_cache,
+                              logits_at=true_len - 1)[:, 0]
+        row_cache["pos"] = pos
         zero = torch.zeros(1, dtype=torch.int32, device=tokens.device)
         tok = sample_logits(logits, key, temp, top_k, top_p, zero)
-        return tok, cache
+        return (tok.to(torch.int32),)
 
     return prefill
 
 
 def build_slot_admit(cfg: GPTConfig, num_slots: int):
     def admit(cache, row_cache, slot, true_len):
-        """Copy a freshly prefilled single-row cache into slot ``slot`` and
-        rewind its cursor to ``true_len`` (the pad K/V past it stays,
-        masked until decode overwrites it)."""
+        """Copy the prefilled single-row cache into slot ``slot`` [1] and
+        rewind its cursor to ``true_len`` [1] (the pad K/V past it stays,
+        masked until decode overwrites it); returns the cursors."""
+        idx = slot.long()
         for name, c in cache.items():
             if name == "pos":
-                c[slot] = int(true_len)
+                c.index_copy_(0, idx, true_len)
             else:
-                c[slot].copy_(row_cache[name][0])
-        return cache
+                c.index_copy_(0, idx, row_cache[name])
+        return (cache["pos"],)
 
     return admit
 
@@ -72,14 +81,15 @@ def build_slot_decode(cfg: GPTConfig, num_slots: int, chunk: int):
         and sampling vectors; a slot that reaches EOS or its budget turns
         inactive and freezes (its token and cursor stop). Returns ``(toks
         [chunk, S], emitted [chunk, S], last_logits [S, V], final_tok,
-        final_active, cache)``."""
+        final_active)``; the cursors advance in place."""
         act, gidx, rem = active, gen_idx, remaining
         toks, emits = [], []
         lg = None
+        pos = cache["pos"]
         for _ in range(chunk):
-            old_pos = cache["pos"]
             lg = model.decode(params, tok[:, None], cache)[:, 0]
-            cache["pos"] = torch.where(act, cache["pos"], old_pos)
+            pos.copy_(torch.where(act, cache["pos"], pos))
+            cache["pos"] = pos
             nxt = sample_logits(lg, base_keys, temp, top_k, top_p, gidx)
             nxt = torch.where(act, nxt.to(torch.int32), tok)
             emits.append(act)
@@ -88,7 +98,7 @@ def build_slot_decode(cfg: GPTConfig, num_slots: int, chunk: int):
             done = act & ((rem <= 0) | ((eos >= 0) & (nxt == eos)))
             toks.append(nxt)
             tok, act = nxt, act & ~done
-        return (torch.stack(toks), torch.stack(emits), lg, tok, act, cache)
+        return (torch.stack(toks), torch.stack(emits), lg, tok, act)
 
     return decode
 
@@ -100,27 +110,29 @@ def build_paged_prefill(cfg: GPTConfig, bucket: int):
                 temp, top_k, top_p):
         """Prefix-aware paged prefill of the suffix the prefix cache could
         not supply: ``tokens`` [1, bucket] right-padded from position
-        ``start`` [1], attending to the resident prefix through
-        ``bt_row``; samples the first token (key index 0) at the true last
-        prompt position. The suffix K/V go into the pool in place."""
+        ``start`` [1], ``true_suffix`` [1] long, attending to the resident
+        prefix through ``bt_row``; returns the first token [1] (key index
+        0) sampled at the true last prompt position. The suffix K/V go
+        into the pool in place."""
         logits = model.decode(params, tokens, cache, block_table=bt_row,
                               cache_pos=start,
-                              logits_at=int(true_suffix) - 1)[:, 0]
+                              logits_at=true_suffix - 1)[:, 0]
         zero = torch.zeros(1, dtype=torch.int32, device=tokens.device)
         tok = sample_logits(logits, key, temp, top_k, top_p, zero)
-        return tok, cache
+        return (tok.to(torch.int32),)
 
     return prefill
 
 
 def build_cow(cfg: GPTConfig):
-    """Copy page ``src`` to ``dst`` in every layer's K and V pool: the
-    copy-on-write of a shared block that must be appended into."""
+    """Copy page ``src`` [1] to ``dst`` [1] in every layer's K and V pool:
+    the copy-on-write of a shared block that must be appended into."""
 
     def cow(cache, src, dst):
+        s, d = src.long(), dst.long()
         for c in cache.values():
-            c[int(dst)].copy_(c[int(src)])
-        return cache
+            c.index_copy_(0, d, c.index_select(0, s))
+        return (dst,)
 
     return cow
 
@@ -154,7 +166,7 @@ def build_paged_decode(cfg: GPTConfig, num_slots: int, chunk: int):
             toks.append(nxt)
             tok, act = nxt, act & ~done
         return (torch.stack(toks), torch.stack(emits), lg, tok, act, pos,
-                nanc, cache)
+                nanc)
 
     return decode
 
@@ -204,10 +216,13 @@ def build_spec_decode(cfg: GPTConfig, num_slots: int, chunk: int,
         rows = torch.arange(s, device=dev)
         act, gidx, rem = active, gen_idx, remaining
         nanc = torch.zeros_like(active)
-        keys = base_keys.repeat_interleave(g1, dim=0)
-
         def per_pos(x):
-            return x.repeat_interleave(g1, dim=0)
+            # each row g1 times in a row (repeat_interleave by a python int
+            # may copy its count to the card: no copy may enter a capture)
+            return x.unsqueeze(1).expand(x.shape[0], g1, *x.shape[1:]) \
+                .reshape(x.shape[0] * g1, *x.shape[1:])
+
+        keys = per_pos(base_keys)
 
         rtemp, rtop_k, rtop_p = per_pos(temp), per_pos(top_k), per_pos(top_p)
         toks, emits = [], []
@@ -255,6 +270,6 @@ def build_spec_decode(cfg: GPTConfig, num_slots: int, chunk: int,
             tok, act = new_tok, act & ~done
             pos, gidx = pos + m, gidx + m
         return (torch.stack(toks), torch.stack(emits), lg, tok, act, pos,
-                nanc, cache)
+                nanc)
 
     return spec

@@ -48,6 +48,16 @@ snapshot's event while the live tensors change), and the C ``crc32c`` the
 library builds equals the Python one; a small fit resumed at 3 ends
 byte-identical to a straight run; the prefetcher's batches on the card
 equal the synchronous path's.
+
+The serving engine's CUDA graphs (``gym_tpu_torch.programs``): an engine
+whose programs replay as graphs and one that runs the same staged programs
+eagerly, driven through the same calls (every prefill bucket used, the
+decode and spec chunks, copy-on-write, the chunk-1 twin; unpaged, the
+admit), give the same tokens, last logits and caches bit for bit, every
+program of the graphed engine is a captured graph, and the kernels' launch
+counters read the same after both; a capture on one engine while another
+engine's driver thread dispatches (and a warmup capturing on an engine
+whose own requests arrive meanwhile) neither errors nor changes a stream.
 """
 
 import pytest
@@ -623,3 +633,146 @@ def test_prefetched_batches_equal_the_sync_path_on_card(spc, steps):
             assert pf.consumed_state() == sync.state()
     finally:
         pf.close()
+
+
+# -- the serving engine's CUDA graphs ---------------------------------------
+
+
+def _serving_kernels():
+    return (tdec.decode_attention, trow.row_linear, trow.row_layer_norm,
+            tf.random_bits_rows)
+
+
+def _tiny_engine(paged, graphs, seed=0):
+    import numpy as np
+
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
+    from gym_tpu_torch.serve import InferenceEngine
+    cfg = GPTConfig(block_size=64, vocab_size=96, n_layer=2, n_head=2,
+                    n_embd=64)
+    params = GPT(cfg).init_params(1, seed, "cuda")
+    params = {n: p[0] for n, p in params.items()}
+    kw = (dict(paged=True, page_size=8, spec_tokens=2) if paged else {})
+    return InferenceEngine(params, cfg, num_slots=4, decode_chunk=4,
+                           device="cuda", cuda_graphs=graphs, **kw), np
+
+
+def _drive(eng, np):
+    """Every program of the family: prompts in buckets 4, 16 and 32 (one
+    repeated whole, a full-block match: copy-on-write), sampled and
+    greedy, a teacher-forced step (the chunk-1 twin), then decode to the
+    end. Returns the events and the last logits of every step."""
+    from gym_tpu_torch.serve import SamplingParams
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 96, 16).astype(np.int32)
+    work = [(rng.integers(0, 96, 3).astype(np.int32),
+             SamplingParams(max_new_tokens=9, temperature=0.8, top_k=7,
+                            seed=1)),
+            (shared, SamplingParams(max_new_tokens=12, top_k=1, seed=2)),
+            (rng.integers(0, 96, 20).astype(np.int32),
+             SamplingParams(max_new_tokens=10, top_p=0.9, seed=3))]
+    out, logits = [], []
+
+    def step(**kw):
+        before = eng._active.copy()
+        out.extend(eng.step(**kw))
+        # the rows active through the whole chunk: a finished row reads
+        # the null page, whose bytes are whichever inactive row's write
+        # landed last (paged), on either path
+        logits.append(eng.last_logits[before & eng._active])
+
+    for p, sp in work:
+        out.append(eng.admit(p, sp)[1])
+    step(override_tokens={int(np.nonzero(eng._active)[0][0]): 5})
+    if eng.paged:                      # the full-block match: CoW
+        out.append(eng.admit(shared, SamplingParams(max_new_tokens=4,
+                                                    top_k=1))[1])
+    for _ in range(40):
+        if not eng._active.any():
+            break
+        step()
+    return [(e.slot, e.token, e.finished) for e in out], logits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_graph_replays_equal_eager_calls_bit_for_bit(paged):
+    _card()
+    import numpy as np
+    runs = {}
+    for graphs in (False, True):
+        for w in _serving_kernels():
+            w.launches = 0
+        eng, _ = _tiny_engine(paged, graphs)
+        events, logits = _drive(eng, np)
+        torch.cuda.synchronize()
+        runs[graphs] = (events, logits, {k: v.clone() for k, v in
+                                         eng._cache.items()},
+                        [w.launches for w in _serving_kernels()], eng)
+    (ev0, lg0, c0, n0, eager), (ev1, lg1, c1, n1, graphed) = \
+        runs[False], runs[True]
+    assert ev1 == ev0
+    assert len(lg1) == len(lg0) and all(
+        np.array_equal(a, b, equal_nan=True) for a, b in zip(lg1, lg0))
+    # the caches past the null page (page 0, the paged engine's
+    # write-redirect target for inactive rows)
+    first = 1 if paged else 0
+    assert all(torch.equal(c1[k][first:], c0[k][first:]) for k in c0)
+    assert n1 == n0 and all(n > 0 for n in n1)
+    progs = [h._fn for h in graphed._handles.values()]
+    kinds = {k for k, _ in graphed._handles}
+    assert kinds == ({"decode", "spec", "cow", "prefill"} if paged
+                     else {"decode", "admit", "prefill"})
+    assert progs and all(p.captured for p in progs)
+    assert not any(h._fn.captured for h in eager._handles.values())
+    graphed.close()
+    eager.close()
+
+
+@pytest.mark.gpu
+def test_capture_beside_a_dispatch_on_another_thread():
+    """Engine A serves on its driver thread while the warmup captures
+    engine B's family and then A's own (under A's dispatch lock): no
+    error, and A's streams equal an eager engine's."""
+    _card()
+    import threading
+
+    import numpy as np
+
+    from gym_tpu_torch.programs import (graphs_captured_counter,
+                                        warm_engine_programs)
+    from gym_tpu_torch.serve import RequestStatus, SamplingParams, Scheduler
+    rng = np.random.default_rng(9)
+    work = [(rng.integers(0, 96, int(n)).astype(np.int32),
+             SamplingParams(max_new_tokens=12, temperature=0.9, top_k=9,
+                            seed=i))
+            for i, n in enumerate(rng.integers(2, 40, 12))]
+
+    def serve(eng):
+        sched = Scheduler(eng, max_queue=64)
+        hs = [sched.submit(p, sp) for p, sp in work]
+        for _ in range(10_000):
+            if all(h.status in (RequestStatus.DONE, RequestStatus.FAILED)
+                   for h in hs):
+                break
+            sched.step()
+        return [h.result(timeout=5) for h in hs]
+
+    ref_eng, _ = _tiny_engine(True, False)
+    ref = serve(ref_eng)
+    a, _ = _tiny_engine(True, True)
+    b, _ = _tiny_engine(True, True, seed=1)
+    got = {}
+    graphs0 = graphs_captured_counter()
+    t = threading.Thread(target=lambda: got.update(a=serve(a)))
+    warm = warm_engine_programs([b, a])
+    t.start()
+    t.join(timeout=300)
+    assert warm.wait(timeout=300) and not t.is_alive()
+    assert warm.stats()["warmed"] == warm.stats()["total"]
+    assert got["a"] == ref
+    # B's family captured whole; A's programs were captured by the
+    # warmup or by its own first use, never twice
+    assert graphs_captured_counter() - graphs0 == warm.stats()["total"]
+    for e in (a, b, ref_eng):
+        e.close()
