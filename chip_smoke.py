@@ -140,7 +140,36 @@ Phases (any failure exits non-zero before the result lines are printed):
    in-process replicas, ``POST /reload`` to steps 3, 6 and 3: streams
    after equal to a fresh engine's on step 3, peak memory after three
    reloads within 5% of the peak after one;
-13. the ``kernels`` JSON line, then the result line.
+13. quantized serving, on 11a's run dir before it is removed: 13a B6
+   (``row_qlinear``: R1 over int8/int4 weights) at GPT-2 base's
+   [16, 768] x [768, 3072], its lm head [16, 768] x wte^T (``[V, C]`` read
+   transposed) and a [1024, 768] x [768, 3072] prefill, int8 and int4, and
+   B7 int8 at decode (b=16, t=1, cursors 16-576, page 16) and prefill
+   (b=1, t=512): each bit for bit the f32 kernel (R1, B7) on the
+   dequantized operands, beside its plain version, every B6 row bit for
+   bit at M = 1, 16, 80 and 1024, ``kv_quantize`` on the card bit for bit
+   the CPU's; then each timed beside its bound, its plain version and its
+   yardstick (``dequantize_tiles`` then ``torch.matmul``; ``kv_dequantize``
+   then SDPA on the gathered window); 13b phase 10's workload through the
+   paged engine under int8 weights and int8 KV on CUDA graphs, three runs
+   in turns with f32 graphs (output tokens/s, TTFT p50/p99, peak memory,
+   graphs captured, launches), the streams equal to an eager int8 run's
+   and to the card's quantized ``generate_fast``, the card's quantized
+   logits within rtol 1e-4 of the CPU's, and one run under int4 weights
+   and embedding equal to its own ``generate_fast``; 13c distinct
+   one-block prompts (300: more than the int8 pool holds) at page 16
+   through an f32 pool of 66 pages and an int8 pool of 261 (equal payload
+   bytes): the int8 payload no larger and at least 4x the resident prefix
+   blocks, the weight bytes of f32, int8
+   and int8 with the embedding, the streams' divergence from f32 (greedy,
+   temperature 0.9 with top-k 16, top-p 0.9) and the eval-loss delta;
+   13d ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir ``--quant
+   int8 --kv-quant int8 --num_slots 16 --decode_chunk 8`` in a subprocess
+   with no ``--device``: 11d's 8 requests over HTTP equal to the eager
+   in-process engine's on ``load_for_serving(..., weights_dtype="int8",
+   kv_dtype="int8")``, ``/stats`` echoing the dtypes, a restart with
+   ``programs_compiled`` 0;
+14. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -206,7 +235,7 @@ step. The launch counts in the
 entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1, T1's
 bits rows), each counted from zero; the packed pair and
 B5's forward count their bf16 and f32 kernels apart (every eval runs in
-f32).
+f32); B6 and B7 int8 count 13b's first int8 run.
 """
 
 from __future__ import annotations
@@ -302,6 +331,14 @@ KERNELS = {
                           f"{NANOGPT_JAX}:515,519,656"),
     "T1_threefry_bits_rows": ("threefry", "random_bits_rows", "launches",
                               THREEFRY_CU, f"{NANOGPT_JAX}:905"),
+    # quantized serving (no pallas_call): XLA's fusion of dequantize_tiles
+    # into the dots of quantized_dot and quantized_attend, and of
+    # kv_dequantize into the int8 KV attends
+    "B6_row_qgemm": ("row_linear", "row_qlinear", "launches", ROW_CU,
+                     "gym_tpu/ops/grouped_matmul.py:253 and :265"),
+    "B7_decode_attention_int8": ("decode_attention", "decode_attention_int8",
+                                 "launches", DECODE_CU,
+                                 f"{NANOGPT_JAX}:361-362 and :460-465"),
 }
 # GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
 GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
@@ -2209,9 +2246,12 @@ LM_HEAD = (768, 50304)
 
 def check_serving_sass(counts):
     """B7, R1, L1 and the bits-rows entry are built, without atomics (the
-    global check above); B7 at 4 head dims, R1 at 2 tilings x 2 layouts."""
-    for name, n in (("decode_attention_kernel", 4), ("row_gemm_kernel", 4),
-                    ("row_layer_norm_kernel", 1),
+    global check above); B7 and its int8 form (B7 templated on the pool's
+    loader) at 4 head dims each, R1 and B6 (R1 templated on the weight
+    loader) at 2 tilings x 2 layouts each."""
+    for name, n in (("decode_attention_kernel", 8), ("F32KV", 4),
+                    ("Int8KV", 4), ("row_gemm_kernel", 8), ("F32W", 4),
+                    ("QuantW", 4), ("row_layer_norm_kernel", 1),
                     ("threefry_rows_bits_kernel", 1)):
         found = [k for k in counts if name in k]
         check(len(found) == n, f"expected {n} {name}, found {found}")
@@ -2693,41 +2733,53 @@ def serve_run(torch, params, cfg, work, label, **engine_kw):
     return got, eng, sched, wall, handles
 
 
-def card_vs_cpu_serving(torch, params, cfg, steps=8):
-    """A 32-token prompt and 8 greedy tokens through the decode forward on
-    the card and on the CPU from the same weights: logits at every step
-    within phase 6's f32 band (rtol 1e-4 of the largest logit), the
-    greedy tokens identical."""
+def greedy_on(torch, params, cfg, dev, steps):
+    """A 32-token prompt and ``steps`` greedy tokens through the decode
+    forward on ``dev``: each step's logits (on the CPU), the tokens and the
+    cache."""
     import numpy as np
     from gym_tpu_torch.models.nanogpt import GPT, decode_config
     model = GPT(decode_config(cfg))
     prompt = np.random.default_rng(5).integers(
         0, cfg.vocab_size, (1, 32)).astype(np.int32)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        p = {n: t.to(dev) for n, t in params.items()}
-        cache = model.init_cache(1, dev)
-        lgs, toks = [], []
-        with torch.no_grad():
-            lg = model.decode(p, torch.from_numpy(prompt).to(dev), cache,
-                              logits_at=31)[:, 0]
-            for j in range(steps):
-                lgs.append(lg.float().cpu())
-                tok = torch.argmax(lg, dim=-1)
-                toks.append(int(tok[0]))
-                if j + 1 < steps:
-                    lg = model.decode(p, tok[:, None].to(torch.int32),
-                                      cache)[:, 0]
-        out[dev] = (lgs, toks)
-    worst = max(((a - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(out["cuda"][0], out["cpu"][0]))
-    log(f"phase 10 card vs CPU (32-token prompt, {steps} greedy tokens, "
+    p = {n: t.to(dev) for n, t in params.items()}
+    cache = model.init_cache(1, dev)
+    lgs, toks = [], []
+    with torch.no_grad():
+        lg = model.decode(p, torch.from_numpy(prompt).to(dev), cache,
+                          logits_at=31)[:, 0]
+        for j in range(steps):
+            lgs.append(lg.float().cpu())
+            tok = torch.argmax(lg, dim=-1)
+            toks.append(int(tok[0]))
+            if j + 1 < steps:
+                lg = model.decode(p, tok[:, None].to(torch.int32),
+                                  cache)[:, 0]
+    return lgs, toks, cache
+
+
+def logits_gap(out):
+    """The largest |card − CPU| over the steps, in units of each step's
+    largest CPU logit."""
+    return max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(out["cuda"][0], out["cpu"][0]))
+
+
+def card_vs_cpu_serving(torch, params, cfg, steps=8, label="phase 10"):
+    """A 32-token prompt and 8 greedy tokens through the decode forward on
+    the card and on the CPU from the same weights: logits at every step
+    within phase 6's f32 band (rtol 1e-4 of the largest logit), the
+    greedy tokens identical."""
+    out = {dev: greedy_on(torch, params, cfg, dev, steps)
+           for dev in ("cuda", "cpu")}
+    worst = logits_gap(out)
+    log(f"{label} card vs CPU (32-token prompt, {steps} greedy tokens, "
         f"GPT-2 base): max |a-b| / max|b| over the steps' logits "
         f"{worst:.3e} (band {LOSS_RTOL['f32']}); tokens card "
         f"{out['cuda'][1]} cpu {out['cpu'][1]}")
-    check(worst <= LOSS_RTOL["f32"], f"phase 10: card and CPU logits differ "
+    check(worst <= LOSS_RTOL["f32"], f"{label}: card and CPU logits differ "
           f"by {worst:.3e}")
-    check(out["cuda"][1] == out["cpu"][1], "phase 10: card and CPU greedy "
+    check(out["cuda"][1] == out["cpu"][1], f"{label}: card and CPU greedy "
           "tokens differ")
 
 
@@ -3147,8 +3199,9 @@ def serve_run_dir(torch, mods, card, run2, cli):
 
 
 def checkpoint_phase(torch, mods, card, base_sps, t_all):
-    """Phase 11 (11a-11d), then phase 12 on 11a's run dir; the run dirs
-    are removed after them."""
+    """Phase 11 (11a-11d), then phases 12 and 13 on 11a's run dir; the run
+    dirs are removed after them. Returns phase 13's kernel errors, times
+    and launches."""
     import shutil
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3180,6 +3233,9 @@ def checkpoint_phase(torch, mods, card, base_sps, t_all):
             f"hot swap ({time.perf_counter() - t_all:.1f} s since the "
             f"start)")
         graphs_phase(torch, mods, card)
+        log(f"phase 13: quantized serving ({time.perf_counter() - t_all:.1f}"
+            f" s since the start)")
+        return quant_phase(torch, mods, card)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -3359,13 +3415,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_server(run_dir, port, log_path):
+def start_server(run_dir, port, log_path, extra=()):
     """``python -m gym_tpu_torch.serve`` on 11a's run dir, with no
-    ``--device`` flag (the card by default)."""
+    ``--device`` flag (the card by default); ``extra`` more flags."""
     out = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "gym_tpu_torch.serve", "--ckpt", run_dir,
-         "--num_slots", "16", "--decode_chunk", "8", "--port", str(port)],
+         "--num_slots", "16", "--decode_chunk", "8", "--port", str(port),
+         *extra],
         cwd=HERE, stdout=out, stderr=subprocess.STDOUT, text=True)
     out.close()
     t0 = time.perf_counter()
@@ -3594,6 +3651,589 @@ def graphs_phase(torch, mods, card):
         f"12b {t2 - t1:.1f} s, 12c {time.perf_counter() - t2:.1f} s)")
 
 
+# -- phase 13: quantized serving ---------------------------------------------
+
+
+QUANT_KERNELS = ("B6_row_qgemm", "B7_decode_attention_int8")
+# 13c: the least legal f32 pool at page 16 (the null page, one window, a
+# copy-on-write page) and the int8 pool of the same payload bytes. At a
+# 1024-token window the f32 pool keeps 64 resident prompt blocks and the
+# int8 pool 259 (its 260 usable pages less the last request's decode
+# block), so the distinct one-block prompts must outnumber 259 to fill it
+# (80, bench.py's count for its short window, fill 80 of its pages)
+CAP_F32_PAGES = 2 + 1024 // 16
+CAP_INT8_PAGES = 1 + (CAP_F32_PAGES - 1) * 4
+CAP_PROMPTS = 300
+
+
+def quant_cfg(weights_dtype="int8", kv_dtype="int8", quant_embed=False,
+              n_layer=12):
+    import dataclasses
+    return dataclasses.replace(serve_model_cfg(n_layer),
+                               weights_dtype=weights_dtype,
+                               kv_dtype=kv_dtype, quant_embed=quant_embed)
+
+
+def quantized_weight(torch, g, shape, bits, tile=256):
+    """A GPT-2-base-width weight of random normal(0.02) values quantized by
+    the codec (``serve/load.py``'s path: tile clamped to the rows)."""
+    from gym_tpu_torch.ops.grouped_matmul import quant_tile_for
+    from gym_tpu_torch.strategy.compress import QuantizeCodec
+    w = torch.randn(*shape, device="cuda", generator=g) * 0.02
+    codec = QuantizeCodec(bits=bits, tile=quant_tile_for(shape, tile),
+                          stochastic=False)
+    q, scale = codec.compress(w.reshape(1, -1), None)
+    return q.reshape(shape).contiguous(), scale.reshape(-1).contiguous()
+
+
+def check_b6(torch, trow, g):
+    """B6 bit for bit R1 on the dequantized weights and beside its plain
+    version, at the decode layer, the lm head and a prefill, int8 and
+    int4, every row bit for bit at M = 1, 16, 80 and 1024."""
+    from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+    worst = 0.0
+    for kin, nout, lm in ((768, 3072, False), (3072, 768, False),
+                          (768, 2304, False), (*LM_HEAD, True)):
+        x = torch.randn(1024, kin, device="cuda", generator=g)
+        for bits in (8, 4):
+            q, scale = quantized_weight(torch, g, (nout, kin) if lm
+                                        else (kin, nout), bits)
+            w = dequantize_tiles(q, scale)
+            bias = None if lm else torch.randn(nout, device="cuda",
+                                               generator=g)
+            same = True
+            for m in (1, 16, 80, 1024):
+                got = trow.row_qlinear(x[:m], q, scale, bias, w_nk=lm)
+                same &= same_bits(torch, got, trow.row_linear(
+                    x[:m], w, bias, w_nk=lm))
+                if m in (16, 1024):
+                    worst = max(worst, compare(
+                        f"B6 int{bits} [{m}, {kin}] x [{kin}, {nout}]"
+                        f"{' (lm head)' if lm else ''}", got,
+                        trow.plain_row_qlinear(x[:m], q, scale, bias, lm),
+                        "out", torch.float32))
+            log(f"  B6 int{bits} {kin}->{nout}{' (lm head)' if lm else ''}"
+                f" vs R1 on dequantize_tiles at M = 1, 16, 80, 1024: "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            check(same, f"B6 int{bits} {kin}->{nout} differs from R1 on "
+                  f"the dequantized weight")
+            ok = rows_invariant(torch, lambda z: trow.row_qlinear(
+                z, q, scale, bias, w_nk=lm), x, f"B6 int{bits} "
+                f"{kin}->{nout}")
+            check(ok, f"B6 {kin}->{nout}: a row's bits depend on M")
+            del q, scale, w
+        del x
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_b7_int8(torch, tdec, tfa, g):
+    """B7 int8 bit for bit B7 on the kv_dequantize'd pools, paged and
+    unpaged, at decode, a verify chunk and prefills, beside its plain
+    version; a NaN scale reaching only its row; kv_quantize on the card
+    bit for bit the CPU's."""
+    h, hd, s = SERVE_H, SERVE_HD, SERVE_S
+    k_rows, v_rows, k_pool, v_pool, table = paged_window(torch, g, 16)
+    (kq, ks), (vq, vs) = tfa.kv_quantize(k_pool), tfa.kv_quantize(v_pool)
+    cq, cs = tfa.kv_quantize(k_pool.cpu())
+    same = torch.equal(kq.cpu(), cq) and same_bits(torch, ks.cpu(), cs)
+    log(f"  kv_quantize of a [{k_pool.shape[0]}, 16, 12, 64] pool, card vs "
+        f"CPU: {'bit-identical' if same else 'DIFFER'}")
+    check(same, "kv_quantize differs between the card and the CPU")
+    kd, vd = tfa.kv_dequantize(kq, ks), tfa.kv_dequantize(vq, vs)
+    del k_rows, v_rows, k_pool, v_pool
+    cursors = torch.randint(0, s, (16,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    cursors[0], cursors[1] = 0, s - 1
+    unp = tdec.unpaged_table(16, "cuda")
+    rows = table.long()
+    kqr, vqr = kq[rows].flatten(1, 2), vq[rows].flatten(1, 2)
+    ksr, vsr = ks[rows].flatten(1, 2), vs[rows].flatten(1, 2)
+    q1 = torch.randn(16, 1, h, hd, device="cuda", generator=g)
+    q5 = torch.randn(16, 5, h, hd, device="cuda", generator=g)
+    vcur = torch.clamp(cursors, max=s - 3)
+    qp = torch.randn(1, 512, h, hd, device="cuda", generator=g)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for name, q, tb, cur in (("decode b=16 t=1", q1, table, cursors),
+                             ("verify b=16 t=5", q5, table, vcur),
+                             ("prefill b=1 t=512", qp, table[:1], zero)):
+        got = tdec.decode_attention_int8(q, kq, vq, ks, vs, tb, cur)
+        same = same_bits(torch, got, tdec.decode_attention(q, kd, vd, tb,
+                                                           cur))
+        worst = max(worst, compare(
+            f"B7 int8 {name}", got, tdec.plain_decode_attention_int8(
+                q, kq, vq, ks, vs, tb, cur), "out", torch.float32))
+        if tb.shape[0] == 16:
+            same &= same_bits(torch, got, tdec.decode_attention_int8(
+                q, kqr, vqr, ksr, vsr, unp, cur))
+        log(f"  B7 int8 {name} vs B7 on the dequantized pools (and paged vs "
+            f"unpaged): {'bit-identical' if same else 'DIFFER'}")
+        check(same, f"B7 int8 {name} differs from B7 on the dequantized "
+              f"pools")
+    ks = ks.clone()
+    ks[table[3, 0].long(), 0, 5] = float("nan")
+    bad = tdec.decode_attention_int8(q1, kq, vq, ks, vs, table, cursors)
+    good = tdec.decode_attention_int8(q1, kq, vq, ks.nan_to_num(1.0), vs,
+                                      table, cursors)
+    keep = torch.ones_like(bad, dtype=torch.bool)
+    keep[3, :, 5] = False
+    ok = bool(torch.isnan(bad[3, :, 5]).all()) and torch.equal(bad[keep],
+                                                              good[keep])
+    log(f"  B7 int8: a NaN scale at row 3's position 0, head 5 reaches "
+        f"that row and head only: {ok}")
+    check(ok, "B7 int8: a NaN scale did not reach its row, or reached "
+          "another")
+    torch.cuda.synchronize()
+    return worst
+
+
+def time_b6(torch, trow, g, m, kin, nout, bits, lm=False):
+    from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+    q, scale = quantized_weight(torch, g, (nout, kin) if lm else (kin, nout),
+                                bits)
+    bias = None if lm else torch.randn(nout, device="cuda", generator=g)
+    x = torch.randn(m, kin, device="cuda", generator=g)
+    nbytes = (q.numel() + 4 * (scale.numel() + m * kin + m * nout
+                               + (0 if lm else nout)))
+    flops = 2 * m * kin * nout
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+
+    def lib():
+        w = dequantize_tiles(q, scale)
+        y = x @ (w.t() if lm else w)
+        return y if bias is None else y + bias
+
+    r = dict(ms=timed(torch, lambda: trow.row_qlinear(x, q, scale, bias,
+                                                      lm)),
+             plain_ms=timed(torch, lambda: trow.plain_row_qlinear(
+                 x, q, scale, bias, lm), reps=3, inner=1),
+             library_ms=timed(torch, lib),
+             bound=(max(t_b, t_f) * 1e3,
+                    "bytes" if t_b >= t_f else "operations"))
+    log(f"B6_row_qgemm int{bits} [{m}, {kin}] x [{kin}, {nout}]"
+        f"{' (lm head, [V, C] read transposed)' if lm else ''}: kernel_ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} (twin) library_ms "
+        f"{r['library_ms']:.4f} (dequantize_tiles then torch.matmul) "
+        f"bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} "
+        f"MB, {flops / 1e9:.3f} GFLOP) -> {r['bound'][0] / r['ms']:.2%} of "
+        f"bound")
+    return r
+
+
+def time_b7_int8(torch, tdec, tfa, g, tag, b, t, cur_lo, cur_hi):
+    import torch.nn.functional as F
+    h, hd, s = SERVE_H, SERVE_HD, SERVE_S
+    _, _, k_pool, v_pool, table = paged_window(torch, g, b)
+    (kq, ks), (vq, vs) = tfa.kv_quantize(k_pool), tfa.kv_quantize(v_pool)
+    del k_pool, v_pool
+    tb = table[:b]
+    cur = (torch.randint(cur_lo, cur_hi + 1, (b,), device="cuda",
+                         generator=g, dtype=torch.int32) if cur_hi
+           else torch.zeros(b, dtype=torch.int32, device="cuda"))
+    q = torch.randn(b, t, h, hd, device="cuda", generator=g)
+    keys = sum(min(int(c) + j, s - 1) + 1 for c in cur.tolist()
+               for j in range(t))
+    distinct = sum(min(int(c) + t - 1, s - 1) + 1 for c in cur.tolist())
+    nbytes = 4 * 2 * q.numel() + 2 * distinct * h * (hd + 4) + 8 * b
+    flops = 4 * keys * h * hd
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    pages = tb.long()
+
+    def sdpa():
+        kw = tfa.kv_dequantize(kq[pages], ks[pages]).view(
+            b, s, h, hd).transpose(1, 2)
+        vw = tfa.kv_dequantize(vq[pages], vs[pages]).view(
+            b, s, h, hd).transpose(1, 2)
+        pos = cur[:, None] + torch.arange(t, device="cuda")
+        mask = torch.arange(s, device="cuda") <= pos[:, :, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kw, vw, attn_mask=mask[:, None])
+
+    r = dict(ms=timed(torch, lambda: tdec.decode_attention_int8(
+                 q, kq, vq, ks, vs, tb, cur)),
+             plain_ms=timed(torch, lambda: tdec.plain_decode_attention_int8(
+                 q, kq, vq, ks, vs, tb, cur), reps=3, inner=1),
+             library_ms=timed(torch, sdpa),
+             bound=(max(t_b, t_f) * 1e3,
+                    "bytes" if t_b >= t_f else "operations"))
+    log(f"B7_decode_attention_int8 [{tag}]: kernel_ms {r['ms']:.4f} plain_ms"
+        f" {r['plain_ms']:.4f} (twin) library_ms {r['library_ms']:.4f} "
+        f"(kv_dequantize then SDPA on the gathered window, masked) bound_ms "
+        f"{r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP) -> {r['bound'][0] / r['ms']:.2%} of "
+        f"bound")
+    return r
+
+
+def quant_kernels(torch, mods, card):
+    """13a: B6 and B7 int8 checked bit for bit against R1 and B7 on the
+    dequantized operands, then timed at the main path's shapes."""
+    tdec, trow = mods["decode_attention"], mods["row_linear"]
+    from gym_tpu_torch.ops import fused_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(13)
+    log(f"phase 13a: B6 and B7 int8 at GPT-2 base's shapes on {card}")
+    errs = {"B6_row_qgemm": check_b6(torch, trow, g),
+            "B7_decode_attention_int8": check_b7_int8(torch, tdec, tfa, g)}
+    torch.cuda.empty_cache()
+    times = {"B6_row_qgemm": time_b6(torch, trow, g, 16, 768, 3072, 8)}
+    time_b6(torch, trow, g, 16, 768, 3072, 4)
+    time_b6(torch, trow, g, 16, 3072, 768, 8)
+    time_b6(torch, trow, g, 16, *LM_HEAD, 8, lm=True)
+    time_b6(torch, trow, g, 1024, 768, 3072, 8)
+    times["B7_decode_attention_int8"] = time_b7_int8(
+        torch, tdec, tfa, g, "decode b=16 t=1, cursors 16-576, page 16", 16,
+        1, 16, 576)
+    time_b7_int8(torch, tdec, tfa, g, "prefill b=1 t=512 start 0", 1, 512,
+                 0, 0)
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def quant_run(torch, mods, params, cfg, work, graphs=True):
+    """One warmed engine over ``work``: the streams, tokens/s, TTFT, peak
+    memory, graphs captured and the kernels' launches in the run."""
+    from gym_tpu_torch.programs import (graphs_captured_counter,
+                                        warm_engine_programs)
+    from gym_tpu_torch.serve import InferenceEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(params, cfg, device="cuda", cuda_graphs=graphs,
+                          **SERVE_ENGINE)
+    g0 = graphs_captured_counter()
+    warm = warm_engine_programs(eng, start=False)
+    warm.run()
+    captured = graphs_captured_counter() - g0
+    reset_counts(mods)
+    got, _, wall, handles = serve_loop(torch, eng, work,
+                                       f"phase 13b {cfg.weights_dtype}")
+    counts = read_counts(mods)
+    ttft = [h.ttft_s for h in handles]
+    ntok = sum(len(t) for t in got)
+    r = dict(streams=got, tps=ntok / wall, p50=pctl(ttft, 0.5),
+             p99=pctl(ttft, 0.99), peak=torch.cuda.max_memory_allocated(),
+             captured=captured,
+             names=sorted(h.name for h in eng._handles.values()),
+             launches={k: counts[k] for k in
+                       SERVING_KERNELS + QUANT_KERNELS if counts[k]},
+             weights_bytes=eng.weights_bytes, pool=eng.kv_pool_bytes())
+    eng.close()
+    del eng
+    return r
+
+
+def on_card(params):
+    return {n: t.to("cuda") for n, t in params.items()}
+
+
+def solo_fast(params, cfg, work, idx):
+    from gym_tpu_torch.models.nanogpt import generate_fast
+    out = []
+    for i in idx:
+        p, kw = work[i]
+        gen_kw = {k: v for k, v in kw.items() if k != "max_new_tokens"}
+        out.append(generate_fast(params, cfg, p[None], kw["max_new_tokens"],
+                                 **gen_kw)[0, len(p):].tolist())
+    return out
+
+
+def quant_card_vs_cpu(torch, q8, qcfg, steps=8):
+    """The card against the CPU on the same int8 weights: with an f32 KV
+    cache, the logits in phase 10's band (the weights' path: B6 against
+    its plain version); with the int8 KV cache, the greedy tokens equal
+    and each K/V element at most one int8 level apart: a value within its
+    rounding of a half step lands on either side when the f32 K and V it
+    came from differ in their last bits (R1's chains on the card, MKL's
+    order on the CPU), and a level moves its scores by up to amax/127 of
+    the element, far outside phase 10's band, which is why the logits'
+    and the scales' gaps are printed, not held to it."""
+    import dataclasses
+    card_vs_cpu_serving(torch, q8, dataclasses.replace(qcfg, kv_dtype="f32"),
+                        steps, "phase 13b int8 weights, f32 KV:")
+    out = {dev: greedy_on(torch, q8, qcfg, dev, steps)
+           for dev in ("cuda", "cpu")}
+    card, cpu = out["cuda"][2], out["cpu"][2]
+    n = flipped = wide = 0
+    scale_gap = 0.0
+    for name, c in cpu.items():
+        a = card[name].cpu()
+        if c.dtype == torch.int8:
+            d = (a.int() - c.int()).abs()
+            n += d.numel()
+            flipped += int((d > 0).sum())
+            wide += int((d > 1).sum())
+        elif name.endswith("_scale"):
+            written = c != 0
+            scale_gap = max(scale_gap, float(
+                ((a - c).abs() / c.abs().clamp_min(1e-30))[written].max()))
+    log(f"phase 13b int8 weights, int8 KV: card vs CPU greedy tokens "
+        f"{'equal' if out['cuda'][1] == out['cpu'][1] else 'DIFFER'}; "
+        f"{flipped} of {n} cached int8 elements one level apart, {wide} "
+        f"more; the scales' largest relative gap {scale_gap:.2e}, the "
+        f"logits' gap {logits_gap(out):.3e} of the largest (for the "
+        f"record)")
+    check(out["cuda"][1] == out["cpu"][1], "phase 13b: card and CPU greedy "
+          "tokens differ under int8 KV")
+    check(wide == 0, f"phase 13b: {wide} cached int8 elements of the card "
+          f"more than one level from the CPU's")
+
+
+def quant_serving(torch, mods, card):
+    """13b: phase 10's workload under int8 weights and int8 KV, graphs, in
+    turns with f32 graphs (three runs each); the streams against an eager
+    int8 run and the card's quantized generate_fast; card against CPU;
+    one run under int4 weights and embedding."""
+    from gym_tpu_torch.serve.load import quantize_params
+    f32_cfg, work = serve_model_cfg(), serve_workload()
+    qcfg = quant_cfg()
+    # both trees wait on the CPU: each engine copies its own to the card,
+    # so a run's peak memory holds one tree
+    f32 = serve_params(device="cpu")
+    q8 = quantize_params(f32, qcfg)
+    runs = {"f32": [], "int8": []}
+    for _ in range(3):
+        runs["f32"].append(quant_run(torch, mods, f32, f32_cfg, work))
+        runs["int8"].append(quant_run(torch, mods, q8, qcfg, work))
+    for arm in runs:
+        check(all(r["streams"] == runs[arm][0]["streams"]
+                  for r in runs[arm]), f"phase 13b: {arm} streams differ "
+              f"from run to run")
+    q = runs["int8"][0]
+    launches = {k: q["launches"].get(k, 0) for k in QUANT_KERNELS}
+    for k in QUANT_KERNELS:
+        check(launches[k] > 0, f"phase 13b: {k} never launched")
+    check("B7_decode_attention" not in q["launches"] and
+          "R1_row_gemm" in q["launches"],
+          f"phase 13b: int8 launches {q['launches']}")
+    eager = quant_run(torch, mods, q8, qcfg, work, graphs=False)
+    check(eager["streams"] == q["streams"], "phase 13b: the int8 graphs' "
+          "streams differ from the eager engine's")
+    check(eager["launches"] == q["launches"], f"phase 13b: launches eager "
+          f"{eager['launches']} vs graphs {q['launches']}")
+    solo = solo_fast(on_card(q8), qcfg, work, (3, 4))
+    ok = solo == [q["streams"][3], q["streams"][4]]
+    log(f"phase 13b int8 weights + int8 KV, phase 10's workload ({len(work)}"
+        f" requests, paged, page 16, 16 slots, decode_chunk 8, CUDA graphs;"
+        f" three runs each in turns with f32) on {card}:")
+    for arm in ("f32", "int8"):
+        rs = runs[arm]
+        log(f"  {arm}: output tokens/s "
+            + ", ".join(f"{r['tps']:.1f}" for r in rs)
+            + "; TTFT p50 " + ", ".join(f"{r['p50'] * 1e3:.1f}" for r in rs)
+            + " ms, p99 " + ", ".join(f"{r['p99'] * 1e3:.1f}" for r in rs)
+            + " ms; peak memory " + ", ".join(f"{r['peak'] / 2**30:.3f}"
+                                             for r in rs)
+            + f" GiB; {rs[0]['captured']} graphs captured; weights "
+            f"{rs[0]['weights_bytes']:,} B, KV pool {rs[0]['pool']}; "
+            f"launches {rs[0]['launches']}")
+    med = {a: sorted(r["tps"] for r in runs[a])[1] for a in runs}
+    log(f"  median output tokens/s int8 {med['int8']:.1f} / f32 "
+        f"{med['f32']:.1f} = {med['int8'] / med['f32']:.3f}x; int8 graphs "
+        f"vs eager ({eager['tps']:.1f} tokens/s): streams equal, launches "
+        f"equal; requests 3 and 4 vs the card's quantized generate_fast: "
+        f"{'equal' if ok else 'DIFFER'}; program names "
+        f"{[n for n in q['names'] if 'decode' in n]}")
+    check(ok, "phase 13b: the int8 engine differs from generate_fast")
+    check(runs["int8"][0]["captured"] == SERVE_FAMILY,
+          f"phase 13b: {runs['int8'][0]['captured']} graphs captured")
+    quant_card_vs_cpu(torch, q8, qcfg)
+    del q8
+    q4cfg = quant_cfg("int4", quant_embed=True)
+    q4 = quantize_params(f32, q4cfg)
+    del f32
+    r4 = quant_run(torch, mods, q4, q4cfg, work)
+    solo = solo_fast(on_card(q4), q4cfg, work, (3, 4))
+    ok = solo == [r4["streams"][3], r4["streams"][4]]
+    div = sum(a != b for s, t in zip(r4["streams"], q["streams"])
+              for a, b in zip(s, t)) / sum(len(s) for s in q["streams"])
+    log(f"  int4 weights and embedding, int8 KV: {r4['tps']:.1f} output "
+        f"tokens/s, peak {r4['peak'] / 2**30:.3f} GiB, weights "
+        f"{r4['weights_bytes']:,} B, launches {r4['launches']}; requests "
+        f"3 and 4 vs its generate_fast: {'equal' if ok else 'DIFFER'}; "
+        f"tokens differing from int8's {div:.3f}")
+    check(ok, "phase 13b: the int4 engine differs from generate_fast")
+    check("R1_row_gemm" in r4["launches"] and
+          r4["launches"].get("B6_row_qgemm", 0) > 0,
+          f"phase 13b int4: launches {r4['launches']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quant_capacity(torch, card):
+    """13c (bench.py's quantized arm at GPT-2 base): capacity at equal KV
+    payload bytes, the weight bytes, the divergence from f32 and the eval
+    loss delta."""
+    import numpy as np
+    from gym_tpu_torch.models.nanogpt import GPT, generate_fast
+    from gym_tpu_torch.serve import InferenceEngine, SamplingParams
+    from gym_tpu_torch.serve.load import quantize_params
+    cfg, qcfg = serve_model_cfg(), quant_cfg()
+    f32 = serve_params()
+    q8 = quantize_params(f32, qcfg)
+    rng = np.random.default_rng(13)
+
+    def nbytes(p):
+        return sum(t.numel() * t.element_size() for t in p.values())
+
+    def arm(c, p, pages):
+        eng = InferenceEngine(p, c, device="cuda", num_slots=2, paged=True,
+                              page_size=16, kv_pages=pages)
+        prompts = np.random.default_rng(900).integers(
+            0, c.vocab_size, (CAP_PROMPTS, 16)).astype(np.int32)
+        for i, prompt in enumerate(prompts):
+            slot, ev = eng.admit(prompt, SamplingParams(max_new_tokens=2,
+                                                        seed=900 + i))
+            while not ev.finished:
+                ev = [e for e in eng.step() if e.slot == slot][-1]
+        out = (eng.kv_pool_bytes(), eng.stats.kv_blocks_cached,
+               eng.kv_blocks_capacity_effective)
+        eng.close()
+        return out
+
+    t0 = time.perf_counter()
+    fb, fc, fe = arm(cfg, f32, CAP_F32_PAGES)
+    ib, ic, ie = arm(qcfg, q8, CAP_INT8_PAGES)
+    ratio = ic / max(fc, 1)
+    emb = quantize_params(f32, quant_cfg(quant_embed=True))
+    wb = (nbytes(f32), nbytes(q8), nbytes(emb))
+    del emb
+    log(f"phase 13c capacity ({CAP_PROMPTS} distinct one-block prompts, page "
+        f"16, sequential) on {card}: f32 pool {CAP_F32_PAGES} pages "
+        f"{fb}, {fc} resident prefix blocks; int8 pool {CAP_INT8_PAGES} pages"
+        f" {ib}, {ic} resident; ratio {ratio:.3f} (capacity_effective "
+        f"{fe} vs {ie}); {time.perf_counter() - t0:.1f} s")
+    check(ib["payload"] <= fb["payload"], f"phase 13c: int8 payload "
+          f"{ib} > f32 {fb}")
+    check(ic >= 4 * fc, f"phase 13c: int8 holds {ic} resident blocks, "
+          f"f32 {fc}: under 4x")
+    log(f"  weight bytes: f32 {wb[0]:,}, int8 {wb[1]:,} "
+        f"({wb[0] / wb[1]:.3f}x), int8 with the embedding {wb[2]:,} "
+        f"({wb[0] / wb[2]:.3f}x)")
+    prompt = rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
+    divs = []
+    for name, kw in (("greedy", dict(top_k=1)),
+                     ("temperature 0.9, top-k 16",
+                      dict(temperature=0.9, top_k=16)),
+                     ("top-p 0.9", dict(top_p=0.9))):
+        ref = generate_fast(f32, cfg, prompt[None], 32, seed=7,
+                            **kw)[0, 24:]
+        got = generate_fast(q8, qcfg, prompt[None], 32, seed=7,
+                            **kw)[0, 24:]
+        diff = ref != got
+        divs.append(f"{name} {diff.mean():.4f} (first at "
+                    f"{int(np.argmax(diff)) if diff.any() else None})")
+    ev = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4, 65))).to(
+        "cuda")
+    batch = (ev[..., :-1], ev[..., 1:])
+    with torch.no_grad():
+        lf = float(GPT(cfg)({n: p[None] for n, p in f32.items()}, batch,
+                            train=False)[0])
+        lq = float(GPT(qcfg)({n: p[None] for n, p in q8.items()}, batch,
+                             train=False)[0])
+    log(f"  divergence from f32 over 32 tokens (fraction of tokens that "
+        f"differ): {'; '.join(divs)}; eval loss f32 {lf:.6f}, int8 "
+        f"{lq:.6f}, delta {lq - lf:+.6f} (random weights: the delta is the "
+        f"codec's cost)")
+    del f32, q8
+    torch.cuda.empty_cache()
+    return ratio
+
+
+def quant_server(torch, card):
+    """13d: ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir with
+    ``--quant int8 --kv-quant int8``: 11d's 8 requests over HTTP equal to
+    the eager in-process engine's on the same quantized load; /stats with
+    the dtypes; a restart with programs_compiled 0."""
+    import concurrent.futures
+    from gym_tpu_torch.serve.load import load_for_serving
+    run_dir = ckpt_dir("b")
+    work = serve_workload()[:8]
+    params, cfg, info = load_for_serving(run_dir, weights_dtype="int8",
+                                         kv_dtype="int8")
+    want, eng, _, _, _ = serve_run(torch, params, cfg, work,
+                                   "(13d eager reference)",
+                                   cuda_graphs=False, **SERVE_ENGINE)
+    eng.close()
+    del eng, params
+    torch.cuda.empty_cache()
+    port = free_port()
+    logs = [os.path.join(CKPT_ROOT, f"server_q{i}.log") for i in (1, 2)]
+    quant = ("--quant", "int8", "--kv-quant", "int8")
+    proc, up_s = start_server(run_dir, port, logs[0], quant)
+    try:
+        stats = wait_warmup(port)
+        warm = stats["warmup"]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(work)) as ex:
+            outs = list(ex.map(lambda w: http_json(
+                port, "/generate", generate_body(*w)), work))
+        wall = time.perf_counter() - t1
+        check(all(c == 200 for c, _ in outs),
+              f"phase 13d: {[(c, b) for c, b in outs if c != 200][:2]}")
+        got = [b["tokens"] for _, b in outs]
+        _, stats = http_json(port, "/stats")
+    finally:
+        stop_server(proc, logs[0], "quantized server")
+    with open(logs[0]) as f:
+        banner = [ln for ln in f.read().splitlines()
+                  if "restored" in ln or "listening" in ln]
+    ntok = sum(len(t) for t in got)
+    log(f"phase 13d python -m gym_tpu_torch.serve --ckpt "
+        f"{os.path.relpath(run_dir, HERE)} --quant int8 --kv-quant int8 "
+        f"--num_slots 16 --decode_chunk 8 (step {info['step']}, no "
+        f"--device: on {card}): listening after {up_s:.1f} s, warmup "
+        f"{warm['warmed']}/{warm['total']} in {warm['seconds']:.2f} s; "
+        f"{len(work)} requests over HTTP, {ntok} tokens in {wall:.3f} s "
+        f"({ntok / wall:.1f} output tokens/s); streams "
+        f"{'equal to' if got == want else 'DIFFER from'} the eager "
+        f"in-process int8 engine's; /stats weights_dtype "
+        f"{stats['weights_dtype']}, kv_dtype {stats['kv_dtype']}, "
+        f"weights_bytes {stats['weights_bytes']:,}, "
+        f"kv_blocks_capacity_effective "
+        f"{stats['kv_blocks_capacity_effective']}")
+    for ln in banner:
+        log("  " + ln.strip())
+    check(got == want, "phase 13d: the quantized server's streams differ "
+          "from the eager engine's")
+    check(stats["weights_dtype"] == stats["kv_dtype"] == "int8" and
+          stats["requests_done"] == len(work),
+          f"phase 13d: /stats {stats}")
+    check(any("quant w=int8 kv=int8" in ln for ln in banner),
+          f"phase 13d: status line {banner}")
+    proc, up_s = start_server(run_dir, port, logs[1], quant)
+    try:
+        code, body = http_json(port, "/generate", generate_body(*work[0]))
+        stats = wait_warmup(port)
+    finally:
+        stop_server(proc, logs[1], "restarted quantized server")
+    log(f"  restart: listening after {up_s:.1f} s, first request {code} "
+        f"({'equal' if body.get('tokens') == want[0] else 'DIFFERS'}), "
+        f"programs_compiled {stats['programs_compiled']}, graphs_captured "
+        f"{stats['graphs_captured']}")
+    check(code == 200 and body["tokens"] == want[0],
+          f"phase 13d: the restart's first request {code} {body}")
+    check(stats["programs_compiled"] == 0, f"phase 13d: restart /stats "
+          f"{stats}")
+
+
+def quant_phase(torch, mods, card):
+    """Phase 13 (13a-13d), after phase 12 and before 11a's run dirs go:
+    returns the kernels' errors, times and 13b's launch counts."""
+    t0 = time.perf_counter()
+    errs, times = quant_kernels(torch, mods, card)
+    t1 = time.perf_counter()
+    launches = quant_serving(torch, mods, card)
+    t2 = time.perf_counter()
+    quant_capacity(torch, card)
+    t3 = time.perf_counter()
+    quant_server(torch, card)
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s (13a {t1 - t0:.1f} s, "
+        f"13b {t2 - t1:.1f} s, 13c {t3 - t2:.1f} s, 13d "
+        f"{time.perf_counter() - t3:.1f} s)")
+    return errs, times, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3767,7 +4407,11 @@ def main() -> int:
         log(f"phase 11: checkpoints, resume, preemption, the guard and a "
             f"run dir served ({time.perf_counter() - t_all:.1f} s since the "
             f"start)")
-        checkpoint_phase(torch, mods, card, sps5, t_all)
+        q_errs, q_times, q_launches = checkpoint_phase(torch, mods, card,
+                                                       sps5, t_all)
+        errs.update(q_errs)
+        times.update(q_times)
+        launches.update(q_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

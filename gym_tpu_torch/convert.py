@@ -70,11 +70,17 @@ def model_state_from_jax(tree: Any, num_nodes: int = 1,
 
 
 def serving_params_from_jax(tree: Any, device="cuda") -> Dict[str, torch.Tensor]:
-    """One model's flat f32 parameters, no node dimension, from a flax
-    param tree: what the decode path and the serving engine take, so the
-    port serves what the JAX package trained."""
-    return {name: torch.as_tensor(np.array(arr, dtype=np.float32)).to(device)
-            for name, arr in flatten_tree(tree).items()}
+    """One model's flat parameters, no node dimension, from a flax param
+    tree: what the decode path and the serving engine take, so the port
+    serves what the JAX package trained. Float leaves become f32; integer
+    leaves keep their dtype (a quantized tree's int8 ``qkernel`` and
+    ``qembedding``, ``serve/load.py``)."""
+    out = {}
+    for name, arr in flatten_tree(tree).items():
+        dtype = (arr.dtype if np.issubdtype(arr.dtype, np.integer)
+                 else np.float32)
+        out[name] = torch.as_tensor(np.array(arr, dtype=dtype)).to(device)
+    return out
 
 
 def serving_params(fit_params, node=None,

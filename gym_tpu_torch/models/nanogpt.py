@@ -26,9 +26,20 @@ attends run on B7 (``ops/decode_attention.py``), the dense layers and the
 tied lm head on R1 and the layer norms on L1 (``ops/row_linear.py``), so a
 row's logits never depend on the other rows, the number of tokens in the
 call or the paging. ``sample_logits``, ``generate`` and ``generate_fast``
-are the JAX package's, with its threefry key schedule. MoE, quantized
-weights and KV caches, and sequence sharding belong to later slices of the
-port and raise.
+are the JAX package's, with its threefry key schedule.
+
+Quantized serving (``weights_dtype`` "int8"/"int4", ``quant_embed``,
+``kv_dtype`` "int8"; inference only): the block kernels are ``qkernel``
+(int8) and ``qscale`` (f32, one a tile) and, with ``quant_embed``, ``wte``
+is ``qembedding`` and ``qscale`` (``serve/load.py`` ``quantize_params``).
+The decode path runs the dense layers and the tied lm head on B6
+(``ops/grouped_matmul.py``), gathers and dequantizes only the embedding
+rows it looks up, and keeps K and V in int8 pools with f32 scale pools
+(``k_scale``/``v_scale``, the page or row dimension first), quantized as
+they are written and read by B7's int8 form. The evaluation forward
+dequantizes a quantized tree's leaves and runs the f32 forward; training
+one raises. MoE and sequence sharding belong to later slices of the port
+and raise.
 """
 
 from __future__ import annotations
@@ -44,7 +55,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import threefry
 from ..ops.attention import causal_attention
-from ..ops.decode_attention import decode_attention, unpaged_table
+from ..ops.decode_attention import (decode_attention, decode_attention_int8,
+                                    unpaged_table)
+from ..ops.fused_attention import kv_quantize
+from ..ops.grouped_matmul import quantized_attend, quantized_dot
 from ..ops.row_linear import row_cumsum, row_layer_norm, row_linear
 from .base import dropout as _dropout
 
@@ -118,8 +132,6 @@ def _unsupported(cfg: GPTConfig) -> Optional[str]:
     """The config fields of later slices, named if set."""
     checks = (
         (cfg.n_experts > 0, "mixture-of-experts layers"),
-        (cfg.weights_dtype != "f32" or cfg.kv_dtype != "f32"
-         or cfg.quant_embed, "quantized weights and KV caches"),
         (cfg.seq_axis is not None or cfg.attn_impl == "ring",
          "sequence sharding (ring attention)"),
     )
@@ -246,6 +258,12 @@ class GPT(torch.nn.Module):
         if config.n_embd % config.n_head:
             raise ValueError(f"n_embd {config.n_embd} not divisible by "
                              f"n_head {config.n_head}")
+        if config.weights_dtype not in ("f32", "int8", "int4"):
+            raise ValueError(f"weights_dtype must be 'f32', 'int8' or "
+                             f"'int4', got {config.weights_dtype!r}")
+        if config.kv_dtype not in ("f32", "int8"):
+            raise ValueError(f"kv_dtype must be 'f32' or 'int8', got "
+                             f"{config.kv_dtype!r}")
         self.config = config
 
     def _param_specs(self):
@@ -350,6 +368,13 @@ class GPT(torch.nn.Module):
             idx, targets = batch, None
         if cfg.decode:
             raise ValueError("a decode config runs through GPT.decode")
+        if cfg.weights_dtype != "f32":
+            if train:
+                raise ValueError(
+                    "quantized weights are inference-only: int8/int4 "
+                    "params carry no gradient; train in f32 and quantize "
+                    "at serving load (serve/load.py)")
+            params = dequantize_params(params)
         k, b, t = idx.shape
         if t > cfg.block_size:
             raise ValueError(
@@ -396,7 +421,10 @@ class GPT(torch.nn.Module):
         int32 (the JAX cache's per-layer ``i`` and the model's ``pos``
         always agree, so one tensor holds them). Paged (``page_size >
         0``): per layer a pool ``[kv_pages, page_size, H, hd]``, shared
-        by every row whatever ``batch`` is; the cursors are arguments."""
+        by every row whatever ``batch`` is; the cursors are arguments.
+        Under ``kv_dtype="int8"`` the K and V tensors are int8, each with
+        its f32 scales ``{p}.k_scale``/``{p}.v_scale`` (the same shape
+        without ``hd``)."""
         cfg = self.config
         if not cfg.decode:
             raise ValueError("init_cache needs a decode config "
@@ -407,11 +435,19 @@ class GPT(torch.nn.Module):
             shape = (cfg.kv_pages, cfg.page_size, h, hd)
         else:
             shape = (batch, cfg.block_size, h, hd)
+        quant = cfg.kv_dtype == "int8"
         cache = {}
         for i in range(cfg.n_layer):
             for kv in ("k", "v"):
                 cache[f"h_{i}.attn.{kv}"] = torch.zeros(
-                    shape, dtype=torch.float32, device=device)
+                    shape, dtype=torch.int8 if quant else torch.float32,
+                    device=device)
+            if quant:
+                # one f32 scale per (position, head), page or row first, so
+                # the admit and copy-on-write programs move it with its page
+                for kv in ("k", "v"):
+                    cache[f"h_{i}.attn.{kv}_scale"] = torch.zeros(
+                        shape[:3], dtype=torch.float32, device=device)
         if cfg.page_size == 0:
             cache["pos"] = torch.zeros(batch, dtype=torch.int32,
                                        device=device)
@@ -451,7 +487,7 @@ class GPT(torch.nn.Module):
         # XLA's gather clamps a position past the window; those outputs
         # are NaN below either way
         pos = torch.clamp(cursor[:, None] + steps, max=s - 1)
-        x = (F.embedding(idx.long(), params["wte.embedding"])
+        x = (_embed_rows(params, idx)
              + F.embedding(pos.long(), params["wpe.embedding"]))
         for i in range(cfg.n_layer):
             p = f"h_{i}"
@@ -468,10 +504,17 @@ class GPT(torch.nn.Module):
             at = at.expand(b) if at.dim() == 0 else at
             x = x[torch.arange(b, device=x.device), at][:, None]
         # weight tying: lm_head = wteᵀ
+        if "wte.qembedding" in params:
+            return quantized_attend(x, params["wte.qembedding"],
+                                    params["wte.qscale"])
         return row_linear(x, params["wte.embedding"], w_nk=True)
 
     @staticmethod
     def _row_dense(params, name, x):
+        q = params.get(f"{name}.qkernel")
+        if q is not None:
+            return quantized_dot(x, q, params[f"{name}.qscale"],
+                                 params.get(f"{name}.bias"))
         return row_linear(x, params[f"{name}.kernel"],
                           params.get(f"{name}.bias"))
 
@@ -488,7 +531,15 @@ class GPT(torch.nn.Module):
         s = cfg.block_size
         qkv = self._row_dense(params, f"{p}.c_attn", x)
         q, k, v = (z.unflatten(-1, (h, hd)) for z in qkv.split(c, dim=-1))
-        kc, vc = cache[f"{p}.k"], cache[f"{p}.v"]
+        quant = cfg.kv_dtype == "int8"
+        if quant:
+            # quantized once, as written: a page's (int8, scale) pairs are
+            # the same for every reader and every copy
+            (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            new = {"k": k, "v": v}
+        pools = [cache[f"{p}.{n}"] for n in new]
         wpos = cursor[:, None] + torch.arange(t, dtype=torch.int32,
                                               device=x.device)
         if cfg.page_size > 0:
@@ -498,22 +549,66 @@ class GPT(torch.nn.Module):
             phys = torch.gather(block_table, 1, lblk.long())
             phys = torch.where(wpos < s, phys, 0).long()
             off = (wpos % page).long()
-            kc[phys, off] = k
-            vc[phys, off] = v
-            y = decode_attention(q, kc, vc, block_table, cursor)
+            for pool, val in zip(pools, new.values()):
+                pool[phys, off] = val
+            table = block_table
             # per-position poison: out-of-window speculative positions
             ok = (wpos < s)[:, :, None, None]
         else:
             rows = torch.arange(b, device=x.device)[:, None].expand(b, t)
             wclamp = torch.clamp(wpos, max=s - 1).long()
-            kc[rows, wclamp] = k
-            vc[rows, wclamp] = v
-            y = decode_attention(q, kc, vc, unpaged_table(b, x.device),
-                                 cursor)
+            for pool, val in zip(pools, new.values()):
+                pool[rows, wclamp] = val
+            table = unpaged_table(b, x.device)
             # per-row poison: an overflowing row, never its neighbours
             ok = (cursor + t <= s)[:, None, None, None]
+        attend = decode_attention_int8 if quant else decode_attention
+        y = attend(q, *pools, table, cursor)
         y = y.masked_fill(~ok, float("nan"))
         return self._row_dense(params, f"{p}.c_proj", y.reshape(b, t, c))
+
+
+def _embed_rows(params, idx: torch.Tensor) -> torch.Tensor:
+    """wte's rows at ``idx`` [b, t]: looked up, or under ``quant_embed``
+    the int8 rows and their row-local scales gathered and only those
+    dequantized (a tile never straddles two rows)."""
+    q = params.get("wte.qembedding")
+    if q is None:
+        return F.embedding(idx.long(), params["wte.embedding"])
+    v, c = q.shape
+    scales = params["wte.qscale"].view(v, -1)                   # [V, C / t]
+    rows_q = q[idx.long()]                                      # [b, t, C]
+    rows_s = scales[idx.long()]                                 # [b, t, C/t]
+    return (rows_q.float().unflatten(-1, (rows_s.shape[-1], -1))
+            * rows_s[..., None]).flatten(-2)
+
+
+def dequantize_params(params: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """A quantized tree's f32 twin, node-stacked ``[K, ...]`` or not: each
+    ``qkernel``/``qembedding`` with its ``qscale`` becomes ``kernel``/
+    ``embedding`` (``dequantize_tiles`` a node), every other leaf stays.
+    What the evaluation forward of a quantized config runs on, as the JAX
+    package's ``QuantDense`` and ``QuantEmbed.materialize`` do."""
+    out = {}
+    for name, p in params.items():
+        base, _, leaf = name.rpartition(".")
+        if leaf == "qscale":
+            continue
+        if leaf in ("qkernel", "qembedding"):
+            scale = params[f"{base}.qscale"]
+            lead = scale.shape[:-1]                             # [K] or []
+            w = (p.float().reshape(*lead, scale.shape[-1], -1)
+                 * scale[..., None]).reshape(p.shape)
+            out[f"{base}.{'kernel' if leaf == 'qkernel' else 'embedding'}"] \
+                = w
+        else:
+            out[name] = p
+    return out
+
+
+def _device(params) -> torch.device:
+    return next(iter(params.values())).device
 
 
 # -- model utilities (reference parity helpers) ----------------------------
@@ -625,7 +720,7 @@ def generate(params, config: GPTConfig, idx: np.ndarray,
     cfg = dataclasses.replace(config, decode=False, page_size=0,
                               kv_pages=0)
     model = GPT(cfg)
-    device = params["wte.embedding"].device
+    device = _device(params)
     stacked = {n: p[None] for n, p in params.items()}
     key = threefry.PRNGKey(seed)
     idx = np.asarray(idx)
@@ -673,7 +768,7 @@ def generate_fast(params, config: GPTConfig, idx: np.ndarray,
             f"full-context resampling slides the context window past "
             f"block_size (the reference's crop semantics)")
     model = GPT(decode_config(config))
-    device = params["wte.embedding"].device
+    device = _device(params)
     key = threefry.key_tensor([threefry.PRNGKey(seed)], device)
     cache = model.init_cache(b, device)
 

@@ -39,6 +39,21 @@
 // global memory as each lane's head dims of one key at a time (coalesced
 // across the warp). A prefill chunk reads its keys once a query.
 
+// B7 int8: the same kernel over an int8 KV pool [P, page, H, hd] with one
+// f32 scale per (position, head), [P, page, H] (a quantized serving
+// config's kv_dtype="int8": gym_tpu/ops/fused_attention.py kv_quantize
+// :390 on write and kv_dequantize :401 on the gathered window, in
+// gym_tpu/models/nanogpt.py :348-362 unpaged and :445-465 paged; no
+// pl.pallas_call kernel). Its contract: bit for bit B7 on the
+// kv_dequantize'd pools. Each K element is dequantized as it is staged in
+// shared memory, each V element where the PV chain reads it, both as
+// __fmul_rn((float)q, scale[position, head]), one rounding, JAX's
+// q.astype(f32) * scale, never contracted into the chain's FMA; the rest
+// of B7's arithmetic is unchanged (the kernel is templated on the pool's
+// loader). A NaN scale makes its position's scores or values NaN, and so
+// the query's output (the serving engine's quarantine reads it). Bound:
+// bytes, a quarter of the f32 window's plus the scales.
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,11 +77,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD, int WARPS>
+// The pools' element d of the head vector at offset o (the position's and
+// head's first element, o = (position * H + head) * hd): f32 as stored, or
+// int8 times the (position, head) scale at o / hd.
+struct F32KV {
+  const float* k;
+  const float* v;
+  __device__ __forceinline__ float key(long long o, int d) const {
+    return k[o + d];
+  }
+  __device__ __forceinline__ float val(long long o, int d) const {
+    return v[o + d];
+  }
+};
+
+template <int HD>
+struct Int8KV {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  __device__ __forceinline__ float key(long long o, int d) const {
+    return __fmul_rn((float)k[o + d], ks[o / HD]);
+  }
+  __device__ __forceinline__ float val(long long o, int d) const {
+    return __fmul_rn((float)v[o + d], vs[o / HD]);
+  }
+};
+
+template <int HD, int WARPS, class KV>
 __global__ void __launch_bounds__(WARPS * 32)
     decode_attention_kernel(const float* __restrict__ q, long long q_sb,
-                            long long q_st, const float* __restrict__ kp,
-                            const float* __restrict__ vp,
+                            long long q_st, KV kv,
                             const int* __restrict__ table, int nblk,
                             int page, const int* __restrict__ cursor, int t,
                             int H, float scale_div, float* __restrict__ out) {
@@ -100,9 +142,9 @@ __global__ void __launch_bounds__(WARPS * 32)
     __syncwarp();
 #pragma unroll 4
     for (int key = 0; key < nk; ++key) {
-      const float* krow = kp + offs[warp][key];
+      const long long o = offs[warp][key];
 #pragma unroll
-      for (int d = lane; d < HD; d += 32) ks[warp][key][d] = krow[d];
+      for (int d = lane; d < HD; d += 32) ks[warp][key][d] = kv.key(o, d);
     }
     __syncwarp();
     float s = -INFINITY;
@@ -125,7 +167,7 @@ __global__ void __launch_bounds__(WARPS * 32)
         float acc = 0.f;
 #pragma unroll 4
         for (int key = 0; key < nk; ++key)
-          acc = fmaf(ps[warp][key], vp[offs[warp][key] + d], acc);
+          acc = fmaf(ps[warp][key], kv.val(offs[warp][key], d), acc);
         o[i] = o[i] * alpha + acc;
       }
     }
@@ -167,16 +209,19 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <int HD, int WARPS>
-int launch(const float* q, long long q_sb, long long q_st, const float* kp,
-           const float* vp, const int* table, int nblk, int page,
-           const int* cursor, int b, int t, int H, float scale_div,
-           float* out, cudaStream_t stream) {
+template <int HD, int WARPS, class KV>
+int launch(const float* q, long long q_sb, long long q_st, KV kv,
+           const int* table, int nblk, int page, const int* cursor, int b,
+           int t, int H, float scale_div, float* out, cudaStream_t stream) {
   const dim3 grid(t, H, b);
-  decode_attention_kernel<HD, WARPS><<<grid, WARPS * 32, 0, stream>>>(
-      q, q_sb, q_st, kp, vp, table, nblk, page, cursor, t, H, scale_div,
-      out);
+  decode_attention_kernel<HD, WARPS, KV><<<grid, WARPS * 32, 0, stream>>>(
+      q, q_sb, q_st, kv, table, nblk, page, cursor, t, H, scale_div, out);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int b, int t, int H, int nblk, int page) {
+  return b <= 0 || t <= 0 || H <= 0 || nblk <= 0 || page <= 0 ||
+         b > 65535 || H > 65535 || (long long)nblk * page > 2147483647LL;
 }
 
 }  // namespace
@@ -192,29 +237,64 @@ int gym_decode_attention(const void* q, long long q_sb, long long q_st,
                          const void* table, int nblk, int page,
                          const void* cursor, int b, int t, int H, int hd,
                          float scale_div, void* out, void* stream) {
-  if (b <= 0 || t <= 0 || H <= 0 || nblk <= 0 || page <= 0 || b > 65535 ||
-      H > 65535 || (long long)nblk * page > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, t, H, nblk, page)) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
+  const F32KV kv{static_cast<const float*>(k_pool),
+                 static_cast<const float*>(v_pool)};
   const int* tb = static_cast<const int*>(table);
   const int* cu = static_cast<const int*>(cursor);
   float* of = static_cast<float*>(out);
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 16:
-      return launch<16, 4>(qf, q_sb, q_st, kf, vf, tb, nblk, page, cu, b, t,
-                           H, scale_div, of, s);
+      return launch<16, 4>(qf, q_sb, q_st, kv, tb, nblk, page, cu, b, t, H,
+                           scale_div, of, s);
     case 32:
-      return launch<32, 4>(qf, q_sb, q_st, kf, vf, tb, nblk, page, cu, b, t,
-                           H, scale_div, of, s);
+      return launch<32, 4>(qf, q_sb, q_st, kv, tb, nblk, page, cu, b, t, H,
+                           scale_div, of, s);
     case 64:
-      return launch<64, 4>(qf, q_sb, q_st, kf, vf, tb, nblk, page, cu, b, t,
-                           H, scale_div, of, s);
+      return launch<64, 4>(qf, q_sb, q_st, kv, tb, nblk, page, cu, b, t, H,
+                           scale_div, of, s);
     case 128:
-      return launch<128, 2>(qf, q_sb, q_st, kf, vf, tb, nblk, page, cu, b,
-                            t, H, scale_div, of, s);
+      return launch<128, 2>(qf, q_sb, q_st, kv, tb, nblk, page, cu, b, t, H,
+                            scale_div, of, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B7 int8: as gym_decode_attention over int8 pools [P, page, H, hd] with
+// f32 scale pools [P, page, H] (all contiguous).
+int gym_decode_attention_int8(const void* q, long long q_sb, long long q_st,
+                              const void* k_pool, const void* v_pool,
+                              const void* k_scale, const void* v_scale,
+                              const void* table, int nblk, int page,
+                              const void* cursor, int b, int t, int H,
+                              int hd, float scale_div, void* out,
+                              void* stream) {
+  if (bad_shape(b, t, H, nblk, page)) return (int)cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  const int8_t* kq = static_cast<const int8_t*>(k_pool);
+  const int8_t* vq = static_cast<const int8_t*>(v_pool);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tb = static_cast<const int*>(table);
+  const int* cu = static_cast<const int*>(cursor);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return launch<16, 4>(qf, q_sb, q_st, Int8KV<16>{kq, vq, ks, vs}, tb,
+                           nblk, page, cu, b, t, H, scale_div, of, s);
+    case 32:
+      return launch<32, 4>(qf, q_sb, q_st, Int8KV<32>{kq, vq, ks, vs}, tb,
+                           nblk, page, cu, b, t, H, scale_div, of, s);
+    case 64:
+      return launch<64, 4>(qf, q_sb, q_st, Int8KV<64>{kq, vq, ks, vs}, tb,
+                           nblk, page, cu, b, t, H, scale_div, of, s);
+    case 128:
+      return launch<128, 2>(qf, q_sb, q_st, Int8KV<128>{kq, vq, ks, vs}, tb,
+                            nblk, page, cu, b, t, H, scale_div, of, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,6 +33,25 @@
 // the lm head keeps 64 columns a block, where x's reloads would cost as
 // much as W.
 //
+// B6, the same y = x . dequant(q, scale) (+ bias) over quantized weights:
+// the QuantDense layers and the quantized tied lm head of a quantized
+// serving config. It replaces XLA's fusion of dequantize_tiles into the
+// dots of quantized_dot / quantized_attend (gym_tpu/ops/grouped_matmul.py
+// :253,265, under QuantDense :190 and QuantEmbed.attend :242 of
+// gym_tpu/models/nanogpt.py; no pl.pallas_call kernel). q is int8 (int4
+// values are stored in int8), W's layout R1's ([K, N] or [N, K]), with one
+// f32 scale per t consecutive elements of the row-major q; t divides the
+// trailing axis (quant_tile_for), so a row of q holds cols / t whole tiles
+// and element (row, col) takes scale[row * (cols / t) + col / t].
+// B6's contract: bit for bit R1 on dequantize_tiles(q, scale), at every M.
+// Each weight is dequantized once, as it is written into the shared W
+// tile: ws = __fmul_rn((float)q, scale), one rounding (the conversion of
+// an int8 is exact), JAX's q.astype(f32) * scale; __fmul_rn, so that
+// -fmad never contracts the dequant into the product. The FMA chain after
+// it is R1's own: the kernel is R1's, templated on the weight loader.
+// Bound: bytes at a few rows (int8 W, a quarter of R1's), the f32 FMAs at
+// a prefill, as R1.
+//
 // L1's contract: one warp a row; each lane sums its columns lane, lane+32,
 // ... in order, the 32 partial sums are combined by an xor butterfly (the
 // same bits on every lane), so a row's statistics are fixed by C alone.
@@ -46,11 +65,38 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+// W's element at (row, col) of its row-major storage ([K, N] or [N, K],
+// cols the trailing extent), read through the read-only cache: R1's f32
+// weights as they are, B6's int8 weights dequantized with their tile's
+// scale.
+struct F32W {
+  const float* w;
+  __device__ __forceinline__ float operator()(int row, int col,
+                                              int cols) const {
+    return __ldg(w + (long long)row * cols + col);
+  }
+};
+
+struct QuantW {
+  const int8_t* q;
+  const float* scale;
+  int t;      // elements a scale; divides cols
+  int shift;  // log2(t) when t is a power of two (GPT-2's 256), else -1
+  int tpr;    // scales a row: cols / t
+  __device__ __forceinline__ float operator()(int row, int col,
+                                              int cols) const {
+    const int tile = shift >= 0 ? col >> shift : col / t;
+    const float s = __ldg(scale + (long long)row * tpr + tile);
+    return __fmul_rn((float)__ldg(q + (long long)row * cols + col), s);
+  }
+};
+
 // BM x BN outputs a block, TM x TN a thread (columns tx + j * BN / TN), K in
-// tiles of BK; W's element (k, n) at w[k * N + n] (KN) or w[n * K + k].
-template <int BM, int BN, int BK, int TM, int TN, bool KN>
+// tiles of BK; W's element (k, n) at (k, n) of a [K, N] storage (KN) or at
+// (n, k) of an [N, K] one.
+template <int BM, int BN, int BK, int TM, int TN, bool KN, class W>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    row_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+    row_gemm_kernel(const float* __restrict__ x, W w,
                     const float* __restrict__ bias, float* __restrict__ y,
                     int M, int N, int K) {
   constexpr int TX = BN / TN, THREADS = (BM / TM) * TX;
@@ -79,8 +125,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       }
       const int gn = n0 + nn, gk = k0 + kk;
       float v = 0.f;
-      if (gn < N && gk < K)
-        v = KN ? w[(long long)gk * N + gn] : w[(long long)gn * K + gk];
+      if (gn < N && gk < K) v = KN ? w(gk, gn, N) : w(gn, gk, K);
       ws[kk][nn] = v;
     }
     __syncthreads();
@@ -111,15 +156,34 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN, bool KN>
-int launch_gemm(const float* x, const float* w, const float* bias, float* y,
-                int M, int N, int K, cudaStream_t stream) {
+template <int BM, int BN, int BK, int TM, int TN, bool KN, class W>
+int launch_gemm(const float* x, W w, const float* bias, float* y, int M,
+                int N, int K, cudaStream_t stream) {
   if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   constexpr int threads = (BM / TM) * (BN / TN);
-  row_gemm_kernel<BM, BN, BK, TM, TN, KN>
+  row_gemm_kernel<BM, BN, BK, TM, TN, KN, W>
       <<<grid, threads, 0, stream>>>(x, w, bias, y, M, N, K);
   return (int)cudaGetLastError();
+}
+
+// R1's tilings, one for each weight loader: a few rows, W [K, N]: 16 x 16
+// outputs a block, one a thread, K in tiles of 128 (N / 16 blocks, few
+// waits between barriers). A few rows, W [N, K] (the lm head, N = 50304):
+// 16 x 64 a block, 4 columns a thread, so each block's x tile serves 64
+// columns. Many rows: 64 x 64, 4 x 4 a thread. Every tiling chains each
+// element over k alike.
+template <class W>
+int dispatch_gemm(const float* x, W w, const float* bias, float* y, int M,
+                  int N, int K, int w_kn, cudaStream_t s) {
+  if (M <= 32) {
+    if (w_kn) return launch_gemm<16, 16, 128, 1, 1, true>(x, w, bias, y, M,
+                                                          N, K, s);
+    return launch_gemm<16, 64, 32, 1, 4, false>(x, w, bias, y, M, N, K, s);
+  }
+  if (w_kn) return launch_gemm<64, 64, 16, 4, 4, true>(x, w, bias, y, M, N,
+                                                       K, s);
+  return launch_gemm<64, 64, 16, 4, 4, false>(x, w, bias, y, M, N, K, s);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -167,24 +231,29 @@ extern "C" {
 int gym_row_gemm(const void* x, const void* w, const void* bias, void* y,
                  int M, int N, int K, int w_kn, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(bias);
-  float* yf = static_cast<float*>(y);
-  cudaStream_t s = (cudaStream_t)stream;
-  // A few rows, W [K, N]: 16 x 16 outputs a block, one a thread, K in
-  // tiles of 128 (N / 16 blocks, few waits between barriers). A few rows,
-  // W [N, K] (the lm head, N = 50304): 16 x 64 a block, 4 columns a thread,
-  // so each block's x tile serves 64 columns. Many rows: 64 x 64, 4 x 4 a
-  // thread. Every tiling chains each element over k alike.
-  if (M <= 32) {
-    if (w_kn) return launch_gemm<16, 16, 128, 1, 1, true>(xf, wf, bf, yf, M,
-                                                          N, K, s);
-    return launch_gemm<16, 64, 32, 1, 4, false>(xf, wf, bf, yf, M, N, K, s);
-  }
-  if (w_kn) return launch_gemm<64, 64, 16, 4, 4, true>(xf, wf, bf, yf, M, N,
-                                                       K, s);
-  return launch_gemm<64, 64, 16, 4, 4, false>(xf, wf, bf, yf, M, N, K, s);
+  return dispatch_gemm(static_cast<const float*>(x),
+                       F32W{static_cast<const float*>(w)},
+                       static_cast<const float*>(bias), static_cast<float*>(y),
+                       M, N, K, w_kn, (cudaStream_t)stream);
+}
+
+// B6: y [M, N] (contiguous) = x [M, K] (contiguous) . dequant(q, scale)
+// (+ bias [N]); q int8, [K, N] contiguous when w_kn, else [N, K]
+// contiguous; scale f32, one per t consecutive elements of q, t dividing
+// q's trailing extent.
+int gym_row_qgemm(const void* x, const void* q, const void* scale,
+                  const void* bias, void* y, int M, int N, int K, int w_kn,
+                  int t, void* stream) {
+  const int cols = w_kn ? N : K;
+  if (M <= 0 || N <= 0 || K <= 0 || t <= 0 || cols % t)
+    return (int)cudaErrorInvalidValue;
+  const int shift = (t & (t - 1)) == 0 ? __builtin_ctz(t) : -1;
+  return dispatch_gemm(static_cast<const float*>(x),
+                       QuantW{static_cast<const int8_t*>(q),
+                              static_cast<const float*>(scale), t, shift,
+                              cols / t},
+                       static_cast<const float*>(bias), static_cast<float*>(y),
+                       M, N, K, w_kn, (cudaStream_t)stream);
 }
 
 // y [M, C] = layer norm of each row of x [M, C] (contiguous), scale [C],

@@ -22,6 +22,14 @@ verify chunks and paging.
 ``decode_attention`` launches the kernel for CUDA tensors (or raises) and
 runs the twin for CPU tensors; ``decode_attention.launches`` counts the
 kernel's launches.
+
+B7 int8 (``decode_attention_int8``): the same attention over int8 pools
+with one f32 scale per (position, head) (a ``kv_dtype="int8"`` cache,
+``ops/fused_attention.py`` ``kv_quantize``), bit for bit B7 on the
+``kv_dequantize``'d pools: the kernel dequantizes each K element as it
+stages it and each V element as the PV chain reads it, with B7's
+arithmetic otherwise unchanged. ``decode_attention_int8.launches`` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import ctypes
 import math
 
 import torch
+
+from .fused_attention import kv_dequantize
 
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -64,7 +74,16 @@ def plain_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-def _check(q, k_pool, v_pool, block_table, cursor) -> None:
+def plain_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                block_table, cursor) -> torch.Tensor:
+    """B7 int8's twin: the pools dequantized, then B7's twin."""
+    return plain_decode_attention(q, kv_dequantize(k_pool, k_scale),
+                                  kv_dequantize(v_pool, v_scale),
+                                  block_table, cursor)
+
+
+def _check(q, k_pool, v_pool, block_table, cursor,
+           pool_dtype=torch.float32) -> None:
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"q must be [b, t, H, hd] and the pools [P, page, "
                          f"H, hd] of one shape, got {tuple(q.shape)}, "
@@ -80,8 +99,11 @@ def _check(q, k_pool, v_pool, block_table, cursor) -> None:
                          f"{tuple(cursor.shape)}")
     if block_table.dtype != torch.int32 or cursor.dtype != torch.int32:
         raise ValueError("block_table and cursor must be int32")
-    if any(x.dtype != torch.float32 for x in (q, k_pool, v_pool)):
-        raise ValueError("q and the pools must be float32")
+    if q.dtype != torch.float32:
+        raise ValueError("q must be float32")
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise ValueError(f"the pools must be {pool_dtype}, got "
+                         f"{k_pool.dtype} and {v_pool.dtype}")
     devs = {x.device for x in (q, k_pool, v_pool, block_table, cursor)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
@@ -124,8 +146,55 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, block_table: torch.Tensor,
+                          cursor: torch.Tensor) -> torch.Tensor:
+    """``decode_attention`` over int8 pools ``[P, page, H, hd]`` and their
+    f32 scale pools ``[P, page, H]``. On the card one launch of B7 int8; on
+    the CPU its twin."""
+    _check(q, k_pool, v_pool, block_table, cursor, torch.int8)
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"the scale pools must be {tuple(k_pool.shape[:3])}"
+                         f", got {tuple(k_scale.shape)} and "
+                         f"{tuple(v_scale.shape)}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError("the scale pools must be float32")
+    if k_scale.device != q.device or v_scale.device != q.device:
+        raise ValueError("the scale pools are on another device")
+    if q.device.type == "cpu":
+        return plain_decode_attention_int8(q, k_pool, v_pool, k_scale,
+                                           v_scale, block_table, cursor)
+    b, t, h, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if q.stride(3) != 1 or q.stride(2) != hd:
+        raise ValueError("q's heads and head dims must be contiguous")
+    if not all(x.is_contiguous() for x in (k_pool, v_pool, k_scale, v_scale,
+                                           block_table, cursor)):
+        raise ValueError("the pools, the scale pools, block_table and "
+                         "cursor must be contiguous")
+    out = torch.empty(b, t, h, hd, dtype=torch.float32, device=q.device)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(q.device).cuda_stream)
+        code = lib.gym_decode_attention_int8(
+            q.data_ptr(), q.stride(0), q.stride(1), k_pool.data_ptr(),
+            v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            block_table.data_ptr(), block_table.shape[1], k_pool.shape[1],
+            cursor.data_ptr(), b, t, h, hd, float(math.sqrt(hd)),
+            out.data_ptr(), stream)
+    _build.check(lib, code, "gym_decode_attention_int8")
+    decode_attention_int8.launches += 1
+    return out
+
+
 decode_attention.launches = 0
+decode_attention_int8.launches = 0
 
 
 def reset_launch_counts() -> None:
     decode_attention.launches = 0
+    decode_attention_int8.launches = 0

@@ -19,6 +19,10 @@ simulator is folded into the batch by the callers
 axis into the grid. Contexts longer
 than 1024 go to the long-context pair of ``ops/flash_attention.py``, whose
 backward launches the backward kernels here.
+
+``kv_quantize`` and ``kv_dequantize`` are the int8 KV codec of quantized
+serving (plain PyTorch: elementwise, each step exact or one IEEE
+rounding).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 NEG = -1e30
@@ -399,3 +404,42 @@ def fused_causal_attention_packed(q, k, v, n_head, scale=None):
     (C = n_head·head_dim), no head transposes. T ≤ 1024, no dropout."""
     scale = scale or 1.0 / math.sqrt(q.shape[-1] // n_head)
     return _PackedAttention.apply(q, k, v, n_head, scale)
+
+
+# -- the int8 KV cache of quantized serving ----------------------------------
+#
+# A decode config with kv_dtype="int8" stores each written position's K and V
+# head vectors as int8 with one f32 scale per (position, head), amax / 127:
+# quantized once, as they are written, to nearest (QuantizeCodec's
+# stochastic=False idiom with the tile set to the head vector), so a shared
+# prompt page holds the same (int8, scale) pairs for every reader and a
+# copy-on-write copies them as they are. B7's int8 form
+# (ops/decode_attention.py) reads them dequantized.
+
+KV_QMAX = 127  # int8's symmetric range, QuantizeCodec(bits=8)'s
+# XLA compiles kv_quantize's ``amax / 127`` into a multiply by the f32
+# reciprocal of the constant: the bits of the JAX package's decode programs
+_INV_QMAX = float(np.float32(1.0) / np.float32(KV_QMAX))
+
+
+def kv_quantize(x: torch.Tensor):
+    """x ``[..., H, hd]`` f32 → (q int8 ``[..., H, hd]``, scale f32
+    ``[..., H]``): ``scale = amax · f32(1/127)`` over each head vector (1.0
+    for an all-zero or NaN one; the JAX function's ``amax / 127`` as XLA
+    compiles it), ``q = clamp(round(x / scale), ±127)``, rounded half to
+    even; a NaN element gives 0, as XLA converts it. Each step is exact or
+    one IEEE rounding, elementwise, and the division is by a tensor (the
+    card divides by a host scalar as a multiply by its reciprocal), so the
+    card and the CPU give the bits of the JAX package's jitted decode."""
+    amax = x.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax * torch.full_like(amax, _INV_QMAX),
+                        torch.ones_like(amax)).float()
+    q = torch.clamp(torch.round(x / scale[..., None]), -KV_QMAX, KV_QMAX)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The inverse of :func:`kv_quantize`: q ``[..., H, hd]`` int8 ×
+    scale ``[..., H]`` → ``[..., H, hd]``, one rounding an element."""
+    return q.to(dtype) * scale[..., None].to(dtype)

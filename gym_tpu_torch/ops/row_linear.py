@@ -15,6 +15,11 @@ bits never depend on the other rows:
   kernel chains each output element's FMAs over k in order; the twin
   multiplies one row at a time. The bias is added to the rounded product,
   as flax adds it.
+- ``row_qlinear`` (B6): R1 over quantized weights (int8 values, int4
+  stored in int8, one f32 scale per ``t`` consecutive elements of the
+  row-major weight), in both layouts; bit for bit ``row_linear`` on
+  ``dequantize_tiles(q, scale)``: the kernel dequantizes each weight once,
+  as it stages it, and runs R1's chains on it.
 - ``row_layer_norm`` (L1): flax ``nn.LayerNorm`` with its arithmetic (f32
   mean and E[x²] − E[x]², then (x − mean)·(rsqrt(var + eps)·scale) + bias);
   the kernel reduces each row in one warp in an order fixed by C.
@@ -27,8 +32,8 @@ bits never depend on the other rows:
   count.
 
 On a CPU tensor each wrapper runs its twin, on a CUDA tensor it launches its
-kernel or raises; ``row_linear.launches`` and ``row_layer_norm.launches``
-count the launches.
+kernel or raises; ``row_linear.launches``, ``row_qlinear.launches`` and
+``row_layer_norm.launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from .grouped_matmul import dequantize_tiles
 
 SCAN_BLOCK = 32
 
@@ -105,6 +112,70 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor = None,
     return out.view(*lead, n)
 
 
+def plain_row_qlinear(x2: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor, bias: torch.Tensor = None,
+                      w_nk: bool = False) -> torch.Tensor:
+    """B6's twin: the weights dequantized, then R1's twin."""
+    return plain_row_linear(x2, dequantize_tiles(q, scale), bias, w_nk)
+
+
+def row_qlinear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor = None, w_nk: bool = False) -> torch.Tensor:
+    """x ``[..., K]`` · dequant(q, scale) (q int8 ``[K, N]``, or ``[N, K]``
+    read transposed when ``w_nk``; scale f32 ``[q.numel() / t]``, t
+    dividing q's trailing axis) (+ bias ``[N]``) → ``[..., N]`` f32, the
+    bits of ``row_linear`` on the dequantized weight. On the card one
+    launch of B6."""
+    k = x.shape[-1]
+    if q.dim() != 2 or (q.shape[1] if w_nk else q.shape[0]) != k:
+        raise ValueError(f"x [..., {k}] does not fit q {tuple(q.shape)} "
+                         f"(w_nk={w_nk})")
+    n = q.shape[0] if w_nk else q.shape[1]
+    if q.dtype != torch.int8:
+        raise ValueError(f"q must be int8, got {q.dtype}")
+    if scale.dim() != 1 or scale.numel() == 0 or \
+            q.numel() % scale.numel():
+        raise ValueError(f"scale {tuple(scale.shape)} does not tile q "
+                         f"{tuple(q.shape)}")
+    t = q.numel() // scale.numel()
+    if q.shape[1] % t:
+        raise ValueError(f"tile {t} does not divide q's rows of "
+                         f"{q.shape[1]}")
+    if bias is not None and bias.shape != (n,):
+        raise ValueError(f"bias {tuple(bias.shape)} is not [{n}]")
+    floats = (x, scale) if bias is None else (x, scale, bias)
+    if any(f.dtype != torch.float32 for f in floats):
+        raise ValueError("x, scale and bias must be float32")
+    if len({f.device for f in floats + (q,)}) != 1:
+        raise ValueError("x, q, scale and bias on several devices")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    if x.device.type == "cpu":
+        return plain_row_qlinear(x2, q, scale, bias, w_nk).view(*lead, n)
+    if x.device.type != "cuda":
+        raise ValueError(f"device must be cuda or cpu, got {x.device}")
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out.view(*lead, n)
+    if m >= 2 ** 31 or q.numel() >= 2 ** 31:
+        raise ValueError(f"[{m}, {k}] x {tuple(q.shape)} too large")
+    x2 = x2.contiguous()
+    if not (q.is_contiguous() and scale.is_contiguous()) or (
+            bias is not None and not bias.is_contiguous()):
+        raise ValueError("q, scale and bias must be contiguous")
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.gym_row_qgemm(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
+            k, 0 if w_nk else 1, t, _stream(x.device))
+    _build.check(lib, code, "gym_row_qgemm")
+    row_qlinear.launches += 1
+    return out.view(*lead, n)
+
+
 def plain_row_layer_norm(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor = None,
                          eps: float = 1e-5) -> torch.Tensor:
@@ -156,11 +227,13 @@ def row_layer_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 row_linear.launches = 0
+row_qlinear.launches = 0
 row_layer_norm.launches = 0
 
 
 def reset_launch_counts() -> None:
     row_linear.launches = 0
+    row_qlinear.launches = 0
     row_layer_norm.launches = 0
 
 

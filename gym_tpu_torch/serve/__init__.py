@@ -4,7 +4,8 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
 - ``engine``: a fixed-capacity slot batch with per-slot KV caches or a
   shared page pool (prefix sharing, copy-on-write), one decode program a
   chunk shared by every request, bucketed prefill, speculative decoding and
-  park/resume, on the port's kernels (B7, R1, L1, T1's bits rows); each
+  park/resume, on the port's kernels (B7, R1, L1, T1's bits rows; B6 and
+  B7's int8 form under quantized weights and KV); each
   program staged through one pinned buffer and, on the card, a CUDA graph
   owned by the program registry (``gym_tpu_torch.programs``).
 - ``scheduler``: the JAX package's request layer, copied: FCFS queue with
@@ -12,7 +13,8 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
   preemption.
 - ``programs``: the engine's device programs as plain PyTorch functions.
 - ``load``: a fit's run dir → node-averaged params and its ``GPTConfig``
-  (``load_for_serving``), and the checkpoint-dir watcher.
+  (``load_for_serving``), quantize-at-load (``quantize_params``), and the
+  checkpoint-dir watcher.
 - ``supervisor``: the driver loop under a watchdog, rebuilding a failed or
   wedged engine.
 - ``router``: N in-process replicas behind one health-aware router
@@ -23,7 +25,7 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
   server.
 
 The out-of-process fleet (worker processes, the process router, the
-autoscaler) is ROADMAP item 15; quantized serving is item 14a.
+autoscaler) is ROADMAP item 15.
 """
 
 from .engine import (BlockAllocator, EngineStats, InferenceEngine,
@@ -31,7 +33,8 @@ from .engine import (BlockAllocator, EngineStats, InferenceEngine,
                      SamplingParams, TokenEvent, max_prefill_buckets,
                      prompt_bucket)
 from .load import (CheckpointWatcher, gpt_config_from_run,
-                   latest_checkpoint_step, load_for_serving, read_run_config)
+                   latest_checkpoint_step, load_for_serving,
+                   params_are_quantized, quantize_params, read_run_config)
 from .metrics import ServeMetrics, read_headline
 from .router import (FleetReloadError, FleetRequest, NoHealthyReplicaError,
                      Replica, Router, build_fleet)
@@ -50,7 +53,8 @@ __all__ = [
     "AdmissionRejectedError", "EngineFailedError",
     "SlotQuarantinedError", "RequestCancelledError",
     "load_for_serving", "read_run_config", "gpt_config_from_run",
-    "latest_checkpoint_step", "CheckpointWatcher",
+    "latest_checkpoint_step", "CheckpointWatcher", "quantize_params",
+    "params_are_quantized",
     "ServeMetrics", "read_headline", "Supervisor", "Router", "Replica",
     "FleetRequest", "build_fleet", "NoHealthyReplicaError",
     "FleetReloadError",

@@ -47,6 +47,13 @@ restart reuses. ``--device`` defaults to the card; the CPU serves only
 when ``--device cpu`` asks for it (tests), and without a card the server
 exits non-zero instead of serving on the CPU.
 
+Quantized serving: ``--quant {int8,int4}`` quantizes the restored weights
+at load (per-tile int8/int4 values and f32 scales, B6 on the card),
+``--quant-embed`` the tied embedding and lm head too (only with
+``--quant``), ``--kv-quant int8`` keeps the KV pool in int8 with f32 scales
+(B7's int8 form). A reload quantizes the new step's weights the same way;
+``/stats`` echoes ``weights_dtype`` and ``kv_dtype``.
+
 SIGTERM/SIGINT drain: stop accepting, fail queued requests (typed),
 answer in-flight ones (bounded by ``--drain-deadline``), close the
 listener, flush ``serve.csv``, print "shut down cleanly" and the
@@ -55,8 +62,7 @@ listener, flush ``serve.csv``, print "shut down cleanly" and the
 Flags of later items keep their names and exit 2 naming the item:
 ``--out-of-process``, ``--autoscale``, ``--autoscale-interval``,
 ``--min-replicas``, ``--max-replicas`` and ``--worker-startup-timeout``
-(the process fleet, ROADMAP item 15); ``--quant``, ``--quant-embed`` and
-``--kv-quant`` (quantized serving, item 14a).
+(the process fleet, ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -83,9 +89,6 @@ LATER_FLAGS = (
     ("max_replicas", "--max-replicas", "ROADMAP item 15"),
     ("worker_startup_timeout", "--worker-startup-timeout",
      "ROADMAP item 15"),
-    ("quant", "--quant", "ROADMAP item 14a"),
-    ("quant_embed", "--quant-embed", "ROADMAP item 14a"),
-    ("kv_quant", "--kv-quant", "ROADMAP item 14a"),
 )
 
 
@@ -128,6 +131,19 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="speculative decoding draft length (0 = off; "
                         "paged only); streams stay equal to "
                         "non-speculative decoding")
+    p.add_argument("--quant", choices=("int8", "int4"), default=None,
+                   help="quantize the restored weights at load: per-tile "
+                        "int8/int4 values and f32 scales (the QuantizeCodec "
+                        "tiling), consumed by B6 on the card; the embedding "
+                        "and lm head stay f32 unless --quant-embed "
+                        "(default: f32)")
+    p.add_argument("--quant-embed", action="store_true",
+                   help="with --quant: quantize the tied embedding and lm "
+                        "head too")
+    p.add_argument("--kv-quant", choices=("int8",), default=None,
+                   help="keep the KV cache in int8 with one f32 scale per "
+                        "(position, head): the same kv_pages hold 4x the "
+                        "payload in a quarter of the bytes (default: f32)")
     p.add_argument("--max_queue", type=int, default=64,
                    help="FCFS queue bound (backpressure: submits beyond "
                         "it wait, then 429)")
@@ -177,9 +193,6 @@ def _build_parser() -> argparse.ArgumentParser:
     later.add_argument("--min-replicas", type=int, default=None)
     later.add_argument("--max-replicas", type=int, default=None)
     later.add_argument("--worker-startup-timeout", type=float, default=None)
-    later.add_argument("--quant", choices=("int8", "int4"), default=None)
-    later.add_argument("--quant-embed", action="store_true")
-    later.add_argument("--kv-quant", choices=("int8",), default=None)
     return p
 
 
@@ -406,8 +419,7 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
                 "page_size": int(getattr(eng0, "page_size", 0)),
                 "kv_pages": int(getattr(eng0, "kv_pages", 0)),
                 "spec_tokens": int(getattr(eng0, "spec_tokens", 0)),
-                # quantized serving's config echo (f32 until ROADMAP
-                # item 14a) and byte footprints
+                # quantized serving's config echo and byte footprints
                 "weights_dtype": getattr(eng0, "weights_dtype", "f32"),
                 "kv_dtype": getattr(eng0, "kv_dtype", "f32"),
                 "kv_blocks_capacity_effective": sum(
@@ -735,6 +747,9 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
 def main(argv=None) -> int:
     parser = _build_parser()
     args = parser.parse_args(argv)
+    if args.quant_embed and not args.quant:
+        # refused, not ignored: quant_embed means nothing on f32 weights
+        parser.error("--quant-embed requires --quant {int8,int4}")
     for attr, flag, item in LATER_FLAGS:
         if getattr(args, attr) not in (None, False):
             print(f"gym_tpu_torch.serve: {flag} is ported with {item} of "
@@ -763,27 +778,35 @@ def main(argv=None) -> int:
         resolved = programs_mod.use_program_cache_dir(cache_dir)
         print(f"gym_tpu_torch.serve: kernel library build directory "
               f"{resolved}", file=sys.stderr, flush=True)
+    quant_kw = dict(weights_dtype=args.quant, kv_dtype=args.kv_quant,
+                    quant_embed=args.quant_embed)
     try:
         params, cfg, info = load_for_serving(
             args.ckpt, step=args.step, config_path=args.config,
-            device=device)
+            device=device, **quant_kw)
     except (CheckpointNotFoundError, FileNotFoundError, ValueError) as e:
         print(f"gym_tpu_torch.serve: cannot load {args.ckpt}: {e}",
               file=sys.stderr)
         return 1
+    quant_note = ""
+    if args.quant or args.kv_quant:
+        quant_note = (f", quantized (weights {cfg.weights_dtype}"
+                      + (", embed" if cfg.quant_embed else "")
+                      + f", kv {cfg.kv_dtype})")
     print(f"gym_tpu_torch.serve: restored step {info['step']} "
           f"({info['num_nodes']}-node average) from {args.ckpt} on "
-          f"{device}", flush=True)
+          f"{device}{quant_note}", flush=True)
 
     def reload_source(body):
         """POST /reload + the checkpoint watcher: re-read the run dir
         (newest valid step unless pinned) and hand back the node-averaged
-        params with a ``step-N`` weights tag. The architecture must match:
-        the engines' programs are config-keyed."""
+        params with a ``step-N`` weights tag, quantized as at startup (a
+        hot swap never changes the serving dtypes). The architecture must
+        match: the engines' programs are config-keyed."""
         ckpt = body.get("ckpt") or args.ckpt
         new_params, new_cfg, new_info = load_for_serving(
             ckpt, step=body.get("step"), config_path=args.config,
-            device=device)
+            device=device, **quant_kw)
         if new_cfg != cfg:
             raise ValueError(
                 f"checkpoint {ckpt} carries a different model config — "
@@ -868,6 +891,8 @@ def main(argv=None) -> int:
     kv = (f"paged kv: page {eng.page_size} x {eng.kv_pages} pages"
           + (f", spec {eng.spec_tokens}" if eng.spec_tokens else "")
           if eng.paged else "unpaged kv")
+    if eng.weights_dtype != "f32" or eng.kv_dtype != "f32":
+        kv += f", quant w={eng.weights_dtype} kv={eng.kv_dtype}"
     graphs = "cuda graphs" if eng.capture else "eager"
     print(f"gym_tpu_torch.serve: listening on http://{args.host}:"
           f"{handle.port} ({args.replicas} replica(s) x {args.num_slots} "

@@ -54,8 +54,14 @@ staging buffers, so it belongs to this engine: ``close`` frees them all. A
 build takes ``dispatch_lock``, which ``admit`` and ``step`` hold, so a
 capture never overlaps this engine's dispatches.
 
-Quantized weights and KV (``weights_dtype``/``kv_dtype``) belong to a later
-slice and raise.
+**Quantized serving** (a config's ``weights_dtype`` "int8"/"int4",
+``quant_embed``, ``kv_dtype`` "int8"): an f32 tree is quantized at
+construction (``load.quantize_params``; a quantized one is taken as it
+is), the decode path runs on B6 and B7's int8 form, and the KV pool holds
+int8 K and V with f32 scales, so the same page count holds 4× the payload
+of an f32 pool in a quarter of its bytes (``kv_pool_bytes``,
+``kv_blocks_capacity_effective``). Program names carry the dtypes
+(``_qtag``), so an f32 engine and a quantized one never share a graph.
 """
 
 from __future__ import annotations
@@ -76,10 +82,24 @@ from ..programs import (ProgramDef, ProgramOwnerClosedError, StagedProgram,
                         default_registry)
 from ..utils.resilience import fault_point
 from . import programs
+from .load import params_are_quantized, quantize_params
 
 PyTree = Any
 
 _ENGINE_IDS = itertools.count()
+
+
+def _qtag(cfg: GPTConfig) -> str:
+    """The program-name suffix of a quantized config (the JAX package's
+    ``serve_defs._qtag``): empty at f32, else its dtypes, e.g.
+    ``",w=int8+emb,kv=int8"``."""
+    parts = []
+    if cfg.weights_dtype != "f32":
+        parts.append(f"w={cfg.weights_dtype}"
+                     + ("+emb" if cfg.quant_embed else ""))
+    if cfg.kv_dtype != "f32":
+        parts.append(f"kv={cfg.kv_dtype}")
+    return ("," + ",".join(parts)) if parts else ""
 
 
 def _release_programs(registry, keys: set) -> None:
@@ -362,9 +382,11 @@ class InferenceEngine:
                  kv_pages: Optional[int] = None, spec_tokens: int = 0,
                  weights_tag: Optional[str] = None, device="cuda",
                  cuda_graphs: bool = True, registry=None):
-        """``params``: one model's flat f32 parameters (``convert.
+        """``params``: one model's flat parameters (``convert.
         serving_params`` or ``serving_params_from_jax``), moved to
-        ``device`` (the card unless the caller says otherwise).
+        ``device`` (the card unless the caller says otherwise): f32, or
+        already quantized (``load.quantize_params``); an f32 tree under a
+        quantized ``config`` is quantized here.
 
         ``decode_chunk``: decode steps a call (on-device EOS and max-token
         bookkeeping); 1 admits and evicts after every token, larger chunks
@@ -408,10 +430,6 @@ class InferenceEngine:
             raise ValueError(
                 f"kv_dtype must be 'f32' or 'int8', got "
                 f"{self.kv_dtype!r}")
-        if self.weights_dtype != "f32" or self.kv_dtype != "f32":
-            raise NotImplementedError(
-                "quantized serving (weights_dtype/kv_dtype int8 or int4) "
-                "is ported in a later slice of gym_tpu_torch")
         self.device = torch.device(device)
         base_cfg = decode_config(config)
         self.block_size = int(config.block_size)
@@ -444,9 +462,17 @@ class InferenceEngine:
             self.config = base_cfg
             self._alloc = None
         self._model = GPT(self.config)
-        self.params = {n: torch.as_tensor(p).to(self.device,
-                                                torch.float32).contiguous()
-                       for n, p in params.items()}
+        if self.weights_dtype != "f32" and not params_are_quantized(params):
+            params = quantize_params(
+                {n: torch.as_tensor(p) for n, p in params.items()},
+                self.config)
+
+        def placed(p):
+            p = torch.as_tensor(p)
+            dtype = torch.float32 if p.is_floating_point() else p.dtype
+            return p.to(self.device, dtype).contiguous()
+
+        self.params = {n: placed(p) for n, p in params.items()}
         self.weights_bytes = int(sum(p.numel() * p.element_size()
                                      for p in self.params.values()))
         s = self.num_slots
@@ -488,6 +514,37 @@ class InferenceEngine:
                                  kv_dtype=self.kv_dtype)
         self.last_logits: Optional[np.ndarray] = None  # [S, V] post-step
 
+    # -- quantized-serving observables ------------------------------------
+
+    @property
+    def kv_elem_bytes(self) -> int:
+        """Bytes of one stored K/V element: 1 under int8, 4 under f32."""
+        return 1 if self.kv_dtype == "int8" else 4
+
+    @property
+    def kv_blocks_capacity_effective(self) -> int:
+        """Usable blocks at the f32 pool's payload bytes: an int8 pool
+        stores 4 elements in one f32 element's bytes, so the payload of an
+        f32 pool of ``kv_pages`` holds ``4 × (kv_pages − 1)`` usable int8
+        blocks. The scales (4 / hd of the int8 payload) are not hidden in
+        it: ``kv_pool_bytes`` reports them. The usable block count at f32;
+        0 unpaged."""
+        if not self.paged:
+            return 0
+        return (self.kv_pages - 1) * (4 // self.kv_elem_bytes)
+
+    def kv_pool_bytes(self) -> Dict[str, int]:
+        """The KV cache's device bytes: the K/V payload and the scales
+        (0 at f32)."""
+        payload = scales = 0
+        for name, c in self._cache.items():
+            leaf = name.rpartition(".")[2]
+            if leaf in ("k", "v"):
+                payload += c.numel() * c.element_size()
+            elif leaf.endswith("_scale"):
+                scales += c.numel() * c.element_size()
+        return {"payload": int(payload), "scales": int(scales)}
+
     # -- device programs --------------------------------------------------
 
     def _def(self, kind: str, n: int = 0) -> ProgramDef:
@@ -499,6 +556,7 @@ class InferenceEngine:
         the null page or their own cursor position, which a live row
         overwrites before reading)."""
         cfg, s, v = self.config, self.num_slots, self.config.vocab_size
+        q = _qtag(cfg)
         i32, f32 = np.int32, np.float32
         sampling_warm = {"temp": 1.0, "top_k": v, "top_p": 1.0}
 
@@ -520,13 +578,13 @@ class InferenceEngine:
                 build = programs.build_spec_decode(cfg, s, n,
                                                    self.spec_tokens)
                 name = (f"serve.spec_decode[slots={s},chunk={n},"
-                        f"gamma={self.spec_tokens}]")
+                        f"gamma={self.spec_tokens}{q}]")
             elif self.paged:
                 build = programs.build_paged_decode(cfg, s, n)
-                name = f"serve.paged_decode[slots={s},chunk={n}]"
+                name = f"serve.paged_decode[slots={s},chunk={n}{q}]"
             else:
                 build = programs.build_slot_decode(cfg, s, n)
-                name = f"serve.decode[slots={s},chunk={n}]"
+                name = f"serve.decode[slots={s},chunk={n}{q}]"
             fn = functools.partial(build, self.params, self._cache)
         elif kind == "prefill":
             inputs = {"tokens": ((1, n), i32), **sampling(1, "key")}
@@ -535,22 +593,22 @@ class InferenceEngine:
                 inputs.update(bt_row=((1, self.max_blocks), i32),
                               start=((1,), i32), true_suffix=((1,), i32))
                 warm = dict(warm, true_suffix=1)
-                name = f"serve.paged_prefill[bucket={n}]"
+                name = f"serve.paged_prefill[bucket={n}{q}]"
                 fn = functools.partial(programs.build_paged_prefill(cfg, n),
                                        self.params, self._cache)
             else:
                 inputs["true_len"] = ((1,), i32)
                 warm = dict(warm, true_len=1)
-                name = f"serve.prefill[bucket={n}]"
+                name = f"serve.prefill[bucket={n}{q}]"
                 fn = functools.partial(programs.build_prefill(cfg, n),
                                        self.params, self._row_cache)
         elif kind == "cow":
             inputs = {"src": ((1,), i32), "dst": ((1,), i32)}
-            name = f"serve.cow[page={self.page_size}]"
+            name = f"serve.cow[page={self.page_size}{q}]"
             fn = functools.partial(programs.build_cow(cfg), self._cache)
         elif kind == "admit":
             inputs = {"slot": ((1,), i32), "true_len": ((1,), i32)}
-            name = f"serve.admit[slots={s}]"
+            name = f"serve.admit[slots={s}{q}]"
             fn = functools.partial(programs.build_slot_admit(cfg, s),
                                    self._cache, self._row_cache)
         else:

@@ -1,6 +1,6 @@
 """A fit's run dir → servable ``(params, GPTConfig)`` (counterpart of
-``gym_tpu/serve/load.py``, its params-only restore and checkpoint watching;
-quantize-at-load is a later slice).
+``gym_tpu/serve/load.py``: its params-only restore, quantize-at-load and
+checkpoint watching).
 
 A run dir (``fit(save_dir=..., checkpoint_interval=...)``) holds the
 step-numbered checkpoints of the FULL train state and a ``config.json``
@@ -13,7 +13,10 @@ beside them. Serving needs none of the training machinery:
    the device asked for, so a run dir serves the same tokens as the
    in-process weights;
 3. ``GPTConfig`` is rebuilt from ``config.json``'s ``model_config``; the
-   engine makes it fit for decode (``models.nanogpt.decode_config``).
+   engine makes it fit for decode (``models.nanogpt.decode_config``);
+4. ``weights_dtype`` ("int8"/"int4") quantizes the averaged weights
+   (``quantize_params``) and ``kv_dtype`` ("int8") stamps the config: the
+   KV cache quantizes as it is written.
 
 ``CheckpointNotFoundError`` propagates typed (the CLI turns it into a
 one-line message).
@@ -33,12 +36,63 @@ import torch
 
 from ..convert import serving_params
 from ..models.nanogpt import GPTConfig
+from ..ops.grouped_matmul import quant_tile_for
+from ..strategy.compress import QuantizeCodec
 from ..train_node import default_device
 from ..utils.checkpoint import CheckpointNotFoundError, restore_params
 
-QUANTIZED_LATER = ("quantized serving (weights_dtype, kv_dtype, "
-                   "quant_embed) is ported in a later slice of gym_tpu_torch "
-                   "(ROADMAP Queue A, item 14a)")
+
+# -- quantize-at-load ---------------------------------------------------------
+
+
+def params_are_quantized(params: Dict[str, torch.Tensor]) -> bool:
+    """True when the flat tree already carries quantized leaves
+    (``qkernel``/``qembedding``): every construction path (the engine, a
+    replica rebuild, a hot swap) takes an f32 tree or a quantized one and
+    never quantizes twice."""
+    return any(n.rpartition(".")[2] in ("qkernel", "qembedding")
+               for n in params)
+
+
+def quantize_params(params: Dict[str, torch.Tensor],
+                    config) -> Dict[str, torch.Tensor]:
+    """An f32 flat tree quantized for serving under ``config``
+    (``weights_dtype`` "int8"/"int4", optional ``quant_embed``): every 2-D
+    ``kernel``, and ``wte.embedding`` under ``quant_embed``, becomes
+    ``qkernel``/``qembedding`` (int8, its own shape) and ``qscale`` (f32,
+    one a tile) through ``QuantizeCodec(bits, tile, stochastic=False)``,
+    the tile ``quant_tile_for`` clamps to divide the trailing axis, the
+    weight one ``[1, n]`` row (so the codec's tiles are the JAX package's
+    flat ones). Biases, layer norms and ``wpe`` stay f32. A no-op at
+    ``weights_dtype="f32"``. The codec runs on the CPU and its results go
+    back to each weight's device: the card divides by the codec's host
+    scalar ``qmax`` as a multiply by its reciprocal, the CPU (and XLA) as
+    a division, and the served weights are the JAX package's bits
+    wherever they are quantized."""
+    wd = getattr(config, "weights_dtype", "f32")
+    if wd == "f32":
+        return params
+    if wd not in ("int8", "int4"):
+        raise ValueError(
+            f"weights_dtype must be 'f32', 'int8' or 'int4', got {wd!r}")
+    bits = {"int8": 8, "int4": 4}[wd]
+    tile = int(getattr(config, "quant_tile", 256))
+    embed = bool(getattr(config, "quant_embed", False))
+    out = {}
+    for name, w in params.items():
+        base, _, leaf = name.rpartition(".")
+        if (leaf == "kernel" and w.dim() == 2) or (
+                embed and name == "wte.embedding"):
+            codec = QuantizeCodec(bits=bits, tile=quant_tile_for(w.shape,
+                                                                 tile),
+                                  stochastic=False)
+            q, scale = codec.compress(w.float().cpu().reshape(1, -1), None)
+            qname = "qkernel" if leaf == "kernel" else "qembedding"
+            out[f"{base}.{qname}"] = q.reshape(w.shape).to(w.device)
+            out[f"{base}.qscale"] = scale.reshape(-1).to(w.device)
+        else:
+            out[name] = w
+    return out
 
 
 def read_run_config(run_dir: str,
@@ -85,14 +139,12 @@ def load_for_serving(run_dir: str, step: Optional[int] = None,
     by name on ``device`` (the card unless ``device="cpu"``), averaged
     there as ``convert.serving_params`` does; the run's ``GPTConfig``;
     and ``info`` (``step``, ``num_nodes``, the raw run config).
-    ``config=`` skips the ``config.json`` lookup. ``weights_dtype``,
-    ``kv_dtype`` and ``quant_embed`` are refused: quantized serving is a
-    later slice."""
-    for name, value in (("weights_dtype", weights_dtype),
-                        ("kv_dtype", kv_dtype), ("quant_embed", quant_embed)):
-        if value:
-            raise NotImplementedError(f"load_for_serving({name}=...): "
-                                      f"{QUANTIZED_LATER}")
+    ``config=`` skips the ``config.json`` lookup.
+
+    ``weights_dtype`` ("int8"/"int4") quantizes the averaged parameters
+    (``quantize_params``; ``quant_embed`` the tied embedding too) and the
+    returned config carries the dtypes; ``kv_dtype`` ("int8") only stamps
+    the config: the KV cache quantizes as it is written."""
     dev = default_device(device)
     if not os.path.isdir(run_dir):
         raise CheckpointNotFoundError(
@@ -114,7 +166,14 @@ def load_for_serving(run_dir: str, step: Optional[int] = None,
             f"checkpoint params carry a [{k}]-node axis but config.json "
             f"says num_nodes={want_k} — wrong run dir / config pairing?")
     info = {"step": at_step, "num_nodes": k, "run_config": raw}
-    return serving_params(node_params), config, info
+    params = serving_params(node_params)
+    if weights_dtype or kv_dtype or quant_embed:
+        config = dataclasses.replace(
+            config, weights_dtype=weights_dtype or config.weights_dtype,
+            kv_dtype=kv_dtype or config.kv_dtype,
+            quant_embed=bool(quant_embed) or config.quant_embed)
+        params = quantize_params(params, config)
+    return params, config, info
 
 
 # -- checkpoint-dir watching ----------------------------------------------

@@ -11,9 +11,14 @@
 # kernel build directory (--program-cache-dir): first request 200 with
 # the same stream, programs_compiled 0.
 #
-# Not here: ci_serve.sh's quantized passes (--quant, --kv-quant) wait for
-# ROADMAP item 14a, its process-fleet drill (--out-of-process) for item
-# 15. On the card the same server is chip_smoke.py phase 12b.
+# Then the quantized pass, the twin of ci_serve.sh's: the same checkpoint
+# served with --quant int8 --kv-quant int8 — 200s, /stats echoing the
+# dtypes and the int8 pool's capacity, the warmup done, the SIGTERM drill,
+# and a restart against its build directory with programs_compiled 0.
+#
+# Not here: ci_serve.sh's process-fleet drill (--out-of-process) waits for
+# ROADMAP item 15. On the card the same servers are chip_smoke.py phases
+# 12b and 13d.
 #
 # Usage: scripts/ci_torch_serve.sh   (from the repo root or anywhere)
 set -o pipefail
@@ -26,7 +31,7 @@ rm -f "$log"
 timeout -k 10 900 env JAX_PLATFORMS=cpu python -m pytest \
     tests/test_torch_serve.py tests/test_torch_serve_paged.py \
     tests/test_torch_serve_http.py tests/test_torch_serve_fleet.py \
-    tests/test_torch_programs.py -q \
+    tests/test_torch_programs.py tests/test_torch_serve_quant.py -q \
     -p no:cacheprovider -p no:xdist -p no:randomly \
     2>&1 | tee "$log"
 rc=${PIPESTATUS[0]}
@@ -60,19 +65,22 @@ EOF
 rc=$?
 [ "$rc" -ne 0 ] && { echo "ci_torch_serve: training the ckpt failed"; exit "$rc"; }
 
-# bare `python ... &` so $! is the server pid, not a subshell's
+# bare `python ... &` so $! is the server pid, not a subshell's; $2 the
+# build directory, the rest extra flags
 serve() {
+    log_file="$1"; cache="$2"; shift 2
     env PYTHONPATH="$REPO" python -m gym_tpu_torch.serve \
         --ckpt "$OUT/ckpts/ci" --port "$PORT" --num_slots 2 --device cpu \
-        --program-cache-dir "$OUT/progcache" > "$1" 2>&1 &
+        --program-cache-dir "$OUT/$cache" "$@" > "$log_file" 2>&1 &
     SRV=$!
     for _ in $(seq 1 90); do
-        grep -q "listening" "$1" && return 0
+        grep -q "listening" "$log_file" && return 0
         kill -0 "$SRV" 2>/dev/null || { echo "ci_torch_serve: server died";
-            cat "$1"; exit 1; }
+            cat "$log_file"; exit 1; }
         sleep 1
     done
-    echo "ci_torch_serve: server never started"; cat "$1"; kill -9 "$SRV"
+    echo "ci_torch_serve: server never started"; cat "$log_file"
+    kill -9 "$SRV"
     exit 1
 }
 
@@ -87,7 +95,7 @@ sigterm() {
         echo "ci_torch_serve: no tokens_per_s headline"; cat "$1"; exit 1; }
 }
 
-serve "$OUT/server.log"
+serve "$OUT/server.log" progcache
 timeout -k 10 180 env GYM_TPU_CI_SERVE_PORT="$PORT" \
     GYM_TPU_CI_SERVE_OUT="$OUT" python - <<'EOF'
 import concurrent.futures, json, os, time, urllib.request
@@ -145,7 +153,7 @@ head -1 "$OUT/ckpts/ci/serve/serve.csv" | grep -q "ts_s,kind" || {
     echo "ci_torch_serve: serve.csv missing/markerless"; exit 1; }
 
 # the restart drill: the same build directory, nothing to build again
-serve "$OUT/server2.log"
+serve "$OUT/server2.log" progcache
 timeout -k 10 180 env GYM_TPU_CI_SERVE_PORT="$PORT" \
     GYM_TPU_CI_SERVE_OUT="$OUT" python - <<'EOF'
 import json, os, urllib.request
@@ -170,4 +178,52 @@ rc=$?
 [ "$rc" -ne 0 ] && { echo "ci_torch_serve: restart drill failed";
     cat "$OUT/server2.log"; kill -9 "$SRV"; exit "$rc"; }
 sigterm "$OUT/server2.log"
+
+# the quantized pass: int8 weights, int8 KV, then its restart drill
+for run in 3 4; do
+    serve "$OUT/server$run.log" progcache_q --quant int8 --kv-quant int8
+    grep -q "quantized (weights int8, kv int8)" "$OUT/server$run.log" || {
+        echo "ci_torch_serve: no quantization note"; cat "$OUT/server$run.log"
+        kill -9 "$SRV"; exit 1; }
+    timeout -k 10 180 env GYM_TPU_CI_SERVE_PORT="$PORT" python - <<'PYEOF'
+import json, os, time, urllib.request
+
+port = os.environ["GYM_TPU_CI_SERVE_PORT"]
+
+
+def stats():
+    return json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{port}/stats", timeout=10).read())
+
+
+for seed in range(2):
+    body = json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 6,
+                       "top_k": 4, "seed": seed}).encode()
+    r = urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", body,
+        {"Content-Type": "application/json"}), timeout=120)
+    assert r.status == 200, r.status
+    assert len(json.loads(r.read())["tokens"]) == 6
+s = stats()
+assert s["weights_dtype"] == "int8", s.get("weights_dtype")
+assert s["kv_dtype"] == "int8", s.get("kv_dtype")
+assert s["kv_blocks_capacity_effective"] == 4 * (s["kv_pages"] - 1), \
+    (s["kv_blocks_capacity_effective"], s["kv_pages"])
+assert s["requests_done"] == 2, s["requests_done"]
+deadline = time.monotonic() + 110
+while not (s["warmup"] or {}).get("done"):
+    assert time.monotonic() < deadline, s["warmup"]
+    time.sleep(0.5)
+    s = stats()
+assert s["programs_compiled"] == 0, s["programs"]
+print("ci_torch_serve: quantized — weights", s["weights_dtype"], "kv",
+      s["kv_dtype"], "capacity_eff", s["kv_blocks_capacity_effective"],
+      "weights_bytes", s["weights_bytes"], "warmup", s["warmup"],
+      "programs_compiled", s["programs_compiled"])
+PYEOF
+    rc=$?
+    [ "$rc" -ne 0 ] && { echo "ci_torch_serve: quantized pass failed";
+        cat "$OUT/server$run.log"; kill -9 "$SRV"; exit "$rc"; }
+    sigterm "$OUT/server$run.log"
+done
 echo "ci_torch_serve: all passed"

@@ -8,8 +8,11 @@ Each run builds the tree's kernels and times, with ``chip_smoke.py``'s
 ``timed`` (CUDA events, median of 5), R1 at phase 10's decode shapes (16
 rows of the four dense layers and the lm head) and at a 1024-row prefill,
 and B7 at the decode shape and a 512-token prefill; then serves phase 10's workload (a) through
-``Scheduler`` twice, and prints the second run's output tokens/s. One
-line a run, led by the card's name and power limit.
+``Scheduler`` twice, and prints the second run's output tokens/s. Where
+the tree has quantized serving, B6 (``row_qlinear``, int8) at the same
+shapes and B7 int8 at the same two, and the workload's output tokens/s
+under int8 weights and int8 KV. One line a run, led by the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ for m, k, n, lm in ((16, 768, 2304, False), (16, 768, 768, False),
     x = torch.randn(m, k, device="cuda", generator=g)
     out[f"R1 {m}x{k}x{n}"] = cs.timed(torch, lambda: trow.row_linear(
         x, w, None, lm))
+    if hasattr(trow, "row_qlinear"):
+        q, s = cs.quantized_weight(torch, g, (n, k) if lm else (k, n), 8)
+        out[f"B6 {m}x{k}x{n}"] = cs.timed(torch, lambda: trow.row_qlinear(
+            x, q, s, None, lm))
 from gym_tpu_torch.ops import decode_attention as tdec
 _, _, kp, vp, table = cs.paged_window(torch, g, 16)
 cur = torch.randint(16, 577, (16,), device="cuda", generator=g,
@@ -48,6 +55,13 @@ for tag, q, tb, c in (
          torch.zeros(1, dtype=torch.int32, device="cuda"))):
     out[tag] = cs.timed(torch, lambda: tdec.decode_attention(q, kp, vp, tb,
                                                              c))
+    if hasattr(tdec, "decode_attention_int8"):
+        from gym_tpu_torch.ops.fused_attention import kv_quantize
+        (kq, ks), (vq, vs) = kv_quantize(kp), kv_quantize(vp)
+        out[tag + " int8"] = cs.timed(
+            torch, lambda: tdec.decode_attention_int8(q, kq, vq, ks, vs, tb,
+                                                      c))
+        del kq, vq, ks, vs
 del kp, vp
 cfg, params, work = cs.serve_model_cfg(), cs.serve_params(), \
     cs.serve_workload()
@@ -57,6 +71,16 @@ for _ in range(2):
                                          **kw)
 out["tokens/s"] = sum(len(t) for t in toks) / wall
 out["decode_steps"] = eng.stats.decode_steps
+del eng
+if hasattr(trow, "row_qlinear"):
+    from gym_tpu_torch.serve.load import quantize_params
+    qcfg = cs.quant_cfg()
+    q8 = quantize_params(params, qcfg)
+    for _ in range(2):
+        toks, eng, _, wall, _ = cs.serve_run(torch, q8, qcfg, work, "ab",
+                                             **kw)
+        del eng
+    out["int8 tokens/s"] = sum(len(t) for t in toks) / wall
 print(json.dumps(out))
 '''
 

@@ -294,8 +294,19 @@ def test_run_dir_serves_what_the_fit_holds(both):
                       seed=2),
         generate_fast(live, cfg, prompt, 10, temperature=0.8, top_k=40,
                       seed=2))
-    with pytest.raises(NotImplementedError, match="14a"):
-        load_for_serving(run_dir, device="cpu", weights_dtype="int8")
+    # quantize-at-load: the same averaged weights, quantized, the config
+    # stamped with the dtypes
+    qparams, qcfg, _ = load_for_serving(run_dir, device="cpu",
+                                        weights_dtype="int8",
+                                        kv_dtype="int8")
+    assert (qcfg.weights_dtype, qcfg.kv_dtype) == ("int8", "int8")
+    assert qparams["h_0.attn.c_attn.qkernel"].dtype == torch.int8
+    assert torch.equal(qparams["wpe.embedding"], live["wpe.embedding"])
+    from gym_tpu_torch.serve.load import quantize_params
+    ref = quantize_params(live, qcfg)
+    assert list(qparams) == list(ref)
+    for n in ref:
+        assert torch.equal(qparams[n], ref[n]), n
     bad = dict(read_run_config(run_dir), num_nodes=5)
     with open(base / "bad_config.json", "w") as f:
         json.dump(bad, f)

@@ -41,6 +41,13 @@ chunk bit for bit; R1 (the row-invariant linear layer) against its twin and
 bit at M = 1, 16, 80 and 1024; L1 (the row layer norm) likewise; T1's bits
 rows bit for bit against the twin.
 
+Quantized serving's kernels: B6 (``row_qlinear``) bit for bit R1 on the
+dequantized weights, int8 and int4, in both layouts at tiles that the
+widths clamp, at M = 1, 16, 80 and 1024 (so row-invariant as R1 is); B7
+int8 bit for bit B7 on the dequantized pools, paged and unpaged, decode and
+prefill, a NaN scale reaching its own row only; ``kv_quantize`` on the card
+bit for bit the CPU's.
+
 The checkpoint layer on the card: a save and restore of CUDA tensors (f32,
 bf16, int64, a host uint32 key table) is bit-equal with device and dtype
 kept, through the synchronous and the async writer (whose copy waits on the
@@ -57,7 +64,9 @@ admit), give the same tokens, last logits and caches bit for bit, every
 program of the graphed engine is a captured graph, and the kernels' launch
 counters read the same after both; a capture on one engine while another
 engine's driver thread dispatches (and a warmup capturing on an engine
-whose own requests arrive meanwhile) neither errors nor changes a stream.
+whose own requests arrive meanwhile) neither errors nor changes a stream;
+a quantized engine's (int8 weights and embedding, int8 KV) graph replays
+equal its eager calls likewise, B6 and B7 int8 launched as often.
 """
 
 import pytest
@@ -513,6 +522,96 @@ def test_bits_rows_match_twin_bit_for_bit(rows, n, fold):
                        tf.plain_random_bits_rows(keys, data, n))
 
 
+# -- quantized serving's kernels ---------------------------------------------
+
+
+def _quantized(g, shape, bits, tile):
+    """int8 values in ±qmax and one f32 scale per ``t`` elements, ``t`` the
+    largest divisor of the trailing axis up to ``tile``."""
+    from gym_tpu_torch.ops.grouped_matmul import quant_tile_for
+    qmax = 127 if bits == 8 else 7
+    t = quant_tile_for(shape, tile)
+    n = shape[0] * shape[1]
+    q = torch.randint(-qmax, qmax + 1, shape, device="cuda", generator=g,
+                      dtype=torch.int64).to(torch.int8)
+    scale = torch.rand(n // t, device="cuda", generator=g) * 0.01 + 1e-4
+    return q, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("w_nk", [False, True])
+@pytest.mark.parametrize("k,n,tile", [(96, 200, 256), (768, 2304, 256),
+                                      (48, 144, 40), (33, 7, 256)])
+def test_row_qlinear_is_r1_on_dequantized_weights(bits, w_nk, k, n, tile):
+    from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+    g = _card()
+    x = torch.randn(1024, k, device="cuda", generator=g)
+    q, scale = _quantized(g, (n, k) if w_nk else (k, n), bits, tile)
+    w = dequantize_tiles(q, scale)
+    bias = None if w_nk else torch.randn(n, device="cuda", generator=g)
+    full = {}
+    for m in (1, 16, 80, 1024):
+        full[m] = trow.row_qlinear(x[:m], q, scale, bias, w_nk)
+        assert _same_bits(full[m], trow.row_linear(x[:m], w, bias, w_nk))
+        _f32_close(full[m], trow.plain_row_qlinear(x[:m], q, scale, bias,
+                                                   w_nk))
+    for r in (0, 7, 15):
+        one = trow.row_qlinear(x[r:r + 1], q, scale, bias, w_nk)[0]
+        assert all(_same_bits(one, y[r]) for m, y in full.items() if m > r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("t", [1, 5, 64])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_decode_attention_int8_is_b7_on_dequantized_pools(page, t, hd):
+    g = _card()
+    b, h, s = 4, 3, 128
+    rows_k, rows_v, kp, vp, table = _pool(g, b, s, page, h, hd)
+    (kq, ks), (vq, vs) = tfa.kv_quantize(kp), tfa.kv_quantize(vp)
+    cur = torch.tensor([0, 17, s - t, s - 2], dtype=torch.int32,
+                       device="cuda")
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=g)
+    q = qkv[..., :h * hd].unflatten(-1, (h, hd))      # a strided view
+    got = tdec.decode_attention_int8(q, kq, vq, ks, vs, table, cur)
+    kd, vd = tfa.kv_dequantize(kq, ks), tfa.kv_dequantize(vq, vs)
+    assert _same_bits(got, tdec.decode_attention(q, kd, vd, table, cur))
+    _f32_close(got, tdec.plain_decode_attention_int8(q, kq, vq, ks, vs,
+                                                     table, cur))
+    # unpaged: the rows' windows as per-row caches
+    rk, rv = kq[table.long()].flatten(1, 2), vq[table.long()].flatten(1, 2)
+    rks, rvs = ks[table.long()].flatten(1, 2), vs[table.long()].flatten(1, 2)
+    unp = tdec.decode_attention_int8(q, rk, rv, rks, rvs,
+                                     tdec.unpaged_table(b, "cuda"), cur)
+    assert _same_bits(got, unp)
+    # a NaN scale at row 1's position 3 (read by all its queries) reaches
+    # row 1's head 0 only
+    ks = ks.clone()
+    ks[table[1, 3 // page].long(), 3 % page, 0] = float("nan")
+    bad = tdec.decode_attention_int8(q, kq, vq, ks, vs, table, cur)
+    assert torch.isnan(bad[1, :, 0]).all()
+    keep = torch.ones_like(bad, dtype=torch.bool)
+    keep[1, :, 0] = False
+    assert torch.equal(bad[keep], got[keep])
+
+
+@pytest.mark.gpu
+def test_kv_quantize_on_card_equals_cpu():
+    g = _card()
+    x = torch.randn(64, 16, 12, 64, device="cuda", generator=g) * 3
+    x[0, 0, 0] = 0.0
+    x[0, 1, 1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                   126.5])
+    x[0, 1, 1, 8:] = 0.0
+    x[1, 2, 0, 3] = float("nan")
+    x[1, 3, 2, 5] = float("inf")
+    q, scale = tfa.kv_quantize(x)
+    cq, cscale = tfa.kv_quantize(x.cpu())
+    assert torch.equal(q.cpu(), cq) and _same_bits(scale.cpu(), cscale)
+    assert q[0, 1, 1, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+
+
 # -- the checkpoint layer on the card ---------------------------------------
 
 
@@ -643,7 +742,7 @@ def _serving_kernels():
             tf.random_bits_rows)
 
 
-def _tiny_engine(paged, graphs, seed=0):
+def _tiny_engine(paged, graphs, seed=0, **quant):
     import numpy as np
 
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
@@ -652,6 +751,7 @@ def _tiny_engine(paged, graphs, seed=0):
                     n_embd=64)
     params = GPT(cfg).init_params(1, seed, "cuda")
     params = {n: p[0] for n, p in params.items()}
+    cfg = GPTConfig(**{**cfg.__dict__, **quant})
     kw = (dict(paged=True, page_size=8, spec_tokens=2) if paged else {})
     return InferenceEngine(params, cfg, num_slots=4, decode_chunk=4,
                            device="cuda", cuda_graphs=graphs, **kw), np
@@ -725,6 +825,43 @@ def test_graph_replays_equal_eager_calls_bit_for_bit(paged):
                      else {"decode", "admit", "prefill"})
     assert progs and all(p.captured for p in progs)
     assert not any(h._fn.captured for h in eager._handles.values())
+    graphed.close()
+    eager.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_quantized_graph_replays_equal_eager_calls(paged):
+    """int8 weights and embedding, int8 KV: graphs against eager bit for
+    bit, B6 and B7 int8 launched as often on both paths."""
+    _card()
+    import numpy as np
+    kernels = (tdec.decode_attention_int8, trow.row_qlinear,
+               trow.row_layer_norm, tf.random_bits_rows)
+    quant = dict(weights_dtype="int8", kv_dtype="int8", quant_embed=True)
+    runs = {}
+    for graphs in (False, True):
+        for w in kernels + (tdec.decode_attention, trow.row_linear):
+            w.launches = 0
+        eng, _ = _tiny_engine(paged, graphs, **quant)
+        events, logits = _drive(eng, np)
+        torch.cuda.synchronize()
+        runs[graphs] = (events, logits, {k: v.clone() for k, v in
+                                         eng._cache.items()},
+                        [w.launches for w in kernels], eng)
+        assert tdec.decode_attention.launches == 0   # the f32 B7: never
+    (ev0, lg0, c0, n0, eager), (ev1, lg1, c1, n1, graphed) = \
+        runs[False], runs[True]
+    assert ev1 == ev0
+    assert len(lg1) == len(lg0) and all(
+        np.array_equal(a, b, equal_nan=True) for a, b in zip(lg1, lg0))
+    first = 1 if paged else 0
+    assert all(torch.equal(c1[k][first:], c0[k][first:]) for k in c0)
+    assert c0["h_0.attn.k"].dtype == torch.int8
+    assert n1 == n0 and all(n > 0 for n in n1)
+    assert all(h._fn.captured for h in graphed._handles.values())
+    assert all(",w=int8+emb,kv=int8]" in h.name
+               for h in graphed._handles.values())
     graphed.close()
     eager.close()
 

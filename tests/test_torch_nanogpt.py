@@ -201,5 +201,27 @@ def test_later_slice_features_raise(field, value):
         with pytest.raises(ValueError, match="GPT.decode"):
             model(params, idx, train=False)
         return
+    if field == "weights_dtype":
+        # quantized serving is ported: a quantized config builds, and its
+        # training forward refuses (inference-only weights)
+        from gym_tpu_torch.serve.load import quantize_params
+        model = TGPT(TConfig(**SMALL, **{field: value}))
+        params = model.init_params(1, 0, "cpu")
+        qparams = {n: p[None] for n, p in quantize_params(
+            {n: p[0] for n, p in params.items()}, model.config).items()}
+        idx = torch.zeros(1, 1, 8, dtype=torch.int64)
+        with pytest.raises(ValueError, match="inference-only"):
+            model(qparams, (idx, idx), train=True)
+        assert model(qparams, (idx, idx), train=False).shape == (1,)
+        return
+    if field == "kv_dtype":
+        # the int8 KV cache is ported: a decode config's cache holds int8
+        # K and V with one f32 scale per (position, head)
+        model = TGPT(TConfig(**SMALL, decode=True, **{field: value}))
+        cache = model.init_cache(2, "cpu")
+        assert cache["h_0.attn.k"].dtype == torch.int8
+        assert cache["h_0.attn.k_scale"].shape == (2, SMALL["block_size"],
+                                                   SMALL["n_head"])
+        return
     with pytest.raises(NotImplementedError):
         TGPT(TConfig(**SMALL, **{field: value}))

@@ -11,7 +11,7 @@ originals.
   ``Retry-After`` (an infeasible deadline, body or header), 503 (an
   injected IO fault), 504 (a deadline that expires mid-decode);
 - ``main``: no card and no ``--device cpu`` exits 1; each flag of a later
-  item exits 2 naming it;
+  item exits 2 naming it, and the quantization flags reach the loader;
 - ``wire.py`` and ``metrics.py``: the same frames, CRC rejections and
   headlines through both modules, and the same code (docstrings and
   comments apart).
@@ -212,13 +212,17 @@ def test_main_refuses_the_cpu_and_later_items(tmp_path, capsys):
         if flag in ("--autoscale-interval", "--min-replicas",
                     "--max-replicas", "--worker-startup-timeout"):
             argv.append("2")
-        elif flag in ("--quant", "--kv-quant"):
-            argv.append("int8")
         assert main(argv) == 2, flag
         err = capsys.readouterr().err
         assert flag in err and item in err
     assert main(["--ckpt", str(tmp_path / "missing"), "--device",
                  "cpu"]) == 1
+    assert "cannot load" in capsys.readouterr().err
+    # quantized serving is ported: its flags reach the loader
+    assert not {"--quant", "--quant-embed", "--kv-quant"} & {
+        flag for _, flag, _ in LATER_FLAGS}
+    assert main(["--ckpt", str(tmp_path / "missing"), "--device", "cpu",
+                 "--quant", "int8", "--kv-quant", "int8"]) == 1
     assert "cannot load" in capsys.readouterr().err
 
 

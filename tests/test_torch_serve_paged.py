@@ -403,9 +403,14 @@ def test_unpaged_engine_reports_zero_paged_stats(setup):
 def test_later_slices_raise_naming_them(setup):
     _, _, tp, tcfg = setup
     import dataclasses
-    with pytest.raises(NotImplementedError, match="later slice"):
-        InferenceEngine(tp, dataclasses.replace(tcfg, kv_dtype="int8"),
-                        device="cpu")
+    # quantized serving is ported: an int8-KV engine builds, names its
+    # programs for its dtype, and serves
+    q = InferenceEngine(tp, dataclasses.replace(tcfg, kv_dtype="int8"),
+                        device="cpu", num_slots=1, paged=True, page_size=8)
+    assert q.warmup_defs()[0].name == \
+        "serve.paged_decode[slots=1,chunk=1,kv=int8]"
+    assert len(_run_one(q, _prompt(5, 3), SamplingParams(
+        max_new_tokens=3))) == 3
     # the program registry's warmup is this slice's: the JAX family
     names = [d.name for d in _engine(setup, num_slots=1).warmup_defs()]
     assert names == (["serve.paged_decode[slots=1,chunk=1]",
