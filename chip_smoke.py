@@ -173,10 +173,19 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
-decode attention), R1 (``row_gemm_kernel``, the row-invariant f32 linear
-layer and lm head), L1 (``row_layer_norm_kernel``) and T1's bits rows
+decode attention), R1 (``row_gemm_pipe_kernel``, the row-invariant f32
+linear layer, lm head and scan, and over int8 weights B6; its oracle
+``row_gemm_ref_kernel``, the first version, whose bits the path keeps), L1
+(``row_layer_norm_kernel``) and T1's bits rows
 (``threefry_rows_bits_kernel``, the sampler's gumbel bits, keys folded on
-the card). Phase 2 requires all of them built, without atomics. Phase 3
+the card). Phase 2 requires all of them built, without atomics, and R1's
+and B6's 10 kernels (5 tilings, f32 and int8 weights) FMA chains without a
+tensor-core instruction, and prints their registers and spills. Phase 3
+holds R1 bit for bit to its oracle at M = 1, 2, 15-17, 31-33, 63-65, 80,
+128, 256, 512 and 1024 on GPT-2 base's dense shapes and lm head and on
+ragged shapes, both layouts, with and without a bias, and on the scan's
+[16·1572, 32] and [80·1572, 32] x [32, 32]; then B6 int8 and int4 bit for
+bit R1 on the dequantized weights and its own oracle at the same M. Phase 3
 holds them to their twins at GPT-2 base's shapes (B7: decode b=16 with
 cursors spread over 0-1023 on shuffled pages of 16, a t=5 verify, prefills
 of 512 and 1024, a prefix-hit prefill from position 256 on shared pages,
@@ -190,8 +199,13 @@ rows are printed beside them, for the record), and the decode forward
 end to end (a prompt against its bucket, a row alone against 16 rows, a
 verify chunk against single steps) and the sampler's tokens bit for bit.
 Phase 7 times B7 at the decode and a 512-token prefill shape beside SDPA on
-the gathered, masked window, R1 at M = 16 (and the 3072-to-768 layer and the
-lm head) and M = 1024 beside ``torch.matmul``, L1 beside ``F.layer_norm``,
+the gathered, masked window; R1 in turns with its oracle (new, oracle,
+oracle, new) at M = 16 on the four dense layers and the lm head, at the
+prefill buckets 64-512, a verify's 80 rows and 1024 rows of the 768-to-3072
+layer, the lm head at 80 rows and the scan, and B6 int8 likewise at the
+decode and bucket shapes, each beside ``torch.matmul``, its bound and its
+chain floor (K FMAs at 4 cycles at the highest SM clock), failing if R1 or
+B6 is slower than the oracle at any of them; L1 beside ``F.layer_norm``,
 and the bits rows at 16 x 50,304, each with its bound (bytes at 3.35 TB/s,
 or f32 FMAs at 67 TFLOP/s, or int32 work at the dispatch limit).
 
@@ -387,14 +401,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def int32_rate(torch) -> float:
-    """int32 instructions a second at the dispatch limit: 128 lanes a clock
-    on each SM at the card's highest SM clock (``nvidia-smi``)."""
+def max_sm_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi``), MHz."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    mhz = float(out.stdout.strip().splitlines()[0])
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def int32_rate(torch) -> float:
+    """int32 instructions a second at the dispatch limit: 128 lanes a clock
+    on each SM at the card's highest SM clock (``nvidia-smi``)."""
+    mhz = max_sm_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rate = DISPATCH_LANES_PER_SM * sms * mhz * 1e6
     log(f"  {sms} SMs, highest SM clock {mhz:.0f} MHz: int32 instructions "
@@ -440,7 +459,13 @@ def sass_counts(nvcc, lib_path):
         if op in counts[name]:
             counts[name][op] += 1
     check(counts, "cuobjdump listed no kernels")
-    names = list(counts)
+    return dict(zip(demangle(nvcc, list(counts)), counts.values()))
+
+
+def demangle(nvcc, names):
+    """``names`` demangled by ``cu++filt`` (or ``c++filt``), else as
+    given."""
+    bindir = os.path.dirname(nvcc)
     for tool in (os.path.join(bindir, "cu++filt"), "c++filt"):
         try:
             dem = subprocess.run([tool], input="\n".join(names),
@@ -448,8 +473,8 @@ def sass_counts(nvcc, lib_path):
         except OSError:
             continue
         if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(names):
-            return dict(zip(dem.stdout.splitlines(), counts.values()))
-    return counts
+            return dem.stdout.splitlines()
+    return names
 
 
 # kernels the f32 long-context forward and T1's segments replaced
@@ -2244,20 +2269,65 @@ DENSE_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 LM_HEAD = (768, 50304)
 
 
+# R1 and B6: 5 tilings of row_gemm_pipe_kernel for each of the two weight
+# sources (F32Src, Q8Src); their oracle, row_gemm_ref_kernel, at its 2
+# tilings x 2 layouts for each of its loaders (F32W, QuantW)
+ROW_PIPE_KERNELS = 10
+
+
 def check_serving_sass(counts):
     """B7, R1, L1 and the bits-rows entry are built, without atomics (the
     global check above); B7 and its int8 form (B7 templated on the pool's
-    loader) at 4 head dims each, R1 and B6 (R1 templated on the weight
-    loader) at 2 tilings x 2 layouts each."""
+    loader) at 4 head dims each; R1 and B6 (one kernel templated on the
+    tiling, the layout and the weight source) in every tiling, FMA chains
+    without a tensor-core instruction (HMMA, HGMMA) or an atomic; their
+    oracle."""
     for name, n in (("decode_attention_kernel", 8), ("F32KV", 4),
-                    ("Int8KV", 4), ("row_gemm_kernel", 8), ("F32W", 4),
-                    ("QuantW", 4), ("row_layer_norm_kernel", 1),
+                    ("Int8KV", 4), ("row_gemm_ref_kernel", 8), ("F32W", 4),
+                    ("QuantW", 4), ("row_gemm_pipe_kernel", ROW_PIPE_KERNELS),
+                    ("F32Src", ROW_PIPE_KERNELS // 2),
+                    ("Q8Src", ROW_PIPE_KERNELS // 2),
+                    ("row_layer_norm_kernel", 1),
                     ("threefry_rows_bits_kernel", 1)):
         found = [k for k in counts if name in k]
         check(len(found) == n, f"expected {n} {name}, found {found}")
         for k in found:
-            log(f"  {k}: FFMA {counts[k]['FFMA']}, ATOM/RED "
+            log(f"  {k}: FFMA {counts[k]['FFMA']}, HMMA {counts[k]['HMMA']}, "
+                f"HGMMA {counts[k]['HGMMA']}, ATOM/RED "
                 f"{counts[k]['ATOM/RED']}")
+    for k in counts:
+        if "row_gemm_pipe_kernel" in k:
+            c = counts[k]
+            check(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
+                  and c["ATOM/RED"] == 0, f"{k}: R1/B6 must be FFMA chains "
+                  f"without tensor cores or atomics ({c})")
+
+
+def row_gemm_report(build_log, nvcc):
+    """R1's and B6's kernels (and their oracle's): registers and spill
+    stores from the ``ptxas`` report, a line each."""
+    found, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            # every kernel of the file has "row_gemm_cu" in its mangled name
+            name = m.group(1) if ("row_gemm_pipe_kernel" in m.group(1) or
+                                  "row_gemm_ref_kernel" in m.group(1)) \
+                else None
+            spill = 0
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and name:
+            spill = int(m.group(1))
+        m = _PTXAS_USED.search(line)
+        if m and name:
+            found.append((name, int(m.group(1)), spill))
+            name = None
+    check(len(found) == ROW_PIPE_KERNELS + 8, f"ptxas reported "
+          f"{len(found)} row_gemm kernels")
+    for dem, (_, regs, spill) in zip(demangle(nvcc, [f[0] for f in found]),
+                                     found):
+        log(f"  {dem.split('(')[0]}: {regs} registers, {spill} B spilled")
 
 
 def paged_window(torch, g, b, extra=1):
@@ -2414,6 +2484,91 @@ def check_r1_l1(torch, trow, g):
     return worst_r1, worst_l1
 
 
+# an FMA's latency on the card (cycles): one of R1's chains advances at most
+# once in this many, so K FMAs take at least K of them at the highest SM
+# clock (the chain floor, printed beside the bound and not folded into it)
+FMA_CHAIN_CYCLES = 4
+SCAN_BLOCK = 32
+# phase 3: R1 against its oracle at every M-boundary of the dispatch and
+# around it, and the sampler's scan at 16 and 80 rows (a decode step and a
+# gamma-4 verify) of 50,304
+R1_ORACLE_M = (1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 80, 128, 256, 512,
+               1024)
+SCAN_M = (16 * 1572, 80 * 1572)
+
+
+def check_r1_oracle(torch, trow, g):
+    """R1 bit for bit its oracle (the first kernel, whose bits the served
+    path has) at every M of ``R1_ORACLE_M`` on GPT-2 base's dense shapes
+    and lm head, on ragged shapes (K = 100 and 33, N = 50 and 7: K a
+    multiple of no BK, rows not 16-byte aligned) in both layouts, with and
+    without a bias, and on the scan's [16·1572, 32] and [80·1572, 32] x
+    [32, 32]; then B6 int8 and int4 bit for bit R1 on the dequantized
+    weights, and B6 its own oracle, at the same M."""
+    from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+    mmax = max(R1_ORACLE_M)
+    cases = [(kin, nout, (kin, nout) == LM_HEAD)
+             for kin, nout in DENSE_SHAPES + (LM_HEAD,)]
+    cases += [(k, n, nk) for k, n in ((100, 50), (33, 7))
+              for nk in (False, True)]
+    total = differ = 0
+    for kin, nout, nk in cases:
+        w = torch.randn(*((nout, kin) if nk else (kin, nout)), device="cuda",
+                        generator=g) * 0.02
+        bias = torch.randn(nout, device="cuda", generator=g)
+        x = torch.randn(mmax, kin, device="cuda", generator=g)
+        bad = []
+        for m in R1_ORACLE_M:
+            for b in (None, bias):
+                got = trow.row_linear(x[:m], w, b, w_nk=nk)
+                ref = trow.row_linear_ref(x[:m], w, b, w_nk=nk)
+                total += 1
+                if not same_bits(torch, got, ref):
+                    bad.append((m, b is not None))
+        differ += len(bad)
+        tilings = sorted({trow.TILINGS[trow.tiling_of(m, kin, nout, nk)]
+                          for m in R1_ORACLE_M})
+        log(f"  R1 [M, {kin}] x {'wte^T ' if nk else ''}[{kin}, {nout}] "
+            f"vs the oracle at M = {', '.join(map(str, R1_ORACLE_M))}, "
+            f"with and without a bias ({'; '.join(tilings)}): "
+            f"{'bit-identical' if not bad else f'DIFFER at {bad}'}")
+        del w, x
+    tri = torch.triu(torch.ones(32, 32, device="cuda"))
+    for m in SCAN_M:
+        e = torch.rand(m, 32, device="cuda", generator=g)
+        ok = same_bits(torch, trow.row_linear(e, tri),
+                       trow.row_linear_ref(e, tri))
+        total += 1
+        differ += not ok
+        log(f"  R1 scan [{m}, 32] x [32, 32] "
+            f"({trow.TILINGS[trow.tiling_of(m, 32, 32)]}) vs the oracle: "
+            f"{'bit-identical' if ok else 'DIFFER'}")
+    check(differ == 0, f"R1 differs from its oracle in {differ} of {total} "
+          f"calls")
+    for kin, nout, nk in cases:
+        x = torch.randn(mmax, kin, device="cuda", generator=g)
+        bias = None if nk else torch.randn(nout, device="cuda", generator=g)
+        for bits in (8, 4):
+            q, scale = quantized_weight(torch, g, (nout, kin) if nk
+                                        else (kin, nout), bits)
+            w = dequantize_tiles(q, scale)
+            bad = [m for m in R1_ORACLE_M if not (
+                same_bits(torch, trow.row_qlinear(x[:m], q, scale, bias, nk),
+                          trow.row_linear(x[:m], w, bias, nk))
+                and same_bits(torch, trow.row_qlinear(x[:m], q, scale, bias,
+                                                      nk),
+                              trow.row_qlinear_ref(x[:m], q, scale, bias,
+                                                   nk)))]
+            log(f"  B6 int{bits} {kin}->{nout}{' (lm head)' if nk else ''} "
+                f"vs R1 on dequantize_tiles and vs its oracle at every M: "
+                f"{'bit-identical' if not bad else f'DIFFER at M = {bad}'}")
+            check(not bad, f"B6 int{bits} {kin}->{nout} differs from R1 on "
+                  f"the dequantized weight or from its oracle")
+            del q, scale, w
+        del x
+    torch.cuda.synchronize()
+
+
 def check_bits_rows(torch, tf, g):
     """T1's bits rows bit for bit against the twin at 16 x 50,304 (a decode
     step's keys folded on the card) and 80 rows (a verify at gamma 4)."""
@@ -2533,6 +2688,7 @@ def check_serving_kernels(torch, tdec, trow, tf):
     errs = {"B7_decode_attention": check_b7(torch, tdec, g)}
     errs["R1_row_gemm"], errs["L1_row_layer_norm"] = check_r1_l1(torch,
                                                                 trow, g)
+    check_r1_oracle(torch, trow, g)
     errs["T1_threefry_bits_rows"] = check_bits_rows(torch, tf, g)
     check_decode_rows(torch, g)
     torch.cuda.empty_cache()
@@ -2543,7 +2699,8 @@ def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
     """Phase 7 for the serving kernels at phase 10's shapes, each beside
     its twin, its bound (bytes at 3.35 TB/s, or f32 FMAs at 67 TFLOP/s) and
     its yardstick: SDPA on the gathered window with its mask for B7,
-    torch.matmul for R1, F.layer_norm for L1."""
+    torch.matmul for R1 and B6 (which are also timed in turns with their
+    oracle, and beside their chain floor), F.layer_norm for L1."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(11)
     h, hd, s = SERVE_H, SERVE_HD, SERVE_S
@@ -2593,38 +2750,95 @@ def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
             table[:1], torch.zeros(1, dtype=torch.int32, device="cuda"))
     del k_pool, v_pool
 
-    def r1_case(m, kin, nout, lm=False):
-        w = torch.randn(*((nout, kin) if lm else (kin, nout)), device="cuda",
-                        generator=g) * 0.02
-        bias = None if lm else torch.randn(nout, device="cuda", generator=g)
+    chain_cycles_per_ms = max_sm_mhz() * 1e3 / FMA_CHAIN_CYCLES
+    slower = []
+
+    def r1_case(m, kin, nout, lm=False, bits=0, w=None, plain=False):
+        """R1 (or B6 at ``bits``) and its oracle in turns (new, oracle,
+        oracle, new; the better of each pair), beside the bound, the chain
+        floor (K FMAs of FMA_CHAIN_CYCLES at the highest SM clock) and the
+        yardstick (torch.matmul; for B6 dequantize_tiles first)."""
+        from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+        shape = (nout, kin) if lm else (kin, nout)
+        if bits:
+            q, sc = quantized_weight(torch, g, shape, bits)
+            wbytes = q.numel() + 4 * sc.numel()
+        else:
+            if w is None:
+                w = torch.randn(*shape, device="cuda", generator=g) * 0.02
+            wbytes = 4 * w.numel()
+        bias = (None if lm or kin == nout == SCAN_BLOCK
+                else torch.randn(nout, device="cuda", generator=g))
         x = torch.randn(m, kin, device="cuda", generator=g)
-        wt = w.t() if lm else w
-        nbytes = 4 * (m * kin + kin * nout + m * nout + (0 if lm else nout))
+        nbytes = wbytes + 4 * (m * kin + m * nout
+                               + (0 if bias is None else nout))
         flops = 2 * m * kin * nout
         t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        if bits:
+            def new():
+                return trow.row_qlinear(x, q, sc, bias, lm)
 
-        def lib():
-            y = x @ wt
-            return y if bias is None else y + bias
+            def ref():
+                return trow.row_qlinear_ref(x, q, sc, bias, lm)
 
-        r = dict(ms=timed(torch, lambda: trow.row_linear(x, w, bias, lm)),
-                 plain_ms=timed(torch, lambda: trow.plain_row_linear(
-                     x, w, bias, lm), reps=3, inner=1),
+            def lib():
+                wd = dequantize_tiles(q, sc)
+                y = x @ (wd.t() if lm else wd)
+                return y if bias is None else y + bias
+        else:
+            def new():
+                return trow.row_linear(x, w, bias, lm)
+
+            def ref():
+                return trow.row_linear_ref(x, w, bias, lm)
+
+            def lib():
+                y = x @ (w.t() if lm else w)
+                return y if bias is None else y + bias
+        new_a, ref_a = timed(torch, new), timed(torch, ref)
+        ref_b, new_b = timed(torch, ref), timed(torch, new)
+        r = dict(ms=min(new_a, new_b), ref_ms=min(ref_a, ref_b),
                  library_ms=timed(torch, lib),
+                 chain_ms=kin / chain_cycles_per_ms,
                  bound=(max(t_b, t_f) * 1e3,
                         "bytes" if t_b >= t_f else "operations"))
-        log(f"R1_row_gemm [{m}, {kin}] x [{kin}, {nout}]"
-            f"{' (lm head)' if lm else ''}: kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} (twin, a row at a time) library_ms "
-            f"{r['library_ms']:.4f} (torch.matmul) bound_ms "
-            f"{r['bound'][0]:.6f} ({r['bound'][1]}) -> "
-            f"{r['bound'][0] / r['ms']:.2%} of bound")
+        r["plain_ms"] = (timed(torch, lambda: (
+            trow.plain_row_qlinear(x, q, sc, bias, lm) if bits else
+            trow.plain_row_linear(x, w, bias, lm)), reps=3, inner=1)
+            if plain else None)
+        name = f"B6_row_qgemm int{bits}" if bits else "R1_row_gemm"
+        tiling = trow.TILINGS[trow.tiling_of(m, kin, nout, lm)]
+        log(f"{name} [{m}, {kin}] x [{kin}, {nout}]"
+            f"{' (lm head)' if lm else ''} ({tiling}): kernel_ms "
+            f"{r['ms']:.4f} ({new_a:.4f}, {new_b:.4f}) oracle_ms "
+            f"{r['ref_ms']:.4f} ({ref_a:.4f}, {ref_b:.4f}) library_ms "
+            f"{r['library_ms']:.4f} ({'dequantize_tiles + ' if bits else ''}"
+            f"torch.matmul) bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}) "
+            f"chain_floor_ms {r['chain_ms']:.6f}"
+            + (f" plain_ms {r['plain_ms']:.4f}" if plain else "")
+            + f" -> {r['bound'][0] / r['ms']:.2%} of bound, "
+            f"{max(r['bound'][0], r['chain_ms']) / r['ms']:.2%} of "
+            f"max(bound, chain floor)")
+        if r["ms"] > r["ref_ms"]:
+            slower.append(f"{name} [{m}, {kin}] x [{kin}, {nout}]")
         return r
 
-    out["R1_row_gemm"] = r1_case(16, 768, 3072)
-    r1_case(16, 3072, 768)
+    out["R1_row_gemm"] = r1_case(16, 768, 3072, plain=True)
+    for kin, nout in ((768, 2304), (768, 768), (3072, 768)):
+        r1_case(16, kin, nout)
     r1_case(16, *LM_HEAD, lm=True)
-    r1_case(1024, 768, 3072)
+    for m in (64, 128, 256, 512, 80, 1024):
+        r1_case(m, 768, 3072)
+    r1_case(80, *LM_HEAD, lm=True)
+    tri = torch.triu(torch.ones(SCAN_BLOCK, SCAN_BLOCK, device="cuda"))
+    for m in SCAN_M:
+        r1_case(m, SCAN_BLOCK, SCAN_BLOCK, w=tri)
+    for kin, nout in DENSE_SHAPES:
+        r1_case(16, kin, nout, bits=8)
+    r1_case(16, *LM_HEAD, lm=True, bits=8)
+    for m in (64, 128, 256, 512, 1024):
+        r1_case(m, 768, 3072, bits=8)
+    check(not slower, f"R1/B6 slower than the oracle at {slower}")
     x = torch.randn(16, 768, device="cuda", generator=g)
     sc = torch.randn(768, device="cuda", generator=g)
     bi = torch.randn(768, device="cuda", generator=g)
@@ -4306,6 +4520,8 @@ def main() -> int:
         sass = sass_counts(_build._nvcc(), path)
         check_sass(sass)
         check_serving_sass(sass)
+        log("  R1 and B6 (row_gemm.cu), registers and spills (ptxas):")
+        row_gemm_report(_build.build_log, _build._nvcc())
         t1_ops = threefry_ops_per_element(sass)
 
         log(f"phase 3: kernels against plain versions on the card "

@@ -167,10 +167,16 @@ def load() -> ctypes.CDLL:
         lib.gym_decode_attention_int8.argtypes = [vp, i64, i64] + [vp] * 5 + [
             i32, i32, vp] + [i32] * 4 + [f32, vp, vp]
         lib.gym_decode_attention_int8.restype = i32
-        lib.gym_row_gemm.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.gym_row_gemm.argtypes = [vp] * 4 + [i32] * 5 + [vp]
         lib.gym_row_gemm.restype = i32
-        lib.gym_row_qgemm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+        lib.gym_row_qgemm.argtypes = [vp] * 5 + [i32] * 6 + [vp]
         lib.gym_row_qgemm.restype = i32
+        lib.gym_row_gemm_tiling.argtypes = [i32] * 3
+        lib.gym_row_gemm_tiling.restype = i32
+        lib.gym_row_gemm_ref.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.gym_row_gemm_ref.restype = i32
+        lib.gym_row_qgemm_ref.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+        lib.gym_row_qgemm_ref.restype = i32
         lib.gym_row_layer_norm.argtypes = [vp] * 4 + [i32, i32, f32, vp]
         lib.gym_row_layer_norm.restype = i32
         # host code: the checkpoint sidecars' crc32c (utils/integrity.py)

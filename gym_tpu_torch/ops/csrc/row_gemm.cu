@@ -1,7 +1,8 @@
 // R1 and L1: the serving path's row-invariant f32 ops on Hopper.
 //
 // R1, y[M, N] = x[M, K] . W (+ bias): every dense layer and the tied lm head
-// (x . wte^T, the same code with W read transposed) of the decode forward.
+// (x . wte^T, the same code with W read transposed) of the decode forward,
+// and the sampler's scan (row_cumsum: [R * V/32, 32] x [32, 32]).
 // It replaces XLA's dots of nn.Dense and wte.attend under decode=True
 // (gym_tpu/models/nanogpt.py: _proj's nn.Dense :253, wte.attend :662; no
 // pl.pallas_call kernel). L1 is the decode forward's layer norm (flax
@@ -18,20 +19,44 @@
 //
 // R1's contract: each output element is one sequential FMA chain over
 // k = 0 .. K-1, held by one thread, started at 0.0f; the bias is added to
-// the rounded result. No split-K, and no order that depends on M, on the
-// row's place, or on the N tile: the two tilings below (one for a few rows,
-// one for many) compute every element the same way, so a row's bits are the
-// same at M = 1, 16, 80 and 1024. TF32 is not used: the path is f32.
-// Bound: at decode's 16 rows, bytes (the weights are read once: 495 MB a
-// step of GPT-2 base, ~0.148 ms at 3.35 TB/s); at a 1024-row prefill, the
-// f32 FMAs (67 TFLOP/s). The design is the simple tiled SIMT one: x and W
-// tiles in shared memory, a few outputs a thread, no pipelining, far from
-// both bounds. At a few rows each block waits on its tiles' loads between
-// two barriers, K / BK times: the few-row tiling of the dense layers takes
-// one output a thread and 16 columns a block (48 blocks for GPT-2's
-// 768-wide layers) and K in tiles of 128 (6 waits at K = 768, 24 at 3072);
-// the lm head keeps 64 columns a block, where x's reloads would cost as
-// much as W.
+// the rounded result. No split-K, no atomics, no tensor cores (TF32 would
+// round the operands), and no order that depends on M, on the row's place
+// or on the tile: every tiling below computes every element the same way,
+// so the dispatch may pick a tiling by shape freely and a row's bits are
+// the same at M = 1, 16, 80 and 1024. A k step past K is never taken (a
+// zero-padded step would turn a -0.0 sum into +0.0).
+//
+// The kernel (row_gemm_pipe_kernel): a block computes a BM x BN tile of y,
+// each thread TM x TN elements of it (rows ty + i * TY, so that a warp's
+// x reads are broadcasts or hit distinct banks), K in tiles of BK. x and W
+// stream through a ring of STAGES shared-memory stages kept full by
+// cp.async (16-byte copies where the rows are 16-byte aligned, else 4-byte
+// ones; both zero-fill past the edges), one barrier a k tile: while the
+// threads chain over tile kt, tiles kt+1 .. kt+STAGES-1 are in flight. A
+// full tile's chains are unrolled. x is staged [BM][BK + 4] (rows
+// contiguous in k, a pitch of an odd number of 16-byte units) and read as
+// float4s of 4 k's; W is staged as it lies: [BK][BN] for W [K, N] (read a
+// k row at a time, float4s of 4 columns where TN is a multiple of 4) or
+// [BN][BK + 4] for W [N, K] (the lm head: float4s of 4 k's). The block
+// index walks the row blocks first, so the blocks that share a W tile run
+// together and read it once from memory. Tilings (choose_tiling):
+//  - few rows (decode's 16; also many rows of a small output), W [K, N]:
+//    16 x 16, 2 x 1 a thread, BK 128, 4 stages: few chains a thread and
+//    narrow blocks, so the 768-wide layers still spread over 48 blocks;
+//  - many rows (prefill buckets, verify chunks), W [K, N]: 64 x 64 (4 x 4
+//    a thread) or 128 x 64 (8 x 4);
+//  - the lm head and every W [N, K]: 16 x 128, 16 x 2 a thread (all 16
+//    rows: each staged weight feeds 16 chains), BK 32, 4 stages;
+//  - the scan (N <= 32): 32 x 32, 1 x 8 a thread, one k tile.
+// Bounds: at decode's 16 rows, bytes (the weights are read once: 495 MB a
+// step of GPT-2 base, ~0.148 ms at 3.35 TB/s) and, where K is large, the
+// chain itself (K dependent FMAs of ~4 cycles: 6.2 us at K = 3072); at a
+// 1024-row prefill, the f32 FMAs (67 TFLOP/s); the scan, bytes. The
+// few-row tiling stays well above both (chip_smoke.py phase 7 prints each
+// time beside its bound and chain floor): its chains advance far slower
+// than once every 4 cycles, no thread tile tried (1-8 chains a thread, 1-4
+// warps an SM, vector W reads) changed that rate, and its cause is not
+// measured (PERF.md).
 //
 // B6, the same y = x . dequant(q, scale) (+ bias) over quantized weights:
 // the QuantDense layers and the quantized tied lm head of a quantized
@@ -44,13 +69,21 @@
 // trailing axis (quant_tile_for), so a row of q holds cols / t whole tiles
 // and element (row, col) takes scale[row * (cols / t) + col / t].
 // B6's contract: bit for bit R1 on dequantize_tiles(q, scale), at every M.
-// Each weight is dequantized once, as it is written into the shared W
-// tile: ws = __fmul_rn((float)q, scale), one rounding (the conversion of
-// an int8 is exact), JAX's q.astype(f32) * scale; __fmul_rn, so that
-// -fmad never contracts the dequant into the product. The FMA chain after
-// it is R1's own: the kernel is R1's, templated on the weight loader.
-// Bound: bytes at a few rows (int8 W, a quarter of R1's), the f32 FMAs at
+// The int8 tiles ride the same ring (a quarter of R1's bytes); at each k
+// tile one pass turns the landed int8 stage into an f32 tile, each weight
+// once: ws = __fmul_rn((float)q, scale), one rounding (the conversion of an
+// int8 is exact), JAX's q.astype(f32) * scale; __fmul_rn, so that -fmad
+// never contracts the dequant into the product. A pass, not a dequant at
+// each read: the chains then run R1's own code on R1's tile, and a weight
+// that feeds TM rows of every thread of its column is converted once per
+// block, not once per thread. Bound: bytes at a few rows, the f32 FMAs at
 // a prefill, as R1.
+//
+// The oracle (row_gemm_ref_kernel): R1 and B6 as first written (x and W
+// tiles in shared memory between two barriers, no pipelining), whose bits
+// the served path has always had. It is not on the serving path: the card
+// checks hold every new tiling to it bit for bit (gym_row_gemm_ref,
+// gym_row_qgemm_ref).
 //
 // L1's contract: one warp a row; each lane sums its columns lane, lane+32,
 // ... in order, the 32 partial sums are combined by an xor butterfly (the
@@ -61,9 +94,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// -- the oracle: R1 and B6 as first written ---------------------------------
 
 // W's element at (row, col) of its row-major storage ([K, N] or [N, K],
 // cols the trailing extent), read through the read-only cache: R1's f32
@@ -96,9 +133,9 @@ struct QuantW {
 // (n, k) of an [N, K] one.
 template <int BM, int BN, int BK, int TM, int TN, bool KN, class W>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    row_gemm_kernel(const float* __restrict__ x, W w,
-                    const float* __restrict__ bias, float* __restrict__ y,
-                    int M, int N, int K) {
+    row_gemm_ref_kernel(const float* __restrict__ x, W w,
+                        const float* __restrict__ bias, float* __restrict__ y,
+                        int M, int N, int K) {
   constexpr int TX = BN / TN, THREADS = (BM / TM) * TX;
   __shared__ float xs[BK][BM + 1];
   __shared__ float ws[BK][BN + 1];
@@ -157,34 +194,470 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 }
 
 template <int BM, int BN, int BK, int TM, int TN, bool KN, class W>
-int launch_gemm(const float* x, W w, const float* bias, float* y, int M,
-                int N, int K, cudaStream_t stream) {
+int launch_ref(const float* x, W w, const float* bias, float* y, int M, int N,
+               int K, cudaStream_t stream) {
   if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   constexpr int threads = (BM / TM) * (BN / TN);
-  row_gemm_kernel<BM, BN, BK, TM, TN, KN, W>
+  row_gemm_ref_kernel<BM, BN, BK, TM, TN, KN, W>
       <<<grid, threads, 0, stream>>>(x, w, bias, y, M, N, K);
   return (int)cudaGetLastError();
 }
 
-// R1's tilings, one for each weight loader: a few rows, W [K, N]: 16 x 16
-// outputs a block, one a thread, K in tiles of 128 (N / 16 blocks, few
-// waits between barriers). A few rows, W [N, K] (the lm head, N = 50304):
-// 16 x 64 a block, 4 columns a thread, so each block's x tile serves 64
-// columns. Many rows: 64 x 64, 4 x 4 a thread. Every tiling chains each
-// element over k alike.
+// The oracle's tilings, one for each weight loader: a few rows, W [K, N]:
+// 16 x 16 outputs a block, one a thread, K in tiles of 128. A few rows, W
+// [N, K]: 16 x 64 a block, 4 columns a thread. Many rows: 64 x 64, 4 x 4 a
+// thread.
 template <class W>
-int dispatch_gemm(const float* x, W w, const float* bias, float* y, int M,
-                  int N, int K, int w_kn, cudaStream_t s) {
+int dispatch_ref(const float* x, W w, const float* bias, float* y, int M,
+                 int N, int K, int w_kn, cudaStream_t s) {
   if (M <= 32) {
-    if (w_kn) return launch_gemm<16, 16, 128, 1, 1, true>(x, w, bias, y, M,
-                                                          N, K, s);
-    return launch_gemm<16, 64, 32, 1, 4, false>(x, w, bias, y, M, N, K, s);
+    if (w_kn) return launch_ref<16, 16, 128, 1, 1, true>(x, w, bias, y, M, N,
+                                                         K, s);
+    return launch_ref<16, 64, 32, 1, 4, false>(x, w, bias, y, M, N, K, s);
   }
-  if (w_kn) return launch_gemm<64, 64, 16, 4, 4, true>(x, w, bias, y, M, N,
-                                                       K, s);
-  return launch_gemm<64, 64, 16, 4, 4, false>(x, w, bias, y, M, N, K, s);
+  if (w_kn) return launch_ref<64, 64, 16, 4, 4, true>(x, w, bias, y, M, N, K,
+                                                      s);
+  return launch_ref<64, 64, 16, 4, 4, false>(x, w, bias, y, M, N, K, s);
 }
+
+// -- the pipelined kernel ----------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 or 4 bytes; with ok false nothing is read and the
+// destination is zero-filled (src-size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the weights as the kernel reads them from memory
+struct F32Src {
+  const float* w;
+};
+
+struct Q8Src {
+  const int8_t* q;
+  const float* scale;
+  int t, shift, tpr;  // as QuantW
+};
+
+// how a stage's rows are copied: 16-byte cp.async (rows 16-byte aligned),
+// 4-byte cp.async, or (int8 rows not 4-byte aligned) plain loads and stores
+enum CopyMode { kCopy16 = 0, kCopy4 = 1, kCopySync = 2 };
+
+template <int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_,
+          int MINB_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int STAGES = STAGES_, MINB = MINB_;
+  static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  static constexpr int XP = BK + 4;  // x's pitch: an odd number of float4s
+  static_assert(BK % 16 == 0 && BN % 16 == 0 && XP % 8 == 4, "tile");
+};
+
+using FewTile = Tile<16, 16, 128, 2, 1, 4, 1>;
+using MidTile = Tile<64, 64, 32, 4, 4, 3, 2>;
+using WideTile = Tile<128, 64, 32, 8, 4, 3, 1>;
+using ScanTile = Tile<32, 32, 32, 1, 8, 2, 1>;
+using NkTile = Tile<16, 128, 32, 16, 2, 4, 1>;
+
+// the tilings' numbers in the dispatch (gym_row_gemm's ``tiling``)
+enum Tiling { kFew = 0, kMid, kWide, kScan, kNk, kTilings };
+
+// W's stage: [BK][BN] for W [K, N], [BN][BK + 4] for W [N, K]
+template <class T, bool KN>
+struct WTile {
+  static constexpr int ROWS = KN ? T::BK : T::BN;
+  static constexpr int COLS = KN ? T::BN : T::BK;
+  static constexpr int PITCH = KN ? T::BN : T::BK + 4;
+};
+
+template <class T, bool KN, class Src>
+constexpr size_t pipe_smem_bytes() {
+  using WT = WTile<T, KN>;
+  constexpr size_t x = sizeof(float) * T::BM * T::XP;
+  constexpr size_t wf = sizeof(float) * WT::ROWS * WT::PITCH;
+  if constexpr (std::is_same<Src, Q8Src>::value)
+    return T::STAGES * (x + WT::ROWS * WT::COLS) + wf;
+  else
+    return T::STAGES * (x + wf);
+}
+
+// ROWS x COLS floats of a row-major [rows, cols] source from (row0, col0)
+// into dst (pitch P), zero past the edges
+template <int ROWS, int COLS, int P, int THREADS>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int row0, int col0, int rows,
+                                          int cols, int mode, int tid) {
+  if (mode == kCopy16) {
+    constexpr int CH = COLS / 4;
+    for (int c = tid; c < ROWS * CH; c += THREADS) {
+      const int r = c / CH, cc = (c % CH) * 4, gr = row0 + r, gc = col0 + cc;
+      const bool ok = gr < rows && gc < cols;
+      cp_async16(dst + r * P + cc, ok ? src + (long long)gr * cols + gc : src,
+                 ok);
+    }
+  } else {
+    for (int c = tid; c < ROWS * COLS; c += THREADS) {
+      const int r = c / COLS, cc = c % COLS, gr = row0 + r, gc = col0 + cc;
+      const bool ok = gr < rows && gc < cols;
+      cp_async4(dst + r * P + cc, ok ? src + (long long)gr * cols + gc : src,
+                ok);
+    }
+  }
+}
+
+// the int8 counterpart, pitch COLS bytes
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void stage_q8(int8_t* dst, const int8_t* src,
+                                         int row0, int col0, int rows,
+                                         int cols, int mode, int tid) {
+  const int ch = mode == kCopy16 ? 16 : mode == kCopy4 ? 4 : 1;
+  for (int c = tid; c < ROWS * COLS / ch; c += THREADS) {
+    const int r = c / (COLS / ch), cc = (c % (COLS / ch)) * ch;
+    const int gr = row0 + r, gc = col0 + cc;
+    const bool ok = gr < rows && gc < cols;
+    const int8_t* g = ok ? src + (long long)gr * cols + gc : src;
+    if (mode == kCopy16)
+      cp_async16(dst + r * COLS + cc, g, ok);
+    else if (mode == kCopy4)
+      cp_async4(dst + r * COLS + cc, g, ok);
+    else
+      dst[r * COLS + cc] = ok ? __ldg(g) : (int8_t)0;
+  }
+}
+
+// the landed int8 stage (ROWS x COLS, pitch COLS) into the f32 tile (pitch
+// P): each weight once, __fmul_rn((float)q, its tile's scale); four at a
+// time where four neighbours share a scale (t a multiple of 4)
+template <int ROWS, int COLS, int P, int THREADS>
+__device__ __forceinline__ void dequant_stage(float* wf, const int8_t* qs,
+                                              const Q8Src& s, int row0,
+                                              int col0, int rows, int cols,
+                                              int tid) {
+  auto scale_of = [&](int gr, int gc) {
+    const int tile = s.shift >= 0 ? gc >> s.shift : gc / s.t;
+    return __ldg(s.scale + (long long)gr * s.tpr + tile);
+  };
+  if ((s.t & 3) == 0) {
+    constexpr int CH = COLS / 4;
+    for (int c = tid; c < ROWS * CH; c += THREADS) {
+      const int r = c / CH, cc = (c % CH) * 4, gr = row0 + r, gc = col0 + cc;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < rows && gc < cols) {
+        const float sc = scale_of(gr, gc);
+        const char4 q = *reinterpret_cast<const char4*>(qs + r * COLS + cc);
+        v = make_float4(__fmul_rn((float)q.x, sc), __fmul_rn((float)q.y, sc),
+                        __fmul_rn((float)q.z, sc), __fmul_rn((float)q.w, sc));
+      }
+      *reinterpret_cast<float4*>(wf + r * P + cc) = v;
+    }
+  } else {
+    for (int c = tid; c < ROWS * COLS; c += THREADS) {
+      const int r = c / COLS, cc = c % COLS, gr = row0 + r, gc = col0 + cc;
+      float v = 0.f;
+      if (gr < rows && gc < cols)
+        v = __fmul_rn((float)qs[r * COLS + cc], scale_of(gr, gc));
+      wf[r * P + cc] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ float f4at(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// W [K, N]: a thread's columns. Where TN is a multiple of 4, in groups of
+// 4 neighbours (float4 reads, a warp's 8-thread phases on 128 contiguous
+// bytes); else one column every TX.
+template <class T>
+__device__ __forceinline__ int kn_col(int tx, int j) {
+  if constexpr (T::TN % 4 == 0)
+    return (j / 4) * (T::TX * 4) + tx * 4 + (j % 4);
+  else
+    return tx + j * T::TX;
+}
+
+// acc += the chains of 4 k's from kk (fewer when kmax - kk < 4, only in
+// the last tile): every element's FMAs in k order, x first, as the oracle
+template <class T, bool KN, bool FULL>
+__device__ __forceinline__ void chain_quad(float (&acc)[T::TM][T::TN],
+                                           const float* xs, const float* ws,
+                                           int tx, int ty, int kk, int kmax) {
+  using WT = WTile<T, KN>;
+  if constexpr (KN) {
+    float4 a[T::TM];
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(xs + (ty + i * T::TY) * T::XP
+                                              + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!FULL && kk + q >= kmax) break;
+      const float* wr = ws + (kk + q) * WT::PITCH;
+      float b[T::TN];
+      if constexpr (T::TN % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < T::TN; j += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(wr + kn_col<T>(tx, j));
+          b[j] = v.x;
+          b[j + 1] = v.y;
+          b[j + 2] = v.z;
+          b[j + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) b[j] = wr[kn_col<T>(tx, j)];
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i) {
+        const float xa = f4at(a[i], q);
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(xa, b[j], acc[i][j]);
+      }
+    }
+  } else {
+    float4 b[T::TN];
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j)
+      b[j] = *reinterpret_cast<const float4*>(ws + (tx + j * T::TX)
+                                              * WT::PITCH + kk);
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          xs + (ty + i * T::TY) * T::XP + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!FULL && kk + q >= kmax) break;
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(f4at(a, q), f4at(b[j], q), acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc += the chains of one k tile: a full tile unrolled (the compiler
+// hoists its shared-memory reads ahead of the chains), the last one's
+// kmax < BK k's a quad at a time
+template <class T, bool KN>
+__device__ __forceinline__ void chain_tile(float (&acc)[T::TM][T::TN],
+                                           const float* xs, const float* ws,
+                                           int tx, int ty, int kmax) {
+  if (kmax == T::BK) {
+#pragma unroll
+    for (int kk = 0; kk < T::BK; kk += 4)
+      chain_quad<T, KN, true>(acc, xs, ws, tx, ty, kk, T::BK);
+  } else {
+#pragma unroll 1
+    for (int kk = 0; kk < kmax; kk += 4)
+      chain_quad<T, KN, false>(acc, xs, ws, tx, ty, kk, kmax);
+  }
+}
+
+template <class T, bool KN, class Src>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+    row_gemm_pipe_kernel(const float* __restrict__ x, Src src,
+                         const float* __restrict__ bias, float* __restrict__ y,
+                         int M, int N, int K, int x_mode, int w_mode) {
+  using WT = WTile<T, KN>;
+  constexpr bool kQuant = std::is_same<Src, Q8Src>::value;
+  constexpr int S = T::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  // R1: S f32 W stages; B6: S int8 stages, then one f32 tile
+  unsigned char* wbase = smem + sizeof(float) * S * T::BM * T::XP;
+  float* wf = reinterpret_cast<float*>(
+      wbase + (kQuant ? (size_t)S * WT::ROWS * WT::COLS : 0));
+
+  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+  const int row_blocks = (M + T::BM - 1) / T::BM;
+  const int m0 = (blockIdx.x % row_blocks) * T::BM;
+  const int n0 = (blockIdx.x / row_blocks) * T::BN;
+  const int KT = (K + T::BK - 1) / T::BK;
+  // W's rows and columns as stored: [K, N] or [N, K]
+  const int w_rows = KN ? K : N, w_cols = KN ? N : K;
+
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * T::BK;
+    stage_f32<T::BM, T::BK, T::XP, T::THREADS>(
+        xs + slot * T::BM * T::XP, x, m0, k0, M, K, x_mode, tid);
+    const int r0 = KN ? k0 : n0, c0 = KN ? n0 : k0;
+    if constexpr (kQuant) {
+      stage_q8<WT::ROWS, WT::COLS, T::THREADS>(
+          reinterpret_cast<int8_t*>(wbase) + slot * WT::ROWS * WT::COLS,
+          src.q, r0, c0, w_rows, w_cols, w_mode, tid);
+    } else {
+      stage_f32<WT::ROWS, WT::COLS, WT::PITCH, T::THREADS>(
+          reinterpret_cast<float*>(wbase) + slot * WT::ROWS * WT::PITCH,
+          src.w, r0, c0, w_rows, w_cols, w_mode, tid);
+    }
+  };
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<S - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; slot (kt - 1) % S is free
+    if (kt + S - 1 < KT) load((kt + S - 1) % S, kt + S - 1);
+    cp_async_commit();
+    const int slot = kt % S;
+    const float* ws;
+    if constexpr (kQuant) {
+      const int k0 = kt * T::BK;
+      dequant_stage<WT::ROWS, WT::COLS, WT::PITCH, T::THREADS>(
+          wf, reinterpret_cast<const int8_t*>(wbase) + slot * WT::ROWS *
+                  WT::COLS,
+          src, KN ? k0 : n0, KN ? n0 : k0, w_rows, w_cols, tid);
+      __syncthreads();
+      ws = wf;
+    } else {
+      ws = reinterpret_cast<const float*>(wbase) + slot * WT::ROWS *
+           WT::PITCH;
+    }
+    chain_tile<T, KN>(acc, xs + slot * T::BM * T::XP, ws, tx, ty,
+                      min(T::BK, K - kt * T::BK));
+  }
+  cp_async_wait<0>();
+
+  const bool vec_out = KN && T::TN % 4 == 0 && (N & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int gm = m0 + ty + i * T::TY;
+    if (gm >= M) continue;
+    float* yr = y + (long long)gm * N;
+    if (vec_out) {
+#pragma unroll
+      for (int j = 0; j < T::TN; j += 4) {
+        const int gn = n0 + kn_col<T>(tx, j);
+        if (gn >= N) continue;
+        float4 v = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
+                               acc[i][j + 3]);
+        if (bias) {
+          v.x += bias[gn];
+          v.y += bias[gn + 1];
+          v.z += bias[gn + 2];
+          v.w += bias[gn + 3];
+        }
+        *reinterpret_cast<float4*>(yr + gn) = v;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) {
+        const int gn = n0 + (KN ? kn_col<T>(tx, j) : tx + j * T::TX);
+        if (gn < N) yr[gn] = bias ? acc[i][j] + bias[gn] : acc[i][j];
+      }
+    }
+  }
+}
+
+template <class T, bool KN, class Src>
+int launch_pipe(const float* x, Src src, const float* bias, float* y, int M,
+                int N, int K, int x_mode, int w_mode, cudaStream_t stream) {
+  constexpr size_t smem = pipe_smem_bytes<T, KN, Src>();
+  static_assert(smem <= 232448, "shared memory");
+  auto kernel = row_gemm_pipe_kernel<T, KN, Src>;
+  // above 48 KB only once the attribute is set, on each device
+  static bool attr_set[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && dev < 64 && !attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+  const long long blocks = (long long)((M + T::BM - 1) / T::BM) *
+                           ((N + T::BN - 1) / T::BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, T::THREADS, smem, stream>>>(
+      x, src, bias, y, M, N, K, x_mode, w_mode);
+  return (int)cudaGetLastError();
+}
+
+// The tiling of a call. W [N, K] and the scan (N <= 32) have one each, a
+// few rows of W [K, N] (M <= 32) the few-row one. Many rows: the few-row
+// tiling while M * N is at most about 2304 outputs an SM (its 2 chains a
+// thread spread a small output over every SM, and its chains stay short
+// where K is long), else 128 x 64 where its blocks fill 55-100% of one
+// wave of 132 or at least 2.2 waves, else 64 x 64 (its waves of two blocks
+// an SM quantise less). Picked from scripts/r1_sweep.py on the H100: at
+// every GPT-2 base shape of M = 33-1024 it is the fastest tiling or within
+// 2% of it.
+int choose_tiling(int M, int N, int w_kn) {
+  if (!w_kn) return kNk;
+  if (N <= 32) return kScan;
+  if (M <= 32 || (long long)M * N <= 2304LL * 132) return kFew;
+  const long long wide = (long long)((M + WideTile::BM - 1) / WideTile::BM) *
+                         ((N + WideTile::BN - 1) / WideTile::BN);
+  return (wide >= 72 && wide <= 132) || wide >= 288 ? kWide : kMid;
+}
+
+template <class Src>
+int dispatch_pipe(const float* x, Src src, const float* bias, float* y, int M,
+                  int N, int K, int w_kn, int tiling, int x_mode, int w_mode,
+                  cudaStream_t s) {
+  if (tiling < 0) tiling = choose_tiling(M, N, w_kn);
+  if (!w_kn) {
+    if (tiling != kNk) return (int)cudaErrorInvalidValue;
+    return launch_pipe<NkTile, false>(x, src, bias, y, M, N, K, x_mode,
+                                      w_mode, s);
+  }
+  switch (tiling) {
+    case kFew:
+      return launch_pipe<FewTile, true>(x, src, bias, y, M, N, K, x_mode,
+                                        w_mode, s);
+    case kMid:
+      return launch_pipe<MidTile, true>(x, src, bias, y, M, N, K, x_mode,
+                                        w_mode, s);
+    case kWide:
+      return launch_pipe<WideTile, true>(x, src, bias, y, M, N, K, x_mode,
+                                         w_mode, s);
+    case kScan:
+      return launch_pipe<ScanTile, true>(x, src, bias, y, M, N, K, x_mode,
+                                         w_mode, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -228,32 +701,74 @@ extern "C" {
 
 // y [M, N] (contiguous) = x [M, K] (contiguous) . W (+ bias [N]); W is
 // [K, N] contiguous when w_kn, else [N, K] contiguous (the lm head's wte).
+// tiling: -1 for the dispatch's choice, else one of enum Tiling that fits
+// the layout (a sweep's).
 int gym_row_gemm(const void* x, const void* w, const void* bias, void* y,
-                 int M, int N, int K, int w_kn, void* stream) {
+                 int M, int N, int K, int w_kn, int tiling, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch_gemm(static_cast<const float*>(x),
-                       F32W{static_cast<const float*>(w)},
+  const int cols = w_kn ? N : K;
+  const int x_mode = (K % 4 == 0 && aligned16(x)) ? kCopy16 : kCopy4;
+  const int w_mode = (cols % 4 == 0 && aligned16(w)) ? kCopy16 : kCopy4;
+  return dispatch_pipe(static_cast<const float*>(x),
+                       F32Src{static_cast<const float*>(w)},
                        static_cast<const float*>(bias), static_cast<float*>(y),
-                       M, N, K, w_kn, (cudaStream_t)stream);
+                       M, N, K, w_kn, tiling, x_mode, w_mode,
+                       (cudaStream_t)stream);
 }
 
 // B6: y [M, N] (contiguous) = x [M, K] (contiguous) . dequant(q, scale)
 // (+ bias [N]); q int8, [K, N] contiguous when w_kn, else [N, K]
 // contiguous; scale f32, one per t consecutive elements of q, t dividing
-// q's trailing extent.
+// q's trailing extent. tiling as gym_row_gemm's.
 int gym_row_qgemm(const void* x, const void* q, const void* scale,
                   const void* bias, void* y, int M, int N, int K, int w_kn,
-                  int t, void* stream) {
+                  int t, int tiling, void* stream) {
   const int cols = w_kn ? N : K;
   if (M <= 0 || N <= 0 || K <= 0 || t <= 0 || cols % t)
     return (int)cudaErrorInvalidValue;
   const int shift = (t & (t - 1)) == 0 ? __builtin_ctz(t) : -1;
-  return dispatch_gemm(static_cast<const float*>(x),
-                       QuantW{static_cast<const int8_t*>(q),
-                              static_cast<const float*>(scale), t, shift,
-                              cols / t},
+  const int x_mode = (K % 4 == 0 && aligned16(x)) ? kCopy16 : kCopy4;
+  const uintptr_t qa = (uintptr_t)q;
+  const int w_mode = (cols % 16 == 0 && (qa & 15) == 0) ? kCopy16
+                     : (cols % 4 == 0 && (qa & 3) == 0) ? kCopy4
+                                                        : kCopySync;
+  return dispatch_pipe(static_cast<const float*>(x),
+                       Q8Src{static_cast<const int8_t*>(q),
+                             static_cast<const float*>(scale), t, shift,
+                             cols / t},
                        static_cast<const float*>(bias), static_cast<float*>(y),
-                       M, N, K, w_kn, (cudaStream_t)stream);
+                       M, N, K, w_kn, tiling, x_mode, w_mode,
+                       (cudaStream_t)stream);
+}
+
+// The tiling gym_row_gemm and gym_row_qgemm pick for a shape (enum Tiling).
+int gym_row_gemm_tiling(int M, int N, int w_kn) {
+  return choose_tiling(M, N, w_kn);
+}
+
+// The oracle, gym_row_gemm's and gym_row_qgemm's arguments without tiling.
+int gym_row_gemm_ref(const void* x, const void* w, const void* bias, void* y,
+                     int M, int N, int K, int w_kn, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch_ref(static_cast<const float*>(x),
+                      F32W{static_cast<const float*>(w)},
+                      static_cast<const float*>(bias), static_cast<float*>(y),
+                      M, N, K, w_kn, (cudaStream_t)stream);
+}
+
+int gym_row_qgemm_ref(const void* x, const void* q, const void* scale,
+                      const void* bias, void* y, int M, int N, int K,
+                      int w_kn, int t, void* stream) {
+  const int cols = w_kn ? N : K;
+  if (M <= 0 || N <= 0 || K <= 0 || t <= 0 || cols % t)
+    return (int)cudaErrorInvalidValue;
+  const int shift = (t & (t - 1)) == 0 ? __builtin_ctz(t) : -1;
+  return dispatch_ref(static_cast<const float*>(x),
+                      QuantW{static_cast<const int8_t*>(q),
+                             static_cast<const float*>(scale), t, shift,
+                             cols / t},
+                      static_cast<const float*>(bias), static_cast<float*>(y),
+                      M, N, K, w_kn, (cudaStream_t)stream);
 }
 
 // y [M, C] = layer norm of each row of x [M, C] (contiguous), scale [C],

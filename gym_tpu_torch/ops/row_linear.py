@@ -20,6 +20,9 @@ bits never depend on the other rows:
   row-major weight), in both layouts; bit for bit ``row_linear`` on
   ``dequantize_tiles(q, scale)``: the kernel dequantizes each weight once,
   as it stages it, and runs R1's chains on it.
+- ``row_linear_ref`` and ``row_qlinear_ref``: R1's and B6's first
+  kernels, whose bits the served path keeps, on the card only: the oracle
+  the card checks hold every tiling of R1 and B6 to, bit for bit.
 - ``row_layer_norm`` (L1): flax ``nn.LayerNorm`` with its arithmetic (f32
   mean and E[x²] − E[x]², then (x − mean)·(rsqrt(var + eps)·scale) + bias);
   the kernel reduces each row in one warp in an order fixed by C.
@@ -33,7 +36,8 @@ bits never depend on the other rows:
 
 On a CPU tensor each wrapper runs its twin, on a CUDA tensor it launches its
 kernel or raises; ``row_linear.launches``, ``row_qlinear.launches`` and
-``row_layer_norm.launches`` count the launches.
+``row_layer_norm.launches`` count the launches, and ``shape_counts``, while
+a caller sets it to a ``Counter``, R1's and B6's launches by shape.
 """
 
 from __future__ import annotations
@@ -46,6 +50,14 @@ import torch.nn.functional as F
 from .grouped_matmul import dequantize_tiles
 
 SCAN_BLOCK = 32
+# (kernel, M, K, N, W's layout) -> launches of R1 ("R1") and B6 ("B6"), while
+# a caller tallies them (scripts/profile_serve.py); None otherwise
+shape_counts = None
+
+
+def _note_shape(kernel: str, m: int, k: int, n: int, w_nk: bool) -> None:
+    if shape_counts is not None:
+        shape_counts[(kernel, m, k, n, "nk" if w_nk else "kn")] += 1
 
 
 def _stream(device):
@@ -67,11 +79,8 @@ def plain_row_linear(x2: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def row_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor = None,
-               w_nk: bool = False) -> torch.Tensor:
-    """x ``[..., K]`` · W (``[K, N]``, or ``[N, K]`` read transposed when
-    ``w_nk``) (+ bias ``[N]``) → ``[..., N]`` f32, each row's bits
-    independent of the other rows. On the card one launch of R1."""
+def _linear_args(x, w, bias, w_nk):
+    """R1's checks: ``(lead, x2, m, k, n)``."""
     k = x.shape[-1]
     n, kw = (w.shape[0], w.shape[1]) if w_nk else (w.shape[1], w.shape[0])
     if w.dim() != 2 or kw != k:
@@ -84,32 +93,100 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor = None,
         raise ValueError("row_linear is float32")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("x, W and bias on several devices")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    if x.device.type == "cpu":
-        return plain_row_linear(x2, w, bias, w_nk).view(*lead, n)
+    return x.shape[:-1], x2, x2.shape[0], k, n
+
+
+def _on_card(x, what):
     if x.device.type != "cuda":
-        raise ValueError(f"device must be cuda or cpu, got {x.device}")
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+        raise ValueError(f"{what}: device must be cuda, got {x.device}")
+
+
+def _launch_gemm(x2, m, k, n, w, bias, w_nk, tiling, ref):
+    """One launch of R1 (``tiling``: -1 the dispatch's, else a sweep's),
+    or of the oracle when ``ref``; ``[m, n]``, or None at m = 0."""
     if m == 0:
-        return out.view(*lead, n)
+        return None
     if m >= 2 ** 31 or n >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"[{m}, {k}] x [{k}, {n}] too large")
     x2 = x2.contiguous()
     if not w.is_contiguous() or (bias is not None
                                  and not bias.is_contiguous()):
         raise ValueError("W and bias must be contiguous")
+    out = torch.empty(m, n, dtype=torch.float32, device=x2.device)
     from . import _build
     lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.gym_row_gemm(
-            x2.data_ptr(), w.data_ptr(),
+    ptrs = (x2.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
-            k, 0 if w_nk else 1, _stream(x.device))
-    _build.check(lib, code, "gym_row_gemm")
+            k, 0 if w_nk else 1)
+    with torch.cuda.device(x2.device):
+        if ref:
+            name = "gym_row_gemm_ref"
+            code = lib.gym_row_gemm_ref(*ptrs, _stream(x2.device))
+        else:
+            name = "gym_row_gemm"
+            code = lib.gym_row_gemm(*ptrs, tiling, _stream(x2.device))
+    _build.check(lib, code, name)
+    return out
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor = None,
+               w_nk: bool = False) -> torch.Tensor:
+    """x ``[..., K]`` · W (``[K, N]``, or ``[N, K]`` read transposed when
+    ``w_nk``) (+ bias ``[N]``) → ``[..., N]`` f32, each row's bits
+    independent of the other rows. On the card one launch of R1, in the
+    tiling its dispatch picks for the shape."""
+    lead, x2, m, k, n = _linear_args(x, w, bias, w_nk)
+    if x.device.type == "cpu":
+        return plain_row_linear(x2, w, bias, w_nk).view(*lead, n)
+    _on_card(x, "row_linear")
+    out = _launch_gemm(x2, m, k, n, w, bias, w_nk, -1, ref=False)
+    if out is None:
+        return x.new_empty(*lead, n)
     row_linear.launches += 1
+    _note_shape("R1", m, k, n, w_nk)
     return out.view(*lead, n)
+
+
+def row_linear_ref(x: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor = None,
+                   w_nk: bool = False) -> torch.Tensor:
+    """R1's oracle on the card: ``row_linear``'s function in the first
+    kernel's tilings (no pipelining), the bits the served path has always
+    had. Never on the serving path: the card checks hold R1 to it bit for
+    bit. A CUDA tensor only."""
+    lead, x2, m, k, n = _linear_args(x, w, bias, w_nk)
+    _on_card(x, "row_linear_ref")
+    out = _launch_gemm(x2, m, k, n, w, bias, w_nk, -1, ref=True)
+    return x.new_empty(*lead, n) if out is None else out.view(*lead, n)
+
+
+def row_gemm_tiled(x: torch.Tensor, w: torch.Tensor, w_nk: bool,
+                   tiling: int, scale: torch.Tensor = None) -> torch.Tensor:
+    """One launch of R1 (or of B6, with ``scale``: ``w`` is q) in the
+    tiling ``row_gemm.cu``'s ``enum Tiling`` names, not the dispatch's
+    choice, for a sweep of the tilings (``scripts/r1_sweep.py``): the same
+    bits. No bias, not counted. A CUDA tensor only."""
+    _on_card(x, "row_gemm_tiled")
+    if scale is None:
+        _, x2, m, k, n = _linear_args(x, w, None, w_nk)
+        return _launch_gemm(x2, m, k, n, w, None, w_nk, tiling, ref=False)
+    _, x2, m, k, n, t = _qlinear_args(x, w, scale, None, w_nk)
+    return _launch_qgemm(x2, m, k, n, t, w, scale, None, w_nk, tiling,
+                         ref=False)
+
+
+def tiling_of(m: int, k: int, n: int, w_nk: bool = False) -> int:
+    """The tiling R1's and B6's dispatch picks for ``[m, k] x [k, n]``
+    (``row_gemm.cu``'s ``enum Tiling``: by M and N); needs the kernel
+    library."""
+    from . import _build
+    return _build.load().gym_row_gemm_tiling(m, n, 0 if w_nk else 1)
+
+
+# row_gemm.cu's enum Tiling
+TILINGS = ("few 16x16", "mid 64x64", "wide 128x64", "scan 32x32",
+           "nk 16x128")
 
 
 def plain_row_qlinear(x2: torch.Tensor, q: torch.Tensor,
@@ -119,13 +196,8 @@ def plain_row_qlinear(x2: torch.Tensor, q: torch.Tensor,
     return plain_row_linear(x2, dequantize_tiles(q, scale), bias, w_nk)
 
 
-def row_qlinear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor = None, w_nk: bool = False) -> torch.Tensor:
-    """x ``[..., K]`` · dequant(q, scale) (q int8 ``[K, N]``, or ``[N, K]``
-    read transposed when ``w_nk``; scale f32 ``[q.numel() / t]``, t
-    dividing q's trailing axis) (+ bias ``[N]``) → ``[..., N]`` f32, the
-    bits of ``row_linear`` on the dequantized weight. On the card one
-    launch of B6."""
+def _qlinear_args(x, q, scale, bias, w_nk):
+    """B6's checks: ``(lead, x2, m, k, n, t)``."""
     k = x.shape[-1]
     if q.dim() != 2 or (q.shape[1] if w_nk else q.shape[0]) != k:
         raise ValueError(f"x [..., {k}] does not fit q {tuple(q.shape)} "
@@ -148,32 +220,66 @@ def row_qlinear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError("x, scale and bias must be float32")
     if len({f.device for f in floats + (q,)}) != 1:
         raise ValueError("x, q, scale and bias on several devices")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    if x.device.type == "cpu":
-        return plain_row_qlinear(x2, q, scale, bias, w_nk).view(*lead, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"device must be cuda or cpu, got {x.device}")
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    return x.shape[:-1], x2, x2.shape[0], k, n, t
+
+
+def _launch_qgemm(x2, m, k, n, t, q, scale, bias, w_nk, tiling, ref):
+    """One launch of B6 (or of its oracle when ``ref``); ``[m, n]``, or
+    None at m = 0."""
     if m == 0:
-        return out.view(*lead, n)
+        return None
     if m >= 2 ** 31 or q.numel() >= 2 ** 31:
         raise ValueError(f"[{m}, {k}] x {tuple(q.shape)} too large")
     x2 = x2.contiguous()
     if not (q.is_contiguous() and scale.is_contiguous()) or (
             bias is not None and not bias.is_contiguous()):
         raise ValueError("q, scale and bias must be contiguous")
+    out = torch.empty(m, n, dtype=torch.float32, device=x2.device)
     from . import _build
     lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.gym_row_qgemm(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+    ptrs = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
-            k, 0 if w_nk else 1, t, _stream(x.device))
-    _build.check(lib, code, "gym_row_qgemm")
+            k, 0 if w_nk else 1, t)
+    with torch.cuda.device(x2.device):
+        if ref:
+            name = "gym_row_qgemm_ref"
+            code = lib.gym_row_qgemm_ref(*ptrs, _stream(x2.device))
+        else:
+            name = "gym_row_qgemm"
+            code = lib.gym_row_qgemm(*ptrs, tiling, _stream(x2.device))
+    _build.check(lib, code, name)
+    return out
+
+
+def row_qlinear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor = None, w_nk: bool = False) -> torch.Tensor:
+    """x ``[..., K]`` · dequant(q, scale) (q int8 ``[K, N]``, or ``[N, K]``
+    read transposed when ``w_nk``; scale f32 ``[q.numel() / t]``, t
+    dividing q's trailing axis) (+ bias ``[N]``) → ``[..., N]`` f32, the
+    bits of ``row_linear`` on the dequantized weight. On the card one
+    launch of B6."""
+    lead, x2, m, k, n, t = _qlinear_args(x, q, scale, bias, w_nk)
+    if x.device.type == "cpu":
+        return plain_row_qlinear(x2, q, scale, bias, w_nk).view(*lead, n)
+    _on_card(x, "row_qlinear")
+    out = _launch_qgemm(x2, m, k, n, t, q, scale, bias, w_nk, -1, ref=False)
+    if out is None:
+        return x.new_empty(*lead, n)
     row_qlinear.launches += 1
+    _note_shape("B6", m, k, n, w_nk)
     return out.view(*lead, n)
+
+
+def row_qlinear_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor = None,
+                    w_nk: bool = False) -> torch.Tensor:
+    """B6's oracle on the card, as ``row_linear_ref`` is R1's. A CUDA
+    tensor only."""
+    lead, x2, m, k, n, t = _qlinear_args(x, q, scale, bias, w_nk)
+    _on_card(x, "row_qlinear_ref")
+    out = _launch_qgemm(x2, m, k, n, t, q, scale, bias, w_nk, -1, ref=True)
+    return x.new_empty(*lead, n) if out is None else out.view(*lead, n)
 
 
 def plain_row_layer_norm(x: torch.Tensor, scale: torch.Tensor,

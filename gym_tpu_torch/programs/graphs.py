@@ -22,7 +22,9 @@ place:
 - **Launch counters.** The serving kernels' ``launches`` counters count in
   Python, where a capture records a launch without running it. The
   program takes back what its capture counted, records it, and adds it
-  again at every replay, so the counters count what ran.
+  again at every replay, so the counters count what ran. The same holds
+  for R1's and B6's launches by shape (``row_linear.shape_counts``), which
+  a capture records always and a replay adds while a caller tallies.
 - **Eagerly** (the CPU, or ``capture=False``), a call stages and runs the
   function: the same kernels in the same order as the graph.
 
@@ -34,6 +36,7 @@ engine never dispatches meanwhile.
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -124,13 +127,19 @@ class StagedProgram:
                           .view(torch.uint8) for i in self._order])
 
     def _capture(self) -> None:
-        from ..ops import _build
+        from ..ops import _build, row_linear
         _build.load()               # the kernels' library, before capture
         before = _launch_counts()
+        tally, row_linear.shape_counts = (row_linear.shape_counts,
+                                          collections.Counter())
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            packed = self._pack(self._fn(**self._in_dev))
+        try:
+            with torch.no_grad(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                packed = self._pack(self._fn(**self._in_dev))
+        finally:
+            self._shapes, row_linear.shape_counts = (
+                row_linear.shape_counts, tally)
         after = _launch_counts()
         self._graph_deltas = [a - b for a, b in zip(after, before)]
         # a capture records launches without running them: uncount them
@@ -159,6 +168,9 @@ class StagedProgram:
             self._graph.replay()
             for w, d in zip(_kernel_wrappers(), self._graph_deltas):
                 w.launches += d
+            from ..ops import row_linear
+            if row_linear.shape_counts is not None:
+                row_linear.shape_counts.update(self._shapes)
             packed = self._packed
         else:
             with torch.no_grad():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Plant faults in B7, the serving path's decode attention
 (``gym_tpu_torch/ops/csrc/decode_attention.cu``), and R1, its row-invariant
-linear layer (``gym_tpu_torch/ops/csrc/row_gemm.cu``), and show that the
+linear layer (``gym_tpu_torch/ops/csrc/row_gemm.cu``: a split of K in the
+few-row tiling, the ring's stage index off by one), and show that the
 checks catch each one, on a machine with a CUDA card:
 
     python3 scripts/b7_r1_faults.py [FAULT ...]
@@ -28,31 +29,39 @@ R1 = "gym_tpu_torch/ops/csrc/row_gemm.cu"
 FAULTS = {
     # V read in the reverse order of the keys whose probabilities weigh it
     "reversed_key_order": (B7, [(
-        "acc = fmaf(ps[warp][key], vp[offs[warp][key] + d], acc);",
-        "acc = fmaf(ps[warp][key], vp[offs[warp][nk - 1 - key] + d], acc);")]),
+        "acc = fmaf(ps[warp][key], kv.val(offs[warp][key], d), acc);",
+        "acc = fmaf(ps[warp][key], kv.val(offs[warp][nk - 1 - key], d), "
+        "acc);")]),
     # a query attends one position past its own (the cursor off by one)
     "cursor_off_by_one": (B7, [(
         "const int last = min(cursor[r] + j, S - 1);",
         "const int last = min(cursor[r] + j + 1, S - 1);")]),
-    # the few-row tiling splits K in two halves summed apart and added: a
-    # row's bits then depend on M (16 rows one order, 80 another)
+    # the few-row tiling (FewTile: decode's rows) chains the second half of
+    # K's tiles into another accumulator and adds the two at the end: its
+    # rows' bits then differ from the oracle's and depend on M (16 rows
+    # one order, 80 another)
     "split_k_r1": (R1, [
-        ("  float acc[TM][TN];\n",
-         "  float acc[TM][TN], acc2[TM][TN];\n"),
-        ("    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;\n",
-         "    for (int j = 0; j < TN; ++j) acc[i][j] = acc2[i][j] = 0.f;\n"),
-        ("        for (int j = 0; j < TN; ++j) acc[i][j] = "
-         "fmaf(a[i], b[j], acc[i][j]);\n",
-         "        for (int j = 0; j < TN; ++j) {\n"
-         "          if (BM == 16 && 2 * (k0 + kk) >= K)\n"
-         "            acc2[i][j] = fmaf(a[i], b[j], acc2[i][j]);\n"
-         "          else\n"
-         "            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);\n"
-         "        }\n"),
-        ("        y[(long long)gm * N + gn] = bias ? acc[i][j] + bias[gn] : "
-         "acc[i][j];",
-         "        y[(long long)gm * N + gn] = bias ? (acc[i][j] + acc2[i][j]) "
-         "+ bias[gn] : acc[i][j] + acc2[i][j];")]),
+        ("  float acc[T::TM][T::TN];\n",
+         "  float acc[T::TM][T::TN], acc2[T::TM][T::TN];\n"),
+        ("    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;\n",
+         "    for (int j = 0; j < T::TN; ++j) acc[i][j] = acc2[i][j] = 0.f;\n"),
+        ("    chain_tile<T, KN>(acc, xs + slot * T::BM * T::XP, ws, tx, ty,\n",
+         "    float (&into)[T::TM][T::TN] =\n"
+         "        std::is_same<T, FewTile>::value && 2 * kt >= KT ? acc2 : acc;\n"
+         "    chain_tile<T, KN>(into, xs + slot * T::BM * T::XP, ws, tx, ty,\n"),
+        ("  cp_async_wait<0>();\n",
+         "  cp_async_wait<0>();\n"
+         "  if (std::is_same<T, FewTile>::value)\n"
+         "#pragma unroll\n"
+         "    for (int i = 0; i < T::TM; ++i)\n"
+         "#pragma unroll\n"
+         "      for (int j = 0; j < T::TN; ++j)\n"
+         "        acc[i][j] = acc[i][j] + acc2[i][j];\n")]),
+    # the ring's stage index off by one: each k tile chains over the slot
+    # of the tile after it (landed or not, or a stale one)
+    "stage_off_by_one": (R1, [
+        ("    const int slot = kt % S;\n",
+         "    const int slot = (kt + 1) % S;\n")]),
 }
 
 

@@ -8,6 +8,7 @@ profiler starts (on the card its CUDA graphs, captured; ``--eager`` runs
 the same staged programs without graphs).
 
     python3 scripts/profile_serve.py [--spec 4] [--unpaged] [--eager]
+        [--quant int8] [--by-shape]
 
 Prints the run's wall time and output tokens/s, the device busy share (the
 device time of every kernel and copy over the profiled run's wall time),
@@ -15,6 +16,17 @@ the host's time in kernel launches, graph launches and copies, the host's
 launch calls, and the kernels by their device time. Needs a CUDA card;
 the profiler's full table goes to ``build/profile_serve.txt``.
 ``chip_smoke.py`` phase 12a calls ``profile_workload`` for both modes.
+``--quant int8`` serves phase 13b's int8 weights and int8 KV instead.
+
+``--by-shape`` breaks R1's and B6's device time down by shape: the
+wrappers tally the run's launches by (M, K, N, W's layout)
+(``row_linear.shape_counts``; a CUDA graph replay adds the launches its
+capture recorded), each shape is then timed alone with ``chip_smoke.py``'s
+``timed`` (CUDA events, random inputs of that shape), and launches × time
+is its estimated device time, printed beside the profiler's own total of
+the ``row_gemm`` kernels' device time in the run. The shapes fall in three
+groups: the scan (``row_cumsum``'s K = N = 32), decode rows (M <= 32) and
+many rows (prefill buckets and verify chunks, M >= 33).
 """
 
 from __future__ import annotations
@@ -32,31 +44,91 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaGraphLaunch", "cudaMemcpyAsync")
 
 
-def profile_workload(torch, cs, kw, graphs=True, warm_pass=True):
+def shape_group(m, k, n):
+    """Which of R1's three regimes a launch of [M, K] x [K, N] is in."""
+    if k == n == 32:
+        return "scan"
+    return "decode rows" if m <= 32 else "many rows"
+
+
+def by_shape(torch, cs, counts, profiled_ms):
+    """Lines of R1's and B6's estimated device time by shape: each shape's
+    launches in the run times its time alone (CUDA events), largest first,
+    with each group's sum, beside the profiler's total."""
+    from gym_tpu_torch.ops import row_linear as trow
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for (kern, m, k, n, lay), launches in counts.items():
+        nk = lay == "nk"
+        shape = (n, k) if nk else (k, n)
+        x = torch.randn(m, k, device="cuda", generator=g)
+        if kern == "B6":
+            q, s = cs.quantized_weight(torch, g, shape, 8)
+            ms = cs.timed(torch, lambda: trow.row_qlinear(x, q, s, None, nk))
+        else:
+            w = torch.randn(*shape, device="cuda", generator=g) * 0.02
+            ms = cs.timed(torch, lambda: trow.row_linear(x, w, None, nk))
+        rows.append((launches * ms, kern, m, k, n, lay, launches, ms))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    groups = {}
+    for r in rows:
+        grp = shape_group(*r[2:5])
+        groups[grp] = groups.get(grp, 0.0) + r[0]
+    lines = [f"R1 and B6 by shape: {sum(counts.values())} launches, "
+             f"estimated {total:.3f} ms (launches x time alone) against "
+             f"the profiler's {profiled_ms:.3f} ms of row_gemm kernels; "
+             + ", ".join(f"{grp} {v:.3f} ms ({v / total:.1%})"
+                         for grp, v in sorted(groups.items(),
+                                              key=lambda kv: -kv[1])),
+             f"  {'est ms':>9} {'share':>6} {'launches':>8} {'ms each':>8}"
+             f"  kernel [M, K] x [K, N] layout  group"]
+    for est, kern, m, k, n, lay, launches, ms in rows:
+        lines.append(f"  {est:9.3f} {est / total:6.1%} {launches:8d} "
+                     f"{ms:8.4f}  {kern} [{m}, {k}] x [{k}, {n}] {lay}  "
+                     f"{shape_group(m, k, n)}")
+    return lines
+
+
+def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
+                     quant=None, shapes=False):
     """Profile one pass of phase 10's workload through a fresh engine of
     ``kw`` whose family was built first, after a pass on another engine
     (``warm_pass``; a caller that served on the card already may skip
-    it). Returns ``(text, summary)``:
-    the report and ``{"wall_s", "tokens_per_s", "busy", "launch_ms",
-    "launch_calls", "decode_steps"}``."""
+    it); ``quant="int8"`` serves phase 13b's int8 weights and KV, and
+    ``shapes`` adds R1's and B6's device time by shape. Returns ``(text,
+    summary)``: the report and ``{"wall_s", "tokens_per_s", "busy",
+    "launch_ms", "launch_calls", "decode_steps"}``."""
+    from collections import Counter
+
     from profile_fit import device_us
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from gym_tpu_torch.ops import row_linear as trow
     from gym_tpu_torch.programs import warm_engine_programs
     from gym_tpu_torch.serve import InferenceEngine
-    cfg, params, work = cs.serve_model_cfg(), cs.serve_params(), \
-        cs.serve_workload()
+    work = cs.serve_workload()
+    if quant:
+        from gym_tpu_torch.serve.load import quantize_params
+        cfg = cs.quant_cfg(weights_dtype=quant, kv_dtype=quant)
+        params = quantize_params(cs.serve_params(device="cpu"), cfg)
+    else:
+        cfg, params = cs.serve_model_cfg(), cs.serve_params()
     kw = dict(kw, cuda_graphs=graphs)
     if warm_pass:
         cs.serve_run(torch, params, cfg, work, "warm", **kw)
     eng = InferenceEngine(params, cfg, device="cuda", **kw)
     warm_engine_programs(eng, start=False).run()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        toks, _, _, _ = cs.serve_loop(torch, eng, work, "profiled")
-        wall = time.perf_counter() - t0
+    trow.shape_counts = Counter() if shapes else None
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            toks, _, _, _ = cs.serve_loop(torch, eng, work, "profiled")
+            wall = time.perf_counter() - t0
+    finally:
+        counts, trow.shape_counts = trow.shape_counts, None
     events = prof.key_averages()
     dev = sorted((e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
@@ -71,7 +143,8 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True):
                "busy": total / (wall * 1e6), "launch_ms": launch / 1e3,
                "launch_calls": calls,
                "decode_steps": eng.stats.decode_steps}
-    lines = [f"serve {kw}: {ntok} tokens, wall {wall * 1e3:.1f} ms "
+    lines = [f"serve {kw}{' ' + quant if quant else ''}: {ntok} tokens, "
+             f"wall {wall * 1e3:.1f} ms "
              f"({ntok / wall:.1f} tokens/s under the profiler), "
              f"{eng.stats.decode_steps} decode steps, {eng.stats.prefills} "
              f"prefills; device busy {total / 1e3:.1f} ms = "
@@ -84,13 +157,17 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True):
                      f"{device_us(e) / total:6.1%} {e.count:6d}  "
                      f"{e.key[:100]}")
     eng.close()
+    if shapes:
+        gemm_ms = sum(device_us(e) for e in dev if "row_gemm" in e.key) / 1e3
+        lines += by_shape(torch, cs, counts, gemm_ms)
     text = "\n".join(lines)
     out = os.path.join(HERE, "build")
     os.makedirs(out, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(dev[0], "self_device_time_total")
            else "self_cuda_time_total")
-    name = "profile_serve" + ("" if graphs else "_eager") + ".txt"
+    name = ("profile_serve" + ("" if graphs else "_eager")
+            + (f"_{quant}" if quant else "") + ".txt")
     with open(os.path.join(out, name), "w") as f:
         f.write(text + "\n\n" + events.table(sort_by=key, row_limit=60)
                 + "\n")
@@ -103,6 +180,10 @@ def main() -> int:
     p.add_argument("--unpaged", action="store_true")
     p.add_argument("--eager", action="store_true",
                    help="the staged programs without CUDA graphs")
+    p.add_argument("--quant", choices=("int8",), default=None,
+                   help="int8 weights and int8 KV (phase 13b)")
+    p.add_argument("--by-shape", action="store_true",
+                   help="R1's and B6's device time by shape")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -115,7 +196,8 @@ def main() -> int:
     kw = (dict(num_slots=16, decode_chunk=8) if args.unpaged else
           dict(num_slots=16, paged=True, page_size=16, decode_chunk=8,
                spec_tokens=args.spec))
-    text, _ = profile_workload(torch, cs, kw, graphs=not args.eager)
+    text, _ = profile_workload(torch, cs, kw, graphs=not args.eager,
+                               quant=args.quant, shapes=args.by_shape)
     print(text, flush=True)
     return 0
 

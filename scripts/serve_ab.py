@@ -6,11 +6,13 @@ run, in the order given (e.g. OLD NEW NEW OLD):
 
 Each run builds the tree's kernels and times, with ``chip_smoke.py``'s
 ``timed`` (CUDA events, median of 5), R1 at phase 10's decode shapes (16
-rows of the four dense layers and the lm head) and at a 1024-row prefill,
-and B7 at the decode shape and a 512-token prefill; then serves phase 10's workload (a) through
+rows of the four dense layers and the lm head), at the prefill buckets
+64-512 of the 768-to-3072 and 3072-to-768 layers, at a 1024-row prefill
+and at the sampler's scan ([16 or 80 rows x 1572, 32] x [32, 32]), and B7
+at the decode shape and a 512-token prefill; then serves phase 10's workload (a) through
 ``Scheduler`` twice, and prints the second run's output tokens/s. Where
 the tree has quantized serving, B6 (``row_qlinear``, int8) at the same
-shapes and B7 int8 at the same two, and the workload's output tokens/s
+shapes but the scan and B7 int8 at the same two, and the workload's output tokens/s
 under int8 weights and int8 KV. One line a run, led by the card's name
 and power limit.
 """
@@ -31,15 +33,20 @@ from gym_tpu_torch.ops import row_linear as trow
 torch.backends.cuda.matmul.allow_tf32 = False
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {}
-for m, k, n, lm in ((16, 768, 2304, False), (16, 768, 768, False),
-                    (16, 768, 3072, False), (16, 3072, 768, False),
-                    (16, 768, 50304, True), (1024, 768, 3072, False)):
-    w = torch.randn(*((n, k) if lm else (k, n)), device="cuda",
-                    generator=g) * 0.02
+shapes = [(16, 768, 2304, False), (16, 768, 768, False),
+          (16, 768, 3072, False), (16, 3072, 768, False),
+          (16, 768, 50304, True), (1024, 768, 3072, False)]
+shapes += [(m, k, n, False) for m in (64, 128, 256, 512)
+           for k, n in ((768, 3072), (3072, 768))]
+shapes += [(m, 32, 32, False) for m in (16 * 1572, 80 * 1572)]
+for m, k, n, lm in shapes:
+    w = (torch.triu(torch.ones(32, 32, device="cuda")) if k == 32 else
+         torch.randn(*((n, k) if lm else (k, n)), device="cuda",
+                     generator=g) * 0.02)
     x = torch.randn(m, k, device="cuda", generator=g)
     out[f"R1 {m}x{k}x{n}"] = cs.timed(torch, lambda: trow.row_linear(
         x, w, None, lm))
-    if hasattr(trow, "row_qlinear"):
+    if hasattr(trow, "row_qlinear") and k != 32:
         q, s = cs.quantized_weight(torch, g, (n, k) if lm else (k, n), 8)
         out[f"B6 {m}x{k}x{n}"] = cs.timed(torch, lambda: trow.row_qlinear(
             x, q, s, None, lm))

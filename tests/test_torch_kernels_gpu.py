@@ -38,12 +38,17 @@ f32 band at page sizes 4/8/16 and 1, 5 and 64 queries a row, paged against
 unpaged bit for bit, a query alone against the same query in its batch and
 chunk bit for bit; R1 (the row-invariant linear layer) against its twin and
 ``torch.matmul`` in the f32 band, in both weight layouts, its rows bit for
-bit at M = 1, 16, 80 and 1024; L1 (the row layer norm) likewise; T1's bits
-rows bit for bit against the twin.
+bit at M = 1, 16, 80 and 1024, and bit for bit its oracle (the first
+kernel, ``row_linear_ref``) at the dispatch's M-boundaries (1, 16, 32, 33,
+64, 65, 80, 512) on a GPT-2 base layer, a ragged shape and the scan's
+32 x 32, both layouts, with and without a bias, and at the scan's 16 and
+80 rows of 50,304; L1 (the row layer norm) likewise; T1's bits rows bit
+for bit against the twin.
 
 Quantized serving's kernels: B6 (``row_qlinear``) bit for bit R1 on the
 dequantized weights, int8 and int4, in both layouts at tiles that the
-widths clamp, at M = 1, 16, 80 and 1024 (so row-invariant as R1 is); B7
+widths clamp, at M = 1, 16, 80 and 1024 (so row-invariant as R1 is), and
+bit for bit R1 and its own oracle at R1's M-boundaries; B7
 int8 bit for bit B7 on the dequantized pools, paged and unpaged, decode and
 prefill, a NaN scale reaching its own row only; ``kv_quantize`` on the card
 bit for bit the CPU's.
@@ -496,6 +501,47 @@ def test_row_linear_matches_twin_and_rows_bit_for_bit(w_nk, k, n):
         assert all(_same_bits(one, y[r]) for y in full.values())
 
 
+# the dispatch's M-boundaries (few rows up to 32, the many-row tilings from
+# 33) and the shapes of its regimes: a GPT-2 base layer, a ragged one (K a
+# multiple of no BK, N of no tile) and the scan's 32 x 32
+ORACLE_M = (1, 16, 32, 33, 64, 65, 80, 512)
+ORACLE_SHAPES = {"dense": (768, 2304), "ragged": (100, 50), "scan": (32, 32)}
+
+
+def _oracle_weight(g, shape, w_nk):
+    k, n = ORACLE_SHAPES[shape]
+    if shape == "scan":
+        return torch.triu(torch.ones(32, 32, device="cuda"))
+    return torch.randn(*((n, k) if w_nk else (k, n)), device="cuda",
+                       generator=g) * 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ORACLE_SHAPES))
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("w_nk", [False, True])
+@pytest.mark.parametrize("m", ORACLE_M)
+def test_row_linear_is_its_oracle_bit_for_bit(m, w_nk, with_bias, shape):
+    g = _card()
+    k, n = ORACLE_SHAPES[shape]
+    x = torch.randn(m, k, device="cuda", generator=g)
+    w = _oracle_weight(g, shape, w_nk)
+    bias = torch.randn(n, device="cuda", generator=g) if with_bias else None
+    assert _same_bits(trow.row_linear(x, w, bias, w_nk),
+                      trow.row_linear_ref(x, w, bias, w_nk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16 * 1572, 80 * 1572])
+def test_row_linear_scan_is_its_oracle_bit_for_bit(m):
+    """The sampler's scan at a decode step's and a gamma-4 verify's rows
+    of 50,304."""
+    g = _card()
+    x = torch.rand(m, 32, device="cuda", generator=g)
+    tri = torch.triu(torch.ones(32, 32, device="cuda"))
+    assert _same_bits(trow.row_linear(x, tri), trow.row_linear_ref(x, tri))
+
+
 @pytest.mark.gpu
 def test_row_layer_norm_matches_twin_and_rows_bit_for_bit():
     g = _card()
@@ -559,6 +605,30 @@ def test_row_qlinear_is_r1_on_dequantized_weights(bits, w_nk, k, n, tile):
     for r in (0, 7, 15):
         one = trow.row_qlinear(x[r:r + 1], q, scale, bias, w_nk)[0]
         assert all(_same_bits(one, y[r]) for m, y in full.items() if m > r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["dense", "ragged"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("w_nk", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", ORACLE_M)
+def test_row_qlinear_is_new_r1_on_dequantized_weights(m, bits, w_nk,
+                                                      with_bias, shape):
+    """B6 bit for bit R1 on the dequantized weights and B6's oracle, at
+    the dispatch's M-boundaries (the ragged shape's tiles, 50 and 100
+    elements, copy its int8 rows 4 bytes at a time or not at all, and
+    dequantize an element at a time)."""
+    from gym_tpu_torch.ops.grouped_matmul import dequantize_tiles
+    g = _card()
+    k, n = ORACLE_SHAPES[shape]
+    x = torch.randn(m, k, device="cuda", generator=g)
+    q, scale = _quantized(g, (n, k) if w_nk else (k, n), bits, 256)
+    bias = torch.randn(n, device="cuda", generator=g) if with_bias else None
+    got = trow.row_qlinear(x, q, scale, bias, w_nk)
+    assert _same_bits(got, trow.row_linear(x, dequantize_tiles(q, scale),
+                                           bias, w_nk))
+    assert _same_bits(got, trow.row_qlinear_ref(x, q, scale, bias, w_nk))
 
 
 @pytest.mark.gpu
