@@ -144,13 +144,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    (``row_qlinear``: R1 over int8/int4 weights) at GPT-2 base's
    [16, 768] x [768, 3072], its lm head [16, 768] x wte^T (``[V, C]`` read
    transposed) and a [1024, 768] x [768, 3072] prefill, int8 and int4, and
-   B7 int8 at decode (b=16, t=1, cursors 16-576, page 16) and prefill
-   (b=1, t=512): each bit for bit the f32 kernel (R1, B7) on the
-   dequantized operands, beside its plain version, every B6 row bit for
-   bit at M = 1, 16, 80 and 1024, ``kv_quantize`` on the card bit for bit
-   the CPU's; then each timed beside its bound, its plain version and its
-   yardstick (``dequantize_tiles`` then ``torch.matmul``; ``kv_dequantize``
-   then SDPA on the gathered window); 13b phase 10's workload through the
+   B7 int8 at decode (b=16, t=1, cursors 16-576, page 16), a verify
+   (b=16, t=5) and prefill (b=1, t=512): each bit for bit the f32 kernel
+   (R1, B7) on the dequantized operands, B7 int8 bit for bit its oracle,
+   beside its plain version, every B6 row bit for bit at M = 1, 16, 80 and
+   1024, ``kv_quantize`` on the card bit for bit the CPU's; then each timed
+   beside its bound, its plain version and its yardstick
+   (``dequantize_tiles`` then ``torch.matmul``; ``kv_dequantize`` then SDPA
+   on the gathered window), B7 int8 in turns with its oracle; 13b phase 10's workload through the
    paged engine under int8 weights and int8 KV on CUDA graphs, three runs
    in turns with f32 graphs (output tokens/s, TTFT p50/p99, peak memory,
    graphs captured, launches), the streams equal to an eager int8 run's
@@ -173,14 +174,22 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
-decode attention), R1 (``row_gemm_pipe_kernel``, the row-invariant f32
-linear layer, lm head and scan, and over int8 weights B6; its oracle
-``row_gemm_ref_kernel``, the first version, whose bits the path keeps), L1
-(``row_layer_norm_kernel``) and T1's bits rows
-(``threefry_rows_bits_kernel``, the sampler's gumbel bits, keys folded on
-the card). Phase 2 requires all of them built, without atomics, and R1's
-and B6's 10 kernels (5 tilings, f32 and int8 weights) FMA chains without a
-tensor-core instruction, and prints their registers and spills. Phase 3
+decode attention, in two paths by t, and over int8 pools B7 int8; its
+oracle ``decode_attention_ref_kernel``, the first version, whose bits the
+path keeps), R1 (``row_gemm_pipe_kernel``, the row-invariant f32 linear
+layer, lm head and scan, and over int8 weights B6; its oracle
+``row_gemm_ref_kernel``), L1 with the residual add before it
+(``row_add_layer_norm_kernel``; its oracle ``row_layer_norm_kernel`` after
+a torch add) and T1's bits rows (``threefry_rows_bits_kernel``, the
+sampler's gumbel bits, keys folded on the card). Phase 2 requires all of
+them built, without atomics, and R1's, B6's, B7's and L1's kernels FMA
+chains without a tensor-core instruction, and prints their registers and
+spills. Phase 3 holds B7 and B7 int8 bit for bit to their oracles on every
+path at t = 1, 5, 16, 64 and 512, head dims 16-128, pages of 16 and 32 and
+unpaged, cursors 0, S - 1 and random, with NaN past each row's last
+position and in unmapped pages changing no bit and a NaN scale reaching
+exactly its query, and L1 with the add bit for bit a torch add and the
+oracle L1 at M = 1-1024 and C = 768 and 100. Phase 3
 holds R1 bit for bit to its oracle at M = 1, 2, 15-17, 31-33, 63-65, 80,
 128, 256, 512 and 1024 on GPT-2 base's dense shapes and lm head and on
 ragged shapes, both layouts, with and without a bias, and on the scan's
@@ -198,14 +207,16 @@ and 1024 (``torch.matmul``'s, PyTorch's layer norm's and ``torch.cumsum``'s
 rows are printed beside them, for the record), and the decode forward
 end to end (a prompt against its bucket, a row alone against 16 rows, a
 verify chunk against single steps) and the sampler's tokens bit for bit.
-Phase 7 times B7 at the decode and a 512-token prefill shape beside SDPA on
-the gathered, masked window; R1 in turns with its oracle (new, oracle,
+Phase 7 times B7 in turns with its oracle at the decode, a 5-token verify
+and a 512-token prefill shape beside SDPA on the gathered, masked window;
+R1 in turns with its oracle (new, oracle,
 oracle, new) at M = 16 on the four dense layers and the lm head, at the
 prefill buckets 64-512, a verify's 80 rows and 1024 rows of the 768-to-3072
 layer, the lm head at 80 rows and the scan, and B6 int8 likewise at the
 decode and bucket shapes, each beside ``torch.matmul``, its bound and its
 chain floor (K FMAs at 4 cycles at the highest SM clock), failing if R1 or
-B6 is slower than the oracle at any of them; L1 beside ``F.layer_norm``,
+B6 is slower than the oracle at any of them; L1 with the add in turns with
+a torch add and the oracle L1, beside a torch add and ``F.layer_norm``,
 and the bits rows at 16 x 50,304, each with its bound (bytes at 3.35 TB/s,
 or f32 FMAs at 67 TFLOP/s, or int32 work at the dispatch limit).
 
@@ -246,7 +257,7 @@ the per-row mask at config 2's dropout shapes and the host's key algebra a
 step. The launch counts in the
 ``kernels`` line are those of the training runs of phases 4 (B1/B2), 5
 (B3/B4), 5b (B5, its f32 forward in the evals), 8a (T1), 9b (T1's per-row
-entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1, T1's
+entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1 with the add, T1's
 bits rows), each counted from zero; the packed pair and
 B5's forward count their bf16 and f32 kernels apart (every eval runs in
 f32); B6 and B7 int8 count 13b's first int8 run.
@@ -341,8 +352,10 @@ KERNELS = {
                             f"{NANOGPT_JAX}:370-376 and :478-484"),
     "R1_row_gemm": ("row_linear", "row_linear", "launches", ROW_CU,
                     f"{NANOGPT_JAX}:253 and :662"),
-    "L1_row_layer_norm": ("row_linear", "row_layer_norm", "launches", ROW_CU,
-                          f"{NANOGPT_JAX}:515,519,656"),
+    # L1 with the residual add before it (the oracle L1, row_layer_norm,
+    # is off the path)
+    "L1_row_add_layer_norm": ("row_linear", "row_add_layer_norm", "launches",
+                              ROW_CU, f"{NANOGPT_JAX}:515,519,656"),
     "T1_threefry_bits_rows": ("threefry", "random_bits_rows", "launches",
                               THREEFRY_CU, f"{NANOGPT_JAX}:905"),
     # quantized serving (no pallas_call): XLA's fusion of dequantize_tiles
@@ -2260,8 +2273,8 @@ def cnn_card_vs_cpu(torch, mods):
 # -- the serving path: B7, R1, L1 and T1's bits rows (phases 2, 3, 7, 10) ----
 
 
-SERVING_KERNELS = ("B7_decode_attention", "R1_row_gemm", "L1_row_layer_norm",
-                   "T1_threefry_bits_rows")
+SERVING_KERNELS = ("B7_decode_attention", "R1_row_gemm",
+                   "L1_row_add_layer_norm", "T1_threefry_bits_rows")
 # GPT-2 base's serving shapes: heads, head dim, window, page
 SERVE_H, SERVE_HD, SERVE_S, SERVE_PAGE = 12, 64, 1024, 16
 # GPT-2 base's four dense layers (in, out) and the tied lm head
@@ -2275,19 +2288,31 @@ LM_HEAD = (768, 50304)
 ROW_PIPE_KERNELS = 10
 
 
+# B7 and B7 int8: the kernel at 4 head dims x 2 paths for each pool type
+# (F32Pools, Int8Pools); their oracle at 4 head dims for each loader (F32KV,
+# Int8KV). L1 with the add: 7 instances (columns a lane); the oracle L1
+B7_KERNELS = 16
+ADD_LN_KERNELS = 7
+
+
 def check_serving_sass(counts):
     """B7, R1, L1 and the bits-rows entry are built, without atomics (the
-    global check above); B7 and its int8 form (B7 templated on the pool's
-    loader) at 4 head dims each; R1 and B6 (one kernel templated on the
-    tiling, the layout and the weight source) in every tiling, FMA chains
-    without a tensor-core instruction (HMMA, HGMMA) or an atomic; their
-    oracle."""
-    for name, n in (("decode_attention_kernel", 8), ("F32KV", 4),
-                    ("Int8KV", 4), ("row_gemm_ref_kernel", 8), ("F32W", 4),
+    global check above); B7 and its int8 form (one kernel templated on the
+    pools, the head dim and the path) and their oracle (the first kernel,
+    templated on the pool's loader) at 4 head dims each; R1 and B6 (one
+    kernel templated on the tiling, the layout and the weight source) in
+    every tiling; L1 with the add and its oracle; R1, B6, B7 and L1 FMA
+    chains without a tensor-core instruction (HMMA, HGMMA) or an atomic."""
+    for name, n in (("decode_attention_ref_kernel", 8), ("F32KV", 4),
+                    ("Int8KV", 4), ("decode_attention_kernel", B7_KERNELS),
+                    ("F32Pools", B7_KERNELS // 2),
+                    ("Int8Pools", B7_KERNELS // 2),
+                    ("row_gemm_ref_kernel", 8), ("F32W", 4),
                     ("QuantW", 4), ("row_gemm_pipe_kernel", ROW_PIPE_KERNELS),
                     ("F32Src", ROW_PIPE_KERNELS // 2),
                     ("Q8Src", ROW_PIPE_KERNELS // 2),
                     ("row_layer_norm_kernel", 1),
+                    ("row_add_layer_norm_kernel", ADD_LN_KERNELS),
                     ("threefry_rows_bits_kernel", 1)):
         found = [k for k in counts if name in k]
         check(len(found) == n, f"expected {n} {name}, found {found}")
@@ -2296,23 +2321,25 @@ def check_serving_sass(counts):
                 f"HGMMA {counts[k]['HGMMA']}, ATOM/RED "
                 f"{counts[k]['ATOM/RED']}")
     for k in counts:
-        if "row_gemm_pipe_kernel" in k:
+        if any(n in k for n in ("row_gemm_pipe_kernel", "decode_attention",
+                                "layer_norm_kernel")):
             c = counts[k]
             check(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
-                  and c["ATOM/RED"] == 0, f"{k}: R1/B6 must be FFMA chains "
-                  f"without tensor cores or atomics ({c})")
+                  and c["ATOM/RED"] == 0, f"{k}: R1, B6, B7 and L1 must be "
+                  f"FFMA chains without tensor cores or atomics ({c})")
 
 
-def row_gemm_report(build_log, nvcc):
-    """R1's and B6's kernels (and their oracle's): registers and spill
-    stores from the ``ptxas`` report, a line each."""
+def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
+                                              "row_gemm_ref_kernel"),
+                    want=ROW_PIPE_KERNELS + 8):
+    """The kernels whose names hold one of ``kernels`` (R1's and B6's, and
+    their oracle's, by default): registers and spill stores from the
+    ``ptxas`` report, a line each; ``want`` of them."""
     found, name, spill = [], None, 0
     for line in build_log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            # every kernel of the file has "row_gemm_cu" in its mangled name
-            name = m.group(1) if ("row_gemm_pipe_kernel" in m.group(1) or
-                                  "row_gemm_ref_kernel" in m.group(1)) \
+            name = m.group(1) if any(k in m.group(1) for k in kernels) \
                 else None
             spill = 0
             continue
@@ -2323,8 +2350,8 @@ def row_gemm_report(build_log, nvcc):
         if m and name:
             found.append((name, int(m.group(1)), spill))
             name = None
-    check(len(found) == ROW_PIPE_KERNELS + 8, f"ptxas reported "
-          f"{len(found)} row_gemm kernels")
+    check(len(found) == want, f"ptxas reported {len(found)} kernels of "
+          f"{kernels}, expected {want}")
     for dem, (_, regs, spill) in zip(demangle(nvcc, [f[0] for f in found]),
                                      found):
         log(f"  {dem.split('(')[0]}: {regs} registers, {spill} B spilled")
@@ -2385,6 +2412,11 @@ def check_b7(torch, tdec, g):
         ref = tdec.plain_decode_attention(q, kp, vp, tb, cur)
         worst = max(worst, compare(f"B7 {name}", got, ref, "out",
                                    torch.float32))
+        ok = same_bits(torch, got, tdec.decode_attention_ref(q, kp, vp, tb,
+                                                             cur))
+        log(f"  B7 {name} ({tdec.PATHS[tdec.path_of(q.shape[1])]}) vs the "
+            f"oracle: {'bit-identical' if ok else 'DIFFER'}")
+        check(ok, f"B7 {name} differs from its oracle")
     # paged against unpaged, bit for bit, decode and verify
     for name, q, cur in (("t=1", q1, cursors), ("t=5", q5, vcur)):
         a = tdec.decode_attention(q, k_pool, v_pool, table, cur)
@@ -2414,6 +2446,148 @@ def check_b7(torch, tdec, g):
     check(ok, "B7: a query's bits depend on its batch or tile")
     torch.cuda.synchronize()
     return worst
+
+
+# B7 against its oracle on the CPU tests' grid: the paths' regimes (a
+# decode step, a verify chunk, a prefill tile and its edge, a 512-token
+# prompt), every head dim, pages of 16 and 32 and the unpaged cache
+B7_ORACLE_T = (1, 5, 16, 64, 512)
+B7_ORACLE_PAGES = (16, 32, 0)          # 0: unpaged
+
+
+def b7_oracle_case(torch, tdec, tfa, g, t, hd, page, int8, b=3, h=2,
+                   s=1024):
+    """q (a strided view of a projection), the pools (int8 with their
+    scales when ``int8``), the table and the cursors: rows at 0, S - 1 (its
+    queries past it clamp) and a random one."""
+    nblk, pg = s // (page or s), page or s
+    k_rows = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    v_rows = torch.randn(b, s, h, hd, device="cuda", generator=g)
+    if page:
+        pages = 2 + b * nblk
+        perm = 1 + torch.randperm(pages - 1, device="cuda", generator=g)
+        table = perm[:b * nblk].view(b, nblk).to(torch.int32)
+        kp = torch.randn(pages, pg, h, hd, device="cuda", generator=g)
+        vp = torch.randn(pages, pg, h, hd, device="cuda", generator=g)
+        kp[table.long()] = k_rows.view(b, nblk, pg, h, hd)
+        vp[table.long()] = v_rows.view(b, nblk, pg, h, hd)
+    else:
+        kp, vp, table = k_rows, v_rows, tdec.unpaged_table(b, "cuda")
+    cur = torch.randint(1, s - 1, (b,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    cur[0], cur[1] = 0, s - 1
+    q = torch.randn(b, t, 3 * h * hd, device="cuda",
+                    generator=g)[..., :h * hd].unflatten(-1, (h, hd))
+    scales = ()
+    if int8:
+        (kp, ks), (vp, vs) = tfa.kv_quantize(kp), tfa.kv_quantize(vp)
+        scales = (ks, vs)
+    return q, kp, vp, scales, table, cur
+
+
+def b7_call(tdec, case, ref=False, path=None):
+    """B7 (or B7 int8: the case has scales) on the dispatch's path, on
+    ``path``, or the oracle."""
+    q, kp, vp, scales, table, cur = case
+    if path is not None:
+        return tdec.decode_attention_on_path(q, kp, vp, table, cur, path,
+                                             scales)
+    if scales:
+        fn = (tdec.decode_attention_int8_ref if ref
+              else tdec.decode_attention_int8)
+        return fn(q, kp, vp, *scales, table, cur)
+    fn = tdec.decode_attention_ref if ref else tdec.decode_attention
+    return fn(q, kp, vp, table, cur)
+
+
+def poison_past(torch, pool, table, cur, t, s, paged):
+    """NaN at every position past each row's last query's and, paged, in
+    every page no row maps."""
+    pool = pool.clone()
+    page = pool.shape[1]
+    flat = pool.view(-1, *pool.shape[2:])
+    for r in range(table.shape[0]):
+        last = min(int(cur[r]) + t - 1, s - 1)
+        p = torch.arange(last + 1, s, device="cuda")
+        if paged:
+            flat[table[r, p // page].long() * page + p % page] = float("nan")
+        else:
+            pool[r, last + 1:] = float("nan")
+    if paged:
+        mapped = torch.zeros(pool.shape[0], dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        pool[~mapped] = float("nan")
+    return pool
+
+
+def check_b7_oracle(torch, tdec, tfa, g):
+    """B7 and B7 int8 bit for bit their oracles, on the dispatch's path and
+    on every path, at t in B7_ORACLE_T x head dims 16-128 x B7_ORACLE_PAGES;
+    NaN past each row's last position and in unmapped pages (K and V, or
+    the int8 pools' scales) changing no bit (t = 1, 5, 64; page 16 and
+    unpaged); a NaN scale making exactly its query's outputs NaN on every
+    path, as in the oracle."""
+    s = 1024
+    bad, poisoned, total = [], [], 0
+    for int8 in (False, True):
+        for hd in (16, 32, 64, 128):
+            for page in B7_ORACLE_PAGES:
+                for t in B7_ORACLE_T:
+                    case = b7_oracle_case(torch, tdec, tfa, g, t, hd, page,
+                                          int8)
+                    ref = b7_call(tdec, case, ref=True)
+                    outs = [b7_call(tdec, case)] + [
+                        b7_call(tdec, case, path=p)
+                        for p in range(len(tdec.PATHS))]
+                    total += len(outs)
+                    bad += [(int8, hd, page, t, i) for i, o in
+                            enumerate(outs) if not same_bits(torch, o, ref)]
+                    if t == 512 or page == 32:
+                        continue
+                    q, kp, vp, scales, table, cur = case
+                    if int8:
+                        scales = tuple(poison_past(torch, x, table, cur, t, s,
+                                                   bool(page))
+                                       for x in scales)
+                    else:
+                        kp, vp = (poison_past(torch, x, table, cur, t, s,
+                                              bool(page)) for x in (kp, vp))
+                    dirty = (q, kp, vp, scales, table, cur)
+                    outs = [b7_call(tdec, dirty), b7_call(tdec, dirty,
+                                                          ref=True)] + [
+                        b7_call(tdec, dirty, path=p)
+                        for p in range(len(tdec.PATHS))]
+                    poisoned += [(int8, hd, page, t, i) for i, o in
+                                 enumerate(outs) if not same_bits(torch, o,
+                                                                  ref)]
+    log(f"  B7 and B7 int8 vs their oracles, {total} calls (t = "
+        f"{', '.join(map(str, B7_ORACLE_T))}; hd 16-128; pages 16, 32 and "
+        f"unpaged; the dispatch's path and {', '.join(tdec.PATHS)}): "
+        f"{'bit-identical' if not bad else f'DIFFER at {bad[:8]}'}; NaN past "
+        f"each row's last position and in unmapped pages: "
+        f"{'no bit changed' if not poisoned else f'CHANGED {poisoned[:8]}'}")
+    check(not bad, f"B7 differs from its oracle in {len(bad)} of {total} "
+          f"calls")
+    check(not poisoned, "B7 read past a query's last position or an "
+          "unmapped page")
+    q, kp, vp, (ks, vs), table, cur = b7_oracle_case(torch, tdec, tfa, g, 64,
+                                                     64, 16, True)
+    ks = ks.clone()
+    ks[table[2, 0].long(), 0, 1] = float("nan")   # row 2, position 0, head 1
+    want = torch.zeros(q.shape, dtype=torch.bool, device="cuda")
+    want[2, :, 1] = True
+    ref = tdec.decode_attention_int8_ref(q, kp, vp, ks, vs, table, cur)
+    ok = torch.equal(torch.isnan(ref), want)
+    for p in range(len(tdec.PATHS)):
+        got = tdec.decode_attention_on_path(q, kp, vp, table, cur, p,
+                                            (ks, vs))
+        ok &= torch.equal(torch.isnan(got), want) and torch.equal(
+            got[~want], ref[~want])
+    log(f"  B7 int8: a NaN scale makes its query's outputs NaN on every "
+        f"path, as in the oracle, and no other: {ok}")
+    check(ok, "B7 int8: a NaN scale's reach differs between the paths and "
+          "the oracle")
+    torch.cuda.synchronize()
 
 
 def rows_invariant(torch, fn, x, what):
@@ -2468,6 +2642,33 @@ def check_r1_l1(torch, trow, g):
     ok = rows_invariant(torch, lambda z: trow.row_layer_norm(z, scale, bias),
                         x, "L1 768")
     check(ok, "L1: a row's bits depend on M")
+    # L1 with the residual add: s a torch add and y the oracle L1 on it,
+    # bit for bit, at C = 768 and 100 (not a multiple of 32)
+    worst_l1 = 0.0
+    for c in (768, 100):
+        xc = torch.randn(1024, c, device="cuda", generator=g) * 3 + 0.5
+        dc = torch.randn(1024, c, device="cuda", generator=g)
+        sc = torch.randn(c, device="cuda", generator=g)
+        bi = torch.randn(c, device="cuda", generator=g)
+        same = True
+        for m in (1, 16, 80, 512, 1024):
+            sm, ym = trow.row_add_layer_norm(xc[:m], dc[:m], sc, bi)
+            add = xc[:m] + dc[:m]
+            same &= same_bits(torch, sm, add) and same_bits(
+                torch, ym, trow.row_layer_norm(add, sc, bi))
+            if c == 768:
+                worst_l1 = max(worst_l1, compare(
+                    f"L1 with the add [{m}, 768]", ym,
+                    trow.plain_row_layer_norm(add, sc, bi), "out",
+                    torch.float32))
+        log(f"  L1 with the add [M, {c}] vs a torch add and the oracle L1 at"
+            f" M = 1, 16, 80, 512, 1024: "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, f"L1 with the add differs from a torch add and the "
+              f"oracle L1 at C = {c}")
+        ok = rows_invariant(torch, lambda z: trow.row_add_layer_norm(
+            z, z * 0.5, sc, bi)[1], xc, f"L1 with the add {c}")
+        check(ok, "L1 with the add: a row's bits depend on M")
     rows_invariant(torch, lambda z: trow.plain_row_layer_norm(z, scale, bias),
                    x, "torch's layer norm (the twin; for the record)")
     e = torch.rand(80, 50304, device="cuda", generator=g)
@@ -2685,9 +2886,11 @@ def check_decode_rows(torch, g):
 def check_serving_kernels(torch, tdec, trow, tf):
     g = torch.Generator(device="cuda").manual_seed(10)
     log("phase 3 serving: B7, R1, L1, T1 bits rows (f32, GPT-2 base shapes)")
+    from gym_tpu_torch.ops import fused_attention as tfa
     errs = {"B7_decode_attention": check_b7(torch, tdec, g)}
-    errs["R1_row_gemm"], errs["L1_row_layer_norm"] = check_r1_l1(torch,
-                                                                trow, g)
+    check_b7_oracle(torch, tdec, tfa, g)
+    errs["R1_row_gemm"], errs["L1_row_add_layer_norm"] = check_r1_l1(
+        torch, trow, g)
     check_r1_oracle(torch, trow, g)
     errs["T1_threefry_bits_rows"] = check_bits_rows(torch, tf, g)
     check_decode_rows(torch, g)
@@ -2695,49 +2898,97 @@ def check_serving_kernels(torch, tdec, trow, tf):
     return errs
 
 
+def time_b7(torch, tdec, q, k_pool, v_pool, scales, tb, cur, plain=True):
+    """B7 (or B7 int8, with ``scales``) and its oracle in turns (new,
+    oracle, oracle, new; the better of each pair), its twin, the yardstick
+    (SDPA on the gathered window with its mask; for int8 kv_dequantize
+    first) and the bound: each input byte read once (q, the distinct
+    positions' K and V and, int8, their scales), the output written once,
+    or the FMAs of the (query, key) pairs at 67 TFLOP/s."""
+    import torch.nn.functional as F
+    from gym_tpu_torch.ops.fused_attention import kv_dequantize
+    b, t, h, hd = q.shape
+    s = tb.shape[1] * k_pool.shape[1]
+    keys = sum(min(int(c) + j, s - 1) + 1 for c in cur.tolist()
+               for j in range(t))                   # (query, key) pairs
+    distinct = sum(min(int(c) + t - 1, s - 1) + 1 for c in cur.tolist())
+    per_pos = h * (hd + 4) if scales else 4 * h * hd
+    nbytes = 4 * 2 * q.numel() + 2 * distinct * per_pos + 8 * b
+    flops = 4 * keys * h * hd
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    pages = tb.long()
+
+    def window(pool, sc):
+        w = pool[pages] if not scales else kv_dequantize(pool[pages],
+                                                         sc[pages])
+        return w.view(b, s, h, hd).transpose(1, 2)
+
+    def sdpa():
+        kw = window(k_pool, scales[0] if scales else None)
+        vw = window(v_pool, scales[1] if scales else None)
+        pos = cur[:, None] + torch.arange(t, device="cuda")
+        mask = torch.arange(s, device="cuda") <= pos[:, :, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kw, vw, attn_mask=mask[:, None])
+
+    if scales:
+        def new():
+            return tdec.decode_attention_int8(q, k_pool, v_pool, *scales, tb,
+                                              cur)
+
+        def ref():
+            return tdec.decode_attention_int8_ref(q, k_pool, v_pool, *scales,
+                                                  tb, cur)
+
+        def twin():
+            return tdec.plain_decode_attention_int8(q, k_pool, v_pool,
+                                                    *scales, tb, cur)
+    else:
+        def new():
+            return tdec.decode_attention(q, k_pool, v_pool, tb, cur)
+
+        def ref():
+            return tdec.decode_attention_ref(q, k_pool, v_pool, tb, cur)
+
+        def twin():
+            return tdec.plain_decode_attention(q, k_pool, v_pool, tb, cur)
+    new_a, ref_a = timed(torch, new), timed(torch, ref)
+    ref_b, new_b = timed(torch, ref), timed(torch, new)
+    return dict(ms=min(new_a, new_b), ref_ms=min(ref_a, ref_b),
+                new=(new_a, new_b), ref=(ref_a, ref_b),
+                plain_ms=(timed(torch, twin, reps=3, inner=1) if plain
+                          else None),
+                library_ms=timed(torch, sdpa),
+                bound=(max(t_b, t_f) * 1e3,
+                       "bytes" if t_b >= t_f else "operations"),
+                mb=nbytes / 1e6, gflop=flops / 1e9,
+                path=tdec.PATHS[tdec.path_of(t)])
+
+
 def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
     """Phase 7 for the serving kernels at phase 10's shapes, each beside
     its twin, its bound (bytes at 3.35 TB/s, or f32 FMAs at 67 TFLOP/s) and
     its yardstick: SDPA on the gathered window with its mask for B7,
-    torch.matmul for R1 and B6 (which are also timed in turns with their
-    oracle, and beside their chain floor), F.layer_norm for L1."""
+    torch.matmul for R1 and B6 (beside their chain floor), a torch add and
+    F.layer_norm for L1 with the add; B7, R1, B6 and L1 in turns with
+    their oracles."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(11)
     h, hd, s = SERVE_H, SERVE_HD, SERVE_S
     _, _, k_pool, v_pool, table = paged_window(torch, g, 16)
     out = {}
 
-    def b7_case(tag, q, tb, cur):
-        b, t = q.shape[:2]
-        keys = sum(min(int(c) + j, s - 1) + 1 for c in cur.tolist()
-                   for j in range(t))               # (query, key) pairs
-        distinct = sum(min(int(c) + t - 1, s - 1) + 1 for c in cur.tolist())
-        nbytes = 4 * (2 * q.numel() + 2 * distinct * h * hd) + 8 * b
-        flops = 4 * keys * h * hd
-        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        pages = tb.long()
-
-        def sdpa():
-            kw = k_pool[pages].view(b, s, h, hd).transpose(1, 2)
-            vw = v_pool[pages].view(b, s, h, hd).transpose(1, 2)
-            pos = cur[:, None] + torch.arange(t, device="cuda")
-            mask = torch.arange(s, device="cuda") <= pos[:, :, None]
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), kw, vw, attn_mask=mask[:, None])
-
-        r = dict(ms=timed(torch, lambda: tdec.decode_attention(
-                     q, k_pool, v_pool, tb, cur)),
-                 plain_ms=timed(torch, lambda: tdec.plain_decode_attention(
-                     q, k_pool, v_pool, tb, cur), reps=3, inner=1),
-                 library_ms=timed(torch, sdpa),
-                 bound=(max(t_b, t_f) * 1e3,
-                        "bytes" if t_b >= t_f else "operations"))
-        log(f"B7_decode_attention [{tag}]: kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} (twin) library_ms {r['library_ms']:.4f} "
-            f"(SDPA on the gathered window, masked) bound_ms "
-            f"{r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP) -> {r['bound'][0] / r['ms']:.2%} of "
-            f"bound")
+    def b7_case(tag, q, tb, cur, plain=True):
+        r = time_b7(torch, tdec, q, k_pool, v_pool, (), tb, cur, plain)
+        log(f"B7_decode_attention [{tag}] ({r['path']}): kernel_ms "
+            f"{r['ms']:.4f} ({r['new'][0]:.4f}, {r['new'][1]:.4f}) oracle_ms "
+            f"{r['ref_ms']:.4f} ({r['ref'][0]:.4f}, {r['ref'][1]:.4f}) "
+            + (f"plain_ms {r['plain_ms']:.4f} (twin) " if plain else "")
+            + f"library_ms {r['library_ms']:.4f} (SDPA on the gathered "
+            f"window, masked) bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}: "
+            f"{r['mb']:.2f} MB, {r['gflop']:.3f} GFLOP) -> "
+            f"{r['bound'][0] / r['ms']:.2%} of bound, "
+            f"{r['ref_ms'] / r['ms']:.2f}x the oracle")
         return r
 
     cur = torch.randint(16, 577, (16,), device="cuda", generator=g,
@@ -2745,6 +2996,9 @@ def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
     out["B7_decode_attention"] = b7_case(
         "decode b=16 t=1, cursors 16-576, page 16",
         torch.randn(16, 1, h, hd, device="cuda", generator=g), table, cur)
+    b7_case("verify b=16 t=5, cursors 16-576, page 16",
+            torch.randn(16, 5, h, hd, device="cuda", generator=g), table, cur,
+            plain=False)
     b7_case("prefill b=1 t=512 start 0",
             torch.randn(1, 512, h, hd, device="cuda", generator=g),
             table[:1], torch.zeros(1, dtype=torch.int32, device="cuda"))
@@ -2840,17 +3094,33 @@ def time_serving_kernels(torch, tdec, trow, tf, int32_ops_per_s):
         r1_case(m, 768, 3072, bits=8)
     check(not slower, f"R1/B6 slower than the oracle at {slower}")
     x = torch.randn(16, 768, device="cuda", generator=g)
+    d = torch.randn(16, 768, device="cuda", generator=g)
     sc = torch.randn(768, device="cuda", generator=g)
     bi = torch.randn(768, device="cuda", generator=g)
-    nbytes = 4 * (2 * x.numel() + 2 * 768)
-    out["L1_row_layer_norm"] = r = dict(
-        ms=timed(torch, lambda: trow.row_layer_norm(x, sc, bi)),
-        plain_ms=timed(torch, lambda: trow.plain_row_layer_norm(x, sc, bi)),
-        library_ms=timed(torch, lambda: F.layer_norm(x, (768,), sc, bi)),
+    # x and d read once, s and y written once, scale and bias read
+    nbytes = 4 * (4 * x.numel() + 2 * 768)
+
+    def new():
+        return trow.row_add_layer_norm(x, d, sc, bi)
+
+    def ref():
+        return trow.row_layer_norm(x + d, sc, bi)
+
+    new_a, ref_a = timed(torch, new), timed(torch, ref)
+    ref_b, new_b = timed(torch, ref), timed(torch, new)
+    out["L1_row_add_layer_norm"] = r = dict(
+        ms=min(new_a, new_b), ref_ms=min(ref_a, ref_b),
+        plain_ms=timed(torch, lambda: trow.plain_row_layer_norm(x + d, sc,
+                                                                 bi)),
+        library_ms=timed(torch, lambda: F.layer_norm(x + d, (768,), sc, bi)),
         bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    log(f"L1_row_layer_norm [16, 768]: kernel_ms {r['ms']:.4f} plain_ms "
-        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-        f"(F.layer_norm) bound_ms {r['bound'][0]:.6f} (bytes)")
+    r["ln_ms"] = timed(torch, lambda: trow.row_layer_norm(x, sc, bi))
+    log(f"L1_row_add_layer_norm [16, 768]: kernel_ms {r['ms']:.4f} "
+        f"({new_a:.4f}, {new_b:.4f}) oracle_ms {r['ref_ms']:.4f} ({ref_a:.4f},"
+        f" {ref_b:.4f}; a torch add, then the oracle L1, alone "
+        f"{r['ln_ms']:.4f}) plain_ms {r['plain_ms']:.4f} (a torch add, then "
+        f"the twin) library_ms {r['library_ms']:.4f} (a torch add, then "
+        f"F.layer_norm) bound_ms {r['bound'][0]:.6f} (bytes)")
     keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (16, 2), device="cuda",
                          generator=g, dtype=torch.int32)
     data = torch.arange(16, dtype=torch.int32, device="cuda")
@@ -3975,6 +4245,8 @@ def check_b7_int8(torch, tdec, tfa, g):
         got = tdec.decode_attention_int8(q, kq, vq, ks, vs, tb, cur)
         same = same_bits(torch, got, tdec.decode_attention(q, kd, vd, tb,
                                                            cur))
+        oracle = same_bits(torch, got, tdec.decode_attention_int8_ref(
+            q, kq, vq, ks, vs, tb, cur))
         worst = max(worst, compare(
             f"B7 int8 {name}", got, tdec.plain_decode_attention_int8(
                 q, kq, vq, ks, vs, tb, cur), "out", torch.float32))
@@ -3982,9 +4254,11 @@ def check_b7_int8(torch, tdec, tfa, g):
             same &= same_bits(torch, got, tdec.decode_attention_int8(
                 q, kqr, vqr, ksr, vsr, unp, cur))
         log(f"  B7 int8 {name} vs B7 on the dequantized pools (and paged vs "
-            f"unpaged): {'bit-identical' if same else 'DIFFER'}")
+            f"unpaged): {'bit-identical' if same else 'DIFFER'}; vs its "
+            f"oracle: {'bit-identical' if oracle else 'DIFFER'}")
         check(same, f"B7 int8 {name} differs from B7 on the dequantized "
               f"pools")
+        check(oracle, f"B7 int8 {name} differs from its oracle")
     ks = ks.clone()
     ks[table[3, 0].long(), 0, 5] = float("nan")
     bad = tdec.decode_attention_int8(q1, kq, vq, ks, vs, table, cursors)
@@ -4035,9 +4309,8 @@ def time_b6(torch, trow, g, m, kin, nout, bits, lm=False):
     return r
 
 
-def time_b7_int8(torch, tdec, tfa, g, tag, b, t, cur_lo, cur_hi):
-    import torch.nn.functional as F
-    h, hd, s = SERVE_H, SERVE_HD, SERVE_S
+def time_b7_int8(torch, tdec, tfa, g, tag, b, t, cur_lo, cur_hi,
+                 plain=True):
     _, _, k_pool, v_pool, table = paged_window(torch, g, b)
     (kq, ks), (vq, vs) = tfa.kv_quantize(k_pool), tfa.kv_quantize(v_pool)
     del k_pool, v_pool
@@ -4045,38 +4318,17 @@ def time_b7_int8(torch, tdec, tfa, g, tag, b, t, cur_lo, cur_hi):
     cur = (torch.randint(cur_lo, cur_hi + 1, (b,), device="cuda",
                          generator=g, dtype=torch.int32) if cur_hi
            else torch.zeros(b, dtype=torch.int32, device="cuda"))
-    q = torch.randn(b, t, h, hd, device="cuda", generator=g)
-    keys = sum(min(int(c) + j, s - 1) + 1 for c in cur.tolist()
-               for j in range(t))
-    distinct = sum(min(int(c) + t - 1, s - 1) + 1 for c in cur.tolist())
-    nbytes = 4 * 2 * q.numel() + 2 * distinct * h * (hd + 4) + 8 * b
-    flops = 4 * keys * h * hd
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    pages = tb.long()
-
-    def sdpa():
-        kw = tfa.kv_dequantize(kq[pages], ks[pages]).view(
-            b, s, h, hd).transpose(1, 2)
-        vw = tfa.kv_dequantize(vq[pages], vs[pages]).view(
-            b, s, h, hd).transpose(1, 2)
-        pos = cur[:, None] + torch.arange(t, device="cuda")
-        mask = torch.arange(s, device="cuda") <= pos[:, :, None]
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), kw, vw, attn_mask=mask[:, None])
-
-    r = dict(ms=timed(torch, lambda: tdec.decode_attention_int8(
-                 q, kq, vq, ks, vs, tb, cur)),
-             plain_ms=timed(torch, lambda: tdec.plain_decode_attention_int8(
-                 q, kq, vq, ks, vs, tb, cur), reps=3, inner=1),
-             library_ms=timed(torch, sdpa),
-             bound=(max(t_b, t_f) * 1e3,
-                    "bytes" if t_b >= t_f else "operations"))
-    log(f"B7_decode_attention_int8 [{tag}]: kernel_ms {r['ms']:.4f} plain_ms"
-        f" {r['plain_ms']:.4f} (twin) library_ms {r['library_ms']:.4f} "
-        f"(kv_dequantize then SDPA on the gathered window, masked) bound_ms "
-        f"{r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP) -> {r['bound'][0] / r['ms']:.2%} of "
-        f"bound")
+    q = torch.randn(b, t, SERVE_H, SERVE_HD, device="cuda", generator=g)
+    r = time_b7(torch, tdec, q, kq, vq, (ks, vs), tb, cur, plain)
+    log(f"B7_decode_attention_int8 [{tag}] ({r['path']}): kernel_ms "
+        f"{r['ms']:.4f} ({r['new'][0]:.4f}, {r['new'][1]:.4f}) oracle_ms "
+        f"{r['ref_ms']:.4f} ({r['ref'][0]:.4f}, {r['ref'][1]:.4f}) "
+        + (f"plain_ms {r['plain_ms']:.4f} (twin) " if plain else "")
+        + f"library_ms {r['library_ms']:.4f} (kv_dequantize then SDPA on the"
+        f" gathered window, masked) bound_ms {r['bound'][0]:.6f} "
+        f"({r['bound'][1]}: {r['mb']:.2f} MB, {r['gflop']:.3f} GFLOP) -> "
+        f"{r['bound'][0] / r['ms']:.2%} of bound, "
+        f"{r['ref_ms'] / r['ms']:.2f}x the oracle")
     return r
 
 
@@ -4098,6 +4350,8 @@ def quant_kernels(torch, mods, card):
     times["B7_decode_attention_int8"] = time_b7_int8(
         torch, tdec, tfa, g, "decode b=16 t=1, cursors 16-576, page 16", 16,
         1, 16, 576)
+    time_b7_int8(torch, tdec, tfa, g, "verify b=16 t=5, cursors 16-576, "
+                 "page 16", 16, 5, 16, 576, plain=False)
     time_b7_int8(torch, tdec, tfa, g, "prefill b=1 t=512 start 0", 1, 512,
                  0, 0)
     torch.cuda.empty_cache()
@@ -4522,6 +4776,12 @@ def main() -> int:
         check_serving_sass(sass)
         log("  R1 and B6 (row_gemm.cu), registers and spills (ptxas):")
         row_gemm_report(_build.build_log, _build._nvcc())
+        log("  B7, B7 int8 and L1 with the add, registers and spills "
+            "(ptxas):")
+        row_gemm_report(_build.build_log, _build._nvcc(),
+                        ("decode_attention_kernel",
+                         "row_add_layer_norm_kernel"),
+                        B7_KERNELS + ADD_LN_KERNELS)
         t1_ops = threefry_ops_per_element(sass)
 
         log(f"phase 3: kernels against plain versions on the card "

@@ -23,7 +23,8 @@ no node dimension, and a cache of per-layer K and V, either per row
 (``[b, S, H, hd]`` with a cursor a row) or a pool of pages shared by the
 rows (``[P, page, H, hd]``, addressed through a block table passed in). The
 attends run on B7 (``ops/decode_attention.py``), the dense layers and the
-tied lm head on R1 and the layer norms on L1 (``ops/row_linear.py``), so a
+tied lm head on R1 and the layer norms, each with the residual add before
+it, on L1 (``ops/row_linear.py`` ``row_add_layer_norm``), so a
 row's logits never depend on the other rows, the number of tokens in the
 call or the paging. ``sample_logits``, ``generate`` and ``generate_fast``
 are the JAX package's, with its threefry key schedule.
@@ -59,7 +60,7 @@ from ..ops.decode_attention import (decode_attention, decode_attention_int8,
                                     unpaged_table)
 from ..ops.fused_attention import kv_quantize
 from ..ops.grouped_matmul import quantized_attend, quantized_dot
-from ..ops.row_linear import row_cumsum, row_layer_norm, row_linear
+from ..ops.row_linear import row_add_layer_norm, row_cumsum, row_linear
 from .base import dropout as _dropout
 
 
@@ -487,18 +488,21 @@ class GPT(torch.nn.Module):
         # XLA's gather clamps a position past the window; those outputs
         # are NaN below either way
         pos = torch.clamp(cursor[:, None] + steps, max=s - 1)
-        x = (_embed_rows(params, idx)
-             + F.embedding(pos.long(), params["wpe.embedding"]))
+        # each layer norm takes the residual add before it in one launch:
+        # x the stream so far, d what is added to it (the position
+        # embeddings, then each attention's and MLP's output)
+        x = _embed_rows(params, idx)
+        d = F.embedding(pos.long(), params["wpe.embedding"])
         for i in range(cfg.n_layer):
             p = f"h_{i}"
-            h = self._row_ln(params, f"{p}.ln_1", x)
-            x = x + self._decode_attend(params, f"{p}.attn", h, cache,
-                                        cursor, block_table)
-            h = self._row_ln(params, f"{p}.ln_2", x)
+            x, h = self._row_add_ln(params, f"{p}.ln_1", x, d)
+            d = self._decode_attend(params, f"{p}.attn", h, cache, cursor,
+                                    block_table)
+            x, h = self._row_add_ln(params, f"{p}.ln_2", x, d)
             h = F.gelu(self._row_dense(params, f"{p}.mlp.c_fc", h),
                        approximate="tanh")
-            x = x + self._row_dense(params, f"{p}.mlp.c_proj", h)
-        x = self._row_ln(params, "ln_f", x)
+            d = self._row_dense(params, f"{p}.mlp.c_proj", h)
+        _, x = self._row_add_ln(params, "ln_f", x, d, want_sum=False)
         if logits_at is not None:
             at = torch.as_tensor(logits_at, device=x.device).long()
             at = at.expand(b) if at.dim() == 0 else at
@@ -519,18 +523,21 @@ class GPT(torch.nn.Module):
                           params.get(f"{name}.bias"))
 
     @staticmethod
-    def _row_ln(params, name, x):
-        return row_layer_norm(x, params[f"{name}.scale"],
-                              params.get(f"{name}.bias"))
+    def _row_add_ln(params, name, x, d, want_sum=True):
+        return row_add_layer_norm(x, d, params[f"{name}.scale"],
+                                  params.get(f"{name}.bias"),
+                                  want_sum=want_sum)
 
-    def _decode_attend(self, params, p, x, cache, cursor, block_table):
+    def write_kv(self, cache, p, k, v, cursor, block_table):
+        """Layer ``p``'s new K and V ``[b, t, H, hd]`` (int8 with their
+        scales under ``kv_dtype="int8"``) written into ``cache`` at each
+        row's cursor, through ``block_table`` when paged: ``(pools, table,
+        ok)``, the layer's pools as the attend reads them, its block
+        table, and where the attend's output is valid (False past the
+        window)."""
         cfg = self.config
-        b, t, c = x.shape
-        h = cfg.n_head
-        hd = c // h
+        b, t = k.shape[:2]
         s = cfg.block_size
-        qkv = self._row_dense(params, f"{p}.c_attn", x)
-        q, k, v = (z.unflatten(-1, (h, hd)) for z in qkv.split(c, dim=-1))
         quant = cfg.kv_dtype == "int8"
         if quant:
             # quantized once, as written: a page's (int8, scale) pairs are
@@ -541,7 +548,7 @@ class GPT(torch.nn.Module):
             new = {"k": k, "v": v}
         pools = [cache[f"{p}.{n}"] for n in new]
         wpos = cursor[:, None] + torch.arange(t, dtype=torch.int32,
-                                              device=x.device)
+                                              device=k.device)
         if cfg.page_size > 0:
             page = cfg.page_size
             lblk = torch.clamp(torch.div(wpos, page, rounding_mode="floor"),
@@ -555,14 +562,26 @@ class GPT(torch.nn.Module):
             # per-position poison: out-of-window speculative positions
             ok = (wpos < s)[:, :, None, None]
         else:
-            rows = torch.arange(b, device=x.device)[:, None].expand(b, t)
+            rows = torch.arange(b, device=k.device)[:, None].expand(b, t)
             wclamp = torch.clamp(wpos, max=s - 1).long()
             for pool, val in zip(pools, new.values()):
                 pool[rows, wclamp] = val
-            table = unpaged_table(b, x.device)
+            table = unpaged_table(b, k.device)
             # per-row poison: an overflowing row, never its neighbours
             ok = (cursor + t <= s)[:, None, None, None]
-        attend = decode_attention_int8 if quant else decode_attention
+        return pools, table, ok
+
+    def _decode_attend(self, params, p, x, cache, cursor, block_table):
+        cfg = self.config
+        b, t, c = x.shape
+        h = cfg.n_head
+        hd = c // h
+        qkv = self._row_dense(params, f"{p}.c_attn", x)
+        q, k, v = (z.unflatten(-1, (h, hd)) for z in qkv.split(c, dim=-1))
+        pools, table, ok = self.write_kv(cache, p, k, v, cursor,
+                                         block_table)
+        attend = (decode_attention_int8 if cfg.kv_dtype == "int8"
+                  else decode_attention)
         y = attend(q, *pools, table, cursor)
         y = y.masked_fill(~ok, float("nan"))
         return self._row_dense(params, f"{p}.c_proj", y.reshape(b, t, c))

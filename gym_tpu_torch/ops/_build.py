@@ -161,12 +161,18 @@ def load() -> ctypes.CDLL:
         lib.gym_scatter_mean.restype = i32
         lib.gym_threefry_bits_rows.argtypes = [vp, vp, i32, i64, vp, vp]
         lib.gym_threefry_bits_rows.restype = i32
-        lib.gym_decode_attention.argtypes = [vp, i64, i64] + [vp] * 3 + [
-            i32, i32, vp] + [i32] * 4 + [f32, vp, vp]
-        lib.gym_decode_attention.restype = i32
-        lib.gym_decode_attention_int8.argtypes = [vp, i64, i64] + [vp] * 5 + [
-            i32, i32, vp] + [i32] * 4 + [f32, vp, vp]
-        lib.gym_decode_attention_int8.restype = i32
+        b7 = [vp, i64, i64] + [vp] * 3 + [i32, i32, vp] + [i32] * 4 + [
+            f32, vp]
+        b7_int8 = [vp, i64, i64] + [vp] * 5 + [i32, i32, vp] + [i32] * 4 + [
+            f32, vp]
+        lib.gym_decode_attention.argtypes = b7 + [i32, vp]
+        lib.gym_decode_attention_int8.argtypes = b7_int8 + [i32, vp]
+        lib.gym_decode_attention_ref.argtypes = b7 + [vp]
+        lib.gym_decode_attention_int8_ref.argtypes = b7_int8 + [vp]
+        for fn in ("", "_int8", "_ref", "_int8_ref"):
+            getattr(lib, f"gym_decode_attention{fn}").restype = i32
+        lib.gym_decode_attention_path.argtypes = [i32]
+        lib.gym_decode_attention_path.restype = i32
         lib.gym_row_gemm.argtypes = [vp] * 4 + [i32] * 5 + [vp]
         lib.gym_row_gemm.restype = i32
         lib.gym_row_qgemm.argtypes = [vp] * 5 + [i32] * 6 + [vp]
@@ -179,6 +185,8 @@ def load() -> ctypes.CDLL:
         lib.gym_row_qgemm_ref.restype = i32
         lib.gym_row_layer_norm.argtypes = [vp] * 4 + [i32, i32, f32, vp]
         lib.gym_row_layer_norm.restype = i32
+        lib.gym_row_add_layer_norm.argtypes = [vp] * 6 + [i32, i32, f32, vp]
+        lib.gym_row_add_layer_norm.restype = i32
         # host code: the checkpoint sidecars' crc32c (utils/integrity.py)
         lib.gym_crc32c.argtypes = [ctypes.c_char_p, i64, u32]
         lib.gym_crc32c.restype = u32

@@ -89,6 +89,19 @@
 // ... in order, the 32 partial sums are combined by an xor butterfly (the
 // same bits on every lane), so a row's statistics are fixed by C alone.
 // Bound: bytes (read x once, write y once).
+//
+// L1 with the residual add it follows (row_add_layer_norm_kernel, the
+// decode forward's every layer norm: each reads a sum an add just wrote,
+// the embeddings', the attention's residual or the MLP's): s = x + d, one
+// IEEE rounding (__fadd_rn, never contracted), written out as the residual
+// stream, and y = L1(s) with L1's contract and arithmetic. A lane holds its
+// columns of x and d in registers (NC a lane, all loaded before the sums),
+// so x and d are read once and s written once, and the sum and the sum of
+// squares run in L1's order; blocks of 2 warps, so decode's 16 rows spread
+// over 8 SMs. Where the oracle's compiled code fuses a product into an add
+// (the variance, the scale-and-shift), the kernel writes fmaf. Bound: bytes
+// (x and d read once, s and y written once). row_layer_norm_kernel, L1 as
+// first written, is its oracle (a torch add, then it: the same bits).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -695,6 +708,99 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
+constexpr int kAddLnWarps = 2;
+
+// a row's statistics from its lanes' sums: L1's arithmetic
+struct LnStats {
+  float mean, inv;
+  __device__ __forceinline__ LnStats(float s, float s2, int C, float eps) {
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    mean = s / C;
+    const float mean2 = s2 / C;
+    const float var = fmaxf(fmaf(-mean, mean, mean2), 0.f);
+    inv = rsqrtf(var + eps);
+  }
+  __device__ __forceinline__ float out(float v, float scale,
+                                       const float* bias, float b) {
+    return bias ? fmaf(v - mean, inv * scale, b) : (v - mean) * (inv * scale);
+  }
+};
+
+// NC columns a lane in registers (C <= 32 * NC); NC = 0 for wider rows:
+// the same arithmetic, x and d read twice
+template <int NC>
+__global__ void __launch_bounds__(kAddLnWarps * 32)
+    row_add_layer_norm_kernel(const float* __restrict__ x,
+                              const float* __restrict__ d,
+                              const float* __restrict__ scale,
+                              const float* __restrict__ bias,
+                              float* __restrict__ s_out,
+                              float* __restrict__ y, int M, int C,
+                              float eps) {
+  const int row = blockIdx.x * kAddLnWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const long long base = (long long)row * C;
+  float s = 0.f, s2 = 0.f;
+  if constexpr (NC > 0) {
+    // x, d and (up to 32 columns a lane) scale and bias, all loaded ahead
+    constexpr int NP = NC <= 32 ? NC : 1;
+    float v[NC], dv[NC], sc[NP], bi[NP];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? x[base + c] : 0.f;
+      dv[i] = c < C ? d[base + c] : 0.f;
+      if (NC <= 32) {
+        sc[i % NP] = c < C ? scale[c] : 0.f;
+        bi[i % NP] = c < C && bias ? bias[c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = __fadd_rn(v[i], dv[i]);
+      if (c < C) {
+        if (s_out) s_out[base + c] = v[i];
+        s += v[i];
+        s2 = fmaf(v[i], v[i], s2);
+      }
+    }
+    LnStats st(s, s2, C, eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= C) continue;
+      if (NC <= 32)
+        y[base + c] = st.out(v[i], sc[i % NP], bias, bi[i % NP]);
+      else
+        y[base + c] = st.out(v[i], scale[c], bias, bias ? bias[c] : 0.f);
+    }
+  } else {
+    for (int c = lane; c < C; c += 32) {
+      const float v = __fadd_rn(x[base + c], d[base + c]);
+      if (s_out) s_out[base + c] = v;
+      s += v;
+      s2 = fmaf(v, v, s2);
+    }
+    LnStats st(s, s2, C, eps);
+    for (int c = lane; c < C; c += 32)
+      y[base + c] = st.out(__fadd_rn(x[base + c], d[base + c]), scale[c],
+                           bias, bias ? bias[c] : 0.f);
+  }
+}
+
+template <int NC>
+int launch_add_ln(const float* x, const float* d, const float* scale,
+                  const float* bias, float* s, float* y, int M, int C,
+                  float eps, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((M + kAddLnWarps - 1) / kAddLnWarps);
+  row_add_layer_norm_kernel<NC><<<blocks, kAddLnWarps * 32, 0, stream>>>(
+      x, d, scale, bias, s, y, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -781,6 +887,33 @@ int gym_row_layer_norm(const void* x, const void* scale, const void* bias,
       static_cast<const float*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<float*>(y), M, C, eps);
   return (int)cudaGetLastError();
+}
+
+// s [M, C] = x + d and y [M, C] = layer norm of each row of s, all
+// contiguous; scale [C], bias [C] or null; s null when only y is wanted.
+int gym_row_add_layer_norm(const void* x, const void* d, const void* scale,
+                           const void* bias, void* s, void* y, int M, int C,
+                           float eps, void* stream) {
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* df = static_cast<const float*>(d);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* sf = static_cast<float*>(s);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (C + 31) / 32;
+  if (nc <= 4) return launch_add_ln<4>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  if (nc <= 8) return launch_add_ln<8>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  if (nc <= 16)
+    return launch_add_ln<16>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  if (nc <= 24)
+    return launch_add_ln<24>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  if (nc <= 32)
+    return launch_add_ln<32>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  if (nc <= 64)
+    return launch_add_ln<64>(xf, df, sc, bi, sf, yf, M, C, eps, st);
+  return launch_add_ln<0>(xf, df, sc, bi, sf, yf, M, C, eps, st);
 }
 
 }  // extern "C"

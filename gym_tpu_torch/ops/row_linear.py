@@ -26,6 +26,10 @@ bits never depend on the other rows:
 - ``row_layer_norm`` (L1): flax ``nn.LayerNorm`` with its arithmetic (f32
   mean and E[x²] − E[x]², then (x − mean)·(rsqrt(var + eps)·scale) + bias);
   the kernel reduces each row in one warp in an order fixed by C.
+- ``row_add_layer_norm``: L1 with the residual add it follows, one launch
+  for ``s = x + d`` and L1 of s, bit for bit a torch add then
+  ``row_layer_norm`` (the decode forward's every layer norm; L1's first
+  kernel, ``row_layer_norm``, is its oracle on the card).
 - ``row_cumsum``: the inclusive cumsum of the sampler's top-p, as blocks
   of 32 summed by R1 against an upper-triangular 0/1 matrix, their totals
   scanned the same way: each element's sums are fixed by the row's length
@@ -35,8 +39,9 @@ bits never depend on the other rows:
   count.
 
 On a CPU tensor each wrapper runs its twin, on a CUDA tensor it launches its
-kernel or raises; ``row_linear.launches``, ``row_qlinear.launches`` and
-``row_layer_norm.launches`` count the launches, and ``shape_counts``, while
+kernel or raises; ``row_linear.launches``, ``row_qlinear.launches``,
+``row_layer_norm.launches`` and ``row_add_layer_norm.launches`` count the
+launches, and ``shape_counts``, while
 a caller sets it to a ``Counter``, R1's and B6's launches by shape.
 """
 
@@ -332,15 +337,65 @@ def row_layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return out.view(x.shape)
 
 
+def row_add_layer_norm(x: torch.Tensor, d: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor = None,
+                       eps: float = 1e-5, want_sum: bool = True):
+    """L1 with the residual add it follows: ``(s, y)``, s = x + d (one
+    rounding: the residual stream) and y the layer norm of each row of s
+    ``[..., C]`` (f32) with ``scale`` and ``bias`` ``[C]``, bit for bit
+    ``row_layer_norm(x + d)``. ``want_sum=False`` leaves s unwritten and
+    returns ``(None, y)`` (the last layer norm, whose sum nothing reads).
+    On the card one launch of ``row_add_layer_norm_kernel``; on the CPU
+    ``x + d``, then the twin."""
+    c = x.shape[-1]
+    if d.shape != x.shape:
+        raise ValueError(f"x {tuple(x.shape)} and d {tuple(d.shape)} differ")
+    if scale.shape != (c,) or (bias is not None and bias.shape != (c,)):
+        raise ValueError(f"scale/bias must be [{c}]")
+    tensors = (x, d, scale) if bias is None else (x, d, scale, bias)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("row_add_layer_norm is float32")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("x, d, scale and bias on several devices")
+    if x.device.type == "cpu":
+        s = x + d
+        return (s if want_sum else None), plain_row_layer_norm(s, scale,
+                                                               bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"device must be cuda or cpu, got {x.device}")
+    x2 = x.reshape(-1, c).contiguous()
+    d2 = d.reshape(-1, c).contiguous()
+    m = x2.shape[0]
+    y = torch.empty_like(x2)
+    s = torch.empty_like(x2) if want_sum else None
+    if m == 0:
+        return (s.view(x.shape) if want_sum else None), y.view(x.shape)
+    if m >= 2 ** 31 or c >= 2 ** 31:
+        raise ValueError(f"[{m}, {c}] too large")
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.gym_row_add_layer_norm(
+            x2.data_ptr(), d2.data_ptr(), scale.contiguous().data_ptr(),
+            None if bias is None else bias.contiguous().data_ptr(),
+            None if s is None else s.data_ptr(), y.data_ptr(), m, c,
+            float(eps), _stream(x.device))
+    _build.check(lib, code, "gym_row_add_layer_norm")
+    row_add_layer_norm.launches += 1
+    return (s.view(x.shape) if want_sum else None), y.view(x.shape)
+
+
 row_linear.launches = 0
 row_qlinear.launches = 0
 row_layer_norm.launches = 0
+row_add_layer_norm.launches = 0
 
 
 def reset_launch_counts() -> None:
     row_linear.launches = 0
     row_qlinear.launches = 0
     row_layer_norm.launches = 0
+    row_add_layer_norm.launches = 0
 
 
 def row_cumsum(x: torch.Tensor) -> torch.Tensor:

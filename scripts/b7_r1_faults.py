@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Plant faults in B7, the serving path's decode attention
-(``gym_tpu_torch/ops/csrc/decode_attention.cu``), and R1, its row-invariant
-linear layer (``gym_tpu_torch/ops/csrc/row_gemm.cu``: a split of K in the
-few-row tiling, the ring's stage index off by one), and show that the
-checks catch each one, on a machine with a CUDA card:
+(``gym_tpu_torch/ops/csrc/decode_attention.cu``'s kernel, not its oracle:
+V read in the reverse order of the keys, a query attending one position
+past its own), in R1, its row-invariant linear layer
+(``gym_tpu_torch/ops/csrc/row_gemm.cu``: a split of K in the few-row
+tiling, the ring's stage index off by one), and in L1 with the residual
+add (the same file: a lane summing its columns in the reverse order), and
+show that the checks catch each one, on a machine with a CUDA card:
 
     python3 scripts/b7_r1_faults.py [FAULT ...]
 
@@ -29,13 +32,16 @@ R1 = "gym_tpu_torch/ops/csrc/row_gemm.cu"
 FAULTS = {
     # V read in the reverse order of the keys whose probabilities weigh it
     "reversed_key_order": (B7, [(
-        "acc = fmaf(ps[warp][key], kv.val(offs[warp][key], d), acc);",
-        "acc = fmaf(ps[warp][key], kv.val(offs[warp][nk - 1 - key], d), "
-        "acc);")]),
-    # a query attends one position past its own (the cursor off by one)
-    "cursor_off_by_one": (B7, [(
-        "const int last = min(cursor[r] + j, S - 1);",
-        "const int last = min(cursor[r] + j + 1, S - 1);")]),
+        "v[i] = lane + 32 * i < HD ? vt[key * KP + lane + 32 * i] : 0.f;",
+        "v[i] = lane + 32 * i < HD ? vt[(nk_all - 1 - key) * KP + lane + "
+        "32 * i] : 0.f;")]),
+    # a query attends one position past its own (the cursor off by one;
+    # the tile stages it)
+    "cursor_off_by_one": (B7, [
+        ("const int last_max = min(cur + min(j0 + QT, t) - 1, S - 1);",
+         "const int last_max = min(cur + min(j0 + QT, t), S - 1);"),
+        ("const int last = min(cur + j, S - 1);",
+         "const int last = min(cur + j + 1, S - 1);")]),
     # the few-row tiling (FewTile: decode's rows) chains the second half of
     # K's tiles into another accumulator and adds the two at the end: its
     # rows' bits then differ from the oracle's and depend on M (16 rows
@@ -62,6 +68,15 @@ FAULTS = {
     "stage_off_by_one": (R1, [
         ("    const int slot = kt % S;\n",
          "    const int slot = (kt + 1) % S;\n")]),
+    # L1 with the add: a lane sums its columns from the last to the first,
+    # so a row's statistics (and y) leave the oracle's bits
+    "l1_sum_order": (R1, [(
+        "    for (int i = 0; i < NC; ++i) {\n"
+        "      const int c = lane + 32 * i;\n"
+        "      v[i] = __fadd_rn(v[i], dv[i]);",
+        "    for (int i = NC - 1; i >= 0; --i) {\n"
+        "      const int c = lane + 32 * i;\n"
+        "      v[i] = __fadd_rn(v[i], dv[i]);")]),
 }
 
 

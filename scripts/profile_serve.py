@@ -8,7 +8,7 @@ profiler starts (on the card its CUDA graphs, captured; ``--eager`` runs
 the same staged programs without graphs).
 
     python3 scripts/profile_serve.py [--spec 4] [--unpaged] [--eager]
-        [--quant int8] [--by-shape]
+        [--quant int8] [--by-shape] [--kv-write]
 
 Prints the run's wall time and output tokens/s, the device busy share (the
 device time of every kernel and copy over the profiled run's wall time),
@@ -27,6 +27,15 @@ is its estimated device time, printed beside the profiler's own total of
 the ``row_gemm`` kernels' device time in the run. The shapes fall in three
 groups: the scan (``row_cumsum``'s K = N = 32), decode rows (M <= 32) and
 many rows (prefill buckets and verify chunks, M >= 33).
+
+``--kv-write`` estimates the KV write path's device time (``GPT.write_kv``:
+under ``--quant int8`` ``kv_quantize`` of K and V and the scatters of the
+int8 values and their scales into the pools; in f32 the two scatters):
+one layer's call at decode's shape (16 rows, one token, cursors 16-576,
+paged) is timed alone (CUDA events) and its device kernels counted
+(``torch.profiler``), and the run's calls are counted as its B7 (or B7
+int8) launches (one a layer a decode call, each right after its write):
+calls × time alone, beside the profiler's device total.
 """
 
 from __future__ import annotations
@@ -90,13 +99,48 @@ def by_shape(torch, cs, counts, profiled_ms):
     return lines
 
 
+def kv_write_alone(torch, cs, cfg):
+    """(ms, device kernels) of one layer's ``GPT.write_kv`` at decode's
+    shape: 16 rows, one token each, cursors 16-576, a paged pool of 16."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from gym_tpu_torch.models.nanogpt import GPT, decode_config
+    g = torch.Generator(device="cuda").manual_seed(0)
+    nblk = cfg.block_size // 16
+    model = GPT(dataclasses.replace(decode_config(cfg), page_size=16,
+                                    kv_pages=1 + 16 * nblk, n_layer=1))
+    cache = model.init_cache(16, "cuda")
+    table = (1 + torch.randperm(16 * nblk, device="cuda", generator=g)).view(
+        16, nblk).to(torch.int32)
+    cur = torch.randint(16, 577, (16,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    h = cfg.n_head
+    k, v = (torch.randn(16, 1, h, cfg.n_embd // h, device="cuda",
+                        generator=g) for _ in "kv")
+
+    def write():
+        return model.write_kv(cache, "h_0.attn", k, v, cur, table)
+
+    ms = cs.timed(torch, write)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        write()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, kernels
+
+
 def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
-                     quant=None, shapes=False):
+                     quant=None, shapes=False, kv_write=False):
     """Profile one pass of phase 10's workload through a fresh engine of
     ``kw`` whose family was built first, after a pass on another engine
     (``warm_pass``; a caller that served on the card already may skip
     it); ``quant="int8"`` serves phase 13b's int8 weights and KV, and
-    ``shapes`` adds R1's and B6's device time by shape. Returns ``(text,
+    ``shapes`` adds R1's and B6's device time by shape, ``kv_write`` the
+    KV write path's estimated device time. Returns ``(text,
     summary)``: the report and ``{"wall_s", "tokens_per_s", "busy",
     "launch_ms", "launch_calls", "decode_steps"}``."""
     from collections import Counter
@@ -104,6 +148,7 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
     from profile_fit import device_us
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from gym_tpu_torch.ops import decode_attention as tdec
     from gym_tpu_torch.ops import row_linear as trow
     from gym_tpu_torch.programs import warm_engine_programs
     from gym_tpu_torch.serve import InferenceEngine
@@ -121,6 +166,7 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
     warm_engine_programs(eng, start=False).run()
     torch.cuda.synchronize()
     trow.shape_counts = Counter() if shapes else None
+    tdec.reset_launch_counts()
     try:
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -129,6 +175,8 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
             wall = time.perf_counter() - t0
     finally:
         counts, trow.shape_counts = trow.shape_counts, None
+    attends = (tdec.decode_attention.launches
+               + tdec.decode_attention_int8.launches)
     events = prof.key_averages()
     dev = sorted((e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
@@ -160,6 +208,16 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
     if shapes:
         gemm_ms = sum(device_us(e) for e in dev if "row_gemm" in e.key) / 1e3
         lines += by_shape(torch, cs, counts, gemm_ms)
+    if kv_write:
+        ms, kernels = kv_write_alone(torch, cs, cfg)
+        est = attends * ms
+        lines.append(
+            f"KV write path (GPT.write_kv{', int8' if quant else ''}): "
+            f"{attends} calls (the run's B7 launches) x {ms:.4f} ms alone at "
+            f"decode's shape = {est:.3f} ms estimated, "
+            f"{est / (total / 1e3):.1%} of the device total "
+            f"{total / 1e3:.3f} ms; {kernels} device kernels a call, "
+            f"{attends * kernels} in the run")
     text = "\n".join(lines)
     out = os.path.join(HERE, "build")
     os.makedirs(out, exist_ok=True)
@@ -184,6 +242,8 @@ def main() -> int:
                    help="int8 weights and int8 KV (phase 13b)")
     p.add_argument("--by-shape", action="store_true",
                    help="R1's and B6's device time by shape")
+    p.add_argument("--kv-write", action="store_true",
+                   help="the KV write path's estimated device time")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -197,7 +257,8 @@ def main() -> int:
           dict(num_slots=16, paged=True, page_size=16, decode_chunk=8,
                spec_tokens=args.spec))
     text, _ = profile_workload(torch, cs, kw, graphs=not args.eager,
-                               quant=args.quant, shapes=args.by_shape)
+                               quant=args.quant, shapes=args.by_shape,
+                               kv_write=args.kv_write)
     print(text, flush=True)
     return 0
 

@@ -8,11 +8,13 @@ Each run builds the tree's kernels and times, with ``chip_smoke.py``'s
 ``timed`` (CUDA events, median of 5), R1 at phase 10's decode shapes (16
 rows of the four dense layers and the lm head), at the prefill buckets
 64-512 of the 768-to-3072 and 3072-to-768 layers, at a 1024-row prefill
-and at the sampler's scan ([16 or 80 rows x 1572, 32] x [32, 32]), and B7
-at the decode shape and a 512-token prefill; then serves phase 10's workload (a) through
+and at the sampler's scan ([16 or 80 rows x 1572, 32] x [32, 32]), B7
+at the decode shape, a 5-token verify and a 512-token prefill, and a
+residual add with its layer norm at [16, 768] (one launch where the tree
+has ``row_add_layer_norm``, else a torch add and L1); then serves phase 10's workload (a) through
 ``Scheduler`` twice, and prints the second run's output tokens/s. Where
 the tree has quantized serving, B6 (``row_qlinear``, int8) at the same
-shapes but the scan and B7 int8 at the same two, and the workload's output tokens/s
+shapes but the scan and B7 int8 at B7's shapes, and the workload's output tokens/s
 under int8 weights and int8 KV. One line a run, led by the card's name
 and power limit.
 """
@@ -57,6 +59,8 @@ cur = torch.randint(16, 577, (16,), device="cuda", generator=g,
 for tag, q, tb, c in (
         ("B7 decode", torch.randn(16, 1, 12, 64, device="cuda", generator=g),
          table, cur),
+        ("B7 verify5", torch.randn(16, 5, 12, 64, device="cuda", generator=g),
+         table, cur),
         ("B7 prefill512", torch.randn(1, 512, 12, 64, device="cuda",
                                       generator=g), table[:1],
          torch.zeros(1, dtype=torch.int32, device="cuda"))):
@@ -70,6 +74,14 @@ for tag, q, tb, c in (
                                                       c))
         del kq, vq, ks, vs
 del kp, vp
+x, d = (torch.randn(16, 768, device="cuda", generator=g) for _ in "xd")
+sc, bi = (torch.randn(768, device="cuda", generator=g) for _ in "sb")
+if hasattr(trow, "row_add_layer_norm"):
+    out["L1 add 16x768"] = cs.timed(torch, lambda: trow.row_add_layer_norm(
+        x, d, sc, bi))
+else:
+    out["L1 add 16x768"] = cs.timed(torch, lambda: trow.row_layer_norm(
+        x + d, sc, bi))
 cfg, params, work = cs.serve_model_cfg(), cs.serve_params(), \
     cs.serve_workload()
 kw = dict(num_slots=16, paged=True, page_size=16, decode_chunk=8)

@@ -188,3 +188,40 @@ def test_row_cumsum_matches_cumsum_and_is_row_invariant():
     short = _t(rng.random((3, 5)).astype(np.float32))
     np.testing.assert_allclose(trow.row_cumsum(short).numpy(),
                                np.cumsum(short.numpy(), axis=-1), rtol=1e-6)
+
+
+@pytest.mark.parametrize("m,c,bias", [(1, 768, True), (16, 768, True),
+                                      (5, 100, True), (3, 64, False)])
+def test_add_layer_norm_matches_jax_add_then_flax_layer_norm(m, c, bias):
+    """L1 with the residual add: s bit for bit the add (torch's and
+    JAX's), y within the f32 band of flax's layer norm of JAX's sum; and
+    ``want_sum=False`` gives the same y and no s."""
+    import flax.linen as nn
+    rng = np.random.default_rng(m * 1000 + c)
+    x = (rng.normal(size=(m, c)) * 3 + 1).astype(np.float32)
+    d = rng.normal(size=(m, c)).astype(np.float32)
+    ln = nn.LayerNorm(epsilon=1e-5, use_bias=bias)
+    p = ln.init(jax.random.PRNGKey(0), x)
+    p = jax.tree.map(lambda a: jnp.asarray(
+        rng.normal(size=a.shape).astype(np.float32)), p)
+    jsum = jnp.asarray(x) + jnp.asarray(d)
+    ref = ln.apply(p, jsum)
+    b = _t(np.asarray(p["params"]["bias"])) if bias else None
+    sc = _t(np.asarray(p["params"]["scale"]))
+    s, y = trow.row_add_layer_norm(_t(x), _t(d), sc, b)
+    assert torch.equal(_bits(s), _bits(_t(x) + _t(d)))
+    assert torch.equal(_bits(s), _bits(_t(np.asarray(jsum))))
+    _close(y, ref)
+    none, y2 = trow.row_add_layer_norm(_t(x), _t(d), sc, b, want_sum=False)
+    assert none is None and torch.equal(_bits(y2), _bits(y))
+    assert torch.equal(_bits(y), _bits(trow.row_layer_norm(s, sc, b)))
+
+
+def test_add_layer_norm_refuses_bad_inputs():
+    x = torch.randn(2, 8)
+    with pytest.raises(ValueError, match="differ"):
+        trow.row_add_layer_norm(x, torch.randn(2, 9), torch.ones(8))
+    with pytest.raises(ValueError, match="float32"):
+        trow.row_add_layer_norm(x, x.double(), torch.ones(8))
+    with pytest.raises(ValueError, match=r"\[8\]"):
+        trow.row_add_layer_norm(x, x, torch.ones(7))

@@ -43,7 +43,13 @@ kernel, ``row_linear_ref``) at the dispatch's M-boundaries (1, 16, 32, 33,
 64, 65, 80, 512) on a GPT-2 base layer, a ragged shape and the scan's
 32 x 32, both layouts, with and without a bias, and at the scan's 16 and
 80 rows of 50,304; L1 (the row layer norm) likewise; T1's bits rows bit
-for bit against the twin.
+for bit against the twin. B7 and B7 int8 bit for bit their oracles (the
+first kernel, ``decode_attention_ref``) on every path at t = 1, 5, 16, 64
+and 512, every head dim, pages of 16 and 32 and unpaged, cursors 0, S - 1
+and random; NaN past each row's last position and in unmapped pages
+changing no output bit; a NaN scale reaching its query on every path. L1
+with the residual add (``row_add_layer_norm``) bit for bit a torch add and
+the oracle L1, at M = 1-1024 and widths 768, 100, 1600 and 2100.
 
 Quantized serving's kernels: B6 (``row_qlinear``) bit for bit R1 on the
 dequantized weights, int8 and int4, in both layouts at tiles that the
@@ -568,6 +574,155 @@ def test_bits_rows_match_twin_bit_for_bit(rows, n, fold):
                        tf.plain_random_bits_rows(keys, data, n))
 
 
+# B7 and B7 int8 against their oracles (the first kernel): every query count
+# of the paths' regimes (a decode step, a verify chunk, a prefill tile and
+# its edge, a 512-token prompt), every head dim, pages of 16 and 32 and the
+# unpaged cache; rows at cursor 0, S - 1 (the queries past it clamp) and a
+# random one
+B7_T = (1, 5, 16, 64, 512)
+B7_PAGES = (16, 32, 0)        # 0: unpaged
+
+
+def _b7_case(g, t, hd, page, int8, b=3, h=2, s=1024):
+    """q (a strided view), the pools (int8 with their scales when
+    ``int8``), the block table and the cursors."""
+    rows_k, rows_v, kp, vp, table = _pool(g, b, s, page or 16, h, hd)
+    if not page:
+        kp, vp, table = rows_k, rows_v, tdec.unpaged_table(b, "cuda")
+    cur = torch.randint(1, s - 1, (b,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    cur[0], cur[1] = 0, s - 1
+    qkv = torch.randn(b, t, 3 * h * hd, device="cuda", generator=g)
+    q = qkv[..., :h * hd].unflatten(-1, (h, hd))
+    scales = ()
+    if int8:
+        (kp, ks), (vp, vs) = tfa.kv_quantize(kp), tfa.kv_quantize(vp)
+        scales = (ks, vs)
+    return q, kp, vp, scales, table, cur
+
+
+def _b7(q, kp, vp, scales, table, cur, ref=False):
+    if scales:
+        fn = tdec.decode_attention_int8_ref if ref else \
+            tdec.decode_attention_int8
+        return fn(q, kp, vp, *scales, table, cur)
+    fn = tdec.decode_attention_ref if ref else tdec.decode_attention
+    return fn(q, kp, vp, table, cur)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page", B7_PAGES)
+@pytest.mark.parametrize("t", B7_T)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_decode_attention_is_its_oracle_bit_for_bit(int8, page, t, hd):
+    """The dispatch's path and every other path, bit for bit the oracle."""
+    g = _card()
+    case = _b7_case(g, t, hd, page, int8)
+    ref = _b7(*case, ref=True)
+    assert _same_bits(_b7(*case), ref)
+    q, kp, vp, scales, table, cur = case
+    for path in range(len(tdec.PATHS)):
+        got = tdec.decode_attention_on_path(q, kp, vp, table, cur, path,
+                                            scales)
+        assert _same_bits(got, ref), tdec.PATHS[path]
+
+
+def _poison(pool, table, cur, t, s, page, paged):
+    """NaN at every position past each row's last query's and, paged, in
+    every page no row maps: what B7 must never read."""
+    pool = pool.clone()
+    flat = pool.view(-1, *pool.shape[2:])
+    for r in range(table.shape[0]):
+        last = min(int(cur[r]) + t - 1, s - 1)
+        p = torch.arange(last + 1, s, device="cuda")
+        if paged:
+            flat[table[r, p // page].long() * page + p % page] = float("nan")
+        else:
+            pool[r, last + 1:] = float("nan")
+    if paged:
+        mapped = torch.zeros(pool.shape[0], dtype=torch.bool, device="cuda")
+        mapped[table.long().flatten()] = True
+        pool[~mapped] = float("nan")
+    return pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page", [16, 0])
+@pytest.mark.parametrize("t", [1, 5, 64])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_decode_attention_never_reads_past_a_query(int8, page, t, hd):
+    """Poison past each row's last position and in unmapped pages (the K
+    and V pools, or the int8 pools' scales) changes no output bit, on any
+    path; the oracle agrees."""
+    g = _card()
+    case = _b7_case(g, t, hd, page, int8)
+    clean = _b7(*case)
+    q, kp, vp, scales, table, cur = case
+    s, pg = 1024, kp.shape[1]
+    if int8:
+        scales = tuple(_poison(x, table, cur, t, s, pg, bool(page))
+                       for x in scales)
+    else:
+        kp, vp = (_poison(x, table, cur, t, s, pg, bool(page))
+                  for x in (kp, vp))
+    bad = (q, kp, vp, scales, table, cur)
+    assert clean.isfinite().all()
+    assert _same_bits(_b7(*bad), clean)
+    assert _same_bits(_b7(*bad, ref=True), clean)
+    for path in range(len(tdec.PATHS)):
+        assert _same_bits(tdec.decode_attention_on_path(
+            q, kp, vp, table, cur, path, scales), clean), tdec.PATHS[path]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 64])
+def test_decode_attention_int8_nan_scale_reaches_its_query(t):
+    """A NaN scale at a position a query reads makes that query's output
+    NaN on every path, as in the oracle, and nowhere else."""
+    g = _card()
+    q, kp, vp, (ks, vs), table, cur = _b7_case(g, t, 64, 16, True)
+    ks = ks.clone()
+    ks[table[2, 0].long(), 0, 1] = float("nan")     # row 2, position 0, head 1
+    ref = tdec.decode_attention_int8_ref(q, kp, vp, ks, vs, table, cur)
+    want = torch.zeros_like(ref, dtype=torch.bool)
+    want[2, :, 1] = True                             # every query reads it
+    assert torch.equal(torch.isnan(ref), want)
+    for path in range(len(tdec.PATHS)):
+        got = tdec.decode_attention_on_path(q, kp, vp, table, cur, path,
+                                            (ks, vs))
+        assert torch.equal(torch.isnan(got), want), tdec.PATHS[path]
+        assert torch.equal(got[~want], ref[~want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [768, 100, 1600, 2100])
+def test_row_add_layer_norm_is_add_then_oracle_bit_for_bit(c):
+    """s bit for bit a torch add, y bit for bit the oracle L1 on it, at M =
+    1, 16, 80, 512 and 1024 and widths held in registers (768, 100: not a
+    multiple of 32, 1600) or re-read (2100); every row alone as in any M."""
+    g = _card()
+    x = torch.randn(1024, c, device="cuda", generator=g) * 2 + 1
+    d = torch.randn(1024, c, device="cuda", generator=g)
+    sc, bi = (torch.randn(c, device="cuda", generator=g) for _ in "ab")
+    full = {}
+    for m in (1, 16, 80, 512, 1024):
+        s, y = trow.row_add_layer_norm(x[:m], d[:m], sc, bi)
+        add = x[:m] + d[:m]
+        assert _same_bits(s, add)
+        assert _same_bits(y, trow.row_layer_norm(add, sc, bi))
+        none, y2 = trow.row_add_layer_norm(x[:m], d[:m], sc, bi,
+                                           want_sum=False)
+        assert none is None and _same_bits(y2, y)
+        full[m] = y
+    for r in (0, 9):
+        one = trow.row_add_layer_norm(x[r:r + 1], d[r:r + 1], sc, bi)[1][0]
+        assert all(_same_bits(one, y[r]) for m, y in full.items() if m > r)
+    _, y = trow.row_add_layer_norm(x[:16], d[:16], sc)
+    assert _same_bits(y, trow.row_layer_norm(x[:16] + d[:16], sc))
+
+
 # -- quantized serving's kernels ---------------------------------------------
 
 
@@ -808,7 +963,7 @@ def test_prefetched_batches_equal_the_sync_path_on_card(spc, steps):
 
 
 def _serving_kernels():
-    return (tdec.decode_attention, trow.row_linear, trow.row_layer_norm,
+    return (tdec.decode_attention, trow.row_linear, trow.row_add_layer_norm,
             tf.random_bits_rows)
 
 
@@ -907,7 +1062,7 @@ def test_quantized_graph_replays_equal_eager_calls(paged):
     _card()
     import numpy as np
     kernels = (tdec.decode_attention_int8, trow.row_qlinear,
-               trow.row_layer_norm, tf.random_bits_rows)
+               trow.row_add_layer_norm, tf.random_bits_rows)
     quant = dict(weights_dtype="int8", kv_dtype="int8", quant_embed=True)
     runs = {}
     for graphs in (False, True):

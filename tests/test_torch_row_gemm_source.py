@@ -5,7 +5,8 @@ instruction (``wgmma``, ``mma.sync``), no TF32 and no warp shuffle (a
 shuffle would sum across threads: one thread holds a chain), and chain
 with ``fmaf`` into the accumulator, the only update it gets before the
 bias; L1's warp butterfly is its own contract, so only the first three
-hold for it. The dispatch's tilings match the Python names, and the
+hold for it and for L1 with the residual add, whose add is ``__fadd_rn``
+(never contracted into a product). The dispatch's tilings match the Python names, and the
 oracle's wrappers and the tiled launch refuse a CPU tensor (the twins are
 the CPU's path; the card checks hold R1 to the oracle bit for bit)."""
 
@@ -25,6 +26,7 @@ KERNELS = {
                                     "stage_q8", "dequant_stage", "kn_col",
                                     "f4at")),
     "row_layer_norm_kernel": (False, ("warp_sum",)),
+    "row_add_layer_norm_kernel": (False, ("warp_sum", "LnStats", "out")),
 }
 FORBIDDEN_EVERYWHERE = ("atomic", "wgmma", "mma.sync", "tf32")
 FORBIDDEN_IN_CHAINS = FORBIDDEN_EVERYWHERE + ("__shfl",)
@@ -109,3 +111,11 @@ def test_card_only_wrappers_refuse_cpu_tensors(which):
             "row_gemm_tiled": (x, torch.randn(8, 5), False, 0)}[which]
     with pytest.raises(ValueError, match="cuda"):
         getattr(trow, which)(*args)
+
+
+def test_add_layer_norm_adds_with_one_rounding():
+    """The residual add is written ``__fadd_rn`` wherever the kernel adds x
+    and d, and never as a plain ``+`` that the compiler could fuse."""
+    code = _body(_source(), "row_add_layer_norm_kernel")
+    assert code.count("__fadd_rn(") == 3
+    assert not re.search(r"\bx\[[^]]*\]\s*\+", code)
