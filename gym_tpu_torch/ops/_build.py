@@ -157,10 +157,17 @@ def load() -> ctypes.CDLL:
         lib.gym_threefry_bits.restype = i32
         lib.gym_bernoulli_segments.argtypes = [vp, i32, i64, f32, vp, vp]
         lib.gym_bernoulli_segments.restype = i32
-        lib.gym_scatter_mean.argtypes = [vp, vp, i32, i32, i32, vp, vp]
+        lib.gym_scatter_mean.argtypes = [vp, vp] + [i32] * 5 + [vp, vp]
         lib.gym_scatter_mean.restype = i32
-        lib.gym_threefry_bits_rows.argtypes = [vp, vp, i32, i64, vp, vp]
+        lib.gym_scatter_mean_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.gym_scatter_mean_plan.restype = i32
+        lib.gym_scatter_mean_ref.argtypes = [vp, vp, i32, i32, i32, vp, vp]
+        lib.gym_scatter_mean_ref.restype = i32
+        lib.gym_threefry_bits_rows.argtypes = [vp, vp, i32, i64, i32, i32,
+                                               i32, vp, vp]
         lib.gym_threefry_bits_rows.restype = i32
+        lib.gym_threefry_bits_rows_ref.argtypes = [vp, vp, i32, i64, vp, vp]
+        lib.gym_threefry_bits_rows_ref.restype = i32
         b7 = [vp, i64, i64] + [vp] * 3 + [i32, i32, vp] + [i32] * 4 + [
             f32, vp]
         b7_int8 = [vp, i64, i64] + [vp] * 5 + [i32, i32, vp] + [i32] * 4 + [

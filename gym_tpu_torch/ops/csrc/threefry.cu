@@ -38,10 +38,25 @@
 // gym_tpu/models/nanogpt.py:905) draws R rows of bits in one launch
 // (gym_threefry_bits_rows): row r under fold_in(keys[r], data[r]), the keys
 // and the slots' step indices read on the card, so a decode chunk needs no
-// host read for its keys.
+// host read for its keys. Its kernel, threefry_rows_bits_kernel, is the
+// second design; the first, threefry_rows_bits_ref_kernel, is kept as its
+// oracle (gym_threefry_bits_rows_ref): a block of 256 threads a 1024
+// elements of a row, thread 0 folding the row's key while the other 255
+// wait at a barrier, then one group of 4 a thread. In the second no thread
+// waits for another's fold: each warp folds its row's key itself, in every
+// lane, so one warp's fold overlaps the other warps' draws. Each lane draws
+// G groups of 4 a tile (a template parameter), the lanes interleaved so
+// that every store is a 16-byte uint4 and a warp's 32 stores of a group
+// are 512 contiguous bytes; a warp walks a contiguous run of tiles, over
+// rows in order, and folds again only where it enters the next row. The
+// grid is capped at warps_per_sm warps an SM and the runs are equal to a
+// tile, so the SMs draw equal shares. G, the cap and the block's warps
+// come from scripts/d1_t1_sweep.py on the H100 (choose_rows_plan).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -133,12 +148,13 @@ __global__ void __launch_bounds__(kThreads)
 // Bits of R rows of n, one key a row, one launch: row r is the bits of the
 // key fold_in(keys[r], data[r]) (keys[r] itself when data is null). The
 // serving path's sampler draws every slot's gumbel noise this way, its keys
-// the slots' base keys and the step indices held on the card. Grid: (blocks
-// over the row's 4-element groups, R); thread 0 of a block folds the key.
+// the slots' base keys and the step indices held on the card. The oracle,
+// the first kernel. Grid: (blocks over the row's 4-element groups, R);
+// thread 0 of a block folds the key.
 __global__ void __launch_bounds__(kThreads)
-    threefry_rows_bits_kernel(const uint32_t* __restrict__ keys,
-                              const int* __restrict__ data, uint64_t n,
-                              uint32_t* out) {
+    threefry_rows_bits_ref_kernel(const uint32_t* __restrict__ keys,
+                                  const int* __restrict__ data, uint64_t n,
+                                  uint32_t* out) {
   __shared__ uint32_t key[2];
   const int r = blockIdx.y;
   if (threadIdx.x == 0) {
@@ -163,6 +179,77 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j)
       if (base + j < n) o[j] = b[j];
+  }
+}
+
+// The same function, the kernel of the main path: warp w of the grid owns
+// the tiles [w * per_warp, (w + 1) * per_warp) of the R rows' tiles (each
+// row tiles_per_row tiles of 32 G groups, rows in order); lane l draws
+// group tile * 32 G + 32 j + l of the tile's row for j < G. A group's 4
+// counters share their high word and carry nothing into it (the group
+// starts at a multiple of 4), so each element is threefry2x32 of (hi, lo +
+// i) as threefry_pair computes it; a row shorter than 2^32 elements (Long
+// false) keeps its offsets in 32 bits and its high word at 0.
+template <int G, bool Long>
+__global__ void __launch_bounds__(kThreads)
+    threefry_rows_bits_kernel(const uint32_t* __restrict__ keys,
+                              const int* __restrict__ data, uint64_t n,
+                              uint64_t tiles_per_row, uint64_t tiles,
+                              uint64_t per_warp, uint32_t* out) {
+  using Index = typename std::conditional<Long, uint64_t, uint32_t>::type;
+  const uint32_t lane = threadIdx.x & 31;
+  uint64_t t = ((uint64_t)blockIdx.x * (blockDim.x >> 5) +
+                (threadIdx.x >> 5)) * per_warp;
+  const uint64_t t_end = min(tiles, t + per_warp);
+  if (t >= t_end) return;
+  const Index groups = (Index)((n + kPerThread - 1) / kPerThread);
+  const Index whole = (Index)(n / kPerThread);  // groups of 4 in the row
+  // one row (the one-key path): no division ahead of the key's load
+  const uint64_t row0 = tiles == tiles_per_row ? 0 : t / tiles_per_row;
+  uint64_t row = row0;
+  Index tile = (Index)(t - row0 * tiles_per_row);
+  uint32_t k0 = 0, k1 = 0;
+  uint32_t* o = out;
+  bool aligned = false;
+  for (bool fold = true; t < t_end; ++t, ++tile) {
+    if (tile == tiles_per_row) {  // the next row
+      ++row;
+      tile = 0;
+      fold = true;
+    }
+    if (fold) {  // every lane folds the row's key: no lane waits for one
+      k0 = keys[2 * row];
+      k1 = keys[2 * row + 1];
+      if (data != nullptr)
+        threefry_pair(k0, k1, 0u, (uint32_t)data[row], &k0, &k1);
+      o = out + row * n;
+      aligned = (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+      fold = false;
+    }
+    const Index g0 = tile * (32 * G) + lane;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const Index g = g0 + 32 * j;
+      if (g >= groups) break;
+      const Index base = g * kPerThread;
+      const uint32_t hi = Long ? (uint32_t)((uint64_t)base >> 32) : 0u;
+      const uint32_t lo = (uint32_t)base;
+      uint32_t b[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        uint32_t y0, y1;
+        threefry_pair(k0, k1, hi, lo + i, &y0, &y1);
+        b[i] = y0 ^ y1;
+      }
+      uint32_t* at = o + base;
+      if (aligned && g < whole) {
+        *reinterpret_cast<uint4*>(at) = make_uint4(b[0], b[1], b[2], b[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i)
+          if (base + i < n) at[i] = b[i];
+      }
+    }
   }
 }
 
@@ -254,6 +341,67 @@ int grid_for(unsigned long long groups, unsigned int* blocks) {
   return 0;
 }
 
+// The launch of threefry_rows_bits_kernel: G groups of 4 a lane a tile (1,
+// 2, 4 or 8), at most warps_per_sm warps an SM over all R rows and
+// warps_a_block warps a block (0: choose_rows_plan's), each warp a run of
+// tiles as equal as they can be, so every SM draws about as much as every
+// other.
+struct RowsPlan {
+  int per_thread, warps_a_block;
+  unsigned blocks;
+  uint64_t tiles_per_row, tiles, per_warp;
+};
+
+// the settings scripts/d1_t1_sweep.py picked on the H100 for the sampler's
+// rows (16 and 80 rows of the vocabulary, keys folded with step indices):
+// 4 groups a lane, so a warp's fold is spread over 16 elements a lane, 24
+// warps an SM, 4 a block
+void choose_rows_plan(int* per_thread, int* warps_per_sm,
+                      int* warps_a_block) {
+  if (*per_thread <= 0) *per_thread = 4;
+  if (*warps_per_sm <= 0) *warps_per_sm = 24;
+  if (*warps_a_block <= 0) *warps_a_block = 4;
+}
+
+int make_rows_plan(int R, long long n, int per_thread, int warps_per_sm,
+                   int warps_a_block, RowsPlan* plan) {
+  choose_rows_plan(&per_thread, &warps_per_sm, &warps_a_block);
+  if ((per_thread != 1 && per_thread != 2 && per_thread != 4 &&
+       per_thread != 8) ||
+      warps_a_block > kThreads / 32)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t groups = ((uint64_t)n + kPerThread - 1) / kPerThread;
+  const uint64_t per_tile = 32ull * per_thread;
+  plan->per_thread = per_thread;
+  plan->warps_a_block = warps_a_block;
+  plan->tiles_per_row = (groups + per_tile - 1) / per_tile;
+  plan->tiles = (uint64_t)R * plan->tiles_per_row;
+  const uint64_t most = (uint64_t)sms * warps_per_sm;
+  plan->per_warp = plan->tiles ? (plan->tiles + most - 1) / most : 1;
+  const uint64_t warps = (plan->tiles + plan->per_warp - 1) / plan->per_warp;
+  plan->blocks =
+      (unsigned)((warps + warps_a_block - 1) / (uint64_t)warps_a_block);
+  return 0;
+}
+
+template <int G, bool Long>
+void launch_rows(const RowsPlan& p, const uint32_t* keys, const int* data,
+                 uint64_t n, uint32_t* out, cudaStream_t stream) {
+  threefry_rows_bits_kernel<G, Long><<<p.blocks, 32 * p.warps_a_block, 0,
+                                       stream>>>(
+      keys, data, n, p.tiles_per_row, p.tiles, p.per_warp, out);
+}
+
+bool bad_rows(const void* keys, int R, long long n, void* out) {
+  return R < 0 || R > 65535 || n < 0 ||
+         (R > 0 && n > 0 && (keys == nullptr || out == nullptr));
+}
+
 }  // namespace
 
 extern "C" {
@@ -275,18 +423,50 @@ int gym_threefry_bits(unsigned int k0, unsigned int k1, long long n,
 
 // out[r, i] = bits of element i under fold_in(keys[r], data[r]) (uint32),
 // i < n, r < R; keys [R, 2] uint32 and data [R] int32 (or null: keys[r]
-// itself) on the card.
+// itself) on the card; per_thread, warps_per_sm and warps_a_block as
+// make_rows_plan takes them (0: the defaults).
 int gym_threefry_bits_rows(const void* keys, const void* data, int R,
-                           long long n, void* out, void* stream) {
-  if (R < 0 || R > 65535 || n < 0) return (int)cudaErrorInvalidValue;
+                           long long n, int per_thread, int warps_per_sm,
+                           int warps_a_block, void* out, void* stream) {
+  if (bad_rows(keys, R, n, out)) return (int)cudaErrorInvalidValue;
+  // offsets past 32 bits (rows of 16 GB and more): the 64-bit form, 2
+  // groups a lane
+  const uint64_t m = (uint64_t)n;
+  const bool long_rows = m > 0xFFFFFFFCull;
+  RowsPlan p;
+  if (int err = make_rows_plan(R, n, long_rows ? 2 : per_thread,
+                               warps_per_sm, warps_a_block, &p))
+    return err;
   if (R == 0 || n == 0) return 0;
-  if (keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  const uint32_t* k = static_cast<const uint32_t*>(keys);
+  const int* d = static_cast<const int*>(data);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (long_rows) {
+    launch_rows<2, true>(p, k, d, m, o, s);
+  } else {
+    switch (p.per_thread) {
+      case 1: launch_rows<1, false>(p, k, d, m, o, s); break;
+      case 2: launch_rows<2, false>(p, k, d, m, o, s); break;
+      case 4: launch_rows<4, false>(p, k, d, m, o, s); break;
+      default: launch_rows<8, false>(p, k, d, m, o, s); break;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The oracle: the first kernel, gym_threefry_bits_rows's function without
+// its settings.
+int gym_threefry_bits_rows_ref(const void* keys, const void* data, int R,
+                               long long n, void* out, void* stream) {
+  if (bad_rows(keys, R, n, out)) return (int)cudaErrorInvalidValue;
+  if (R == 0 || n == 0) return 0;
   const unsigned long long groups =
       ((unsigned long long)n + kPerThread - 1) / kPerThread;
   const unsigned long long bx = (groups + kThreads - 1) / kThreads;
   if (bx > 2147483647ull) return (int)cudaErrorInvalidValue;
-  threefry_rows_bits_kernel<<<dim3((unsigned)bx, (unsigned)R), kThreads, 0,
-                              (cudaStream_t)stream>>>(
+  threefry_rows_bits_ref_kernel<<<dim3((unsigned)bx, (unsigned)R), kThreads,
+                                  0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const int*>(data),
       (uint64_t)n, static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();

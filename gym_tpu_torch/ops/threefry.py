@@ -34,7 +34,12 @@ launches. Bits are returned as int32 tensors holding the uint32 pattern
 ``random_bits_rows`` draws R rows of bits, row r under ``fold_in(keys[r],
 data[r])`` with the keys and data on the device (one launch of
 ``gym_threefry_bits_rows``): the serving sampler's ``categorical``, the
-argmax of logits plus ``jax.random.gumbel``'s noise.
+argmax of logits plus ``jax.random.gumbel``'s noise. Its kernel is the
+rows' second design (every warp folds its own row's key, several groups a
+lane); ``random_bits_rows_ref`` runs the first kernel, kept as its oracle
+on the card, and ``random_bits_rows_tuned`` the kernel at another launch
+plan, for a sweep (``scripts/d1_t1_sweep.py``); both card only and
+uncounted.
 
 flax derives a module's dropout key from the step key with
 ``fold_in_static``: the SHA-1 of the module path and the scope's call
@@ -354,14 +359,7 @@ def plain_random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
     return _signed32(b0 ^ b1)
 
 
-def random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
-    """[R, n] int32 bit patterns: row r is ``jax.random.bits(fold_in(
-    keys[r], data[r]), (n,))``, or of ``keys[r]`` when ``data`` is None.
-    ``keys`` is an [R, 2] int32 tensor of key words (``key_tensor``) and
-    ``data`` an [R] int32 tensor, both on the device that draws: on the
-    card the keys are folded there too, in one launch for all the rows
-    (``gym_threefry_bits_rows``), so a decode step's keys need no read
-    back to the host."""
+def _check_rows(keys: torch.Tensor, data, n: int) -> torch.device:
     if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be an [R, 2] int32 tensor, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
@@ -370,10 +368,15 @@ def random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
                              or data.device != keys.device):
         raise ValueError(f"data must be an [{r}] int32 tensor on "
                          f"{keys.device}")
-    device = _check_n(n, keys.device)
-    if device.type == "cpu":
-        return plain_random_bits_rows(keys, data, n)
-    out = torch.empty(r, n, dtype=torch.int32, device=device)
+    return _check_n(n, keys.device)
+
+
+def _draw_rows(keys: torch.Tensor, data, n: int, plan) -> torch.Tensor:
+    """One launch of the rows kernel on the card (``plan`` = (groups a lane
+    a tile, warps an SM, warps a block), 0 for the kernel's own choice), or
+    of its oracle (``plan`` None), into a fresh [R, n] int32 tensor."""
+    r = keys.shape[0]
+    out = torch.empty(r, n, dtype=torch.int32, device=keys.device)
     if r and n:
         if r > 65535:
             raise ValueError(f"{r} rows: at most 65535 a launch")
@@ -381,13 +384,67 @@ def random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
         lib = _build.load()
         keys = keys.contiguous()
         data = None if data is None else data.contiguous()
-        with torch.cuda.device(device):
-            code = lib.gym_threefry_bits_rows(
-                keys.data_ptr(), None if data is None else data.data_ptr(),
-                r, n, out.data_ptr(), _stream(device))
-        _build.check(lib, code, "gym_threefry_bits_rows")
+        args = (keys.data_ptr(), None if data is None else data.data_ptr(),
+                r, n)
+        with torch.cuda.device(keys.device):
+            if plan is None:
+                name = "gym_threefry_bits_rows_ref"
+                code = lib.gym_threefry_bits_rows_ref(
+                    *args, out.data_ptr(), _stream(keys.device))
+            else:
+                name = "gym_threefry_bits_rows"
+                code = lib.gym_threefry_bits_rows(
+                    *args, *plan, out.data_ptr(), _stream(keys.device))
+        _build.check(lib, code, name)
+    return out
+
+
+def random_bits_rows(keys: torch.Tensor, data, n: int) -> torch.Tensor:
+    """[R, n] int32 bit patterns: row r is ``jax.random.bits(fold_in(
+    keys[r], data[r]), (n,))``, or of ``keys[r]`` when ``data`` is None.
+    ``keys`` is an [R, 2] int32 tensor of key words (``key_tensor``) and
+    ``data`` an [R] int32 tensor, both on the device that draws: on the
+    card the keys are folded there too, in one launch for all the rows
+    (``gym_threefry_bits_rows``), so a decode step's keys need no read
+    back to the host."""
+    device = _check_rows(keys, data, n)
+    if device.type == "cpu":
+        return plain_random_bits_rows(keys, data, n)
+    out = _draw_rows(keys, data, n, (0, 0, 0))
+    if keys.shape[0] and n:
         random_bits_rows.launches += 1
     return out
+
+
+def _on_card(device: torch.device, what: str) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{what}: device must be cuda, got {device}")
+
+
+def random_bits_rows_ref(keys: torch.Tensor, data, n: int) -> torch.Tensor:
+    """The rows' oracle on the card: ``random_bits_rows``' function in the
+    first kernel (a block a 1024 elements of a row, its thread 0 folding
+    the key). Never on the main path; not counted. A CUDA tensor only."""
+    _on_card(_check_rows(keys, data, n), "random_bits_rows_ref")
+    return _draw_rows(keys, data, n, None)
+
+
+def random_bits_rows_tuned(keys: torch.Tensor, data, n: int, per_thread: int,
+                           warps_per_sm: int,
+                           warps_a_block: int) -> torch.Tensor:
+    """One launch of the rows kernel at ``per_thread`` groups of 4 a lane
+    a tile (1, 2, 4 or 8), at most ``warps_per_sm`` warps an SM and
+    ``warps_a_block`` warps a block (1-8), not the kernel's own choice, for
+    a sweep (``scripts/d1_t1_sweep.py``): the same bits. Not counted. A
+    CUDA tensor only."""
+    _on_card(_check_rows(keys, data, n), "random_bits_rows_tuned")
+    if per_thread not in (1, 2, 4, 8) or warps_per_sm < 1 or \
+            not 1 <= warps_a_block <= 8:
+        raise ValueError(f"per_thread must be 1, 2, 4 or 8, warps_per_sm >= "
+                         f"1 and warps_a_block 1-8, got {per_thread}, "
+                         f"{warps_per_sm}, {warps_a_block}")
+    return _draw_rows(keys, data, n, (per_thread, warps_per_sm,
+                                      warps_a_block))
 
 
 random_bits.launches = 0

@@ -68,6 +68,13 @@ inline float4 make_float4(float a, float b, float c, float d) {
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+inline unsigned __match_any_sync(unsigned m, int) { return m; }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
+inline int __any_sync(unsigned, int p) { return p; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline void __syncthreads() {}
 inline void __syncwarp() {}
 inline float __fmul_rn(float a, float b) { return a * b; }

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Plant faults in D1, DeMo's scatter-mean decode
-(``gym_tpu_torch/ops/csrc/scatter_mean.cu``), and show that the checks
-catch each one, on a machine with a CUDA card:
+(``gym_tpu_torch/ops/csrc/scatter_mean.cu``: the kernel of the main path,
+``scatter_mean_kernel``, not its oracle), and show that the checks catch
+each one, on a machine with a CUDA card:
 
     python3 scripts/d1_faults.py [FAULT ...]
 
@@ -10,7 +11,8 @@ directory, the fault is written into the copy's kernel, and the copy's
 ``chip_smoke.py`` and D1's card tests (``tests/test_torch_kernels_gpu.py
 -k scatter``) run there. Prints, a fault, both exit codes, the failure
 message and the card tests' summary. Exits non-zero if a fault passes
-either check.
+either check. ``tests/test_torch_scatter_threefry_source.py`` holds each
+fault's text to exactly one place, inside the kernel's body.
 """
 
 import os
@@ -23,15 +25,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = "gym_tpu_torch/ops/csrc/scatter_mean.cu"
 # name: (text in the kernel, its faulty replacement)
 FAULTS = {
-    # the staged picks scanned from the last to the first
-    "picks_summed_in_reverse": ("for (int u = 0; u < n; ++u) {",
-                                "for (int u = n - 1; u >= 0; --u) {"),
+    # a chunk's batches of 32 picks summed from the last to the first
+    "picks_summed_in_reverse": (
+        "for (int b = 0; b < kBatches; ++b) {\n        if (in[b] == 0u) "
+        "continue;",
+        "for (int b = kBatches - 1; b >= 0; --b) {\n        if (in[b] == 0u) "
+        "continue;"),
     # the sum written without dividing by the count
-    "count_dropped": ("c > 0 ? s_sum[s] / (float)c : 0.0f",
-                      "c > 0 ? s_sum[s] : 0.0f"),
+    "count_dropped": ("s.count > 0 ? s.sum / (float)s.count : 0.0f",
+                      "s.count > 0 ? s.sum : 0.0f"),
     # an untouched slot divides 0 by 0 instead of writing 0
-    "untouched_slot_not_zeroed": ("c > 0 ? s_sum[s] / (float)c : 0.0f",
-                                  "s_sum[s] / (float)c"),
+    "untouched_slot_not_zeroed": (
+        "s.count > 0 ? s.sum / (float)s.count : 0.0f",
+        "s.sum / (float)s.count"),
+    # a group's values added from its highest lane to its lowest
+    "peers_in_reverse_lane_order": (
+        "const int src = __ffs(rest) - 1;",
+        "const int src = 31 - __clz(rest);"),
 }
 
 

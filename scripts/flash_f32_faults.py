@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Plant faults in the f32 long-context forward (``x3`` of
 ``gym_tpu_torch/ops/csrc/flash_attention.cu``: the pre-pass
-``split_kv_tf32x3`` and ``flash_fwd_tf32x3``) and in T1's segmented mask
-kernel (``threefry_segments_kernel``, ``csrc/threefry.cu``), and show that
-the checks catch each one, on a machine with a CUDA card:
+``split_kv_tf32x3`` and ``flash_fwd_tf32x3``), in T1's segmented mask
+kernel (``threefry_segments_kernel``, ``csrc/threefry.cu``) and in T1 bits
+rows' kernel of the main path (``threefry_rows_bits_kernel``, not its
+oracle), and show that the checks catch each one, on a machine with a CUDA
+card:
 
     python3 scripts/flash_f32_faults.py [FAULT ...]
 
@@ -27,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = "gym_tpu_torch/ops/csrc/"
 LONG_F32 = "f32 and long"
 T1 = "bernoulli or sparta or threefry"
+BITS_ROWS = "bits_rows"
 # name: (card tests' -k selection, [(file, text in the kernel, its faulty
 # replacement), ...])
 FAULTS = {
@@ -63,6 +66,14 @@ FAULTS = {
     "segment_search_off_by_one": (T1, [(
         "threefry.cu", "if (first[mid] <= g) lo = mid;",
         "if (first[mid] <= g + 1) lo = mid;")]),
+    # T1 bits rows: each row's key folded with its step index plus one
+    "rows_key_folded_with_next_index": (BITS_ROWS, [(
+        "threefry.cu", "(uint32_t)data[row]", "(uint32_t)data[row] + 1u")]),
+    # T1 bits rows: a warp's walk over a row's groups stops one group short,
+    # so the row's last group is never drawn
+    "rows_last_group_skipped": (BITS_ROWS, [(
+        "threefry.cu", "if (g >= groups) break;",
+        "if (g + 1 >= groups) break;")]),
 }
 
 

@@ -3,13 +3,15 @@
 ``torch.profiler`` over a fit of ``--steps`` steps (no evals), after a warm
 fit of two, at ``chip_smoke.py``'s phase-9 settings.
 
-    python3 scripts/profile_fit.py 9b 9d 9f [--steps 8]
+    python3 scripts/profile_fit.py 9b 9d 9f [--steps 8] [--kernel NAME ...]
 
 Prints, a config, the fit's wall time, the device busy share (the sum of
 the device time of every kernel and copy over the wall time of the
 profiled fit, init included; one stream, so they do not overlap), the
 host's time in kernel launches and copies, and the kernels by their device
-time. Needs a CUDA card; the profiler's full table goes to
+time; ``--kernel NAME`` also prints the device time, share and launches
+of the kernels whose names hold NAME (e.g. ``scatter_mean_kernel`` for
+D1). Needs a CUDA card; the profiler's full table goes to
 ``build/profile_<config>.txt``.
 """
 
@@ -40,7 +42,20 @@ def device_us(e):
         e, "self_cuda_time_total", 0)
 
 
-def profile(cs, torch, config, steps):
+def kernel_lines(dev, total, names):
+    """A line for each of ``names``: the device time, share of ``total``
+    and launches of the kernels whose names hold it."""
+    lines = []
+    for name in names:
+        hit = [e for e in dev if name in e.key]
+        us = sum(device_us(e) for e in hit)
+        lines.append(f"  {name}: {us / 1e3:.3f} device ms, "
+                     f"{us / total:.2%} of the device time, "
+                     f"{sum(e.count for e in hit)} launches")
+    return lines
+
+
+def profile(cs, torch, config, steps, kernels=()):
     from torch.profiler import ProfilerActivity, profile as tprofile
     fit_of(cs, config, 2)()
     torch.cuda.synchronize()
@@ -69,6 +84,7 @@ def profile(cs, torch, config, steps):
         lines.append(f"  {device_us(e) / 1e3:10.3f} "
                      f"{device_us(e) / total:6.1%} {e.count:6d}  "
                      f"{e.key[:100]}")
+    lines += kernel_lines(dev, total, kernels)
     text = "\n".join(lines)
     print(text, flush=True)
     out = os.path.join(HERE, "build")
@@ -86,6 +102,8 @@ def main() -> int:
     p.add_argument("configs", nargs="+",
                    choices=["9a", "9b", "9c", "9d", "9f"])
     p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--kernel", action="append", default=[],
+                   help="also report the kernels whose names hold this")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -97,7 +115,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line(), flush=True)
     for config in args.configs:
-        profile(cs, torch, config, args.steps)
+        profile(cs, torch, config, args.steps, args.kernel)
     return 0
 
 

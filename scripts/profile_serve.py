@@ -8,7 +8,7 @@ profiler starts (on the card its CUDA graphs, captured; ``--eager`` runs
 the same staged programs without graphs).
 
     python3 scripts/profile_serve.py [--spec 4] [--unpaged] [--eager]
-        [--quant int8] [--by-shape] [--kv-write]
+        [--quant int8] [--by-shape] [--kv-write] [--kernel NAME ...]
 
 Prints the run's wall time and output tokens/s, the device busy share (the
 device time of every kernel and copy over the profiled run's wall time),
@@ -16,6 +16,9 @@ the host's time in kernel launches, graph launches and copies, the host's
 launch calls, and the kernels by their device time. Needs a CUDA card;
 the profiler's full table goes to ``build/profile_serve.txt``.
 ``chip_smoke.py`` phase 12a calls ``profile_workload`` for both modes.
+``--kernel NAME`` also prints the device time, share and launches of the
+kernels whose names hold NAME (e.g. ``threefry_rows_bits`` for the
+sampler's bits).
 ``--quant int8`` serves phase 13b's int8 weights and int8 KV instead.
 
 ``--by-shape`` breaks R1's and B6's device time down by shape: the
@@ -134,7 +137,7 @@ def kv_write_alone(torch, cs, cfg):
 
 
 def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
-                     quant=None, shapes=False, kv_write=False):
+                     quant=None, shapes=False, kv_write=False, kernels=()):
     """Profile one pass of phase 10's workload through a fresh engine of
     ``kw`` whose family was built first, after a pass on another engine
     (``warm_pass``; a caller that served on the card already may skip
@@ -204,6 +207,12 @@ def profile_workload(torch, cs, kw, graphs=True, warm_pass=True,
         lines.append(f"  {device_us(e) / 1e3:10.3f} "
                      f"{device_us(e) / total:6.1%} {e.count:6d}  "
                      f"{e.key[:100]}")
+    for name in kernels:
+        hit = [e for e in dev if name in e.key]
+        us = sum(device_us(e) for e in hit)
+        lines.append(f"  {name}: {us / 1e3:.3f} device ms, "
+                     f"{us / total:.2%} of the device time, "
+                     f"{sum(e.count for e in hit)} launches")
     eng.close()
     if shapes:
         gemm_ms = sum(device_us(e) for e in dev if "row_gemm" in e.key) / 1e3
@@ -244,6 +253,8 @@ def main() -> int:
                    help="R1's and B6's device time by shape")
     p.add_argument("--kv-write", action="store_true",
                    help="the KV write path's estimated device time")
+    p.add_argument("--kernel", action="append", default=[],
+                   help="also report the kernels whose names hold this")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -258,7 +269,8 @@ def main() -> int:
                spec_tokens=args.spec))
     text, _ = profile_workload(torch, cs, kw, graphs=not args.eager,
                                quant=args.quant, shapes=args.by_shape,
-                               kv_write=args.kv_write)
+                               kv_write=args.kv_write,
+                               kernels=args.kernel)
     print(text, flush=True)
     return 0
 

@@ -2,7 +2,7 @@
 """Compare the compiled kernels of two checkouts of the port, on a machine
 with ``nvcc``:
 
-    python3 scripts/sass_diff.py TREE_A TREE_B
+    python3 scripts/sass_diff.py TREE_A TREE_B [--renamed OLD=NEW ...]
 
 Builds each tree's kernel library (into TREE/build/, each in its own
 process) and counts, from ``cuobjdump -sass``, each kernel's ``HGMMA``,
@@ -12,6 +12,11 @@ their counts, and every kernel of both whose counts differ; exits non-zero
 if any does.
 A change that must leave some kernels as they were (a refactor of shared
 headers) shows here that their code is the same to the instruction count.
+``--renamed OLD=NEW`` holds a kernel that TREE_B keeps under another name
+to its TREE_A self: TREE_A's kernels whose names hold OLD are compared
+with TREE_B's of the same name with NEW in its place (a first kernel kept
+as its successor's oracle, e.g. ``--renamed scatter_mean_kernel(=
+scatter_mean_ref_kernel(``).
 """
 
 import json
@@ -32,7 +37,14 @@ def library(tree: str) -> str:
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    renames = []
+    while "--renamed" in args:
+        i = args.index("--renamed")
+        old, _, new = args[i + 1].partition("=")
+        renames.append((old, new))
+        del args[i:i + 2]
+    if len(args) != 2 or any(not o or not n for o, n in renames):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
@@ -40,7 +52,9 @@ def main() -> int:
     from gym_tpu_torch.ops import _build
 
     a, b = (cs.sass_counts(_build._nvcc(), library(os.path.abspath(t)))
-            for t in sys.argv[1:])
+            for t in args)
+    for old, new in renames:
+        a = {(k.replace(old, new) if old in k else k): v for k, v in a.items()}
     only = {"only_a": {k: a[k] for k in sorted(set(a) - set(b))},
             "only_b": {k: b[k] for k in sorted(set(b) - set(a))}}
     differ = {k: {"a": a[k], "b": b[k]} for k in sorted(set(a) & set(b))

@@ -78,6 +78,13 @@ engine's driver thread dispatches (and a warmup capturing on an engine
 whose own requests arrive meanwhile) neither errors nor changes a stream;
 a quantized engine's (int8 weights and embedding, int8 KV) graph replays
 equal its eager calls likewise, B6 and B7 int8 launched as often.
+
+D1's and T1 bits rows' second kernels bit for bit their oracles (the first
+kernels, ``scatter_mean_decode_ref``, ``random_bits_rows_ref``) and their
+twins, two runs bit-identical, at DeMo's signatures and the sampler's row
+shapes, at every launch plan a sweep may pick, with a row's picks in one
+slot, the orders that decide a sum, picks outside the row (the oracle only)
+and an output buffer that held 0xFF bytes before.
 """
 
 import pytest
@@ -435,6 +442,112 @@ def test_scatter_mean_refuses_non_contiguous_on_card():
         tsm.scatter_mean_decode(idx.t().contiguous().t(), val, 64)
 
 
+# D1's second kernel against its oracle (the first kernel) and its twin,
+# bit for bit, each case run twice: config 5's signatures and K = 2's 64
+# picks, a row of more picks than a warp's chunk and more slots than a
+# block's run, one slot, no picks; a row's picks all in one slot; the
+# orders that decide a sum (1, 1e8, −1e8 and v, 0, −v in one slot). Its
+# output buffer first held 0xFF bytes (freed just before), so a slot it
+# never wrote cannot pass as the oracle's.
+D1_CASES = ((200, 2048, 4096), (108, 2048, 64), (4, 2048, 2112),
+            (200, 64, 4096), (3, 5000, 9000), (1, 1, 1), (5, 0, 64))
+
+
+def _poison_bytes(nbytes):
+    torch.full((nbytes,), 0xFF, dtype=torch.uint8, device="cuda")
+
+
+def _d1_all_three(idx, val, e, plan=None):
+    """The kernel (at ``plan`` = (slots, warps), else its own), twice, its
+    oracle and its twin: each pair bit for bit."""
+    outs = []
+    for _ in range(2):
+        _poison_bytes(idx.shape[0] * e * 4)
+        outs.append(tsm.scatter_mean_decode(idx, val, e) if plan is None
+                    else tsm.scatter_mean_decode_tuned(idx, val, e, *plan))
+    ref = tsm.scatter_mean_decode_ref(idx, val, e)
+    twin = tsm.plain_scatter_mean_decode(idx, val, e)
+    assert _same_bits(outs[0], outs[1]), "two runs differ"
+    assert _same_bits(outs[0], ref), "differs from the oracle"
+    assert _same_bits(outs[0], twin), "differs from the twin"
+    return outs[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m,e", D1_CASES)
+def test_scatter_mean_is_its_oracle_and_twin_bit_for_bit(rows, m, e):
+    g = _card()
+    idx, val = _picks(g, rows, m, e)
+    before = tsm.scatter_mean_decode.launches
+    _d1_all_three(idx, val, e)
+    assert tsm.scatter_mean_decode.launches == before + 2 * (rows > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots,warps", [(4, 4), (16, 1), (32, 2), (64, 8),
+                                         (256, 2), (512, 4), (2048, 4),
+                                         (4096, 1)])
+@pytest.mark.parametrize("rows,m,e", [(108, 2048, 64), (4, 2048, 2112),
+                                      (3, 5000, 9000)])
+def test_scatter_mean_plans_are_the_oracle_bit_for_bit(slots, warps, rows, m,
+                                                        e):
+    """Launch plans across the sweep's range: the same bits."""
+    g = _card()
+    idx, val = _picks(g, rows, m, e)
+    _d1_all_three(idx, val, e, (slots, warps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [1, 64, 4096])
+def test_scatter_mean_all_picks_in_one_slot(e):
+    g = _card()
+    _, val = _picks(g, 3, 2048, e)
+    idx = torch.full((3, 2048), e - 1, dtype=torch.int32, device="cuda")
+    idx[1] = 0
+    _d1_all_three(idx, val, e)
+
+
+@pytest.mark.gpu
+def test_scatter_mean_order_decides_the_sum():
+    """1, 1e8, −1e8 in u order sum to 0 (−1e8 + 1e8 + 1 would give 1), and
+    v, 0, −v to exactly 0.0, with picks of other slots between them, in
+    one batch of 32 and across batches and chunks."""
+    g = _card()
+    idx, val = _picks(g, 2, 4096, 64)
+    idx = torch.where(idx < 2, 2, idx)
+    for row, (a, b, c) in enumerate(((0, 1, 2), (5, 700, 4000))):
+        idx[row, [a, b, c]] = 0
+        val[row, [a, b, c]] = torch.tensor([1.0, 1e8, -1e8], device="cuda")
+        idx[row, [a + 3, b + 3, c + 3]] = 1
+        val[row, [a + 3, b + 3, c + 3]] = torch.tensor([0.37, 0.0, -0.37],
+                                                       device="cuda")
+    out = _d1_all_three(idx, val, 64).cpu()
+    assert (out[:, 0] == 0.0).all() and (out[:, 1] == 0.0).all()
+
+
+@pytest.mark.gpu
+def test_scatter_mean_picks_outside_the_row_count_nowhere():
+    """Picks at −1, −2³¹, e and 2³¹ − 1 count in no slot, as the oracle's.
+    The twin never sees them (its ``scatter_add_`` would trip a device-side
+    assert): it takes them sent to one slot past the row's, cut off."""
+    g = _card()
+    idx, val = _picks(g, 4, 2048, 2112)
+    bad = torch.tensor([-1, -2 ** 31, 2112, 2 ** 31 - 1], dtype=torch.int32,
+                       device="cuda")
+    idx[:, ::7] = bad.repeat(2048 // 7 // 4 + 1)[:idx[:, ::7].shape[1]]
+    ref = tsm.scatter_mean_decode_ref(idx, val, 2112)
+    for plan in (None, (4, 8), (64, 8), (4096, 1)):
+        _poison_bytes(4 * 2112 * 4)
+        got = (tsm.scatter_mean_decode(idx, val, 2112) if plan is None
+               else tsm.scatter_mean_decode_tuned(idx, val, 2112, *plan))
+        assert _same_bits(got, ref), plan
+    # the twin with the outside picks sent to a slot past the row's
+    keep = (idx >= 0) & (idx < 2112)
+    twin = tsm.plain_scatter_mean_decode(torch.where(keep, idx, 2112), val,
+                                         2113)[:, :2112]
+    assert _same_bits(twin, ref)
+
+
 # -- the serving path: B7, R1, L1, T1's bits rows ----------------------------
 
 
@@ -572,6 +685,62 @@ def test_bits_rows_match_twin_bit_for_bit(rows, n, fold):
                           dtype=torch.int32) if fold else None)
     assert torch.equal(tf.random_bits_rows(keys, data, n),
                        tf.plain_random_bits_rows(keys, data, n))
+
+
+# T1 bits rows' second kernel against its oracle (the first kernel) and its
+# twin, bit for bit, each case run twice, with and without data: a decode
+# step's 16 and a verify's 80 rows of 50,304, rows that start unaligned
+# (65, 3), the one-key path's single row of R·V, the most rows a launch
+# takes; the output buffer first held 0xFF bytes
+BITS_ROWS = ((1, 3), (16, 50304), (80, 65), (80, 50304), (1, 804864),
+             (65535, 4))
+
+
+def _bits_rows_case(g, rows, n, fold):
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 2), device="cuda",
+                         generator=g, dtype=torch.int32)
+    data = (torch.randint(0, 10 ** 6, (rows,), device="cuda", generator=g,
+                          dtype=torch.int32) if fold else None)
+    return keys, data
+
+
+def _bits_rows_all_three(keys, data, n, plan=None):
+    outs = []
+    for _ in range(2):
+        _poison_bytes(keys.shape[0] * n * 4)
+        outs.append(tf.random_bits_rows(keys, data, n) if plan is None
+                    else tf.random_bits_rows_tuned(keys, data, n, *plan))
+    assert torch.equal(outs[0], outs[1]), "two runs differ"
+    assert torch.equal(outs[0], tf.random_bits_rows_ref(keys, data, n)), \
+        "differs from the oracle"
+    assert torch.equal(outs[0], tf.plain_random_bits_rows(keys, data, n)), \
+        "differs from the twin"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", BITS_ROWS)
+@pytest.mark.parametrize("fold", [False, True])
+def test_bits_rows_are_their_oracle_and_twin_bit_for_bit(rows, n, fold):
+    g = _card()
+    keys, data = _bits_rows_case(g, rows, n, fold)
+    before = tf.random_bits_rows.launches
+    _bits_rows_all_three(keys, data, n)
+    assert tf.random_bits_rows.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_thread", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps_per_sm,warps_a_block", [(8, 8), (64, 2),
+                                                         (1, 1)])
+@pytest.mark.parametrize("rows,n", [(80, 65), (16, 50304), (3, 4097),
+                                    (1, 804864)])
+def test_bits_rows_plans_are_the_oracle_bit_for_bit(per_thread, warps_per_sm,
+                                                     warps_a_block, rows, n):
+    """Launch plans across the sweep's range: the same bits."""
+    g = _card()
+    keys, data = _bits_rows_case(g, rows, n, True)
+    _bits_rows_all_three(keys, data, n, (per_thread, warps_per_sm,
+                                         warps_a_block))
 
 
 # B7 and B7 int8 against their oracles (the first kernel): every query count
