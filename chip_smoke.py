@@ -318,6 +318,7 @@ THREEFRY_CU = "gym_tpu_torch/ops/csrc/threefry.cu"
 SCATTER_CU = "gym_tpu_torch/ops/csrc/scatter_mean.cu"
 DECODE_CU = "gym_tpu_torch/ops/csrc/decode_attention.cu"
 ROW_CU = "gym_tpu_torch/ops/csrc/row_gemm.cu"
+QUANTIZE_CU = "gym_tpu_torch/ops/csrc/quantize_tiles.cu"
 NANOGPT_JAX = "gym_tpu/models/nanogpt.py"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
@@ -356,9 +357,16 @@ KERNELS = {
                                    THREEFRY_CU,
                                    "gym_tpu/models/mnist_cnn.py:36,45"),
     # T1's bits kernel: jax.random.uniform of the codecs' stochastic
-    # rounding (XLA's threefry lowering, no pallas_call)
+    # rounding (XLA's threefry lowering, no pallas_call); on the main path
+    # a key shared by a compress call's rows draws its bits once here
+    # (DynamiQ's hops)
     "T1_threefry_bits": ("threefry", "random_bits", "launches", THREEFRY_CU,
                          "gym_tpu/strategy/compress.py:121"),
+    # T1 bits on its main path: the codec's whole quantize, its threefry
+    # bits drawn where the rounding uses them (no pallas_call: XLA's fusion
+    # of jax.random.uniform into QuantizeCodec.compress in the jitted step)
+    "T1_quantize_tiles": ("quantize_tiles", "quantize_tiles", "launches",
+                          QUANTIZE_CU, "gym_tpu/strategy/compress.py:112-126"),
     # no pallas_call: XLA's serial scatter-add of DeMo's dense decode
     "D1_scatter_mean": ("scatter_mean", "scatter_mean_decode", "launches",
                         SCATTER_CU, "gym_tpu/ops/topk_compress.py:83-99"),
@@ -864,32 +872,24 @@ def check_threefry(torch, tf):
     return float(worst)
 
 
-def check_threefry_bits_path(torch, tf, flagship, nodes=16, steps=4):
-    """The bits kernel against its twin, bit for bit, at the lengths and
-    keys of phase 8d's stochastic rounding on the flagship: DynamiQ's
-    shared hop keys at hop 1 (the flat gradient) and hop 2 (a node's
-    shard), each padded to whole tiles, and NoLoCo's and DiLoCo's per-node
-    link keys at hop 1's length, over the phase's steps. Returns the
-    largest |kernel − twin| (0)."""
-    from gym_tpu_torch.strategy import (DiLoCoStrategy, DynamiQStrategy,
-                                        NoLoCoStrategy, OptimSpec)
-    from gym_tpu_torch.strategy.compress import QuantizeCodec, hop_keys
-    adamw = OptimSpec("adamw", lr=3e-4)
-    codec = QuantizeCodec(bits=8)
-    n = flagship_params(flagship)
-    hop1 = codec._tiles(n) * codec.tile
-    hop2 = codec._tiles(-(-n // nodes)) * codec.tile
-    dynamiq = DynamiQStrategy(adamw, codec="int8")
+def check_threefry_bits_path(torch, tf, flagship):
+    """The bits kernel against its twin, bit for bit, at the keys of phase
+    8d's codec calls (``codec_draws``), each key's draw over its call's
+    row length padded to whole tiles: DynamiQ's shared hop keys (the draws
+    its codec calls read) and NoLoCo's and DiLoCo's per-node link keys
+    (the codec kernel's oracle's draws). Returns the largest |kernel −
+    twin| (0)."""
     draws = []                                   # (what, key, length)
-    for step in range(steps):
-        k1, k2 = hop_keys(dynamiq.seed, step)
-        draws += [(f"DynamiQ hop 1 step {step}", k1, hop1),
-                  (f"DynamiQ hop 2 step {step}", k2, hop2)]
-        for title, strat in (("NoLoCo", NoLoCoStrategy(adamw, codec="int8")),
-                             ("DiLoCo", DiLoCoStrategy(adamw, codec="int8"))):
-            link = strat.communication_modules[0].link
-            draws += [(f"{title} step {step} node {i}", key, hop1)
-                      for i, key in enumerate(link.node_keys(step, nodes))]
+    for what, _, n, keys in codec_draws(flagship):
+        length = -(-n // 256) * 256
+        if isinstance(keys, list):
+            draws += [(f"{what} node {i}", key, length)
+                      for i, key in enumerate(keys)]
+        else:
+            draws.append((what, keys, length))
+    n = flagship_params(flagship)
+    shard = -(-n // 16)
+    hop1, hop2 = -(-n // 256) * 256, -(-shard // 256) * 256
     worst = 0
     for what, key, length in draws:
         got = tf.random_bits(key, length, "cuda").to(torch.int64)
@@ -898,10 +898,120 @@ def check_threefry_bits_path(torch, tf, flagship, nodes=16, steps=4):
         worst = max(worst, err)
         check(err == 0, f"T1 bits {what} ({length} elements): max |kernel "
               f"- twin| {err}")
-    log(f"  T1 bits at phase 8d's draws ({n} params a node, K={nodes}, "
-        f"steps 0-{steps - 1}): {len(draws)} draws, DynamiQ's shared hop "
+    log(f"  T1 bits at phase 8d's draws ({n} params a node, K=16, "
+        f"steps 0-3): {len(draws)} draws, DynamiQ's shared hop "
         f"keys at {hop1} and {hop2} elements and NoLoCo's and DiLoCo's "
         f"per-node keys at {hop1}: bit-identical to the twin")
+    torch.cuda.empty_cache()
+    return float(worst)
+
+
+def codec_draws(flagship, nodes=16, steps=4):
+    """Phase 8d's codec calls on the flagship: (what, rows, n, keys) of
+    DynamiQ's shared hop keys at hop 1 (the flat gradient) and hop 2 (a
+    node's shard) and of NoLoCo's and DiLoCo's per-node link keys at hop
+    1's length, over the phase's steps."""
+    from gym_tpu_torch.strategy import (DiLoCoStrategy, DynamiQStrategy,
+                                        NoLoCoStrategy, OptimSpec)
+    from gym_tpu_torch.strategy.compress import hop_keys
+    adamw = OptimSpec("adamw", lr=3e-4)
+    n = flagship_params(flagship)
+    shard = -(-n // nodes)
+    dynamiq = DynamiQStrategy(adamw, codec="int8")
+    draws = []
+    for step in range(steps):
+        k1, k2 = hop_keys(dynamiq.seed, step)
+        draws += [(f"DynamiQ hop 1 step {step}", nodes, n, k1),
+                  (f"DynamiQ hop 2 step {step}", nodes, shard, k2)]
+        for title, strat in (("NoLoCo", NoLoCoStrategy(adamw, codec="int8")),
+                             ("DiLoCo", DiLoCoStrategy(adamw, codec="int8"))):
+            link = strat.communication_modules[0].link
+            draws.append((f"{title} step {step}", nodes, n,
+                          link.node_keys(step, nodes)))
+    return draws
+
+
+def special_tiles(torch, x, tile, seed):
+    """x [R, n] with, in each row, a zero tile, a NaN, ±inf, a tile scaled
+    by 1e37, a -0.0 tile and one scaled by 1e-30 (tiles picked from the
+    seed)."""
+    t = -(-x.shape[1] // tile)
+    gen = torch.Generator().manual_seed(seed)
+    for r in range(x.shape[0]):
+        for k, tt in enumerate(torch.randperm(t, generator=gen)[:6].tolist()):
+            a, b = tt * tile, min(x.shape[1], (tt + 1) * tile)
+            if k == 0:
+                x[r, a:b] = 0.0
+            elif k == 1:
+                x[r, (a + b) // 2] = float("nan")
+            elif k == 2:
+                x[r, a], x[r, b - 1] = float("inf"), float("-inf")
+            elif k == 3:
+                x[r, a:b] *= 1e37
+            elif k == 4:
+                x[r, a:b] = -0.0
+            else:
+                x[r, a:b] *= 1e-30
+    return x
+
+
+def check_quantize_tiles(torch, tqt, tf, flagship):
+    """T1 bits on its main path against its plain version and against the
+    first bits kernel's uniform followed by the plain quantize, bit for bit
+    (q and the scales' bits), two launches each: phase 8d's codec calls,
+    then tiles 7 and 64 at n =
+    4097, int4, rounding to nearest, an unaligned x and tiles of zeros,
+    NaN, ±inf, huge, -0.0 and tiny values at tiles 256, 64 and 7. Returns
+    the largest |q − plain q| (0)."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    cases = [(what, rows, n, 256, 127, keys, True, False)
+             for what, rows, n, keys in codec_draws(flagship)]
+    base = tf.fold_in(tf.PRNGKey(2602), 5)
+    per_row = [tf.fold_in(base, i) for i in range(3)]
+    for tile in (7, 64, 256):
+        for qmax in (127, 7):
+            for keys, stochastic in ((per_row, True), (base, True),
+                                     (None, False)):
+                kind = ("rows" if keys is per_row else "shared"
+                        if stochastic else "nearest")
+                for special in (False, True):
+                    cases.append((f"tile {tile} int{8 if qmax == 127 else 4}"
+                                  f" {kind}{' special' if special else ''}",
+                                  3, 4097 if tile != 256 else 4096, tile,
+                                  qmax, keys, stochastic, special))
+    worst = 0
+    for what, rows, n, tile, qmax, keys, stochastic, special in cases:
+        x = torch.randn(rows, n, device="cuda", generator=g) * 3
+        if special:
+            x = special_tiles(torch, x, tile, len(what))
+        runs = [tqt.quantize_tiles(x, keys, qmax, tile, stochastic)
+                for _ in range(2)]
+        plain = tqt.plain_quantize_tiles(x, keys, qmax, tile, stochastic)
+        ref = tqt.quantize_tiles_ref(x, keys, qmax, tile, stochastic)
+        for i, (q, sc) in enumerate(runs + [ref]):
+            err = int((q.int() - plain[0].int()).abs().max())
+            scales = int((sc.view(torch.int32)
+                          != plain[1].view(torch.int32)).sum())
+            worst = max(worst, err)
+            check(err == 0 and scales == 0,
+                  f"T1_quantize_tiles {what} [{rows}, {n}] tile {tile}: "
+                  f"{'run ' + str(i) if i < len(runs) else 'the composition'}"
+                  f" differs from the plain version (max |q - plain| {err}, "
+                  f"{scales} scales)")
+    buf = torch.randn(3 * 1024 + 1, device="cuda", generator=g)
+    x = buf[1:].view(3, 1024)
+    q, sc = tqt.quantize_tiles(x, per_row, 127, 256)
+    plain = tqt.plain_quantize_tiles(x, per_row, 127, 256)
+    check(torch.equal(q, plain[0]) and same_bits(torch, sc, plain[1]),
+          "T1_quantize_tiles on an unaligned x differs from the plain "
+          "version")
+    calls = sum(1 for c in cases if c[3] == 256 and c[1] == 16)
+    log(f"  T1_quantize_tiles at phase 8d's {calls} codec calls ([16, {flagship_params(flagship)}] and DynamiQ's hop "
+        f"2 shards) and {len(cases) - calls} "
+        f"cases at tiles 7, 64 and 256, int8 and int4, keys a row, shared "
+        f"and to nearest, with zero, NaN, inf, huge, -0.0 and tiny tiles, "
+        f"and an unaligned x: two launches each bit-identical to the plain "
+        f"version and to the first bits kernel's composition")
     torch.cuda.empty_cache()
     return float(worst)
 
@@ -1825,6 +1935,126 @@ def time_threefry_bits(torch, tf, n, int32_ops_per_s):
     return r
 
 
+def todays_compress(torch, tf, x, keys, qmax, tile):
+    """The codec before T1 bits' redesign on its path: the first bits
+    kernel once a key (a stack of their uniforms), then the torch passes
+    (pad, abs, max, the scale, divide, add, floor, clamp, the int8 cast)."""
+    rows, n = x.shape
+    t = -(-n // tile)
+    xt = torch.nn.functional.pad(x.float(), (0, t * tile - n))
+    xt = xt.view(rows, t, tile)
+    amax = xt.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = xt / scale
+    keys = [keys] if isinstance(keys, tuple) else keys
+    u = torch.stack([tf.uniform(k, t * tile, x.device) for k in keys])
+    q = torch.floor(q + u.view(-1, t, tile))
+    return torch.clamp(q, -qmax, qmax).to(torch.int8), scale
+
+
+def peak_bytes(torch, fn):
+    """Device memory one call of ``fn`` holds at its peak above what was
+    held before it, and what the call returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held, out
+
+
+# the codec calls phase 7 times: (what, rows, n, keys a row or one shared)
+CODEC_SHAPES = (
+    ("DiLoCo/NoLoCo sync on the flagship, K=16, keys a row", 16, None,
+     "rows"),
+    ("DynamiQ hop 1 on the flagship, K=16, one shared key", 16, None,
+     "shared"),
+    ("DiLoCo int8 sync at GPT-2 base, K=4, keys a row", 4, 124_475_904,
+     "rows"),
+)
+
+
+def time_quantize_tiles(torch, tqt, tf, flagship, int32_ops_per_s):
+    """T1 bits on its main path at ``CODEC_SHAPES`` (n None: the flagship's
+    parameters), in turns with today's path (kernel, today's, today's,
+    kernel; the better of each pair); the plain version; the bound, the
+    larger of the bytes (each x read once, 4 bytes, each q written once, 1,
+    and a 4-byte scale a tile) and 73 int32 operations a distinct (key,
+    counter) at the dispatch limit; at GPT-2 base each path's peak memory,
+    and the kernel's q and scales there bit for bit the plain version's.
+    Fails if the kernel is slower than today's path or differs from the
+    plain version. Returns the flagship's keys-a-row record."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out, slower = None, []
+    for what, rows, n, which in CODEC_SHAPES:
+        n = n or flagship_params(flagship)
+        t = -(-n // 256)
+        x = torch.randn(rows, n, device="cuda", generator=g)
+        base = tf.fold_in(tf.PRNGKey(1206), 2)
+        keys = base if which == "shared" else [tf.fold_in(base, i)
+                                               for i in range(rows)]
+        distinct = t * 256 * (1 if which == "shared" else rows)
+        nbytes = 4 * rows * n + rows * t * 256 + 4 * rows * t
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = distinct * (THREEFRY_LEAST_OPS - 2) / int32_ops_per_s
+
+        def kernel():
+            return tqt.quantize_tiles(x, keys, 127, 256)
+
+        def today():
+            return todays_compress(torch, tf, x, keys, 127, 256)
+
+        k_a, d_a = timed(torch, kernel), timed(torch, today)
+        d_b, k_b = timed(torch, today), timed(torch, kernel)
+        r = dict(ms=min(k_a, k_b), today_ms=min(d_a, d_b), library_ms=None,
+                 plain_ms=timed(torch, lambda: tqt.plain_quantize_tiles(
+                     x, keys, 127, 256), reps=3, inner=1),
+                 bound=(max(t_bytes, t_ops) * 1e3,
+                        "bytes" if t_bytes >= t_ops else "operations"))
+        log(f"T1_quantize_tiles [{rows}, {n}] ({what}; {t} tiles of 256 a "
+            f"row): kernel_ms {r['ms']:.4f} ({k_a:.4f}, {k_b:.4f}) "
+            f"today_ms {r['today_ms']:.4f} ({d_a:.4f}, {d_b:.4f}; the first "
+            f"bits kernel and the torch passes) plain_ms "
+            f"{r['plain_ms']:.4f} (twin) library_ms none bound_ms "
+            f"{r['bound'][0]:.6f} ({r['bound'][1]}: {nbytes / 1e6:.2f} MB "
+            f"{t_bytes * 1e3:.6f} ms, {distinct} draws {t_ops * 1e3:.6f} "
+            f"ms) -> {r['bound'][0] / r['ms']:.1%} of bound, "
+            f"{r['today_ms'] / r['ms']:.2f}x today's path")
+        if n == 124_475_904:
+            peaks, outs = {}, {}
+            for name, fn in (("kernel", kernel), ("today", today),
+                             ("plain", lambda: tqt.plain_quantize_tiles(
+                                 x, keys, 127, 256))):
+                peaks[name], outs[name] = peak_bytes(torch, fn)
+                if name == "today":
+                    del outs[name]
+            (q, sc), (pq, psc) = outs["kernel"], outs["plain"]
+            check(torch.equal(q, pq) and same_bits(torch, sc, psc),
+                  f"T1_quantize_tiles [{rows}, {n}]: "
+                  f"{int((q != pq).sum())} q and "
+                  f"{int((sc.view(torch.int32) != psc.view(torch.int32)).sum())}"
+                  f" scales differ from the plain version")
+            log(f"  [{rows}, {n}]: the kernel's q and scales bit-identical "
+                f"to the plain version's")
+            del outs, q, sc, pq, psc
+            log(f"  peak memory above x ({rows * n * 4 / 2**30:.2f} GiB): "
+                + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in
+                            peaks.items())
+                + f"; goals: at least 5x today's path "
+                f"({'met' if r['today_ms'] >= 5 * r['ms'] else 'not met'}),"
+                f" within 2x of the bound "
+                f"({'met' if r['ms'] <= 2 * r['bound'][0] else 'not met'})")
+        if r["ms"] > r["today_ms"]:
+            slower.append(what)
+        out = out or r
+        del x
+        torch.cuda.empty_cache()
+    check(not slower, f"T1_quantize_tiles slower than today's path at "
+          f"{slower}")
+    return out
+
+
 def log_f32(name, r):
     """One f32 timing line: the kernel beside its plain version, f32 SDPA
     and its bound (bytes, or three TF32 products each), and the products at
@@ -2071,8 +2301,10 @@ def compression_phase(torch, mods, card, flagship, nodes=16, batch=16,
                       steps=4):
     """8d: the compression strategies at the flagship, K=16 × 16, 4 steps,
     H 2: every step's ``comm_bytes`` against the prediction from the
-    codec's wire bytes, exact launches of B1/B2 and of the bits kernel.
-    Returns DynamiQ int8's counts (the bits kernel, 2 a step)."""
+    codec's wire bytes, exact launches of B1/B2, of the codec kernel (once
+    a compress call) and of the bits kernel (a shared key's one draw a
+    call, DynamiQ's, where the codec reads it). Returns the codec and bits
+    kernels' launches summed over the runs."""
     from gym_tpu_torch.strategy import (DecoupledMomentumStrategy,
                                         DiLoCoStrategy, DynamiQStrategy,
                                         NoLoCoStrategy, OptimSpec)
@@ -2083,28 +2315,33 @@ def compression_phase(torch, mods, card, flagship, nodes=16, batch=16,
     int8, topk = QuantizeCodec(bits=8).wire_bytes, TopKCodec().wire_bytes
     ring = 2.0 * (k - 1) / k
     rounds = [s % 2 == 0 and s > 0 for s in range(steps)]
-    # (title, strategy, comm_bytes a step, bits launches)
+    syncs = sum(rounds)
+    # a DynamiQ step's two hops each draw their shared key's bits once
+    hop_bits = 2 * steps
+    # (title, strategy, comm_bytes a step, codec launches, bits launches)
     runs = [
         ("decoupled momentum top-k",
          DecoupledMomentumStrategy(adamw, H=2, **SCHED),
-         [ring * topk(n) * r for r in rounds], 0),
+         [ring * topk(n) * r for r in rounds], 0, 0),
         ("NoLoCo dense", NoLoCoStrategy(adamw, H=2, **SCHED),
-         [4.0 * n * r for r in rounds], 0),
+         [4.0 * n * r for r in rounds], 0, 0),
         ("NoLoCo int8", NoLoCoStrategy(adamw, H=2, codec="int8", **SCHED),
-         [int8(n) * r for r in rounds], k * sum(rounds)),
+         [int8(n) * r for r in rounds], syncs, 0),
         ("DynamiQ int8", DynamiQStrategy(adamw, codec="int8", **SCHED),
-         [(k - 1) / k * (int8(n) + k * int8(shard))] * steps, 2 * steps),
+         [(k - 1) / k * (int8(n) + k * int8(shard))] * steps, 2 * steps,
+         hop_bits),
         ("DynamiQ top-k", DynamiQStrategy(adamw, codec="topk", **SCHED),
-         [(k - 1) / k * (topk(n) + k * topk(shard))] * steps, 0),
+         [(k - 1) / k * (topk(n) + k * topk(shard))] * steps, 0, 0),
         ("DiLoCo int8", DiLoCoStrategy(adamw, H=2, codec="int8", **SCHED),
-         [ring * int8(n) * r for r in rounds], k * sum(rounds)),
+         [ring * int8(n) * r for r in rounds], syncs, 0),
     ]
-    dynamiq_int8 = None
-    for title, strat, comm, bits in runs:
+    total = {"T1_quantize_tiles": 0, "T1_threefry_bits": 0}
+    for title, strat, comm, codec_calls, bits in runs:
         title = f"phase 8d flagship {title}"
         counts, res = train_phase(torch, mods, title, flagship, k, batch,
                                   steps, (), strategy=strat)
         want = expected_launches(res, flagship, steps, True)
+        want["T1_quantize_tiles"] = codec_calls
         want["T1_threefry_bits"] = bits
         log(f"  {title} on {card}: steady steps/s "
             f"{res.steps_per_second_steady}, peak memory "
@@ -2117,10 +2354,43 @@ def compression_phase(torch, mods, card, flagship, nodes=16, batch=16,
                   zip(got, comm)) and len(got) == steps,
               f"{title}: comm_bytes {got} != predicted {comm}")
         log(f"  launches exactly as expected: {want}")
-        if title.endswith("DynamiQ int8"):
-            dynamiq_int8 = counts
+        for name in total:
+            total[name] += counts[name]
         del res
-    return dynamiq_int8
+    return total
+
+
+def codec_full_width(torch, mods, card, base, nodes=4, batch=4, steps=4):
+    """8e: DiLoCo with the int8 codec at GPT-2 base, K=4 × 4 rows, bf16, H
+    2: its one sync's compress of [4, 124,475,904] is one launch of the
+    codec kernel and none of the bits kernel; ``comm_bytes`` against the
+    codec's wire bytes; steady steps/s and peak memory. Returns its
+    counts."""
+    from gym_tpu_torch.strategy import DiLoCoStrategy, OptimSpec
+    from gym_tpu_torch.strategy.compress import QuantizeCodec
+    title = "phase 8e gpt2-base DiLoCo int8"
+    strat = DiLoCoStrategy(OptimSpec("adamw", lr=3e-4), H=2, codec="int8",
+                           **SCHED)
+    counts, res = train_phase(torch, mods, title, base, nodes, batch, steps,
+                              (), strategy=strat)
+    rounds = [s % 2 == 0 and s > 0 for s in range(steps)]
+    want = expected_launches(res, base, steps, False)
+    want["T1_quantize_tiles"] = sum(rounds)
+    n = flagship_params(base)
+    comm = [2.0 * (nodes - 1) / nodes * QuantizeCodec(bits=8).wire_bytes(n)
+            * r for r in rounds]
+    log(f"  {title} on {card}: steady steps/s {res.steps_per_second_steady},"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({n} params a node; the compress of [{nodes}, {n}] at step 2)")
+    check(counts == want, f"{title}: launches {counts}, expected {want}")
+    got = [c for _, c in res.history["comm_bytes"]]
+    check(len(got) == steps and all(abs(a - b) <= 1e-6 * max(b, 1.0)
+                                    for a, b in zip(got, comm)),
+          f"{title}: comm_bytes {got} != predicted {comm}")
+    log(f"  launches exactly as expected: {want}; comm_bytes a step {got}")
+    del res
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase 9: the BASELINE configs ------------------------------------------
@@ -2446,6 +2716,45 @@ def check_serving_sass(counts):
                   f"FFMA chains without tensor cores or atomics ({c})")
 
 
+# T1 bits on its main path: the 256-tile kernel and the any-tile kernel,
+# each rounding to nearest, drawing the bits (16 threefry evaluations a
+# lane, one) or reading them
+QUANTIZE_KERNELS = 6
+
+
+def kernel_label(name):
+    """A demangled kernel name without its parameter list."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
+
+
+def check_quantize_sass(counts):
+    """The codec kernel's six instances, without atomics (the global check
+    above): its threefry inlined whole, 20 rotations an evaluation, 16
+    evaluations a lane in the 256-tile kernel's drawing instance, one in
+    the any-tile kernel's, none where the bits are read or not needed."""
+    rots = {}
+    for name in ("quantize_tiles_kernel", "quantize_tiles_any_kernel"):
+        found = [k for k in counts if name + "<" in k or name + "I" in k]
+        check(len(found) == QUANTIZE_KERNELS // 2, f"expected "
+              f"{QUANTIZE_KERNELS // 2} {name}, found {found}")
+        rots[name] = sorted(counts[k]["ROT"] for k in found)
+        for k in found:
+            c = counts[k]
+            log(f"  {kernel_label(k)}: ALU {c['ALU']}, rotations {c['ROT']}, "
+                f"FFMA {c['FFMA']} (the IEEE division's), ATOM/RED "
+                f"{c['ATOM/RED']}")
+    check(rots == {"quantize_tiles_kernel": [0, 0, 16 * 20],
+                   "quantize_tiles_any_kernel": [0, 0, 20]},
+          f"T1_quantize_tiles: rotations {rots}, expected 16 threefry "
+          f"evaluations of 20 in the 256-tile kernel that draws, one in the "
+          f"any-tile kernel's")
+
+
 def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
                                               "row_gemm_ref_kernel"),
                     want=ROW_PIPE_KERNELS + 8):
@@ -2471,7 +2780,7 @@ def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
           f"{kernels}, expected {want}")
     for dem, (_, regs, spill) in zip(demangle(nvcc, [f[0] for f in found]),
                                      found):
-        log(f"  {dem.split('(')[0]}: {regs} registers, {spill} B spilled")
+        log(f"  {kernel_label(dem)}: {regs} registers, {spill} B spilled")
 
 
 # T1 bits rows' kernel: one instantiation a number of groups a lane (1, 2,
@@ -4958,6 +5267,7 @@ def main() -> int:
         import gym_tpu_torch.ops.decode_attention as tdec
         import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
+        import gym_tpu_torch.ops.quantize_tiles as tqt
         import gym_tpu_torch.ops.row_linear as trow
         import gym_tpu_torch.ops.scatter_mean as tsm
         import gym_tpu_torch.ops.threefry as tf
@@ -4977,7 +5287,7 @@ def main() -> int:
               "config4": (16 * 16, 256, 128, 4)}
     mods = {"fused": tfa, "flash": tflash, "threefry": tf,
             "scatter_mean": tsm, "decode_attention": tdec,
-            "row_linear": trow}
+            "row_linear": trow, "quantize_tiles": tqt}
     t_all = time.perf_counter()
     try:
         card = card_line()
@@ -5026,6 +5336,11 @@ def main() -> int:
         log("  D1 and T1 bits rows (scatter_mean.cu, threefry.cu) with "
             "their oracles (ptxas):")
         d1_t1_report(_build.build_log, _build._nvcc(), tsm)
+        log("  T1 bits on its main path (quantize_tiles.cu), SASS and "
+            "ptxas:")
+        check_quantize_sass(sass)
+        row_gemm_report(_build.build_log, _build._nvcc(),
+                        ("quantize_tiles",), QUANTIZE_KERNELS)
         t1_ops = threefry_ops_per_element(sass)
 
         log(f"phase 3: kernels against plain versions on the card "
@@ -5037,6 +5352,8 @@ def main() -> int:
                         n_embd=128, attn_impl="flash")
         errs["T1_threefry_bits"] = check_threefry_bits_path(torch, tf,
                                                             flagship)
+        errs["T1_quantize_tiles"] = check_quantize_tiles(torch, tqt, tf,
+                                                         flagship)
         errs["D1_scatter_mean"] = check_scatter_mean(torch, tsm)
         check_d1_oracle(torch, tsm)
         errs.update(check_serving_kernels(torch, tdec, trow, tf))
@@ -5101,6 +5418,8 @@ def main() -> int:
         times["T1_threefry_bits"] = time_threefry_bits(
             torch, tf, -(-flagship_params(flagship) // 256) * 256,
             int32_ops_per_s)
+        times["T1_quantize_tiles"] = time_quantize_tiles(
+            torch, tqt, tf, flagship, int32_ops_per_s)
         times.update(time_serving_kernels(torch, tdec, trow, tf,
                                           int32_ops_per_s))
 
@@ -5108,8 +5427,8 @@ def main() -> int:
             f"({time.perf_counter() - t_all:.1f} s since the start)")
         c8a = stochastic_phase(torch, mods, tf, card, base, flagship)
         launches["T1_threefry_bernoulli"] = c8a["T1_threefry_bernoulli"]
-        launches["T1_threefry_bits"] = compression_phase(
-            torch, mods, card, flagship)["T1_threefry_bits"]
+        launches.update(compression_phase(torch, mods, card, flagship))
+        codec_full_width(torch, mods, card, base)
 
         log(f"phase 9: the BASELINE configs through Trainer.fit "
             f"({time.perf_counter() - t_all:.1f} s since the start)")

@@ -32,6 +32,7 @@ SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "scatter_mean.cu",
                                                  "decode_attention.cu",
                                                  "row_gemm.cu",
+                                                 "quantize_tiles.cu",
                                                  "crc32c.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
@@ -168,6 +169,9 @@ def load() -> ctypes.CDLL:
         lib.gym_threefry_bits_rows.restype = i32
         lib.gym_threefry_bits_rows_ref.argtypes = [vp, vp, i32, i64, vp, vp]
         lib.gym_threefry_bits_rows_ref.restype = i32
+        lib.gym_quantize_tiles.argtypes = [vp, i64, i32, i32, vp, vp, i32,
+                                           f32, f32, vp, vp, vp]
+        lib.gym_quantize_tiles.restype = i32
         b7 = [vp, i64, i64] + [vp] * 3 + [i32, i32, vp] + [i32] * 4 + [
             f32, vp]
         b7_int8 = [vp, i64, i64] + [vp] * 5 + [i32, i32, vp] + [i32] * 4 + [

@@ -236,11 +236,9 @@ def _check_n(n: int, device) -> torch.device:
     return device
 
 
-def random_bits(key: Key, n: int, device) -> torch.Tensor:
-    """[n] int32: ``jax.random.bits(key, (n,))``'s uint32 bit patterns."""
-    device = _check_n(n, device)
-    if device.type == "cpu":
-        return plain_random_bits(key, n, device)
+def _draw_bits(key: Key, n: int, device: torch.device) -> torch.Tensor:
+    """One launch of ``gym_threefry_bits`` into a fresh [n] int32 tensor
+    (none for n = 0), uncounted."""
     from . import _build
     lib = _build.load()
     out = torch.empty(n, dtype=torch.int32, device=device)
@@ -249,6 +247,16 @@ def random_bits(key: Key, n: int, device) -> torch.Tensor:
             code = lib.gym_threefry_bits(key[0], key[1], n, out.data_ptr(),
                                          _stream(device))
         _build.check(lib, code, "gym_threefry_bits")
+    return out
+
+
+def random_bits(key: Key, n: int, device) -> torch.Tensor:
+    """[n] int32: ``jax.random.bits(key, (n,))``'s uint32 bit patterns."""
+    device = _check_n(n, device)
+    if device.type == "cpu":
+        return plain_random_bits(key, n, device)
+    out = _draw_bits(key, n, device)
+    if n:
         random_bits.launches += 1
     return out
 
@@ -468,6 +476,15 @@ def reset_launch_counts() -> None:
 def uniform(key: Key, n: int, device) -> torch.Tensor:
     """[n] float32: ``jax.random.uniform(key, (n,))``."""
     return bits_to_uniform(random_bits(key, n, device))
+
+
+def uniform_ref(key: Key, n: int, device) -> torch.Tensor:
+    """``uniform`` through the first bits kernel, uncounted: the draws of
+    the codec kernel's oracle (``ops/quantize_tiles.quantize_tiles_ref``).
+    Never on the main path. A CUDA device only."""
+    device = _check_n(n, device)
+    _on_card(device, "uniform_ref")
+    return bits_to_uniform(_draw_bits(key, n, device))
 
 
 def _scalar_bits(key: Key) -> int:

@@ -37,7 +37,6 @@ import torch
 from ..convert import serving_params
 from ..models.nanogpt import GPTConfig
 from ..ops.grouped_matmul import quant_tile_for
-from ..strategy.compress import QuantizeCodec
 from ..train_node import default_device
 from ..utils.checkpoint import CheckpointNotFoundError, restore_params
 
@@ -54,21 +53,33 @@ def params_are_quantized(params: Dict[str, torch.Tensor]) -> bool:
                for n in params)
 
 
+def _quantize_eagerly(w: torch.Tensor, bits: int, tile: int):
+    """``QuantizeCodec(bits, tile, stochastic=False).compress`` of the
+    flat weight as ``gym_tpu/serve/load.py`` runs it, eagerly: ``scale =
+    amax / qmax`` is a true division there (the jitted step's codec,
+    ``ops/quantize_tiles``, multiplies by ``f32(1/qmax)``). On the CPU,
+    where the division by the host scalar is one (the card would multiply
+    by its reciprocal); ``tile`` divides the weight's size. → (q int8 [T,
+    tile], scale f32 [T, 1])."""
+    qmax = (1 << (bits - 1)) - 1
+    xt = w.float().cpu().reshape(-1, tile)
+    amax = xt.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xt / scale), -qmax, qmax)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
+
+
 def quantize_params(params: Dict[str, torch.Tensor],
                     config) -> Dict[str, torch.Tensor]:
     """An f32 flat tree quantized for serving under ``config``
     (``weights_dtype`` "int8"/"int4", optional ``quant_embed``): every 2-D
     ``kernel``, and ``wte.embedding`` under ``quant_embed``, becomes
     ``qkernel``/``qembedding`` (int8, its own shape) and ``qscale`` (f32,
-    one a tile) through ``QuantizeCodec(bits, tile, stochastic=False)``,
-    the tile ``quant_tile_for`` clamps to divide the trailing axis, the
-    weight one ``[1, n]`` row (so the codec's tiles are the JAX package's
-    flat ones). Biases, layer norms and ``wpe`` stay f32. A no-op at
-    ``weights_dtype="f32"``. The codec runs on the CPU and its results go
-    back to each weight's device: the card divides by the codec's host
-    scalar ``qmax`` as a multiply by its reciprocal, the CPU (and XLA) as
-    a division, and the served weights are the JAX package's bits
-    wherever they are quantized."""
+    one a tile) through ``_quantize_eagerly``, the tile ``quant_tile_for``
+    clamps to divide the trailing axis (so the codec's tiles are the JAX
+    package's flat ones). Biases, layer norms and ``wpe`` stay f32. A no-op
+    at ``weights_dtype="f32"``. The served weights are the JAX package's
+    bits wherever they are quantized."""
     wd = getattr(config, "weights_dtype", "f32")
     if wd == "f32":
         return params
@@ -83,10 +94,8 @@ def quantize_params(params: Dict[str, torch.Tensor],
         base, _, leaf = name.rpartition(".")
         if (leaf == "kernel" and w.dim() == 2) or (
                 embed and name == "wte.embedding"):
-            codec = QuantizeCodec(bits=bits, tile=quant_tile_for(w.shape,
-                                                                 tile),
-                                  stochastic=False)
-            q, scale = codec.compress(w.float().cpu().reshape(1, -1), None)
+            q, scale = _quantize_eagerly(w, bits,
+                                         quant_tile_for(w.shape, tile))
             qname = "qkernel" if leaf == "kernel" else "qembedding"
             out[f"{base}.{qname}"] = q.reshape(w.shape).to(w.device)
             out[f"{base}.qscale"] = scale.reshape(-1).to(w.device)

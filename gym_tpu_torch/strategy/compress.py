@@ -11,7 +11,11 @@ declare while the emulation moves dense f32.
 - ``QuantizeCodec``: int8/int4 with a per-tile max-abs scale; stochastic
   rounding ``floor(q + u)`` with ``u = jax.random.uniform(key, (t, tile))``,
   which is ``threefry.uniform(key, t·tile)`` (the counter is the row-major
-  flat index): one launch of the bits kernel a key on the card.
+  flat index). The bits of the codec as the strategies run it in the
+  jitted step, where XLA compiles ``amax / qmax`` into ``amax · f32(1 /
+  qmax)``: ``ops/quantize_tiles`` (one kernel launch a call on the card,
+  its plain version on the CPU). The serving loader's eager form divides
+  (``serve/load.py``).
 - ``TopKCodec``: the ``max(1, round(frac·n))`` largest |x| as (idx, val),
   selected by ``ops/topk_compress.topk_compress`` in JAX's order; decompress
   is a scatter of unique indices.
@@ -25,28 +29,15 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..ops import threefry
+from ..ops.quantize_tiles import Keys, quantize_tiles
 from ..ops.topk_compress import topk_compress
 
 Payload = Tuple[torch.Tensor, ...]
-Keys = Union[threefry.Key, Sequence[threefry.Key], None]
-
-
-def _row_keys(keys: Keys, rows: int):
-    """One key shared by all rows → ``[key]``; a key a row → the list."""
-    if keys is None:
-        raise ValueError("a stochastic codec needs a key")
-    if isinstance(keys, tuple) and len(keys) == 2 and isinstance(keys[0],
-                                                                  int):
-        return [keys]
-    keys = [tuple(int(w) for w in k) for k in keys]
-    if len(keys) != rows:
-        raise ValueError(f"{len(keys)} keys for {rows} rows")
-    return keys
 
 
 class Codec(abc.ABC):
@@ -69,6 +60,12 @@ class Codec(abc.ABC):
 
     def roundtrip(self, x: torch.Tensor, keys: Keys) -> torch.Tensor:
         return self.decompress(self.compress(x, keys), int(x.shape[-1]))
+
+    def error(self, send: torch.Tensor, payload: Payload,
+              x_hat: torch.Tensor) -> torch.Tensor:
+        """The error-feedback residual ``send − x_hat`` of a payload and
+        its decompression ``x_hat``."""
+        return send - x_hat
 
     @abc.abstractmethod
     def config(self) -> Dict[str, Any]:
@@ -99,26 +96,36 @@ class QuantizeCodec(Codec):
         return -(-n // self.tile)
 
     def compress(self, x: torch.Tensor, keys: Keys) -> Payload:
-        rows, n = x.shape
-        t = self._tiles(n)
-        xt = torch.nn.functional.pad(x.float(), (0, t * self.tile - n))
-        xt = xt.view(rows, t, self.tile)
-        amax = xt.abs().amax(dim=-1, keepdim=True)
-        scale = torch.where(amax > 0, amax / self.qmax,
-                            torch.ones_like(amax))
-        q = xt / scale
-        if self.stochastic:
-            u = torch.stack([threefry.uniform(k, t * self.tile, x.device)
-                             for k in _row_keys(keys, rows)])
-            q = torch.floor(q + u.view(-1, t, self.tile))
-        else:
-            q = torch.round(q)
-        q = torch.clamp(q, -self.qmax, self.qmax).to(torch.int8)
-        return q, scale
+        return quantize_tiles(x, keys, self.qmax, self.tile, self.stochastic)
 
     def decompress(self, payload: Payload, n: int) -> torch.Tensor:
         q, scale = payload
         return (q.float() * scale).reshape(q.shape[0], -1)[:, :n]
+
+    def error(self, send: torch.Tensor, payload: Payload,
+              x_hat: torch.Tensor) -> torch.Tensor:
+        """``send − q·scale`` rounded once, as the jitted link computes it
+        (XLA fuses the decompress into the subtraction as one multiply-
+        add), in f32: with the scale split as hi + lo, 12 significant bits
+        each, q·hi and q·lo are exact, so the product's rounding error
+        ``err = (q·hi − x_hat) + q·lo`` is exact (the difference by
+        Sterbenz's lemma), and ``send − x_hat`` is exact wherever err is
+        not 0 (|q| >= 3, where send lies within a factor 2 of x_hat); then
+        ``(send − x_hat) − err`` is the one rounding. The exception is a
+        product that overflows (a tile holding ±FLT_MAX or the float
+        below it), whose delivered value is ±inf in the jitted link too."""
+        q, scale = payload
+        rows, n = send.shape
+        hi = (scale.view(torch.int32) & -4096).view(torch.float32)
+        qf = q.float()
+        a = qf * hi
+        b = qf.mul_(scale - hi)
+
+        def flat(t):
+            return t.view(rows, -1)[:, :n]
+
+        err = flat(a).sub_(x_hat).add_(flat(b))
+        return (send - x_hat).sub_(err)
 
     def wire_bytes(self, n: int) -> float:
         t = self._tiles(n)
@@ -242,8 +249,11 @@ class CompressedLink:
         if self.codec is None:
             return x, residual
         send = x if residual is None else x + residual
-        x_hat = self.codec.roundtrip(send, keys)
-        return x_hat, (None if residual is None else send - x_hat)
+        payload = self.codec.compress(send, keys)
+        x_hat = self.codec.decompress(payload, int(send.shape[-1]))
+        if residual is None:
+            return x_hat, None
+        return x_hat, self.codec.error(send, payload, x_hat)
 
     def send(self, x: torch.Tensor, lstate: Dict[str, torch.Tensor], keys):
         """``encode`` over ``init``'s state layout."""

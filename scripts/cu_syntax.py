@@ -56,6 +56,11 @@ inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) {
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetDevice(int*) { return 0; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int,
+                                                          size_t) {
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 struct float4 { float x, y, z, w; };
 struct char4 { signed char x, y, z, w; };
@@ -79,6 +84,8 @@ inline void __syncthreads() {}
 inline void __syncwarp() {}
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float rsqrtf(float a) { return 1 / std::sqrt(a); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 template <class T> T __ldg(const T* p) { return *p; }

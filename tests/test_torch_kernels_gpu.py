@@ -85,6 +85,14 @@ twins, two runs bit-identical, at DeMo's signatures and the sampler's row
 shapes, at every launch plan a sweep may pick, with a row's picks in one
 slot, the orders that decide a sum, picks outside the row (the oracle only)
 and an output buffer that held 0xFF bytes before.
+
+T1 bits on its main path (``quantize_tiles``, ``QuantizeCodec``'s quantize
+in one kernel), twice, bit for bit its plain version and the first bits
+kernel's uniform followed by the plain quantize (``quantize_tiles_ref``), at
+phase 8d's shapes (a key a row and one shared key), tiles 7, 64 and 256 (n % 4 != 0 and an unaligned x take the
+any-tile path), int4, rounding to nearest, and zero, NaN, ±inf, huge and
+-0.0 tiles; one launch a call; the codec and the link's residual on the
+card equal to the CPU's (``-k quantize_tiles or codec``).
 """
 
 import pytest
@@ -93,6 +101,7 @@ import torch
 import gym_tpu_torch.ops.decode_attention as tdec
 import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
+import gym_tpu_torch.ops.quantize_tiles as tqt
 import gym_tpu_torch.ops.row_linear as trow
 import gym_tpu_torch.ops.scatter_mean as tsm
 import gym_tpu_torch.ops.threefry as tf
@@ -1307,3 +1316,131 @@ def test_capture_beside_a_dispatch_on_another_thread():
     assert graphs_captured_counter() - graphs0 == warm.stats()["total"]
     for e in (a, b, ref_eng):
         e.close()
+
+
+# T1 bits on its main path (QuantizeCodec's quantize in one kernel):
+# (rows, n, tile, qmax, keys, stochastic, special). "rows": a key a row (the
+# links' per-node keys), "shared": one key for every row (DynamiQ's hops).
+# DiLoCo's and NoLoCo's sync on the flagship, DynamiQ's hop 1 and hop 2 at
+# K=16, the any-tile path at 7, 64 and a tile of 256 over n % 4 != 0, int4,
+# rounding to nearest, and zero, NaN, ±inf, huge and -0.0 tiles.
+QT_CASES = (
+    (16, 834_432, 256, 127, "rows", True, False),
+    (16, 834_432, 256, 127, "shared", True, False),
+    (16, 52_152, 256, 127, "shared", True, False),
+    (3, 4097, 7, 7, "rows", True, True),
+    (3, 4097, 64, 127, "shared", True, True),
+    (4, 4096, 256, 127, "rows", True, True),
+    (4, 4096, 256, 7, "shared", True, True),
+    (5, 1000, 256, 7, "rows", False, True),
+    (2, 4097, 256, 127, "rows", True, False),
+    (1, 300, 256, 127, "rows", True, False),
+)
+
+
+def _qt_rows(g, rows, n, tile, special):
+    x = (torch.randn(rows, n, device="cuda", generator=g)
+         * torch.rand(rows, 1, device="cuda", generator=g) * 50)
+    if special:
+        t = -(-n // tile)
+        for r in range(rows):
+            for k, tt in enumerate(torch.randperm(t, generator=torch.Generator(
+                    ).manual_seed(r))[:6].tolist()):
+                a, b = tt * tile, min(n, (tt + 1) * tile)
+                if k == 0:
+                    x[r, a:b] = 0.0
+                elif k == 1:
+                    x[r, (a + b) // 2] = float("nan")
+                elif k == 2:
+                    x[r, a], x[r, b - 1] = float("inf"), float("-inf")
+                elif k == 3:
+                    x[r, a:b] *= 1e37
+                elif k == 4:
+                    x[r, a:b] = -0.0
+                else:
+                    x[r, a:b] *= 1e-30
+    return x
+
+
+def _qt_keys(rows, keys):
+    base = tf.fold_in(tf.PRNGKey(2602), 3)
+    return base if keys == "shared" else [tf.fold_in(base, i)
+                                          for i in range(rows)]
+
+
+def _qt_same(a, b):
+    return torch.equal(a[0], b[0]) and _same_bits(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QT_CASES)
+def test_quantize_tiles_is_plain_and_first_kernel_composition(case):
+    """The kernel, twice, bit for bit its plain version (the twin's bits)
+    and the first bits kernel's uniform followed by the plain quantize."""
+    rows, n, tile, qmax, which, stochastic, special = case
+    x = _qt_rows(_card(), rows, n, tile, special)
+    keys = _qt_keys(rows, which)
+    runs = [tqt.quantize_tiles(x, keys, qmax, tile, stochastic)
+            for _ in range(2)]
+    plain = tqt.plain_quantize_tiles(x, keys, qmax, tile, stochastic)
+    ref = tqt.quantize_tiles_ref(x, keys, qmax, tile, stochastic)
+    t = -(-n // tile)
+    assert runs[0][0].shape == (rows, t, tile)
+    assert runs[0][1].shape == (rows, t, 1)
+    assert _qt_same(plain, ref)
+    for i, run in enumerate(runs):
+        assert _qt_same(run, plain), i
+
+
+@pytest.mark.gpu
+def test_quantize_tiles_unaligned_rows_take_the_any_path():
+    """x starting 4 bytes past a 16-byte boundary: the same bits."""
+    g = _card()
+    buf = torch.randn(3 * 1024 + 1, device="cuda", generator=g)
+    x = buf[1:].view(3, 1024)
+    keys = _qt_keys(3, "rows")
+    assert _qt_same(tqt.quantize_tiles(x, keys, 127, 256),
+                    tqt.plain_quantize_tiles(x, keys, 127, 256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["rows", "shared"])
+def test_quantize_tiles_launch_counts(which):
+    """One kernel launch a call whatever the rows; no bits launch for keys
+    a row, one for a key shared by the rows (the kernel reads its bits)."""
+    x = _qt_rows(_card(), 16, 5000, 256, False)
+    keys = _qt_keys(16, which)
+    before = (tqt.quantize_tiles.launches, tf.random_bits.launches)
+    tqt.quantize_tiles(x, keys, 127, 256)
+    bits = int(which == "shared")
+    assert (tqt.quantize_tiles.launches, tf.random_bits.launches) == (
+        before[0] + 1, before[1] + bits)
+    before = (tqt.quantize_tiles.launches, tf.random_bits.launches)
+    tqt.plain_quantize_tiles(x, keys, 127, 256)
+    tqt.quantize_tiles_ref(x, keys, 127, 256)
+    assert (tqt.quantize_tiles.launches, tf.random_bits.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+def test_codec_and_link_on_card_equal_the_cpu(codec):
+    """``QuantizeCodec`` and ``CompressedLink`` (its residual too) on the
+    card give the CPU's bits, which the CPU tests hold to ``jax.jit``; a
+    NaN is a NaN (the card's and the CPU's NaN bit patterns differ)."""
+    from gym_tpu_torch.strategy.compress import CompressedLink
+    x = _qt_rows(_card(), 4, 3000, 256, True)
+    for keys in (_qt_keys(4, "rows"), _qt_keys(4, "shared")):
+        link = CompressedLink(codec, seed=3)
+        for dev in ("cuda", "cpu"):
+            got = link.codec.compress(x.to(dev), keys)
+            if dev == "cuda":
+                card = [t.cpu() for t in got]
+            else:
+                assert _qt_same(card, got)
+        res = torch.randn(4, 3000, generator=torch.Generator().manual_seed(1))
+        card = link.encode(x, res.cuda() * 0.01, keys)
+        cpu = link.encode(x.cpu(), res * 0.01, keys)
+        for a, b in zip(card, cpu):
+            a, nan = a.cpu(), torch.isnan(b)
+            assert torch.equal(torch.isnan(a), nan)
+            assert _same_bits(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
