@@ -170,7 +170,27 @@ Phases (any failure exits non-zero before the result lines are printed):
    in-process engine's on ``load_for_serving(..., weights_dtype="int8",
    kv_dtype="int8")``, ``/stats`` echoing the dtypes, a restart with
    ``programs_compiled`` 0;
-14. the ``kernels`` JSON line, then the result line.
+14. the process fleet and the deploy drill, on 11a's run dir before it is
+   removed: 14a ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir
+   ``--out-of-process --replicas 2 --autoscale --min-replicas 2
+   --max-replicas 3 --program-cache-dir build/gym_tpu_torch --num_slots 16
+   --decode_chunk 8`` in a subprocess with no ``--device`` (the parent
+   builds nothing: 12b's build directory): every worker (and the respawn)
+   reports ``programs_compiled`` 0 and warms its family, 11d's 8 requests
+   streamed over HTTP together equal to 12b's streams, then again with a
+   ``kill -9`` of the worker serving one stream once it has 4 or more
+   tokens: every stream equal to 12b's, the victim's with ``failovers`` of
+   at least 1, the autoscaler's respawn in ``/stats``; the SIGTERM drill
+   (rc 0, "shut down cleanly", no worker process left); it prints each
+   worker's startup seconds (its spawn to its socket's handshake, read
+   off the server's log), each worker's card memory (``nvidia-smi
+   --query-compute-apps``) and the fleet's output tokens/s beside 12b's
+   in-process figure; 14b ``python -m gym_tpu_torch.servesim.drill
+   --out-of-process --replicas 2 --kill-trainer --time-scale 2`` on the
+   card: the trainer killed and resumed, zero dropped requests, zero
+   ``nvcc`` builds in every worker across the hot swaps, the post-swap
+   stream equal to ``generate_fast``;
+15. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -4233,9 +4253,9 @@ def serve_run_dir(torch, mods, card, run2, cli):
 
 
 def checkpoint_phase(torch, mods, card, base_sps, t_all):
-    """Phase 11 (11a-11d), then phases 12 and 13 on 11a's run dir; the run
-    dirs are removed after them. Returns phase 13's kernel errors, times
-    and launches."""
+    """Phase 11 (11a-11d), then phases 12, 13 and 14 on 11a's run dir; the
+    run dirs are removed after them. Returns phase 13's kernel errors,
+    times and launches."""
     import shutil
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
@@ -4266,10 +4286,14 @@ def checkpoint_phase(torch, mods, card, base_sps, t_all):
         log(f"phase 12: CUDA graphs against eager, the HTTP server and a "
             f"hot swap ({time.perf_counter() - t_all:.1f} s since the "
             f"start)")
-        graphs_phase(torch, mods, card)
+        ref12b = graphs_phase(torch, mods, card)
         log(f"phase 13: quantized serving ({time.perf_counter() - t_all:.1f}"
             f" s since the start)")
-        return quant_phase(torch, mods, card)
+        out13 = quant_phase(torch, mods, card)
+        log(f"phase 14: the process fleet and the deploy drill "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
+        fleet_phase(torch, card, ref12b)
+        return out13
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4449,7 +4473,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_server(run_dir, port, log_path, extra=()):
+def start_server(run_dir, port, log_path, extra=(), phase="12b"):
     """``python -m gym_tpu_torch.serve`` on 11a's run dir, with no
     ``--device`` flag (the card by default); ``extra`` more flags."""
     out = open(log_path, "w")
@@ -4471,7 +4495,7 @@ def start_server(run_dir, port, log_path, extra=()):
     proc.kill()
     proc.communicate()
     with open(log_path) as f:
-        raise SmokeFailure(f"phase 12b: the server did not start:\n"
+        raise SmokeFailure(f"phase {phase}: the server did not start:\n"
                            f"{f.read()[-3000:]}")
 
 
@@ -4485,7 +4509,7 @@ def wait_warmup(port, timeout=300):
     raise SmokeFailure(f"phase 12b: warmup never finished: {stats}")
 
 
-def stop_server(proc, log_path, what):
+def stop_server(proc, log_path, what, phase="12b"):
     import signal
     proc.send_signal(signal.SIGTERM)
     try:
@@ -4497,7 +4521,7 @@ def stop_server(proc, log_path, what):
     with open(log_path) as f:
         text = f.read()
     check(rc == 0 and "shut down cleanly" in text and "tokens_per_s" in
-          text, f"phase 12b: {what}: SIGTERM drill failed (rc {rc}):\n"
+          text, f"phase {phase}: {what}: SIGTERM drill failed (rc {rc}):\n"
           f"{text[-3000:]}")
     return next(ln for ln in text.splitlines() if "shut down cleanly" in ln)
 
@@ -4585,6 +4609,7 @@ def server_subprocess(torch, card):
     check(stats["programs_compiled"] == 0 and
           stats["graphs_captured"] == SERVE_FAMILY,
           f"phase 12b: restart /stats {stats}")
+    return want, ntok / wall
 
 
 def hot_swap(torch, mods, card):
@@ -4673,16 +4698,18 @@ def hot_swap(torch, mods, card):
 def graphs_phase(torch, mods, card):
     """Phase 12 (12a-12c), inside phase 11 before its run dirs go; 12a's
     and 12c's launches counted from zero (12b's server is a process of its
-    own)."""
+    own). Returns 12b's streams and output tokens/s (phase 14a's
+    reference)."""
     t0 = time.perf_counter()
     graphs_vs_eager(torch, mods, card)
     t1 = time.perf_counter()
-    server_subprocess(torch, card)
+    ref12b = server_subprocess(torch, card)
     t2 = time.perf_counter()
     hot_swap(torch, mods, card)
     torch.cuda.empty_cache()
     log(f"phase 12: {time.perf_counter() - t0:.1f} s (12a {t1 - t0:.1f} s, "
         f"12b {t2 - t1:.1f} s, 12c {time.perf_counter() - t2:.1f} s)")
+    return ref12b
 
 
 # -- phase 13: quantized serving ---------------------------------------------
@@ -5250,6 +5277,338 @@ def quant_phase(torch, mods, card):
         f"13b {t2 - t1:.1f} s, 13c {t3 - t2:.1f} s, 13d "
         f"{time.perf_counter() - t3:.1f} s)")
     return errs, times, launches
+
+
+# -- phase 14: the process fleet and the deploy drill -------------------------
+
+
+FLEET_FLAGS = ("--out-of-process", "--replicas", "2", "--autoscale",
+               "--min-replicas", "2", "--max-replicas", "3")
+
+
+def card_memory():
+    """(the card's used MiB, [(pid, MiB)] of its compute processes): what
+    ``nvidia-smi --query-gpu=memory.used`` and ``--query-compute-apps=
+    pid,used_memory`` report. Where the driver sees another pid namespace
+    the second lists pids that are not this machine's, each with the
+    card's total (the chip machine: pid 1 each time); phase 14a then reads
+    a worker's memory off the first, as the change across its start or its
+    death."""
+    def query(*args):
+        return subprocess.run(["nvidia-smi", *args,
+                               "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout
+    used = float(query("--query-gpu=memory.used").split()[0])
+    apps = []
+    for line in query("--query-compute-apps=pid,used_memory").splitlines():
+        pid, _, mib = (x.strip() for x in line.partition(","))
+        if pid.isdigit():
+            try:
+                apps.append((int(pid), float(mib)))
+            except ValueError:
+                pass
+    return used, apps
+
+
+def worker_pids():
+    """Pids of this machine's ``gym_tpu_torch.serve.worker`` processes."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if b"gym_tpu_torch.serve.worker" in cmd:
+            pids.append(int(name))
+    return pids
+
+
+def watch_log(path, stop, seen):
+    """Poll ``path`` every 0.1 s until ``stop`` is set, appending (time
+    first seen, line) for each new complete line to ``seen``."""
+    n = 0
+    while not stop.is_set():
+        try:
+            with open(path) as f:
+                text = f.read()
+        except OSError:
+            text = ""
+        lines = text.split("\n")[:-1]
+        now = time.perf_counter()
+        seen.extend((now, ln) for ln in lines[n:])
+        n = len(lines)
+        time.sleep(0.1)
+
+
+def worker_startups(seen):
+    """{replica id: (pid, seconds from its spawn to its socket's
+    handshake)} from the router's log lines."""
+    spawned, connected = {}, {}
+    for t, ln in seen:
+        m = re.search(r"spawned replica (\d+) \(pid (\d+)", ln)
+        if m:
+            spawned.setdefault(int(m.group(1)), (t, int(m.group(2))))
+        m = re.search(r"replica (\d+) connected \(pid", ln)
+        if m:
+            connected.setdefault(int(m.group(1)), t)
+    return {rid: (pid, connected[rid] - t)
+            for rid, (t, pid) in spawned.items() if rid in connected}
+
+
+def sse_stream(port, prompt, kw, on_tokens=None, timeout=300):
+    """One ``"stream": true`` request: its tokens and the final event;
+    ``on_tokens(tokens, event)`` after each chunk."""
+    import urllib.request
+    body = json.dumps(dict(generate_body(prompt, kw), stream=True)).encode()
+    toks, fin = [], None
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate", body,
+            {"Content-Type": "application/json"}), timeout=timeout) as r:
+        for line in r:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            ev = json.loads(line[6:])
+            if ev.get("done") or ev.get("error"):
+                fin = ev
+                break
+            toks.extend(ev["tokens"])
+            if on_tokens is not None:
+                on_tokens(toks, ev)
+    return toks, fin
+
+
+def fleet_warm(port, n=2, timeout=300):
+    """/stats once ``n`` live workers are healthy and each warmed its
+    family."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        code, st = http_json(port, "/stats")
+        live = [r for r in st.get("replicas", []) if r["healthy"]]
+        if (code == 200 and len(live) >= n and
+                all((r["warmup"] or {}).get("done") for r in live)):
+            return st
+        time.sleep(0.2)
+    raise SmokeFailure(f"phase 14a: the fleet never came up warm: {st}")
+
+
+def fleet_round(port, work, victim=None, kill=None):
+    """``work`` streamed over HTTP together: [(tokens, final event)] and
+    the wall seconds; ``kill(tokens, event)`` after each chunk of request
+    ``victim``."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(work)) as ex:
+        outs = list(ex.map(lambda iw: sse_stream(
+            port, *iw[1], on_tokens=kill if iw[0] == victim else None),
+            enumerate(work)))
+    return outs, time.perf_counter() - t0
+
+
+def process_fleet(torch, card, ref12b):
+    """14a: ``python -m gym_tpu_torch.serve --ckpt`` 11a's run dir
+    ``--out-of-process --replicas 2 --autoscale --min-replicas 2
+    --max-replicas 3`` against 12b's build directory: workers that build
+    nothing and warm their families, 11d's 8 requests streamed equal to
+    12b's, a ``kill -9`` of the worker serving one of them (4 or more
+    tokens in) under the others' load with every stream still equal and
+    the autoscaler's respawn in /stats, the SIGTERM drill with no worker
+    left."""
+    import signal
+    import threading
+    from gym_tpu_torch.ops import _build
+    want, tps12b = ref12b
+    run_dir = ckpt_dir("b")
+    work = serve_workload()[:8]
+    victim = max(range(len(work)), key=lambda i: work[i][1]["max_new_tokens"])
+    port = free_port()
+    log_path = os.path.join(CKPT_ROOT, "server_fleet.log")
+    stop_watch, seen = threading.Event(), []
+    watcher = threading.Thread(target=watch_log,
+                               args=(log_path, stop_watch, seen),
+                               daemon=True)
+    watcher.start()
+    flags = (*FLEET_FLAGS, "--program-cache-dir", _build.BUILD_DIR)
+    mem0 = card_memory()
+    proc, up_s = start_server(run_dir, port, log_path, flags, phase="14a")
+    killed = {}
+    try:
+        st = fleet_warm(port)
+        outs, wall = fleet_round(port, work)
+        got = [t for t, _ in outs]
+        ntok = sum(len(t) for t in got)
+        mem = card_memory()
+        _, st = http_json(port, "/stats")
+        live = [r for r in st["replicas"] if not r["retired"]]
+        pid_by_rid = {r["id"]: r["pid"] for r in live}
+
+        def kill(toks, ev):
+            if not killed and len(toks) >= 4:
+                pid = pid_by_rid[ev["replica"]]
+                os.kill(pid, signal.SIGKILL)
+                killed.update(pid=pid, rid=ev["replica"], at=len(toks),
+                              t=time.perf_counter())
+
+        outs2, wall2 = fleet_round(port, work, victim, kill)
+        # the killed worker's memory is gone; its respawn is still
+        # starting (it reaches the card about 8 s after its spawn)
+        mem2 = card_memory()
+        t_mem2 = time.perf_counter()
+        t_respawn = None
+        t_wait = time.perf_counter()
+        while time.perf_counter() - t_wait < 300:
+            _, st2 = http_json(port, "/stats")
+            warm = [r for r in st2["replicas"] if r["healthy"] and
+                    (r["warmup"] or {}).get("done")]
+            if (st2["autoscaler"]["spawns"] >= 1 and len(warm) >= 2
+                    and st2["replicas_spawned"] >= 3):
+                t_respawn = time.perf_counter()
+                break
+            time.sleep(0.2)
+        outs3, wall3 = fleet_round(port, work)
+        _, st3 = http_json(port, "/stats")
+        mem3 = card_memory()
+    finally:
+        line = stop_server(proc, log_path, "process fleet", phase="14a")
+        stop_watch.set()
+        watcher.join()
+    startups = worker_startups(seen)
+    left = [pid for pid, _ in startups.values()
+            if os.path.exists(f"/proc/{pid}")] + worker_pids()
+    pids = {pid for pid, _ in startups.values()}
+    log(f"phase 14a python -m gym_tpu_torch.serve --ckpt "
+        f"{os.path.relpath(run_dir, HERE)} {' '.join(FLEET_FLAGS)} "
+        f"--program-cache-dir {os.path.relpath(_build.BUILD_DIR, HERE)} "
+        f"--num_slots 16 --decode_chunk 8 (no --device: on {card}): "
+        f"listening after {up_s:.1f} s (the parent's load, both workers' "
+        f"startups); router programs_compiled {st['programs_compiled']}")
+    for rid, (pid, secs) in sorted(startups.items()):
+        rep = next((r for r in st3["replicas"] if r["id"] == rid), {})
+        warm = rep.get("warmup") or {}
+        log(f"  worker {rid} pid {pid}: startup {secs:.1f} s (spawn to the "
+            f"socket's handshake), warmup {warm.get('warmed')}/"
+            f"{warm.get('total')} programs in {warm.get('seconds')} s, "
+            f"programs_compiled {rep.get('programs_compiled')}, "
+            f"graphs_captured {rep.get('graphs_captured')}"
+            + (" (killed)" if pid == killed.get("pid") else ""))
+    by_pid = {pid: mib for pid, mib in mem[1] + mem3[1] if pid in pids}
+    respawn_up = [t for t, ln in seen if re.search(
+        rf"replica {max(startups, default=-1)} connected", ln)]
+    log(f"  card memory, MiB (nvidia-smi): compute apps "
+        + (f"by worker pid {by_pid}" if by_pid else
+           f"{mem[1]} (pids not this machine's)")
+        + f"; the card's used memory {mem0[0]:.0f} before the server, "
+        f"{mem[0]:.0f} after round 1 (the server and its 2 workers "
+        f"{mem[0] - mem0[0]:.0f}), {mem2[0]:.0f} "
+        f"{t_mem2 - killed.get('t', t_mem2):.1f} s after the kill (the killed worker "
+        f"{mem[0] - mem2[0]:.0f}; the respawn "
+        + (f"connected {respawn_up[0] - killed.get('t', 0):.1f} s after the kill"
+           if respawn_up else "not connected")
+        + f"), {mem3[0]:.0f} after the respawn (the respawned worker "
+        f"{mem3[0] - mem2[0]:.0f})")
+    log(f"  round 1: {len(work)} requests streamed together, {ntok} tokens "
+        f"in {wall:.3f} s ({ntok / wall:.1f} output tokens/s; 12b's "
+        f"in-process server {tps12b:.1f}); streams "
+        f"{'equal to' if got == want else 'DIFFER from'} 12b's")
+    got2 = [t for t, _ in outs2]
+    fin_v = outs2[victim][1] or {}
+    log(f"  round 2: kill -9 of worker {killed.get('rid')} (pid "
+        f"{killed.get('pid')}) after {killed.get('at')} of request "
+        f"{victim}'s {len(want[victim])} tokens, the other 7 in flight: "
+        f"{wall2:.3f} s, streams {'equal to' if got2 == want else 'DIFFER from'}"
+        f" 12b's, the victim's failovers {fin_v.get('failovers')}; /stats "
+        f"failovers {st3['failovers']}, autoscaler {st3['autoscaler']}, "
+        f"replicas_spawned {st3['replicas_spawned']}, healthy "
+        f"{st3['healthy_replicas']}; respawned and warm "
+        + (f"{t_respawn - killed['t']:.1f} s after the kill"
+           if t_respawn and killed else "NEVER"))
+    got3 = [t for t, _ in outs3]
+    log(f"  round 3 after the respawn: {wall3:.3f} s, streams "
+        f"{'equal to' if got3 == want else 'DIFFER from'} 12b's; SIGTERM: "
+        f"rc 0, {line.split('—')[-1].strip()}; worker processes left: "
+        f"{left or 'none'}")
+    check(got == want, "phase 14a: the fleet's streams differ from 12b's")
+    check(killed and killed["at"] < len(want[victim]),
+          f"phase 14a: the kill never landed mid-stream: {killed}")
+    check(got2 == want, "phase 14a: streams differ from 12b's across the "
+          "kill -9")
+    check(all(f and f.get("done") for _, f in outs2),
+          f"phase 14a: a stream failed across the kill: "
+          f"{[f for _, f in outs2]}")
+    check(fin_v.get("failovers", 0) >= 1 and st3["failovers"] >= 1,
+          f"phase 14a: no failover recorded: {fin_v} {st3['failovers']}")
+    check(t_respawn is not None and st3["autoscaler"]["spawns"] >= 1,
+          f"phase 14a: the autoscaler never respawned: {st3['autoscaler']}")
+    check(got3 == want, "phase 14a: the respawned fleet's streams differ")
+    check(all(r["programs_compiled"] == 0 for r in st3["replicas"]
+              if r["programs_compiled"] is not None) and
+          st["programs_compiled"] == 0,
+          f"phase 14a: a worker or the router ran nvcc: "
+          f"{[(r['id'], r['programs_compiled']) for r in st3['replicas']]}")
+    check(len(startups) >= 3, f"phase 14a: worker startups {startups}")
+    check(not left, f"phase 14a: worker processes left after SIGTERM: "
+          f"{left}")
+
+
+def deploy_drill(torch, card):
+    """14b: ``python -m gym_tpu_torch.servesim.drill --out-of-process
+    --replicas 2 --kill-trainer --time-scale 2`` on the card: the trainer
+    killed and resumed, zero dropped, zero nvcc builds across the swaps,
+    the post-swap stream exact, no worker left."""
+    import shutil
+    import tempfile
+    out = tempfile.mkdtemp(prefix="gym_drill_")
+    cmd = [sys.executable, "-m", "gym_tpu_torch.servesim.drill", "--out",
+           os.path.join(out, "d"), "--out-of-process", "--replicas", "2",
+           "--kill-trainer", "--time-scale", "2"]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=420)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith('{"deploy_drill"')]
+    check(r.returncode == 0 and lines, f"phase 14b: the drill gave rc "
+          f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    res = json.loads(lines[-1])["deploy_drill"]
+    rep = res["replay"]
+    left = worker_pids()
+    log(f"phase 14b python -m gym_tpu_torch.servesim.drill "
+        f"--out-of-process --replicas 2 --kill-trainer --time-scale 2 (no "
+        f"--device: on {card}): {wall:.1f} s; trainer killed and resumed "
+        f"{res['trainer_killed_and_resumed']}, swaps to steps "
+        f"{res['reload_steps']}, final step served "
+        f"{res['final_step_served']}; replay {rep['done']}/"
+        f"{rep['requests']} done, TTFT p50 {rep['ttft_p50_s']} s p99 "
+        f"{rep['ttft_p99_s']} s, {rep['tokens_per_s']} output tokens/s; "
+        f"workers' programs_compiled {res['compiles_before']} -> "
+        f"{res['compiles_after']}; post-swap stream exact "
+        f"{res['post_swap_stream_exact']}; worker processes left: "
+        f"{left or 'none'}")
+    check(res["ok"] and rep["done"] == rep["requests"] and
+          res["post_swap_stream_exact"] and
+          res["compiles_before"] == res["compiles_after"] and
+          res["trainer_killed_and_resumed"],
+          f"phase 14b: {res}")
+    check(not left, f"phase 14b: worker processes left: {left}")
+
+
+def fleet_phase(torch, card, ref12b):
+    """Phase 14 (14a, 14b), after phase 13 and before 11a's run dirs
+    go."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    process_fleet(torch, card, ref12b)
+    t1 = time.perf_counter()
+    deploy_drill(torch, card)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s (14a {t1 - t0:.1f} s, "
+        f"14b {time.perf_counter() - t1:.1f} s)")
 
 
 def main() -> int:

@@ -18,14 +18,15 @@ KV-cache decode path (counterpart of ``gym_tpu.serve``).
 - ``supervisor``: the driver loop under a watchdog, rebuilding a failed or
   wedged engine.
 - ``router``: N in-process replicas behind one health-aware router
-  (least-loaded, prefix-affine dispatch, failover, rolling hot swap).
+  (least-loaded, prefix-affine dispatch, failover, rolling hot swap), or
+  worker processes (``worker``) behind the socket router
+  (``ProcessRouter``, ``build_process_fleet``), whose killed worker's
+  streams are spliced onto a sibling byte for byte; ``autoscale`` (a copy
+  of the JAX module) spawns and retires them.
 - ``metrics``: ``serve.csv`` and the headline (the JAX module's columns).
 - ``wire``: the length-prefixed frame codec (a copy of the JAX module's).
 - ``__main__``: ``python -m gym_tpu_torch.serve --ckpt RUN_DIR``, the HTTP
   server.
-
-The out-of-process fleet (worker processes, the process router, the
-autoscaler) is ROADMAP item 15.
 """
 
 from .engine import (BlockAllocator, EngineStats, InferenceEngine,

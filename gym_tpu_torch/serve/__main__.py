@@ -1,12 +1,13 @@
 """``python -m gym_tpu_torch.serve --ckpt <run_dir>`` — stdlib-HTTP serving
-on the card (counterpart of ``python -m gym_tpu.serve``, its in-process
-replicas).
+on the card (counterpart of ``python -m gym_tpu.serve``).
 
 No framework: ``http.server.ThreadingHTTPServer`` + the router over N
-in-process replicas (``serve/router.py``), each an engine, a ``Scheduler``
-and a ``Supervisor`` whose driver thread runs the engine loop inside a
-watchdog; handler threads submit and block on the request future. The
-endpoints, status codes and JSON keys are the JAX server's:
+replicas (``serve/router.py``): in-process ones, each an engine, a
+``Scheduler`` and a ``Supervisor`` whose driver thread runs the engine loop
+inside a watchdog, or with ``--out-of-process`` worker processes
+(``serve/worker.py``) behind a socket router; handler threads submit and
+block on the request future. The endpoints, status codes and JSON keys are
+the JAX server's:
 
 - ``POST /generate`` — JSON body with either ``prompt`` (a list of token
   ids) or ``text`` (char-level corpora only: encoded via ``CHAR_VOCAB``),
@@ -59,10 +60,19 @@ answer in-flight ones (bounded by ``--drain-deadline``), close the
 listener, flush ``serve.csv``, print "shut down cleanly" and the
 ``tokens_per_s`` headline, exit 0.
 
-Flags of later items keep their names and exit 2 naming the item:
-``--out-of-process``, ``--autoscale``, ``--autoscale-interval``,
-``--min-replicas``, ``--max-replicas`` and ``--worker-startup-timeout``
-(the process fleet, ROADMAP item 15).
+The process fleet: ``--out-of-process`` runs each of ``--replicas`` as a
+worker subprocess (its own interpreter, CUDA context and failure domain)
+over an AF_UNIX socket; the parent loads (and quantizes) once, builds the
+kernel library into the build directory before the first spawn, waits up
+to ``--worker-startup-timeout`` seconds for the workers to come healthy,
+and splices a killed worker's streams onto a sibling byte for byte.
+``--autoscale`` spawns and retires workers from their tokens/s EWMAs and
+backlog every ``--autoscale-interval`` seconds between ``--min-replicas``
+(default ``--replicas``) and ``--max-replicas`` (default
+``max(--replicas, 4)``), and respawns killed ones. ``/stats`` then carries
+``fleet: "process"``, each worker's ``pid`` and ``programs_compiled``, and
+the autoscaler's counters. Without ``--out-of-process`` the autoscaler
+flags do nothing, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -80,18 +90,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-#: flags of later items: (attribute, flag, the item that ports it)
-LATER_FLAGS = (
-    ("out_of_process", "--out-of-process", "ROADMAP item 15"),
-    ("autoscale", "--autoscale", "ROADMAP item 15"),
-    ("autoscale_interval", "--autoscale-interval", "ROADMAP item 15"),
-    ("min_replicas", "--min-replicas", "ROADMAP item 15"),
-    ("max_replicas", "--max-replicas", "ROADMAP item 15"),
-    ("worker_startup_timeout", "--worker-startup-timeout",
-     "ROADMAP item 15"),
-)
-
-
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gym_tpu_torch.serve",
@@ -108,9 +106,29 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_slots", type=int, default=4,
                    help="concurrent decode slots (the batch width)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="in-process engine replicas behind the "
-                        "health-aware router (failover and a rolling "
-                        "hot swap need >= 2)")
+                   help="engine replicas behind the health-aware router "
+                        "(failover and a rolling hot swap need >= 2)")
+    p.add_argument("--out-of-process", action="store_true",
+                   help="run each replica as a worker SUBPROCESS over a "
+                        "local socket (its own GIL, CUDA context and "
+                        "failure domain) instead of an in-process thread "
+                        "stack; a killed replica process splices "
+                        "mid-stream onto a sibling")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --out-of-process: spawn/retire replica "
+                        "processes from the live per-replica tokens/s "
+                        "EWMAs and backlog (bounds: --min-replicas/"
+                        "--max-replicas); also respawns killed workers")
+    p.add_argument("--min-replicas", type=int, default=None,
+                   help="autoscaler floor (default: --replicas)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   help="autoscaler ceiling (default: "
+                        "max(--replicas, 4))")
+    p.add_argument("--autoscale-interval", type=float, default=1.0,
+                   help="autoscaler tick interval in seconds")
+    p.add_argument("--worker-startup-timeout", type=float, default=240.0,
+                   help="seconds to wait for spawned worker processes "
+                        "to come healthy at startup")
     p.add_argument("--failover-retries", type=int, default=None,
                    help="per-request failover re-dispatch budget "
                         "(default: min(2, replicas-1))")
@@ -184,15 +202,6 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="default: the card; 'cpu' serves on the CPU "
                         "(tests)")
-    later = p.add_argument_group(
-        "later items", "kept by name; each exits 2 naming the item that "
-                       "ports it")
-    later.add_argument("--out-of-process", action="store_true")
-    later.add_argument("--autoscale", action="store_true")
-    later.add_argument("--autoscale-interval", type=float, default=None)
-    later.add_argument("--min-replicas", type=int, default=None)
-    later.add_argument("--max-replicas", type=int, default=None)
-    later.add_argument("--worker-startup-timeout", type=float, default=None)
     return p
 
 
@@ -210,6 +219,7 @@ class ServerHandle:
     info: Dict[str, Any]
     router: Any = None
     warmup: Any = None
+    autoscaler: Any = None
 
     @property
     def port(self) -> int:
@@ -226,8 +236,12 @@ class ServerHandle:
     def close(self, drain_deadline_s: float = 30.0) -> None:
         """Test-path teardown: stop every replica's driver, drain it
         (wedged replicas get their stacks dumped and their requests
-        failed typed), close the engines and the sockets."""
+        failed typed), close the engines and the sockets. A process fleet
+        stops the autoscaler first (no respawns during teardown) and
+        reaps every worker child."""
         self.stop_warmup()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         self.router.close(drain_deadline_s=drain_deadline_s)
         self.httpd.shutdown()
         self.httpd.server_close()
@@ -248,7 +262,16 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
                   reload_source: Optional[Any] = None,
                   warmup: bool = True,
                   quotas: Optional[Dict[str, Any]] = None,
-                  preempt: bool = False, device="cuda") -> ServerHandle:
+                  preempt: bool = False, device="cuda",
+                  program_cache_dir: Optional[str] = None,
+                  out_of_process: bool = False,
+                  autoscale: bool = False,
+                  min_replicas: Optional[int] = None,
+                  max_replicas: Optional[int] = None,
+                  autoscale_interval_s: float = 1.0,
+                  fleet_dir: Optional[str] = None,
+                  worker_startup_timeout_s: float = 240.0
+                  ) -> ServerHandle:
     """Build the serving stack — replica fleet (engines, schedulers,
     supervisors, router), metrics, HTTP server — WITHOUT entering
     ``serve_forever``. ``main`` and the in-process tests share this path.
@@ -262,14 +285,25 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
     their CUDA graphs, captured under each engine's dispatch lock, so a
     cold request pays no capture; later engines (a supervisor rebuild, a
     hot swap) capture theirs before they serve. ``device`` is every
-    engine's."""
+    engine's.
+
+    ``out_of_process=True`` runs the replicas as worker processes
+    (``build_process_fleet`` under ``fleet_dir``, default a fresh temp
+    dir; each worker warms its own family) and waits up to
+    ``worker_startup_timeout_s`` for them; ``autoscale`` drives them with
+    an ``Autoscaler`` between ``min_replicas`` (default ``replicas``) and
+    ``max_replicas`` (default ``max(replicas, 4)``).
+    ``program_cache_dir`` is the kernel library's build directory the
+    workers load from (default: this process's)."""
     from .. import programs as programs_mod
     from ..data.build_dataset import CHAR_VOCAB
     from ..utils.checkpoint import CheckpointNotFoundError
     from ..utils.resilience import fault_point
+    from .autoscale import AutoscalePolicy, Autoscaler
     from .engine import SamplingParams
     from .metrics import ServeMetrics
-    from .router import FleetReloadError, NoHealthyReplicaError, build_fleet
+    from .router import (FleetReloadError, NoHealthyReplicaError,
+                         build_fleet, build_process_fleet)
     from .scheduler import (AdmissionRejectedError, DeadlineExceededError,
                             EngineFailedError, QueueFullError,
                             RequestCancelledError, SchedulerClosedError,
@@ -299,25 +333,69 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
     metrics = ServeMetrics(metrics_dir)
     weights_tag = (f"step-{info['step']}"
                    if info.get("step") is not None else None)
-    router = build_fleet(
-        params, cfg, replicas=replicas, num_slots=num_slots,
-        decode_chunk=decode_chunk, paged=paged,
-        page_size=page_size or 16, kv_pages=kv_pages,
-        spec_tokens=spec_tokens if paged else 0, max_queue=max_queue,
-        metrics=metrics, dispatch_timeout_s=dispatch_timeout,
-        max_restarts=max_restarts, max_failovers=failover_retries,
-        weights_tag=weights_tag, quotas=quotas, preempt=preempt,
-        device=device, warm_rebuilds=warmup)
-    rep0 = router.replicas[0]
-    sched, sup = rep0.scheduler, rep0.supervisor
+    autoscaler = None
     warm_thread = None
-    if warmup:
-        # a graph belongs to one engine: warm every replica's family; a
-        # request arriving mid-warmup waits for at most one capture and
-        # single-flights into the same entry
-        warm_thread = programs_mod.warm_engine_programs(
-            [rep.scheduler.engine for rep in router.replicas],
-            log=sys.stderr.write)
+    if out_of_process:
+        # process fleet: each replica is a worker SUBPROCESS speaking the
+        # wire protocol over a unix socket in a private runtime dir; the
+        # parent writes the params snapshot once, builds the kernel library
+        # before the first spawn, and every worker loads both and captures
+        # its own graphs (programs_compiled 0 in every worker)
+        import tempfile
+        base = fleet_dir or tempfile.mkdtemp(prefix="gym_torch_fleet_")
+        router = build_process_fleet(
+            params, cfg, base, replicas=replicas, num_slots=num_slots,
+            decode_chunk=decode_chunk,
+            page_size=(page_size or 16) if paged else 0,
+            kv_pages=kv_pages,
+            spec_tokens=spec_tokens if paged else 0,
+            max_queue=max_queue, metrics=metrics,
+            dispatch_timeout_s=dispatch_timeout,
+            max_restarts=max_restarts, max_failovers=failover_retries,
+            weights_tag=weights_tag,
+            program_cache_dir=program_cache_dir,
+            no_warmup=not warmup, device=str(device),
+            quotas=quotas, preempt=preempt,
+            log=lambda *a, **k: print(*a, file=sys.stderr, flush=True))
+        router.start()
+        try:
+            router.wait_ready(n=replicas,
+                              timeout_s=worker_startup_timeout_s)
+        except BaseException:
+            router.close(drain_deadline_s=10.0)
+            metrics.close()
+            raise
+        if autoscale:
+            policy = AutoscalePolicy(
+                min_replicas=(replicas if min_replicas is None
+                              else int(min_replicas)),
+                max_replicas=(max(replicas, 4) if max_replicas is None
+                              else int(max_replicas)))
+            autoscaler = Autoscaler(
+                router, policy, interval_s=autoscale_interval_s,
+                metrics=metrics,    # per-tick audit rows in serve.csv
+                log=lambda *a, **k: print(*a, file=sys.stderr,
+                                          flush=True)).start()
+        sched = sup = None
+    else:
+        router = build_fleet(
+            params, cfg, replicas=replicas, num_slots=num_slots,
+            decode_chunk=decode_chunk, paged=paged,
+            page_size=page_size or 16, kv_pages=kv_pages,
+            spec_tokens=spec_tokens if paged else 0, max_queue=max_queue,
+            metrics=metrics, dispatch_timeout_s=dispatch_timeout,
+            max_restarts=max_restarts, max_failovers=failover_retries,
+            weights_tag=weights_tag, quotas=quotas, preempt=preempt,
+            device=device, warm_rebuilds=warmup)
+        rep0 = router.replicas[0]
+        sched, sup = rep0.scheduler, rep0.supervisor
+        if warmup:
+            # a graph belongs to one engine: warm every replica's family; a
+            # request arriving mid-warmup waits for at most one capture and
+            # single-flights into the same entry
+            warm_thread = programs_mod.warm_engine_programs(
+                [rep.scheduler.engine for rep in router.replicas],
+                log=sys.stderr.write)
     char_level = cfg.vocab_size <= len(CHAR_VOCAB) + 1
 
     def agg_tenant_snapshots(snaps):
@@ -380,6 +458,9 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
         def do_GET(self):
             if self.path not in ("/stats", "/healthz"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
+                return
+            if getattr(router, "kind", "thread") == "process":
+                self._stats_process()
                 return
             fleet = router.status()
             engines = [rep.scheduler.engine for rep in router.replicas]
@@ -457,6 +538,48 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
                 **fleet,
             })
 
+        def _stats_process(self):
+            """/stats for the OUT-OF-PROCESS fleet: the router process
+            holds no engines — per-replica engine samples come from the
+            workers' health frames (cached by the dispatcher's reader
+            loop), each entry carrying the worker ``pid`` and its OWN
+            ``programs_compiled`` (0 against a warm build directory)."""
+            fleet = router.status()
+            live = [r for r in fleet["replicas"] if not r["retired"]]
+            head = metrics.headline()
+            head.pop("replicas", None)
+            # degraded = fewer healthy workers than the fleet's floor (dead
+            # replicas stay listed for the post-mortem, but a respawned
+            # fleet is OK again)
+            floor = (autoscaler.policy.min_replicas
+                     if autoscaler is not None else replicas)
+            self._reply(200, {
+                **head,
+                "status": ("draining" if stop.is_set() else
+                           "degraded"
+                           if fleet["healthy_replicas"] < floor
+                           else "ok"),
+                "step": info["step"],
+                "num_slots": sum(r.get("num_slots") or 0
+                                 for r in live if r["healthy"]),
+                "active_slots": sum(r.get("active_slots") or 0
+                                    for r in live),
+                "queue_depth": sum(r.get("queue_depth") or 0
+                                   for r in live),
+                "tokens_generated": sum(r.get("tokens_generated") or 0
+                                        for r in live),
+                # the ROUTER process's own nvcc builds (it dispatches, it
+                # does not decode: the library it built for the workers);
+                # each replicas[] entry carries its worker's
+                "programs_compiled": programs_mod.xla_compile_counter(),
+                "autoscaler": (autoscaler.status()
+                               if autoscaler is not None else None),
+                # multi-tenant block off the workers' health frames
+                "tenants": agg_tenant_snapshots(
+                    [r.get("tenants") for r in live]),
+                **fleet,
+            })
+
         def do_POST(self):
             if self.path == "/reload":
                 self._do_reload()
@@ -524,9 +647,15 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
                             retry_after_s=1.0)
                 return
             try:
+                # the process router skips per-chunk wire frames for
+                # result-only requests; the in-process router has no such
+                # knob (tokens are already shared memory)
+                submit_kw = ({"stream": stream}
+                             if getattr(router, "kind", "") == "process"
+                             else {})
                 req = router.submit(prompt, sp, timeout=30.0,
                                     deadline_s=deadline, tenant=tenant,
-                                    slo_class=slo_class)
+                                    slo_class=slo_class, **submit_kw)
             except AdmissionRejectedError as e:
                 self._reply(429, {"error": str(e)},
                             retry_after_s=e.retry_after_s)
@@ -738,10 +867,16 @@ def create_server(params, cfg, *, host: str = "127.0.0.1", port: int = 0,
     # every accepted request gets its JSON reply before the process exits
     httpd.daemon_threads = False
     httpd.block_on_close = True
-    router.start()
+    if not out_of_process:
+        router.start()        # process fleets started above (their
+        #                       workers need the pre-listen wait)
     return ServerHandle(httpd=httpd, scheduler=sched, supervisor=sup,
-                        metrics=metrics, engine_factory=rep0.engine_factory,
-                        info=info, router=router, warmup=warm_thread)
+                        metrics=metrics,
+                        engine_factory=(None if out_of_process
+                                        else router.replicas[0]
+                                        .engine_factory),
+                        info=info, router=router, warmup=warm_thread,
+                        autoscaler=autoscaler)
 
 
 def main(argv=None) -> int:
@@ -750,11 +885,6 @@ def main(argv=None) -> int:
     if args.quant_embed and not args.quant:
         # refused, not ignored: quant_embed means nothing on f32 weights
         parser.error("--quant-embed requires --quant {int8,int4}")
-    for attr, flag, item in LATER_FLAGS:
-        if getattr(args, attr) not in (None, False):
-            print(f"gym_tpu_torch.serve: {flag} is ported with {item} of "
-                  f"gym_tpu_torch (ROADMAP.md)", file=sys.stderr)
-            return 2
     import torch
     if args.device == "cpu":
         device = "cpu"
@@ -825,21 +955,38 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
 
+    from .router import NoHealthyReplicaError
     stop = threading.Event()
-    handle = create_server(
-        params, cfg, host=args.host, port=args.port,
-        num_slots=args.num_slots, decode_chunk=args.decode_chunk,
-        max_queue=args.max_queue, request_timeout=args.request_timeout,
-        default_deadline=args.default_deadline,
-        dispatch_timeout=args.dispatch_timeout,
-        max_restarts=args.max_restarts,
-        metrics_dir=args.metrics_dir or os.path.join(args.ckpt, "serve"),
-        info=info, stop_event=stop, page_size=args.page_size,
-        kv_pages=args.kv_pages, spec_tokens=args.spec_tokens,
-        replicas=args.replicas, failover_retries=args.failover_retries,
-        reload_source=reload_source, warmup=not args.no_warmup,
-        quotas=quotas, preempt=args.preempt, device=device)
+    try:
+        handle = create_server(
+            params, cfg, host=args.host, port=args.port,
+            num_slots=args.num_slots, decode_chunk=args.decode_chunk,
+            max_queue=args.max_queue, request_timeout=args.request_timeout,
+            default_deadline=args.default_deadline,
+            dispatch_timeout=args.dispatch_timeout,
+            max_restarts=args.max_restarts,
+            metrics_dir=args.metrics_dir or os.path.join(args.ckpt, "serve"),
+            info=info, stop_event=stop, page_size=args.page_size,
+            kv_pages=args.kv_pages, spec_tokens=args.spec_tokens,
+            replicas=args.replicas, failover_retries=args.failover_retries,
+            reload_source=reload_source, warmup=not args.no_warmup,
+            quotas=quotas, preempt=args.preempt, device=device,
+            program_cache_dir=cache_dir,
+            out_of_process=args.out_of_process, autoscale=args.autoscale,
+            min_replicas=args.min_replicas, max_replicas=args.max_replicas,
+            autoscale_interval_s=args.autoscale_interval,
+            worker_startup_timeout_s=args.worker_startup_timeout)
+    except NoHealthyReplicaError as e:
+        print(f"gym_tpu_torch.serve: the worker fleet did not come up: {e}",
+              file=sys.stderr)
+        return 1
     httpd, metrics, router = handle.httpd, handle.metrics, handle.router
+    if args.out_of_process:
+        # the workers load the snapshot the fleet wrote; this process keeps
+        # no weights of its own
+        params = None
+        if device != "cpu":
+            torch.cuda.empty_cache()
 
     watcher = None
     if args.reload_watch > 0:
@@ -865,6 +1012,8 @@ def main(argv=None) -> int:
         stop.set()
         if watcher is not None:
             watcher.stop()
+        if handle.autoscaler is not None:
+            handle.autoscaler.stop()   # no respawns during the drain
         handle.stop_warmup()
         # per-replica drain: answer in-flight, fail queued typed; a
         # WEDGED replica gets its thread stacks dumped and its requests
@@ -887,17 +1036,26 @@ def main(argv=None) -> int:
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, _on_signal)
 
-    eng = handle.scheduler.engine
-    kv = (f"paged kv: page {eng.page_size} x {eng.kv_pages} pages"
-          + (f", spec {eng.spec_tokens}" if eng.spec_tokens else "")
-          if eng.paged else "unpaged kv")
-    if eng.weights_dtype != "f32" or eng.kv_dtype != "f32":
-        kv += f", quant w={eng.weights_dtype} kv={eng.kv_dtype}"
-    graphs = "cuda graphs" if eng.capture else "eager"
+    if handle.scheduler is not None:
+        eng = handle.scheduler.engine
+        kv = (f"paged kv: page {eng.page_size} x {eng.kv_pages} pages"
+              + (f", spec {eng.spec_tokens}" if eng.spec_tokens else "")
+              if eng.paged else "unpaged kv")
+        if eng.weights_dtype != "f32" or eng.kv_dtype != "f32":
+            kv += f", quant w={eng.weights_dtype} kv={eng.kv_dtype}"
+        kv += ", cuda graphs" if eng.capture else ", eager"
+        fleet_note = f"{args.replicas} replica(s)"
+    else:
+        kv = "worker-side kv"
+        if cfg.weights_dtype != "f32" or cfg.kv_dtype != "f32":
+            kv += f", quant w={cfg.weights_dtype} kv={cfg.kv_dtype}"
+        fleet_note = (f"{args.replicas} worker process(es)"
+                      + (", autoscaling" if handle.autoscaler is not None
+                         else ""))
     print(f"gym_tpu_torch.serve: listening on http://{args.host}:"
-          f"{handle.port} ({args.replicas} replica(s) x {args.num_slots} "
-          f"slots, queue {args.max_queue}, {kv}, {graphs} on {device}, "
-          f"watchdog {args.dispatch_timeout:.0f}s)", flush=True)
+          f"{handle.port} ({fleet_note} x {args.num_slots} slots, queue "
+          f"{args.max_queue}, {kv} on {device}, watchdog "
+          f"{args.dispatch_timeout:.0f}s)", flush=True)
     try:
         httpd.serve_forever()
     finally:

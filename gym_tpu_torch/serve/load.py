@@ -18,6 +18,11 @@ beside them. Serving needs none of the training machinery:
    (``quantize_params``) and ``kv_dtype`` ("int8") stamps the config: the
    KV cache quantizes as it is written.
 
+The process fleet loads once in the parent and hands its workers a numpy
+snapshot of the (quantized) weights and the config as JSON
+(``dump_params_snapshot``/``load_params_snapshot``, ``config_to_json``/
+``config_from_json``): every worker serves the parent's bits.
+
 ``CheckpointNotFoundError`` propagates typed (the CLI turns it into a
 one-line message).
 """
@@ -27,11 +32,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 import sys
 import threading
 import traceback
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..convert import serving_params
@@ -183,6 +190,51 @@ def load_for_serving(run_dir: str, step: Optional[int] = None,
             quant_embed=bool(quant_embed) or config.quant_embed)
         params = quantize_params(params, config)
     return params, config, info
+
+
+# -- the process fleet's params snapshot ----------------------------------
+
+
+def dump_params_snapshot(params: Dict[str, torch.Tensor], path: str) -> str:
+    """Write one model's flat parameters (f32 or already quantized) as a
+    pickled ``{name: numpy array}``, atomically (a worker must never read
+    a torn file): the snapshot the fleet's parent writes once and every
+    worker process loads (``load_params_snapshot``)."""
+    host = {name: t.detach().cpu().numpy() for name, t in params.items()}
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(host, f, protocol=4)
+    os.replace(tmp, path)
+    return path
+
+
+def load_params_snapshot(path: str, device: Optional[str] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A ``dump_params_snapshot`` file as tensors on ``device`` (the card
+    unless ``device="cpu"``), each leaf's dtype and bits kept."""
+    dev = default_device(device)
+    with open(path, "rb") as f:
+        host = pickle.load(f)
+    return {name: torch.as_tensor(np.asarray(a)).to(dev)
+            for name, a in host.items()}
+
+
+def config_to_json(config: GPTConfig, path: str) -> str:
+    """``config``'s fields as JSON, atomically (``config_from_json``)."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(dataclasses.asdict(config), f)
+    os.replace(tmp, path)
+    return path
+
+
+def config_from_json(path: str) -> GPTConfig:
+    """The ``GPTConfig`` a ``config_to_json`` file holds (unknown keys
+    ignored)."""
+    with open(path) as f:
+        raw = json.load(f)
+    fields = {f.name for f in dataclasses.fields(GPTConfig)}
+    return GPTConfig(**{k: v for k, v in raw.items() if k in fields})
 
 
 # -- checkpoint-dir watching ----------------------------------------------

@@ -1,9 +1,9 @@
 """Length-prefixed JSON wire protocol (a copy of ``gym_tpu/serve/wire.py``
 after this docstring, pinned to it by ``tests/test_torch_serve_http.py``).
 
-The out-of-process fleet's worker and router speak it over a local stream
-socket; in the port it rides with the in-process router, and the process
-fleet that carries frames over it is ROADMAP item 15. Its contract:
+The out-of-process fleet's worker (``serve/worker.py``) and router
+(``serve/router.py``'s ``ProcessRouter``) speak it over a local stream
+socket. Its contract:
 
 - **Typed failure, never a hang.** Every malformed input — truncated
   stream, oversized length prefix, non-JSON payload, unknown frame

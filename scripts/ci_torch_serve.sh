@@ -16,9 +16,14 @@
 # dtypes and the int8 pool's capacity, the warmup done, the SIGTERM drill,
 # and a restart against its build directory with programs_compiled 0.
 #
-# Not here: ci_serve.sh's process-fleet drill (--out-of-process) waits for
-# ROADMAP item 15. On the card the same servers are chip_smoke.py phases
-# 12b and 13d.
+# Then ci_serve.sh's out-of-process drill: the same checkpoint served with
+# --out-of-process --replicas 2 --autoscale against the first server's
+# build directory — two worker PROCESSES with distinct pids, each
+# programs_compiled 0, a streamed request in SSE chunks equal to the first
+# server's stream, and SIGTERM exiting 0 with every worker reaped.
+#
+# Not here: ci_serve.sh's bench.py riders. On the card the same servers
+# are chip_smoke.py phases 12b, 13d and 14a.
 #
 # Usage: scripts/ci_torch_serve.sh   (from the repo root or anywhere)
 set -o pipefail
@@ -31,7 +36,8 @@ rm -f "$log"
 timeout -k 10 900 env JAX_PLATFORMS=cpu python -m pytest \
     tests/test_torch_serve.py tests/test_torch_serve_paged.py \
     tests/test_torch_serve_http.py tests/test_torch_serve_fleet.py \
-    tests/test_torch_programs.py tests/test_torch_serve_quant.py -q \
+    tests/test_torch_programs.py tests/test_torch_serve_quant.py \
+    tests/test_torch_serve_procfleet.py -q \
     -p no:cacheprovider -p no:xdist -p no:randomly \
     2>&1 | tee "$log"
 rc=${PIPESTATUS[0]}
@@ -226,4 +232,54 @@ PYEOF
         cat "$OUT/server$run.log"; kill -9 "$SRV"; exit "$rc"; }
     sigterm "$OUT/server$run.log"
 done
+
+# the out-of-process drill: worker processes behind the socket router,
+# against the f32 build directory of the first server
+serve "$OUT/server5.log" progcache --out-of-process --replicas 2 \
+    --autoscale
+grep -q "2 worker process(es), autoscaling" "$OUT/server5.log" || {
+    echo "ci_torch_serve: no process-fleet status line"
+    cat "$OUT/server5.log"; kill -9 "$SRV"; exit 1; }
+timeout -k 10 180 env GYM_TPU_CI_SERVE_PORT="$PORT" \
+    GYM_TPU_CI_SERVE_OUT="$OUT" python - <<'EOF'
+import json, os, urllib.request
+
+port = os.environ["GYM_TPU_CI_SERVE_PORT"]
+body = json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 6, "top_k": 4,
+                   "seed": 0, "stream": True}).encode()
+r = urllib.request.urlopen(urllib.request.Request(
+    f"http://127.0.0.1:{port}/generate", body,
+    {"Content-Type": "application/json"}), timeout=120)
+assert r.headers["Content-Type"] == "text/event-stream", dict(r.headers)
+events = [json.loads(line[6:]) for line in r
+          if line.strip().startswith(b"data: ")]
+toks = [t for e in events if not e.get("done")
+        for t in e.get("tokens", [])]
+fin = events[-1]
+assert fin.get("done") is True and len(toks) == 6, events
+with open(os.path.join(os.environ["GYM_TPU_CI_SERVE_OUT"],
+                       "first.json")) as f:
+    assert toks == json.load(f), toks
+stats = json.loads(urllib.request.urlopen(
+    f"http://127.0.0.1:{port}/stats", timeout=10).read())
+assert stats.get("fleet") == "process", stats.get("fleet")
+assert stats["autoscaler"]["min_replicas"] == 2, stats["autoscaler"]
+live = [r for r in stats["replicas"] if not r["retired"]]
+assert len(live) == 2 and stats["healthy_replicas"] == 2, stats["replicas"]
+pids = {r["pid"] for r in live}
+assert len(pids) == 2 and os.getpid() not in pids, pids
+for rep in live:
+    assert rep["programs_compiled"] == 0, rep
+assert stats["replicas_spawned"] == 2, stats["replicas_spawned"]
+print("ci_torch_serve: process fleet — streamed request equal to the first "
+      "server's, ttft", fin["ttft_s"], "worker pids", sorted(pids),
+      "programs_compiled 0")
+EOF
+rc=$?
+[ "$rc" -ne 0 ] && { echo "ci_torch_serve: process-fleet drill failed";
+    cat "$OUT/server5.log"; kill -9 "$SRV"; exit "$rc"; }
+sigterm "$OUT/server5.log"
+pgrep -f "gym_tpu_torch.serve.worker" > /dev/null && {
+    echo "ci_torch_serve: leaked worker processes:";
+    pgrep -af "gym_tpu_torch.serve.worker"; exit 1; }
 echo "ci_torch_serve: all passed"

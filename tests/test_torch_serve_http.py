@@ -10,11 +10,13 @@ originals.
   (malformed JSON, a prompt too long, out-of-vocab ids), 429 +
   ``Retry-After`` (an infeasible deadline, body or header), 503 (an
   injected IO fault), 504 (a deadline that expires mid-decode);
-- ``main``: no card and no ``--device cpu`` exits 1; each flag of a later
-  item exits 2 naming it, and the quantization flags reach the loader;
+- ``main``: no card and no ``--device cpu`` exits 1; the process fleet's
+  six flags and the quantization flags reach the loader and the server;
 - ``wire.py`` and ``metrics.py``: the same frames, CRC rejections and
   headlines through both modules, and the same code (docstrings and
-  comments apart).
+  comments apart); ``serve/autoscale.py``, ``servesim/*`` (but
+  ``drill.py``) and ``sim/gridlib.py`` the same code up to the strings of
+  ``RENAMED`` that name the package.
 """
 
 import ast
@@ -202,36 +204,71 @@ def test_http_deadline_504_then_429_and_fault_503(server):
     assert stats["engine_restarts"] == 0 and stats["status"] == "ok"
 
 
-def test_main_refuses_the_cpu_and_later_items(tmp_path, capsys):
-    from gym_tpu_torch.serve.__main__ import LATER_FLAGS, main
+FLEET_FLAGS = ["--out-of-process", "--autoscale", "--autoscale-interval",
+               "0.5", "--min-replicas", "2", "--max-replicas", "3",
+               "--worker-startup-timeout", "60"]
+
+
+def test_main_refuses_the_cpu_and_later_items(tmp_path, capsys,
+                                              monkeypatch):
+    import gym_tpu_torch.serve.__main__ as tmain
+    from gym_tpu_torch.serve import load as tload
+    main = tmain.main
     assert not torch.cuda.is_available()
     assert main(["--ckpt", str(tmp_path)]) == 1
     assert "--device cpu" in capsys.readouterr().err
-    for _attr, flag, item in LATER_FLAGS:
-        argv = ["--ckpt", str(tmp_path), flag]
-        if flag in ("--autoscale-interval", "--min-replicas",
-                    "--max-replicas", "--worker-startup-timeout"):
-            argv.append("2")
-        assert main(argv) == 2, flag
-        err = capsys.readouterr().err
-        assert flag in err and item in err
+    # the process fleet asked for the card with no card: exits 1, never a
+    # quiet CPU fleet
+    assert main(["--ckpt", str(tmp_path), *FLEET_FLAGS]) == 1
+    assert "--device cpu" in capsys.readouterr().err
     assert main(["--ckpt", str(tmp_path / "missing"), "--device",
                  "cpu"]) == 1
     assert "cannot load" in capsys.readouterr().err
-    # quantized serving is ported: its flags reach the loader
-    assert not {"--quant", "--quant-embed", "--kv-quant"} & {
-        flag for _, flag, _ in LATER_FLAGS}
+    # the process fleet's flags reach the loader ...
     assert main(["--ckpt", str(tmp_path / "missing"), "--device", "cpu",
-                 "--quant", "int8", "--kv-quant", "int8"]) == 1
+                 *FLEET_FLAGS]) == 1
     assert "cannot load" in capsys.readouterr().err
+    # ... and the quantization flags too
+    assert main(["--ckpt", str(tmp_path / "missing"), "--device", "cpu",
+                 "--quant", "int8", "--kv-quant", "int8",
+                 *FLEET_FLAGS]) == 1
+    assert "cannot load" in capsys.readouterr().err
+    # ... and then the server, each as create_server's keyword
+
+    class Reached(Exception):
+        pass
+
+    seen = {}
+
+    def fake_load(run_dir, **kw):
+        seen["load"] = kw
+        return ({}, J.GPTConfig(), {"step": 3, "num_nodes": 1})
+
+    def fake_create(params, cfg, **kw):
+        seen.update(kw)
+        raise Reached
+
+    monkeypatch.setattr(tload, "load_for_serving", fake_load)
+    monkeypatch.setattr(tmain, "create_server", fake_create)
+    with pytest.raises(Reached):
+        main(["--ckpt", str(tmp_path), "--device", "cpu", "--replicas",
+              "2", "--quant", "int8", *FLEET_FLAGS])
+    assert seen["load"]["weights_dtype"] == "int8"
+    assert (seen["out_of_process"], seen["autoscale"],
+            seen["autoscale_interval_s"], seen["min_replicas"],
+            seen["max_replicas"], seen["worker_startup_timeout_s"],
+            seen["replicas"], seen["device"]) == (
+        True, True, 0.5, 2, 3, 60.0, 2, "cpu")
 
 
 # -- the copies, pinned -----------------------------------------------------
 
 
-def _code(path):
+def _code(path_or_source):
     """The module's AST without docstrings (comments never reach it)."""
-    tree = ast.parse(pathlib.Path(path).read_text())
+    src = (path_or_source.read_text()
+           if isinstance(path_or_source, pathlib.Path) else path_or_source)
+    tree = ast.parse(src)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body
@@ -242,10 +279,45 @@ def _code(path):
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("rel", ["serve/wire.py", "serve/metrics.py"])
+#: the strings a copy may differ in, each an (original, copy) substring
+#: pair applied to the original's string constants: log and usage lines
+#: that name the package
+RENAMED = {
+    "serve/autoscale.py": [("gym_tpu.serve: autoscaler",
+                            "gym_tpu_torch.serve: autoscaler")],
+    "servesim/replay.py": [("against a live gym_tpu server",
+                            "against a live gym_tpu_torch server")],
+    "servesim/sweep.py": [("python -m gym_tpu.servesim.",
+                           "python -m gym_tpu_torch.servesim.")],
+}
+
+
+def _renamed(path, pairs):
+    """``_code`` of ``path`` with each pair's original substring replaced
+    in its string constants."""
+    tree = ast.parse(pathlib.Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            for old, new in pairs:
+                node.value = node.value.replace(old, new)
+    return _code(ast.unparse(tree))
+
+
+@pytest.mark.parametrize("rel", [
+    "serve/wire.py", "serve/metrics.py", "serve/autoscale.py",
+    "sim/gridlib.py", "servesim/__init__.py", "servesim/traces.py",
+    "servesim/replay.py", "servesim/cost_model.py", "servesim/sweep.py",
+    "servesim/frontier_gate.py", "servesim/tenant_gate.py"])
 def test_copies_are_their_originals_code(rel):
-    assert _code(ROOT / "gym_tpu_torch" / rel) == _code(ROOT / "gym_tpu"
-                                                        / rel)
+    copy = ROOT / "gym_tpu_torch" / rel
+    orig = ROOT / "gym_tpu" / rel
+    pairs = RENAMED.get(rel, [])
+    assert _code(copy) == _renamed(orig, pairs)
+    # each allowed difference is used: no stale entry in the map
+    consts = [n.value for n in ast.walk(ast.parse(orig.read_text()))
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    for old, _new in pairs:
+        assert any(old in c for c in consts), old
 
 
 def test_wire_frames_and_crc_rejections_match():

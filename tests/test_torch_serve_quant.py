@@ -424,9 +424,12 @@ def test_main_quant_flags(tmp_path, capsys):
     """The three flags are served, not refused: ``--quant-embed`` without
     ``--quant`` is a usage error (exit 2); with ``--quant`` they reach the
     loader (a missing run dir exits 1, "cannot load")."""
-    from gym_tpu_torch.serve.__main__ import LATER_FLAGS, main
-    assert not {"--quant", "--quant-embed", "--kv-quant"} & {
-        flag for _, flag, _ in LATER_FLAGS}
+    from gym_tpu_torch.serve.__main__ import _build_parser, main
+    args = _build_parser().parse_args(["--ckpt", str(tmp_path), "--quant",
+                                       "int4", "--quant-embed",
+                                       "--kv-quant", "int8"])
+    assert (args.quant, args.quant_embed, args.kv_quant) == (
+        "int4", True, "int8")
     with pytest.raises(SystemExit) as e:
         main(["--ckpt", str(tmp_path), "--quant-embed", "--device", "cpu"])
     assert e.value.code == 2
