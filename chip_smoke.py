@@ -190,7 +190,32 @@ Phases (any failure exits non-zero before the result lines are printed):
    card: the trainer killed and resumed, zero dropped requests, zero
    ``nvcc`` builds in every worker across the hot swaps, the post-swap
    stream equal to ``generate_fast``;
-15. the ``kernels`` JSON line, then the result line.
+15. the network simulator and elastic membership: 15a phase 11a's fit
+   (GPT-2 base, K=2 × 4 rows, bf16, DiLoCo H=2, 6 steps) with
+   ``network="wan"``, with ``"datacenter"`` and without: ``sim_step_s`` in
+   every ``train.csv`` row, ``FitResult.sim["trace_tx_bytes"]`` equal to
+   the logged ``cum_comm_bytes`` exactly, wan's ``sim_comm_s`` above
+   datacenter's, B3/B4 exactly as the steps and evals need, the three
+   steady rates printed; 15b ZeRO-1 (AdamW) at GPT-2 base, K=4 × 4 rows,
+   checkpoints every 3, 9 steps: the step dir in the ZeRO-2 layout within
+   1% of 4·(n + 2·4·ceil(n/4)) bytes (n = 124,475,904), a worker (``--ckpt-worker``)
+   killed by ``dispatch.boundary:kill@5`` past its synchronous step-3
+   save and resumed at K=3 and K=5 in workers of their own, each to step 9
+   from step 3, its pre-kill ``train.csv`` rows verbatim, its mean loss
+   within 0.25 of the uninterrupted in-process run's, no step quarantined
+   and no ``nvcc`` build; K=4→3→4 and 4→5→4 of the trained state through
+   ``reshard_state`` on the card, bit-identical with the pad tail; the
+   replicate path at 4L/4H/256d (DiLoCo int8 without error feedback, SGD,
+   K=2→3: resumed at a sync boundary, ``NodeCountMismatchError`` mid-cycle
+   with nothing quarantined); restore plus reshard timed beside 11a's
+   restore; 15c ``python -m gym_tpu_torch.sim.sweep --preset
+   wan,datacenter --strategies diloco,simple_reduce --events none,join@4
+   --nodes 2 --steps 8 --batch_size 4 --block_size 128 --n_layer 2 --n_embd
+   64`` in a subprocess with no ``--device``: the DiLoCo headline, no
+   reconciliation failure, 6 cells in ``frontier.csv``, the join cells'
+   reshard priced, and in every cell the attention pair the port's gate
+   picks at that shape launched (the packed pair) and no other;
+16. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -1220,7 +1245,8 @@ def diloco():
 
 
 def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
-            run_name, init_params=None, tokens=200_000, strategy=None):
+            run_name, init_params=None, tokens=200_000, strategy=None,
+            **fit_kw):
     from gym_tpu_torch import Trainer
     from gym_tpu_torch.data import ContiguousGPTTrainDataset
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
@@ -1239,7 +1265,7 @@ def gpt_fit(torch, cfg_kw, nodes, batch, steps, device, autocast, seed,
         val_size=batch, val_interval=100,
         init_params=init_params, show_progress=False,
         log_dir=os.path.join(HERE, "build", "chip_smoke_logs"),
-        run_name=run_name)
+        run_name=run_name, **fit_kw)
 
 
 def reset_counts(mods):
@@ -3954,13 +3980,16 @@ CKPT_ROOT = os.path.join(HERE, "build", "chip_smoke_ckpt")
 # 11b and 11c: 11a's recipe at 4L/4H/256d (vocab 50304, T=1024)
 CKPT_SMALL = dict(GPT2_BASE, n_layer=4, n_head=4, n_embd=256)
 CKPT_STEPS, CKPT_EVERY = 6, 3
+# 11a's one restore, timed, for phase 15b's restore-plus-reshard beside it
+PHASE_11A = {}
 
 
-def ckpt_fit(torch, cfg_kw, steps, tag, **kw):
+def ckpt_fit(torch, cfg_kw, steps, tag, nodes=2, strategy=None, **kw):
     """Phase 11's fit: K=2 × 4 rows, bf16, DiLoCo (H=2, AdamW 3e-4,
     lambda_cosine warmup 2) on random tokens from seed 0, checkpoints every
     3 steps into ``CKPT_ROOT/ckpt/<tag>`` through the async writer, the
-    prefetcher on, no evals; ``kw`` passes on (max_steps via ``steps``)."""
+    prefetcher on, no evals; ``nodes`` and ``strategy`` (phase 15b's) and
+    ``kw`` pass on (max_steps via ``steps``)."""
     from gym_tpu_torch import Trainer
     from gym_tpu_torch.data import ContiguousGPTTrainDataset
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
@@ -3968,14 +3997,16 @@ def ckpt_fit(torch, cfg_kw, steps, tag, **kw):
     cfg = GPTConfig(**cfg_kw)
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, 200_000).astype(np.int32)
+    root = kw.pop("root", CKPT_ROOT)
     fit_kw = dict(checkpoint_interval=CKPT_EVERY,
-                  save_dir=os.path.join(CKPT_ROOT, "ckpt"), run_name=tag,
-                  log_dir=os.path.join(CKPT_ROOT, "logs"), device="cuda")
+                  save_dir=os.path.join(root, "ckpt"), run_name=tag,
+                  log_dir=os.path.join(root, "logs"), device="cuda")
     fit_kw.update(kw)
     return Trainer(GPT(cfg), ContiguousGPTTrainDataset(
         toks, cfg.block_size)).fit(
-        strategy=diloco(), num_nodes=2, max_steps=steps, batch_size=4,
-        autocast=True, seed=0, val_size=0, show_progress=False, **fit_kw)
+        strategy=strategy if strategy is not None else diloco(),
+        num_nodes=nodes, max_steps=steps, batch_size=4, autocast=True,
+        seed=0, val_size=0, show_progress=False, **fit_kw)
 
 
 def ckpt_csv(tag) -> bytes:
@@ -3990,21 +4021,31 @@ def ckpt_dir(tag) -> str:
 def ckpt_worker(spec: dict) -> int:
     """``chip_smoke.py --ckpt-worker SPEC``: one ``ckpt_fit`` in a process
     of its own (armed through ``GYM_TPU_FAULTS``; under
-    ``Guard(**spec["guard"])`` if given), its steps, ``preempted`` and the
-    guard's rollbacks and trips written to ``spec["result"]``."""
+    ``Guard(**spec["guard"])`` if given; phase 15b's ZeRO-1 at
+    ``spec["nodes"]`` nodes, synchronous saves, if ``spec["zero"]``), its
+    steps, ``preempted``, losses, ``nvcc`` builds and the guard's rollbacks
+    and trips written to ``spec["result"]``."""
     import torch
     sys.path.insert(0, HERE)
+    from gym_tpu_torch.ops import _build
     from gym_tpu_torch.utils.integrity import Guard, GuardRuntime
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     rt = (GuardRuntime(Guard(**spec["guard"])) if spec.get("guard")
           else None)
-    res = ckpt_fit(torch, spec["cfg"], spec["steps"], spec["tag"], guard=rt)
+    kw = {}
+    if spec.get("zero"):
+        kw = dict(nodes=spec["nodes"], strategy=elastic_zero(),
+                  async_checkpoint=False, root=spec["root"])
+    res = ckpt_fit(torch, spec["cfg"], spec["steps"], spec["tag"], guard=rt,
+                   **kw)
     with open(spec["result"], "w") as f:
         json.dump({"steps": res.steps, "preempted": res.preempted,
                    "rollbacks": rt.rollbacks if rt else 0,
-                   "trips": rt.trips if rt else []}, f)
+                   "trips": rt.trips if rt else [],
+                   "losses": res.history["train_loss"],
+                   "nvcc_builds": _build.stats["nvcc_builds"]}, f)
     return 0
 
 
@@ -4122,6 +4163,7 @@ def checkpoint_full_width(torch, mods, card, base_sps):
     _, got, _, _ = mgr.restore(tree)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
+    PHASE_11A["restore_s"] = restore_s
     mgr.close()
     check(same_params(torch, got["params"], st.params),
           f"{title}: a restored state differs from the saved one")
@@ -5611,6 +5653,371 @@ def fleet_phase(torch, card, ref12b):
         f"14b {time.perf_counter() - t1:.1f} s)")
 
 
+# -- phase 15: the network simulator and elastic membership ------------------
+
+
+ELASTIC_ROOT = os.path.join(HERE, "build", "chip_smoke_elastic")
+SWEEP_OUT = os.path.join(HERE, "build", "chip_smoke_sweep")
+# 15b: ZeRO-1 at GPT-2 base, K=4 × 4 rows, checkpoints every 3, 9 steps
+ELASTIC_NODES, ELASTIC_STEPS = 4, 9
+# GPT-2 base's per-node parameter count (148 leaves)
+GPT2_BASE_PARAMS = 124_475_904
+
+
+def elastic_zero():
+    from gym_tpu_torch.strategy import OptimSpec, ZeroReduceStrategy
+    return ZeroReduceStrategy(OptimSpec("adamw", lr=3e-4), **SCHED)
+
+
+def csv_rows(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def network_fits(torch, mods, card):
+    """15a: phase 11a's fit (K=2 × 4 rows, bf16, DiLoCo H=2, 6 steps) with
+    ``network="wan"``, with ``"datacenter"`` and without a network: every
+    train.csv row priced, the trace's bytes the logged bytes exactly, wan's
+    comm above datacenter's, B3/B4 exactly as the steps and evals need."""
+    title = "phase 15a gpt2-base fit(network=)"
+    log(f"{title}: K=2 x 4 rows, bf16, DiLoCo H=2, 6 steps, with "
+        f"network='wan', 'datacenter' and none")
+    out = {}
+    for net in ("wan", "datacenter", None):
+        run = f"15a_{net or 'none'}"
+        reset_counts(mods)
+        res = gpt_fit(torch, GPT2_BASE, 2, 4, 6, "cuda", True, 0, run,
+                      network=net)
+        counts = read_counts(mods)
+        want = expected_launches(res, GPT2_BASE, 6, packed=False)
+        check(counts == want, f"{title} {net}: launches {counts}, "
+              f"expected {want}")
+        out[net] = res
+        if net is None:
+            continue
+        run_dir = os.path.join(HERE, "build", "chip_smoke_logs", run)
+        rows = csv_rows(os.path.join(run_dir, "train.csv"))
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        check(len(rows) == 6 and all(float(r["sim_step_s"]) > 0
+                                     for r in rows),
+              f"{title} {net}: train.csv rows {rows}")
+        check(res.sim["trace_tx_bytes"] == summary["cum_comm_bytes"],
+              f"{title} {net}: trace {res.sim['trace_tx_bytes']} != "
+              f"cum_comm_bytes {summary['cum_comm_bytes']}")
+        log(f"  {net}: sim_total_s {res.sim['sim_total_s']:.6f}, "
+            f"sim_comm_s {res.sim['sim_comm_s']:.6f}, sim_compute_s "
+            f"{res.sim['sim_compute_s']:.6f}, trace_tx_bytes "
+            f"{res.sim['trace_tx_bytes']:.0f} = cum_comm_bytes; per-row "
+            f"sim_step_s {[r['sim_step_s'] for r in rows]}; launches "
+            f"{ {k: counts[k] for k in ('B3_blk_fwd', 'B4_blk_bwd')} } as "
+            f"expected")
+    check(out["wan"].sim["sim_comm_s"] > out["datacenter"].sim["sim_comm_s"],
+          f"{title}: wan's comm is not above datacenter's")
+    log(f"  steady steps/s on {card}: network='wan' "
+        f"{out['wan'].steps_per_second_steady}, 'datacenter' "
+        f"{out['datacenter'].steps_per_second_steady}, none "
+        f"{out[None].steps_per_second_steady} (the simulator runs on the "
+        f"host; no claim is made on these)")
+
+
+def start_elastic_worker(tag, nodes, faults=""):
+    """A ``--ckpt-worker`` process running 15b's ZeRO-1 fit at ``nodes``
+    nodes (synchronous saves) under the ``GYM_TPU_FAULTS`` spec."""
+    spec = {"cfg": GPT2_BASE, "steps": ELASTIC_STEPS, "tag": tag,
+            "result": os.path.join(ELASTIC_ROOT, f"{tag}.json"),
+            "zero": True, "nodes": nodes, "root": ELASTIC_ROOT}
+    env = dict(os.environ, GYM_TPU_FAULTS=faults, GYM_TPU_IO_RETRIES="2",
+               GYM_TPU_IO_RETRY_BASE_S="0.01")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--ckpt-worker", json.dumps(spec)], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), spec
+
+
+def elastic_csv(tag) -> str:
+    with open(os.path.join(ELASTIC_ROOT, "logs", tag, "train.csv")) as f:
+        return f.read()
+
+
+def meta_like(torch, tree, k):
+    """A state tree of ``tree``'s structure at ``k`` nodes, every tensor on
+    the meta device: the shapes a reshard target needs, no memory."""
+    from gym_tpu_torch.ops import threefry
+    from gym_tpu_torch.programs.elastic_defs import elastic_shard_size
+    n = GPT2_BASE_PARAMS
+
+    def leaf(x):
+        if not torch.is_tensor(x):
+            return x
+        shape = list(x.shape)
+        if len(shape) == 2 and shape[1] == elastic_shard_size(
+                n, ELASTIC_NODES):
+            shape[1] = elastic_shard_size(n, k)
+        return torch.empty([k] + shape[1:], dtype=x.dtype, device="meta")
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {key: walk(v) for key, v in t.items()}
+        return leaf(t)
+
+    out = {key: walk(tree[key]) for key in ("params", "model_state",
+                                             "strategy_state")}
+    out.update(step=tree["step"], rng=threefry.node_keys(0, k))
+    return out
+
+
+def elastic_round_trip(torch, tree):
+    """K=4 → 3 → 4 and 4 → 5 → 4 of a trained ZeRO state through the
+    ZeRO-2 codec and ``reshard_state`` on the card: params, both moments
+    and the pad tail bit-identical."""
+    from gym_tpu_torch.elastic import (STACKED_LAYOUT, ZERO2_LAYOUT,
+                                       elastic_meta, make_zero2_codec,
+                                       reshard_state)
+    n = GPT2_BASE_PARAMS
+    to_canon, _ = make_zero2_codec(tree, ELASTIC_NODES)
+    raw = to_canon(tree)
+    opt = tree["strategy_state"]["opt"]
+    # n = 4 · 31,118,976 = 3 · 41,491,968: only K=5 pads its last shard
+    for k_mid in (3, 5):
+        mid = reshard_state(raw, elastic_meta(ELASTIC_NODES, ZERO2_LAYOUT, n),
+                            meta_like(torch, tree, k_mid))
+        tail = mid["strategy_state"]["opt"]["mu"]["flat"].reshape(-1)[n:]
+        back = reshard_state(mid, elastic_meta(k_mid, STACKED_LAYOUT, n),
+                             meta_like(torch, tree, ELASTIC_NODES))
+        same = (all(torch.equal(back["params"][m], tree["params"][m])
+                    for m in tree["params"])
+                and all(torch.equal(back["strategy_state"]["opt"][m]["flat"],
+                                    opt[m]["flat"]) for m in ("mu", "nu")))
+        log(f"  K=4 -> {k_mid} -> 4 on the card: params, mu and nu "
+            f"{'bit-identical' if same else 'DIFFER'}; the K={k_mid} "
+            f"shards' pad tail: {tail.numel()} moment(s), "
+            f"{'all zero' if not tail.any() else 'NONZERO'}")
+        check(same and not tail.any(),
+              f"phase 15b: the K=4 -> {k_mid} -> 4 round trip differs")
+        del mid, back
+
+
+def replicate_path(torch, card):
+    """DiLoCo int8 (no error feedback, stateless SGD inner), K=2 → 3 at
+    4L/4H/256d: checkpointed at a sync boundary (step 3, H=2: step 2
+    synced) it resumes, every per-node leaf a replica; checkpointed
+    mid-cycle (H=4) it raises NodeCountMismatchError and quarantines
+    nothing."""
+    from gym_tpu_torch.strategy import (DiLoCoStrategy,
+                                        NodeCountMismatchError, OptimSpec)
+
+    def strat(H):
+        return DiLoCoStrategy(OptimSpec("sgd", lr=0.05), H=H, codec="int8",
+                              error_feedback=False)
+
+    for H, tag in ((2, "sync"), (4, "mid")):
+        ckpt_fit(torch, CKPT_SMALL, 3, f"rep_{tag}", strategy=strat(H),
+                 root=ELASTIC_ROOT)
+    res = ckpt_fit(torch, CKPT_SMALL, 6, "rep_sync", nodes=3,
+                   strategy=strat(2), root=ELASTIC_ROOT)
+    first = [s for s, _ in res.history["train_loss"]]
+    check(first == [3, 4, 5] and all(p.shape[0] == 3 for p in
+                                     res.node_state.params.values()),
+          f"phase 15b: the sync-boundary resume logged {first}")
+    raised = None
+    try:
+        ckpt_fit(torch, CKPT_SMALL, 6, "rep_mid", nodes=3, strategy=strat(4),
+                 root=ELASTIC_ROOT)
+    except NodeCountMismatchError as e:
+        raised = e
+    names = sorted(os.listdir(os.path.join(ELASTIC_ROOT, "ckpt", "rep_mid")))
+    check(raised is not None and names == ["3", "config.json"],
+          f"phase 15b: the mid-cycle resume gave {raised!r}, left {names}")
+    log(f"  replicate path (4L/4H/256d, DiLoCo int8 without error feedback, "
+        f"SGD): K=2 -> 3 at a sync boundary resumed, steps {first}; "
+        f"mid-cycle (H=4) refused: {str(raised)[:110]}...; quarantined "
+        f"nothing ({names})")
+
+
+def elastic_phase(torch, mods, card):
+    """15b: ZeRO-1 at GPT-2 base with ZeRO-2 checkpoints; a worker killed
+    -9 past the step-3 save and resumed at K=3 and K=5 in processes of
+    their own; the in-process uninterrupted run, its step dir's bytes and
+    round trips; the replicate path; restore-plus-reshard timed."""
+    import shutil
+    from gym_tpu_torch.elastic import (ZERO2_LAYOUT, elastic_meta,
+                                       reshard_state)
+    from gym_tpu_torch.trainer import _on_device, _state_tree
+    from gym_tpu_torch.utils.checkpoint import CheckpointManager
+    title = "phase 15b gpt2-base elastic ZeRO"
+    n = GPT2_BASE_PARAMS
+    log(f"{title}: K={ELASTIC_NODES} x 4 rows, bf16, ZeRO-1 AdamW, "
+        f"checkpoint_interval={CKPT_EVERY}, {ELASTIC_STEPS} steps; a worker "
+        f"killed by dispatch.boundary:kill@5, resumed at K=3 and K=5")
+    shutil.rmtree(ELASTIC_ROOT, ignore_errors=True)
+    procs = []
+    try:
+        kill = start_elastic_worker("kill", ELASTIC_NODES,
+                                    "dispatch.boundary:kill@5")
+        procs.append(kill[0])
+        reset_counts(mods)
+        torch.cuda.empty_cache()
+        base = ckpt_fit(torch, GPT2_BASE, ELASTIC_STEPS, "base",
+                        nodes=ELASTIC_NODES, strategy=elastic_zero(),
+                        root=ELASTIC_ROOT)
+        counts = read_counts(mods)
+        want = expected_launches(base, GPT2_BASE, ELASTIC_STEPS,
+                                 packed=False)
+        check(counts == want, f"{title}: launches {counts}, expected {want}")
+        step_dir = os.path.join(ELASTIC_ROOT, "ckpt", "base",
+                                str(ELASTIC_STEPS))
+        disk = dir_bytes(step_dir)
+        shard = -(-n // ELASTIC_NODES)
+        zero2 = 4 * (n + 2 * ELASTIC_NODES * shard)
+        stacked = 4 * (ELASTIC_NODES * n + 2 * ELASTIC_NODES * shard)
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            layout = json.load(f)["extra"]["elastic"]
+        log(f"  step dir {os.path.relpath(step_dir, HERE)}: {disk:,} bytes "
+            f"on disk, layout {layout}; ZeRO-2 predicts {zero2:,} "
+            f"(4·(n + 2·4·ceil(n/4)), n={n:,}), the stacked layout "
+            f"{stacked:,}; launches {counts} as expected")
+        check(layout == elastic_meta(ELASTIC_NODES, ZERO2_LAYOUT, n),
+              f"{title}: the step dir's layout {layout}")
+        check(abs(disk - zero2) <= 0.01 * zero2,
+              f"{title}: step dir of {disk} bytes, ZeRO-2 predicts {zero2}")
+
+        rc, out, err = finish_ckpt_worker(kill, timeout=600)
+        check(rc == -9 and out is None,
+              f"{title}: the killed worker gave rc {rc}\n{err}")
+        pre_kill = elastic_csv("kill")
+        for k in (3, 5):
+            for sub in ("ckpt", "logs"):
+                shutil.copytree(os.path.join(ELASTIC_ROOT, sub, "kill"),
+                                os.path.join(ELASTIC_ROOT, sub, f"k{k}"))
+        resumes = {k: start_elastic_worker(f"k{k}", k) for k in (3, 5)}
+        procs += [w[0] for w in resumes.values()]
+
+        live = _state_tree(base.node_state)
+        elastic_round_trip(torch, live)
+        target3 = meta_like(torch, live, 3)
+        tail = [l for s, l in base.history["train_loss"] if s >= CKPT_EVERY]
+        del base, live
+        torch.cuda.empty_cache()
+        # restore-plus-reshard: the K=4 step dir read as saved, onto the
+        # card, resharded onto K=3
+        mgr = CheckpointManager(os.path.join(ELASTIC_ROOT, "ckpt"), "base",
+                                async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, raw, _, extra = mgr.restore(None, step=ELASTIC_STEPS)
+        tree3 = reshard_state(_on_device(raw, torch.device("cuda")),
+                              extra["elastic"], target3)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        mgr.close()
+        check(tree3["strategy_state"]["opt"]["mu"]["flat"].shape[0] == 3,
+              f"{title}: the reshard onto K=3 gave the wrong shapes")
+        del raw, tree3
+        log(f"  restore plus reshard onto K=3 on {card}: {reshard_s:.2f} s "
+            f"(crc32c verify, torch.load, to the card, unshard and "
+            f"re-partition); phase 11a's restore of a stacked K=2 step: "
+            f"{PHASE_11A.get('restore_s', float('nan')):.2f} s")
+        replicate_path(torch, card)
+
+        for k, started in resumes.items():
+            rc, out, err = finish_ckpt_worker(started, timeout=600)
+            check(rc == 0 and out is not None,
+                  f"{title}: the K={k} resume gave rc {rc}\n{err}")
+            first = out["losses"][0][0]
+            got = [l for _, l in out["losses"]]
+            stitched = elastic_csv(f"k{k}")
+            quarantined = [x for x in os.listdir(os.path.join(
+                ELASTIC_ROOT, "ckpt", f"k{k}")) if "corrupt" in x]
+            gap = abs(sum(got) / len(got) - sum(tail) / len(tail))
+            log(f"  K=4 -> {k}: resumed at step {first} to "
+                f"{out['steps']}, pre-kill rows "
+                f"{'verbatim' if stitched.startswith(pre_kill) else 'LOST'}"
+                f", mean loss {sum(got) / len(got):.4f} against the "
+                f"uninterrupted run's {sum(tail) / len(tail):.4f} (gap "
+                f"{gap:.4f}), nvcc builds {out['nvcc_builds']}, "
+                f"quarantined {quarantined}")
+            check(out["steps"] == ELASTIC_STEPS and first == CKPT_EVERY
+                  and stitched.startswith(pre_kill)
+                  and len(stitched.splitlines()) == 1 + ELASTIC_STEPS
+                  and gap < 0.25 and out["nvcc_builds"] == 0
+                  and not quarantined,
+                  f"{title}: the K={k} resume: {out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(ELASTIC_ROOT, ignore_errors=True)
+
+
+def sweep_phase(torch, tfa, card):
+    """15c: ``python -m gym_tpu_torch.sim.sweep`` in a subprocess with no
+    ``--device`` (the card): 2 presets x DiLoCo and AllReduce x static and
+    join@4 (AllReduce's; DiLoCo's per-node state has no reshard), 2 nodes,
+    8 steps of a 2L/64d GPT at T=128 (the fused kernels' smallest block;
+    at T=64 the gate would take dense attention); the report's headline and
+    reconciliation, frontier.csv, the join cells' reshard, and the pair the
+    gate picks launched in every cell."""
+    import shutil
+    title = "phase 15c the sweep on the card"
+    q = torch.empty((4, 128, 64), device="cuda")
+    packed = tfa.packed_supported(q, 2)
+    pair = (("fwd_packed", "bwd_packed") if packed
+            else ("blk_fwd", "blk_bwd"))
+    cmd = [sys.executable, "-m", "gym_tpu_torch.sim.sweep", "--preset",
+           "wan,datacenter", "--strategies", "diloco,simple_reduce",
+           "--events", "none,join@4", "--nodes", "2", "--steps", "8",
+           "--batch_size", "4", "--block_size", "128", "--n_layer", "2",
+           "--n_embd", "64", "--out", SWEEP_OUT]
+    log(f"{title}: {' '.join(cmd[1:])}; the gate's pair at [4, 128, 64] x "
+        f"2 heads: {pair}")
+    shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"{title}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(SWEEP_OUT, "report.md")) as f:
+            report = f.read()
+        with open(os.path.join(SWEEP_OUT, "results.json")) as f:
+            rows = json.load(f)["rows"]
+        front = csv_rows(os.path.join(SWEEP_OUT, "frontier.csv"))
+        check("Headline: DiLoCo" in report
+              and "RECONCILIATION FAILURES" not in report,
+              f"{title}: report.md\n{report}")
+        check(len(rows) == 6 and len(front) == 6
+              and all(r["reconciled"] for r in rows),
+              f"{title}: {len(rows)} cells, {len(front)} frontier rows")
+        joins = [r for r in rows if r["event"]]
+        check(len(joins) == 2 and all(r["reshard_s"] > 0
+                                      and r["nodes_after"] == 3
+                                      for r in joins),
+              f"{title}: join cells {joins}")
+        for r in rows:
+            got = r["attention_launches"]
+            check(all(got[k] > 0 for k in pair)
+                  and all(v == 0 for k, v in got.items() if k not in pair),
+                  f"{title}: cell {r['cell']} launched {got}")
+        for line in report.splitlines():
+            if line.startswith("**Headline"):
+                log("  " + line)
+        for r in rows:
+            log(f"  {r['cell']}: sim_total_s {r['sim_total_s']:.4f}, "
+                f"sim_comm_s {r['sim_comm_s']:.4f}, compute "
+                f"{r['compute_s_per_step']:.6f} s/step, reconciled, "
+                + (f"reshard {r['reshard_s']:.6f} s against a cold restart's "
+                   f"{r['cold_restart_s']:.6f} s, " if r["event"] else "")
+                + f"launches {r['attention_launches']}")
+        log(f"  {len(front)} frontier.csv rows; the sweep took {wall:.1f} s "
+            f"on {card}")
+    finally:
+        shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5811,6 +6218,14 @@ def main() -> int:
         errs.update(q_errs)
         times.update(q_times)
         launches.update(q_launches)
+
+        t15 = time.perf_counter()
+        log(f"phase 15: the network simulator and elastic membership "
+            f"({t15 - t_all:.1f} s since the start)")
+        network_fits(torch, mods, card)
+        elastic_phase(torch, mods, card)
+        sweep_phase(torch, tfa, card)
+        log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,8 +11,10 @@ noloco, demo_outer and dynamiq; ``--compression_*`` for demo) and
 through ``generate_fast``); ``--ckpt RUN_DIR`` samples from a fit's run
 dir instead of training (a missing or wholly corrupt one is a one-line
 exit); ``--no_prefetch`` and ``--sync_checkpoint`` select the serial
-paths. Flags of a later slice of the port (cp/tp/ep/pp; MoE; network
-simulation) exit naming it. Runs on the card unless ``--device cpu``.
+paths; ``--network PRESET`` (and ``--network_overlap``) prices the
+strategy's collective trace on a topology and prints the simulated
+totals. Flags of a later slice of the port (cp/tp/ep/pp; MoE; experiment
+tracking) exit naming it. Runs on the card unless ``--device cpu``.
 
     python -m gym_tpu_torch.examples.nanogpt --strategy demo \\
         --num_nodes 64 --lr 1e-3 --block_size 256 --attn_impl flash
@@ -50,7 +52,6 @@ LATER_FLAGS = {
     "ep": (1, "expert parallelism (ROADMAP Queue A, item 16)"),
     "pp": (1, "pipeline parallelism (ROADMAP Queue A, item 16)"),
     "n_experts": (0, "mixture-of-experts layers (ROADMAP Queue A, item 16)"),
-    "network": (None, "the network simulator (ROADMAP Queue A, item 13)"),
     "wandb_project": (None, "experiment tracking"),
 }
 
@@ -227,8 +228,16 @@ def parser() -> argparse.ArgumentParser:
                         "writer thread")
     for name in ("cp", "tp", "ep", "pp", "n_experts"):
         p.add_argument(f"--{name}", type=int, default=LATER_FLAGS[name][0])
-    for name in ("network", "wandb_project"):
-        p.add_argument(f"--{name}", default=None)
+    p.add_argument("--wandb_project", default=None)
+    # the network simulation: the strategy's collective trace priced on a
+    # topology preset, sim_step_s in train.csv and the run's totals
+    p.add_argument("--network", default=None, metavar="PRESET",
+                   help="simulate this network topology (datacenter, wan, "
+                        "federated) — logs simulated per-step and total "
+                        "wall-clock alongside comm_bytes")
+    p.add_argument("--network_overlap", action="store_true",
+                   help="model perfect compute/comm overlap in the "
+                        "network simulation (default: comm serializes)")
     return p
 
 
@@ -283,6 +292,8 @@ def main(argv=None):
         autocast=args.autocast,
         prefetch=not args.no_prefetch,
         async_checkpoint=not args.sync_checkpoint,
+        network=args.network,
+        network_overlap=args.network_overlap,
         seed=args.seed,
         val_size=args.val_size,
         val_interval=args.val_interval,
@@ -290,6 +301,11 @@ def main(argv=None):
     )
     print(f"final train loss {res.final_train_loss:.4f} "
           f"({res.steps_per_second:.2f} it/s)")
+    if res.sim is not None:
+        print(f"simulated on {res.sim['topology']}: "
+              f"{res.sim['sim_total_s']:.1f}s total "
+              f"({res.sim['sim_comm_s']:.1f}s comm, "
+              f"{res.sim['sim_compute_s']:.1f}s compute)")
     if args.sample:
         # the node mean, as FitResult.params holds it
         print_sample(serving_params(res.node_state.params,

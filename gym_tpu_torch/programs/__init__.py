@@ -5,9 +5,9 @@ One keyed, observable owner of the serving engine's programs: on the card
 CUDA graphs, captured once and replayed (``graphs``), on the CPU the same
 programs run eagerly. ``registry`` is the single-flight, pinned, LRU store
 and its counters, ``warmup`` the background thread that builds an engine's
-family before traffic needs it, ``keys`` the canonical program key. The
-elastic programs (``gym_tpu/programs/elastic_defs.py``) are ported with
-ROADMAP item 13.
+family before traffic needs it, ``keys`` the canonical program key.
+``elastic_defs`` holds elastic membership's reshard programs, which the
+same registry keys and counts (eager programs, never captured).
 """
 
 from .graphs import StagedProgram

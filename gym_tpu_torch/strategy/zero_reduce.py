@@ -10,6 +10,12 @@ SimpleReduce's semantics (after the mean, by the global norm), the norm
 assembled from the chunk norms with one scalar sum. This is the JAX
 package's canonical schedule, which its single node axis runs:
 ``comm_bytes`` is (K−1)/K·(|g| + |θ|).
+
+``shard_checkpoint``: checkpoints take the ZeRO-2 layout
+(``gym_tpu_torch.elastic.make_zero2_codec``), each node's 1/K slice of the
+flat parameter vector beside its moments, O(model) bytes a step dir where
+the stacked replicas would be O(K·model); a resume at another node count
+re-partitions the slices (``elastic.reshard_state``).
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ from .sharding import ravel, shard_size, take_shard, unshard
 
 
 class NodeCountMismatchError(StrategyLifecycleError):
-    """Sharded state built for K nodes was fed to a step on K' != K: the
-    optimizer state's shard size pins the node count it was built at."""
+    """Sharded state built for K nodes was fed to a step on K' != K (the
+    optimizer state's shard size pins the node count it was built at), or
+    a checkpoint holds per-node state that no reshard can redistribute
+    onto another node count."""
 
 
 def _tensors(tree):
@@ -38,6 +46,9 @@ def _tensors(tree):
 
 
 class ZeroReduceStrategy(Strategy):
+    # the trainer writes ZeRO-2 checkpoints for a strategy that sets this
+    shard_checkpoint = True
+
     def __init__(
         self,
         optim_spec: Optional[Union[str, OptimSpec]] = None,
@@ -74,7 +85,8 @@ class ZeroReduceStrategy(Strategy):
                 f"ZeRO optimizer state holds shards of {sorted(saved)} "
                 f"elements but the step has num_nodes={k} (shard size "
                 f"{shard}). The state was built for a different node count: "
-                f"run at the original K.")
+                f"resume it with fit(resume=..., num_nodes={k}), which "
+                f"reshards it, or run at the original K.")
         # reduce-scatter: node i receives the i-th chunk of the summed
         # gradient, then its mean
         g_my = ctx.reduce_scatter(ravel(grads, k)) / k

@@ -19,8 +19,20 @@ emergency checkpoint at the next dispatch boundary and return
 ``preempted=True``), corrupted and resumed (``resume="auto"``), and each
 time its ``train.csv`` ends byte-identical to an uninterrupted run's.
 
-The fit kwargs of later slices (network simulation, cp/tp/ep/pp, ...) keep
-their names and raise when set.
+Elastic membership is the JAX trainer's too: every checkpoint records its
+(K, layout, n) in its meta, a strategy with ``shard_checkpoint`` (ZeRO-1)
+writes the ZeRO-2 layout, and ``fit(resume=..., num_nodes=K')`` on a
+checkpoint written at K peeks that record first, restores the step as
+saved (host tensors: a restore in the live shapes would quarantine a valid
+step) and reshards it onto K' nodes (``gym_tpu_torch.elastic``).
+
+``network=`` prices the strategy's collective trace on a topology preset
+(``gym_tpu_torch.sim``): a simulated step clock in every ``train.csv``
+row, and ``FitResult.sim`` with the whole run re-priced at the final
+steady compute rate.
+
+The fit kwargs of later slices (cp/tp/ep/pp, ...) keep their names and
+raise when set.
 """
 
 from __future__ import annotations
@@ -44,8 +56,8 @@ from .parallel.mesh import NodeRuntime
 from .strategy.base import Strategy, tree_num_params
 from .train_node import (TrainState, default_device, make_eval_step,
                          make_init_fn, make_multi_train_step, make_train_step)
-from .utils.checkpoint import (STACKED_LAYOUT, CheckpointLayoutError,
-                               CheckpointManager, CheckpointNotFoundError)
+from .utils.checkpoint import (STACKED_LAYOUT, CheckpointManager,
+                               CheckpointNotFoundError, _like)
 from .utils.integrity import (Guard, GuardRuntime, GuardTrippedError,
                               _InnerGuard, corrupt_state_tree,
                               tree_fingerprint)
@@ -79,6 +91,9 @@ class FitResult:
     # was taken (when checkpointing is configured), `steps` reads the step
     # reached, and a later fit(resume="auto") continues from exactly there
     preempted: bool = False
+    # fit(network=...): the whole run priced on the topology (sim_total_s,
+    # sim_comm_s, sim_compute_s, trace_tx_bytes, ...); None without one
+    sim: Optional[Dict[str, Any]] = None
 
 
 def _model_config(module) -> Dict[str, Any]:
@@ -104,8 +119,7 @@ def _due(interval, step_idx: int, s: int) -> bool:
 _LATER = {
     "devices": None, "cp": 1, "tp": 1, "ep": 1, "pp": 1,
     "correlation_interval": None, "compilation_cache_dir": None,
-    "profile_dir": None, "network": None, "network_overlap": False,
-    "wandb_project": None,
+    "profile_dir": None, "wandb_project": None,
 }
 
 
@@ -113,6 +127,36 @@ def _state_tree(state: TrainState) -> Dict[str, Any]:
     """The checkpointed form of a ``TrainState``: a plain dict."""
     return {f.name: getattr(state, f.name)
             for f in dataclasses.fields(TrainState)}
+
+
+def _on_device(tree, dev):
+    """``tree`` with its tensors moved to ``dev`` (the rest as it is)."""
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _on_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(v, dev) for v in tree)
+    return tree
+
+
+def _restore_elastic(restored, saved, live, num_nodes, from_canon, layout):
+    """A step restored as saved (``saved``: its ``extra["elastic"]``) in
+    the layout of ``live``, the fresh state tree of this fit: the ZeRO-2
+    codec's decode at an unchanged membership, else the reshard (which
+    also takes a stacked step at this K, one the newest-first walk fell
+    back to); on the live state's device."""
+    from .elastic import reshard_state
+    saved = saved or {}
+    dev = next(iter(live["params"].values())).device
+    restored = _on_device(restored, dev)
+    if (from_canon is not None
+            and int(saved.get("num_nodes", num_nodes)) == num_nodes
+            and saved.get("layout", STACKED_LAYOUT) == layout):
+        tree = from_canon(restored)
+    else:
+        tree = reshard_state(restored, saved, live)
+    return _like(tree, live)
 
 
 class Trainer:
@@ -260,6 +304,10 @@ class Trainer:
             raise ValueError(
                 f"resume={resume} requires save_dir and "
                 f"checkpoint_interval to locate the checkpoint")
+        if network is not None:
+            # an unknown preset fails here, before anything is built
+            from .sim import resolve_topology
+            resolve_topology(network, num_nodes)
         dev = default_device(device)
         minibatch_size = minibatch_size or batch_size
         if batch_size % minibatch_size != 0:
@@ -320,21 +368,27 @@ class Trainer:
         ckpt = None
         start_step = 0
         restored_extra: Dict[str, Any] = {}
-        layout = {"num_nodes": num_nodes, "layout": STACKED_LAYOUT}
+        to_canon = None
         if save_dir is not None and checkpoint_interval:
-            if getattr(strategy, "shard_checkpoint", False):
-                if wd is not None:
-                    wd.close()
-                raise CheckpointLayoutError(
-                    f"{type(strategy).__name__} asks for sharded checkpoints"
-                    f" (shard_checkpoint=True), whose layout is elastic "
-                    f"membership's (ROADMAP Queue A, item 13)")
+            from .elastic import (ZERO2_LAYOUT, elastic_meta,
+                                  make_zero2_codec, param_leaf_specs)
             # checkpointed runs pin the run name: the manager and the
             # logger must agree on it, or a resume would find the
             # checkpoint while the logger opens a fresh run dir
             run_name = run_name or "default"
             ckpt = CheckpointManager(save_dir, run_name,
                                      async_save=async_checkpoint, watchdog=wd)
+            live = _state_tree(state)
+            # every checkpoint records its membership (K, layout, n) so a
+            # resume at K' routes through the reshard; ZeRO writes ZeRO-2
+            # shards of O(model) bytes through the codec
+            zero2 = bool(getattr(strategy, "shard_checkpoint", False))
+            from_canon = None
+            if zero2:
+                to_canon, from_canon = make_zero2_codec(live, num_nodes)
+            layout = elastic_meta(
+                num_nodes, ZERO2_LAYOUT if zero2 else STACKED_LAYOUT,
+                param_leaf_specs(state.params)[1])
             if resume_step_pin is None and resume in (False, "never"):
                 if ckpt.latest_step() is not None:
                     ckpt.purge()
@@ -343,20 +397,32 @@ class Trainer:
                 peek = (ckpt.peek_meta(step=want_step)
                         if ckpt.latest_step() is not None else None)
                 saved = ((peek or {}).get("extra") or {}).get("elastic")
+                # peeked BEFORE the restore: a restore in the live shapes
+                # of a step saved at another K or layout would quarantine
+                # a valid step; such a step is restored as saved (host
+                # tensors in the saved shapes) and resharded after
+                use_raw = zero2 or (saved is not None and (
+                    int(saved["num_nodes"]) != num_nodes
+                    or saved.get("layout") != layout["layout"]))
                 try:
-                    if saved is not None and (
-                            int(saved["num_nodes"]) != num_nodes
-                            or saved.get("layout") != STACKED_LAYOUT):
-                        # read before any restore: a template restore
-                        # would quarantine perfectly valid steps
-                        raise CheckpointLayoutError(
-                            f"checkpoint under {ckpt.directory} was saved at"
-                            f" {saved['num_nodes']} nodes in the "
-                            f"{saved.get('layout')!r} layout; this fit runs "
-                            f"{num_nodes} nodes: a membership change needs "
-                            f"elastic resharding (ROADMAP Queue A, item 13)")
                     start_step, restored, data_state, restored_extra = \
-                        ckpt.restore(_state_tree(state), step=want_step)
+                        ckpt.restore(None if use_raw else live,
+                                     step=want_step)
+                    if use_raw:
+                        # the record of the step actually restored (the
+                        # walk may have fallen back past a corrupt one)
+                        saved = restored_extra.get("elastic") or saved
+                        restored = _restore_elastic(
+                            restored, saved, live, num_nodes, from_canon,
+                            layout["layout"])
+                        if int((saved or {}).get("num_nodes", num_nodes)) \
+                                != num_nodes:
+                            # per-node cursors mean nothing across a
+                            # membership change: keep the epoch, restart
+                            # the positions inside it
+                            data_state = {
+                                "epoch": int(data_state.get("epoch", 0)),
+                                "pos": [0] * num_nodes}
                 except CheckpointNotFoundError:
                     if want_step is not None:
                         ckpt.close()
@@ -372,10 +438,13 @@ class Trainer:
                 else:
                     state = TrainState(**restored)
                     train_iter.load_state(data_state)
+                del live
             if async_checkpoint and dev.type == "cuda":
                 # the pinned buffers saves copy into, pinned before the
                 # loop: a second or so of page-locking, once
-                ckpt.reserve(_state_tree(state))
+                tree = _state_tree(state)
+                ckpt.reserve(to_canon(tree) if to_canon else tree)
+                del tree
 
         train_step = make_train_step(loss_model, strategy, runtime.ctx,
                                      skip_nonfinite)
@@ -388,6 +457,15 @@ class Trainer:
                       if loss_model.compute_dtype is not None else loss_model)
         eval_step = make_eval_step(eval_model, runtime.ctx)
 
+        # the network simulation: the strategy's collective trace priced on
+        # a topology, host-side; the dispatch is untouched
+        net_sim = None
+        if network is not None:
+            from .sim import make_simulator, node_template
+            net_sim = make_simulator(
+                network, strategy, node_template(state.params, stacked=True),
+                num_nodes, overlap=network_overlap)
+
         per_node_params = tree_num_params(state.params) // num_nodes
         config = {
             "num_nodes": num_nodes, "batch_size": batch_size,
@@ -397,6 +475,10 @@ class Trainer:
             "num_params": per_node_params,
             "model_config": _model_config(loss_model.module),
             "device": str(dev),
+            # namespaced: the topology's num_nodes is the network's size
+            **({"network": dict(net_sim.topology.config(),
+                                overlap=network_overlap)}
+               if net_sim is not None else {}),
             **strategy.config(),
         }
         if ckpt is not None:
@@ -407,10 +489,12 @@ class Trainer:
         logger = CSVLogger(max_steps, run_name, log_dir, config,
                            show_progress, resume_step=start_step,
                            resume_cum_comm=restored_extra.get(
-                               "cum_comm_bytes"))
+                               "cum_comm_bytes"),
+                           sim=net_sim is not None)
         history: Dict[str, List] = {
             "train_loss": [], "local_loss": [], "global_loss": [],
             "comm_bytes": [], "comm_recv_bytes": [], "nonfinite": [],
+            "sim_step_s": [],
         }
         # deferred host reads (evals, the guard's fingerprints): dispatched
         # at once, read after the next dispatch is queued
@@ -464,6 +548,19 @@ class Trainer:
                 count).cpu().numpy() if "comm_recv_bytes" in m else None)
             nf_a = (m["nonfinite"].sum(dim=0).reshape(count).cpu().numpy()
                     if "nonfinite" in m else None)
+            # the running compute estimate of the per-row simulated step
+            # clock: the steady window once it exists (it excludes the
+            # first call's builds), the whole run's rate before; the
+            # summary re-prices every step at the final steady rate
+            comp_est = None
+            if net_sim is not None:
+                now = time.perf_counter()
+                retired = first_idx + count
+                if t_steady is not None and retired > steady_from:
+                    comp_est = (now - t_steady) / (retired - steady_from)
+                else:
+                    comp_est = ((now - t_start)
+                                / max(1, retired - start_step))
             for j in range(count):
                 step_j = first_idx + j
                 loss = float(loss_a[j])
@@ -474,10 +571,14 @@ class Trainer:
                     guard_rt.observe_loss(step_j, loss,
                                           worst=float(worst_a[j]))
                 last_loss = loss
+                sim_j = (net_sim.step_time(step_j, comp_est)
+                         if net_sim is not None else None)
                 logger.log_train(loss, strategy.lr_at(step_j), comm,
-                                 step=step_j)
+                                 step=step_j, sim_step_s=sim_j)
                 history["train_loss"].append((step_j, loss))
                 history["comm_bytes"].append((step_j, comm))
+                if sim_j is not None:
+                    history["sim_step_s"].append((step_j, sim_j))
                 if recv_a is not None:
                     history["comm_recv_bytes"].append(
                         (step_j, float(recv_a[j])))
@@ -524,14 +625,15 @@ class Trainer:
             # continues it bit-exactly
             extra_meta = {"cum_comm_bytes": logger.cum_comm_bytes,
                           "elastic": layout}
+            tree = _state_tree(state)
+            if to_canon is not None:
+                tree = to_canon(tree)
             if sync:
                 # the preemption handler's emergency save: durable before
                 # fit returns (ckpt.save waits out any async write first)
-                ckpt.save(at_step, _state_tree(state), data_state,
-                          extra_meta)
+                ckpt.save(at_step, tree, data_state, extra_meta)
             else:
-                ckpt.save_async(at_step, _state_tree(state), data_state,
-                                extra_meta)
+                ckpt.save_async(at_step, tree, data_state, extra_meta)
 
         # Preemption (SIGTERM from a scheduler, SIGINT from a keyboard):
         # the handler only RECORDS the signal; the loop notices at the next
@@ -708,6 +810,14 @@ class Trainer:
             mfu = node_mfu(gpt_cfg, state.params, batch_size * num_nodes,
                            elapsed / steps_done,
                            peak_flops=H100_BF16_PEAK_FLOPS)
+        sim_summary = None
+        if net_sim is not None:
+            # every step from 0 re-priced at the final steady compute rate:
+            # deterministic given the rate, and a resumed fit prices the
+            # steps before its start as the first fit did
+            comp_final = (1.0 / sps_steady if sps_steady
+                          else (elapsed / steps_done if steps_done else 0.0))
+            sim_summary = net_sim.simulate(end_step, comp_final).summary()
         logger.log_summary({
             "steps_per_second": steps_done / elapsed if elapsed else 0.0,
             "steps_per_second_steady": sps_steady,
@@ -718,6 +828,7 @@ class Trainer:
                        if dev.type == "cuda" else "cpu"),
             "cum_comm_bytes": logger.cum_comm_bytes,
             "final_train_loss": last_loss,
+            **(sim_summary or {}),
         })
         try:
             if not preempted:
@@ -742,6 +853,7 @@ class Trainer:
             mfu=mfu,
             steps_per_second_steady=sps_steady,
             preempted=preempted,
+            sim=sim_summary,
         )
 
 

@@ -70,7 +70,8 @@ PyTree = Any
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
-# the node layout a checkpoint records: every per-node tensor [K, ...]
+# the node layout a checkpoint records in ``extra["elastic"]``: every
+# per-node tensor [K, ...] (the other, ZeRO-2's, is ``elastic.ZERO2_LAYOUT``)
 STACKED_LAYOUT = "stacked"
 
 
@@ -87,13 +88,6 @@ class CheckpointWriteError(RuntimeError):
 class CheckpointWriterStuckError(RuntimeError):
     """``close()`` could not join the writer thread — a write is hung;
     the message carries every thread's stack as evidence."""
-
-
-class CheckpointLayoutError(RuntimeError):
-    """The checkpoint was saved at another node count, or the strategy
-    wants a sharded checkpoint layout: restoring it needs the reshard path
-    of elastic membership, which the port has not taken yet (ROADMAP Queue
-    A, item 13)."""
 
 
 # -- the format -------------------------------------------------------------

@@ -8,8 +8,11 @@ Oracles:
   bit-equal node params — under DiLoCo (AdamW and SGD outer state mid
   cycle), DeMo (its chunked momentum) and compressed DiLoCo (int4 with the
   error-feedback residual, the twin of ``test_kill_harness.py:143``);
-- ``max_to_keep`` pruning, a torn-only step dir quarantined and re-saved,
-  a node-count change refused with the typed layout error;
+- ``max_to_keep`` pruning, a torn-only step dir quarantined and re-saved;
+  a node-count change resumed through the reshard where the state is a
+  replica, and refused with the typed ``NodeCountMismatchError`` where it
+  is per-node, no step quarantined either way; a strategy asking for
+  sharded checkpoints writes the ZeRO-2 layout and resumes from it;
 - the port's and ``gym_tpu``'s checkpointed fits, from the same weights
   (``convert.params_from_jax``) and the same batches, stopped at 3 and
   resumed to 6: per-step losses within the f32 band (rtol 5e-5), the
@@ -46,11 +49,11 @@ from gym_tpu_torch.models.nanogpt import GPT, GPTConfig, generate_fast, \
 from gym_tpu_torch.serve.load import (gpt_config_from_run,
                                       latest_checkpoint_step,
                                       load_for_serving, read_run_config)
-from gym_tpu_torch.strategy import (DeMoStrategy, DiLoCoStrategy, OptimSpec,
+from gym_tpu_torch.strategy import (DeMoStrategy, DiLoCoStrategy,
+                                    NodeCountMismatchError, OptimSpec,
                                     SimpleReduceStrategy)
 from gym_tpu_torch.trainer import H100_BF16_PEAK_FLOPS
-from gym_tpu_torch.utils.checkpoint import (CheckpointLayoutError,
-                                            CheckpointManager,
+from gym_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             CheckpointNotFoundError)
 from gym_tpu_torch.utils.resilience import RetryPolicy
 
@@ -171,22 +174,39 @@ def test_a_killed_writers_leftovers_are_not_a_step(tmp_path):
 
 
 def test_node_count_change_is_refused_typed(tmp_path):
+    """A node-count change is refused, typed, only where the checkpoint
+    holds per-node state: DiLoCo at step 3 with H=2 has per-node AdamW
+    moments. SimpleReduce's state (SGD: the replicas alone) reshards onto
+    K=4 and resumes. Neither quarantines the valid step."""
+    _fit(tmp_path, 3, "diloco", val_size=0, tag="d")
+    with pytest.raises(NodeCountMismatchError, match="rows differ"):
+        _fit(tmp_path, 6, "diloco", val_size=0, tag="d", num_nodes=4)
+    assert sorted(os.listdir(os.path.join(str(tmp_path), "ckpt", "d"))) \
+        == ["3", "config.json"]
     _fit(tmp_path, 3, "simple", val_size=0)
-    with pytest.raises(CheckpointLayoutError, match="item 13"):
-        _fit(tmp_path, 6, "simple", val_size=0, num_nodes=4)
-    # the valid checkpoint was not quarantined by the refusal
-    assert os.listdir(os.path.join(str(tmp_path), "ckpt", "run")) \
-        .count("3") == 1
+    res = _fit(tmp_path, 6, "simple", val_size=0, num_nodes=4)
+    assert [s for s, _ in res.history["train_loss"]] == [3, 4, 5]
+    assert all(p.shape[0] == 4 for p in res.node_state.params.values())
+    run_ckpt = os.path.join(str(tmp_path), "ckpt", "run")
+    assert not [n for n in os.listdir(run_ckpt) if "corrupt" in n]
+    with open(os.path.join(run_ckpt, "6", "meta.json")) as f:
+        assert json.load(f)["extra"]["elastic"]["num_nodes"] == 4
 
     class Sharded(SimpleReduceStrategy):
         shard_checkpoint = True
 
-    with pytest.raises(CheckpointLayoutError, match="item 13"):
-        Trainer(GPT(GPTConfig(**TINY)),
-                ContiguousGPTTrainDataset(_tokens(), T)).fit(
-            strategy=Sharded(OptimSpec("sgd", lr=0.05)), max_steps=1,
+    def sharded(steps):
+        return Trainer(GPT(GPTConfig(**TINY)),
+                       ContiguousGPTTrainDataset(_tokens(), T)).fit(
+            strategy=Sharded(OptimSpec("sgd", lr=0.05)), max_steps=steps,
             device="cpu", save_dir=str(tmp_path / "z"), log_dir=str(
                 tmp_path / "zl"), **{**FIT, "val_size": 0})
+
+    sharded(3)
+    with open(os.path.join(str(tmp_path), "z", "default", "3",
+                           "meta.json")) as f:
+        assert json.load(f)["extra"]["elastic"]["layout"] == "zero2"
+    assert [s for s, _ in sharded(4).history["train_loss"]] == [3]
 
 
 # -- the port against gym_tpu through a resume --------------------------------

@@ -42,14 +42,18 @@ def test_mnist_cli_trains_on_the_digits(tmp_path, strategy):
 
 
 def test_nanogpt_cli_trains_on_the_docs_corpus(tmp_path):
+    """Two FedAvg steps on the docs corpus, priced on the ``wan`` preset
+    (``--network``): the simulated totals printed, a sim clock a row."""
     proc = _run(tmp_path, "nanogpt", "--device", "cpu", "--max_steps", "2",
                 "--block_size", "64", "--batch_size", "4", "--num_nodes", "2",
                 "--strategy", "fedavg", "--H", "2", "--dropout", "0.1",
-                "--val_size", "4")
+                "--val_size", "4", "--network", "wan")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "final train loss" in proc.stdout
+    assert "simulated on wan:" in proc.stdout
     rows = _train_rows(tmp_path / "logs")
     assert len(rows) == 2 and all(float(r["loss"]) > 0 for r in rows)
+    assert all(float(r["sim_step_s"]) > 0 for r in rows)
     # the docs stream of the checkout's gym_tpu/, cached under data/
     assert any((tmp_path / "data" / "docs_char").glob("stream_*.npy"))
 
@@ -95,7 +99,7 @@ def test_compression_strategies_train_from_the_cli(tmp_path, module, args):
 @pytest.mark.parametrize("module,args,word", [
     ("nanogpt", ["--pp", "2"], "pipeline"),
     ("nanogpt", ["--tp", "2"], "tensor parallelism"),
-    ("nanogpt", ["--network", "wan"], "network simulator"),
+    ("nanogpt", ["--wandb_project", "w"], "experiment tracking"),
     ("nanogpt", ["--n_experts", "2"], "mixture-of-experts"),
     ("nanogpt", ["--dataset", "shakespeare", "--device", "cpu"],
      "shakespeare")])

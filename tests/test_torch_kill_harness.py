@@ -10,7 +10,9 @@ This file is its own subprocess worker: ``python
 tests/test_torch_kill_harness.py --worker --save-dir D --log-dir L ...``
 runs one fit of a tiny GPT (2L/2H/32d, T=32, K=2, 12 steps, checkpoints
 every 3), armed through ``GYM_TPU_FAULTS``, and writes a JSON result on a
-clean finish. The seeded chaos campaigns over the same worker (the twin of
+clean finish; ``--strategy zero --num-nodes K`` runs ZeRO-1 (ZeRO-2
+checkpoints) at K nodes, the elastic drill's worker
+(``tests/test_torch_elastic.py``). The seeded chaos campaigns over the same worker (the twin of
 ``tests/test_chaos_campaign.py:230``) are marked slow, as there;
 ``scripts/ci_torch_faults.sh`` runs them with this file.
 """
@@ -48,7 +50,8 @@ def worker(argv=None) -> None:
     ap.add_argument("--log-dir", required=True)
     ap.add_argument("--sync-ckpt", action="store_true")
     ap.add_argument("--strategy", default="simple",
-                    choices=["simple", "diloco_int4"])
+                    choices=["simple", "diloco_int4", "zero"])
+    ap.add_argument("--num-nodes", type=int, default=2)
     ap.add_argument("--guard", action="store_true",
                     help="run under fit(guard=...), as a campaign that may "
                          "corrupt the live state (dispatch.state) needs")
@@ -63,7 +66,8 @@ def worker(argv=None) -> None:
     from gym_tpu_torch.data import ContiguousGPTTrainDataset
     from gym_tpu_torch.models.nanogpt import GPT, GPTConfig
     from gym_tpu_torch.strategy import (DiLoCoStrategy, OptimSpec,
-                                        SimpleReduceStrategy)
+                                        SimpleReduceStrategy,
+                                        ZeroReduceStrategy)
     from gym_tpu_torch.utils.integrity import Guard
 
     torch.set_num_threads(1)
@@ -73,12 +77,17 @@ def worker(argv=None) -> None:
         # nonzero error-feedback residual in the strategy state
         strategy = DiLoCoStrategy(OptimSpec("sgd", lr=0.05), H=2,
                                   codec="int4")
+    elif args.strategy == "zero":
+        # sharded AdamW moments and ZeRO-2 checkpoints: a resume at another
+        # --num-nodes reshards them
+        strategy = ZeroReduceStrategy(OptimSpec("adamw", lr=3e-3))
     else:
         strategy = SimpleReduceStrategy(OptimSpec("sgd", lr=0.05))
     res = Trainer(GPT(GPTConfig(block_size=32, vocab_size=65, n_layer=2,
                                 n_head=2, n_embd=32)),
                   ContiguousGPTTrainDataset(toks, 32)).fit(
-        strategy=strategy, num_nodes=2, max_steps=MAX_STEPS, batch_size=4,
+        strategy=strategy, num_nodes=args.num_nodes, max_steps=MAX_STEPS,
+        batch_size=4,
         minibatch_size=2, device="cpu", val_size=0, show_progress=False,
         seed=3, checkpoint_interval=CKPT_INTERVAL, save_dir=args.save_dir,
         run_name="kill", log_dir=args.log_dir,
@@ -92,7 +101,7 @@ def worker(argv=None) -> None:
 
 
 def run_worker(save_dir, log_dir, *, faults="", result=None,
-               sync_ckpt=False, strategy=None, guard=False):
+               sync_ckpt=False, strategy=None, guard=False, num_nodes=2):
     env = dict(os.environ)
     env["GYM_TPU_FAULTS"] = faults
     env["GYM_TPU_IO_RETRIES"] = "2"
@@ -108,6 +117,8 @@ def run_worker(save_dir, log_dir, *, faults="", result=None,
         cmd += ["--strategy", strategy]
     if guard:
         cmd += ["--guard"]
+    if num_nodes != 2:
+        cmd += ["--num-nodes", str(num_nodes)]
     return subprocess.run(cmd, env=env, cwd=REPO, capture_output=True,
                           text=True, timeout=TIMEOUT_S)
 

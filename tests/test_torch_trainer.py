@@ -270,13 +270,28 @@ def test_fit_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kwarg,value", [
-    ("correlation_interval", 2), ("network", "wan"), ("profile_dir", "p"),
-    ("cp", 2), ("tp", 2), ("pp", 2), ("ep", 2)])
+    ("correlation_interval", 2), ("compilation_cache_dir", "c"),
+    ("profile_dir", "p"), ("cp", 2), ("tp", 2), ("pp", 2), ("ep", 2)])
 def test_later_slice_kwargs_raise(kwarg, value):
     with pytest.raises(NotImplementedError):
         TTrainer(TGPT(TConfig(**SMALL)), TDataset(_tokens(), T)).fit(
             strategy=_strategy("torch", "diloco"), num_nodes=2, max_steps=1,
             device="cpu", **{kwarg: value})
+
+
+def test_network_kwargs_simulate_the_run(tmp_path):
+    """``network=`` and ``network_overlap=`` (a later slice's kwargs once)
+    price the run on the topology: ``sim_step_s`` a row and the totals."""
+    res = TTrainer(TGPT(TConfig(**SMALL)), TDataset(_tokens(), T)).fit(
+        strategy=_strategy("torch", "diloco"), num_nodes=2, max_steps=3,
+        batch_size=2, device="cpu", val_size=0, log_dir=str(tmp_path),
+        run_name="net", show_progress=False, network="federated",
+        network_overlap=True)
+    assert res.sim["topology"] == "federated" and res.sim["overlap"]
+    assert res.sim["steps"] == 3
+    assert [s for s, _ in res.history["sim_step_s"]] == [0, 1, 2]
+    rows = _rows(tmp_path / "net" / "train.csv")
+    assert all(float(r["sim_step_s"]) > 0 for r in rows)
 
 
 @pytest.mark.parametrize("device", [None, "cpu"])
