@@ -215,7 +215,30 @@ Phases (any failure exits non-zero before the result lines are printed):
    reconciliation failure, 6 cells in ``frontier.csv``, the join cells'
    reshard priced, and in every cell the attention pair the port's gate
    picks at that shape launched (the packed pair) and no other;
-16. the ``kernels`` JSON line, then the result line.
+16. mixture of experts on one card: 16a B8 (``grouped_gemm_kernel``,
+   ``grouped_outer_kernel``) against its plain version at the MoE path's
+   shapes, [16384, 768] x [8, 768, 3072] and [16384, 3072] x [8, 3072,
+   768], each ct_x (w read transposed) and each grouped_outer, bf16 and
+   f32, group sizes with an empty group and one of 60% of the rows, K=2
+   flattened to 16 groups (forward, ct_x and grouped_outer) and 333 rows
+   past sum(gs); in f32 also the served steps 16c gives B8 (decode of 1-16
+   slots, prefills of 32-512 tokens, top-2 rows routed as ``moe_mlp``
+   routes them, most groups empty at a few rows); each output poisoned
+   first: bf16 in phase 3's band, f32 in the f32 band and f32 grouped_dot
+   bit for bit R1's in-order FMA chains a group; then timed beside the
+   plain version, the library yardstick (``torch._grouped_mm`` where it
+   takes the operands, else a per-expert ``torch.matmul`` loop, labelled)
+   and the bound; 16b the repo's MoE config (GPT-2 base, every second
+   block's MLP 8 experts top-2, T=1024) through ``Trainer.fit``, K=2 × 4
+   rows, bf16, DiLoCo (AdamW, H=2), 4 steps: B8's launches exactly, steady
+   steps/s, peak memory, active-parameter MFU; 16c the same model in f32,
+   random weights, 8 of phase 10's requests through the paged engine
+   eagerly and on CUDA graphs (tokens and launches equal), one request
+   alone equal to its tokens in the batch and to ``generate_fast``; 16d
+   ``python -m gym_tpu_torch.examples.nanogpt --n_experts 4 --dataset
+   docs`` at 4L/4H/128d, three steps. ``chip_smoke.py --b8-check`` runs
+   the build and 16a's checks alone (``scripts/b8_faults.py``);
+17. the ``kernels`` JSON line, then the result line.
 
 The serving kernels (no Pallas counterpart: each replaces an XLA lowering of
 the JAX package's decode path): B7 (``decode_attention_kernel``, the paged
@@ -323,7 +346,8 @@ step. The launch counts in the
 entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1 with the add, T1's
 bits rows), each counted from zero; the packed pair and
 B5's forward count their bf16 and f32 kernels apart (every eval runs in
-f32); B6 and B7 int8 count 13b's first int8 run.
+f32); B6 and B7 int8 count 13b's first int8 run; B8's two kernels count
+16b's fit (grouped_dot's launches include the ct_x products).
 """
 
 from __future__ import annotations
@@ -364,6 +388,7 @@ SCATTER_CU = "gym_tpu_torch/ops/csrc/scatter_mean.cu"
 DECODE_CU = "gym_tpu_torch/ops/csrc/decode_attention.cu"
 ROW_CU = "gym_tpu_torch/ops/csrc/row_gemm.cu"
 QUANTIZE_CU = "gym_tpu_torch/ops/csrc/quantize_tiles.cu"
+B8_CU = "gym_tpu_torch/ops/csrc/grouped_gemm.cu"
 NANOGPT_JAX = "gym_tpu/models/nanogpt.py"
 # JAX's bundled Pallas TPU kernel, which gym_tpu/ops/flash_attention.py:77,84
 # calls for T > 1024
@@ -437,6 +462,13 @@ KERNELS = {
     "B7_decode_attention_int8": ("decode_attention", "decode_attention_int8",
                                  "launches", DECODE_CU,
                                  f"{NANOGPT_JAX}:361-362 and :460-465"),
+    # the MoE layers' grouped matmuls (no pallas_call: lax.ragged_dot and
+    # its transpose under the MoE fast path, gym_tpu/models/moe.py:137-140);
+    # grouped_dot's launches include the ct_x products (w read transposed)
+    "B8_grouped_dot": ("grouped_matmul", "grouped_dot", "launches", B8_CU,
+                       "gym_tpu/ops/grouped_matmul.py:40-65"),
+    "B8_grouped_outer": ("grouped_matmul", "grouped_outer", "launches",
+                         B8_CU, "gym_tpu/ops/grouped_matmul.py:75-102"),
 }
 # GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
 GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
@@ -2799,6 +2831,25 @@ def check_quantize_sass(counts):
           f"T1_quantize_tiles: rotations {rots}, expected 16 threefry "
           f"evaluations of 20 in the 256-tile kernel that draws, one in the "
           f"any-tile kernel's")
+
+
+def check_b8_sass(counts):
+    """B8's two kernels in both dtypes, without atomics (the global check
+    above): the bf16 instances on the tensor cores (HMMA, mma.sync), the
+    f32 ones FFMA chains without a tensor-core instruction."""
+    for name in ("grouped_gemm_kernel", "grouped_outer_kernel"):
+        found = [k for k in counts if name + "<" in k or name + "I" in k]
+        check(len(found) == 2, f"expected 2 {name}, found {found}")
+        for k in found:
+            c = counts[k]
+            bf16 = ("<true>" in k or "<(bool)1>" in k or "ILb1E" in k)
+            log(f"  {kernel_label(k)}: HMMA {c['HMMA']}, HGMMA "
+                f"{c['HGMMA']}, FFMA {c['FFMA']}, ATOM/RED {c['ATOM/RED']}")
+            if bf16:
+                check(c["HMMA"] > 0, f"{k}: bf16 B8 without HMMA")
+            else:
+                check(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0,
+                      f"{k}: f32 B8 must be FFMA chains ({c})")
 
 
 def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
@@ -6018,6 +6069,442 @@ def sweep_phase(torch, tfa, card):
         shutil.rmtree(SWEEP_OUT, ignore_errors=True)
 
 
+# -- phase 16: mixture of experts on one card ---------------------------------
+
+
+# the repo's MoE config (BENCHMARKS.md, benchmarks/bench_gpt2_base.py): GPT-2
+# base with every other block's MLP an 8-expert, top-2 routed MoE layer
+MOE_BASE = dict(GPT2_BASE, n_experts=8, expert_topk=2, moe_every=2)
+# 16a's grouped matmuls: 8 sequences of 1024 tokens, top-2 (16,384 rows),
+# C 768, H 3072, 8 experts
+B8_ROWS, B8_C, B8_H, B8_E = 16_384, 768, 3072, 8
+# 16a's rows past sum(gs)
+B8_PAST = 333
+MOE_CLI_DIR = os.path.join(HERE, "build", "chip_smoke_moe_cli")
+
+
+def b8_skewed(rows, e, past=0, big_first=True):
+    """Group sizes summing to ``rows - past``: one empty group, one with 60%
+    of the rows, the rest spread over the others (no size a multiple of the
+    kernels' 128-row tiles)."""
+    n = rows - past
+    big = int(0.6 * n)
+    rest = [(n - big) // (e - 2) + (i < (n - big) % (e - 2))
+            for i in range(e - 2)]
+    sizes = [0, big] + rest
+    return sizes if big_first else sizes[::-1]
+
+
+def b8_bound(flops, nbytes, f32):
+    """(ms, "operations" or "bytes"): the products at 989 TFLOP/s (bf16) or
+    at 67 TFLOP/s of f32 FMAs, or the bytes at 3.35 TB/s, the larger."""
+    t_ops = flops / (F32_FLOPS if f32 else BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def b8_library(torch, op, a, b, gs):
+    """The yardstick's callable and its label: ``torch._grouped_mm`` where
+    the installed torch has it and takes the operands (bf16; the weights
+    laid out as it wants them, outside the timing), else a per-expert
+    ``torch.matmul`` loop over host-known group sizes."""
+    sizes = [int(n) for n in gs.tolist()]
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    if op == "dot":
+        def loop():
+            return [a[s:s + n] @ b[i] for i, (s, n) in
+                    enumerate(zip(starts, sizes)) if n]
+    else:
+        def loop():
+            return [a[s:s + n].t() @ b[s:s + n] for i, (s, n) in
+                    enumerate(zip(starts, sizes)) if n]
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None or a.dtype != torch.bfloat16:
+        return loop, "per-expert torch.matmul loop"
+    if op == "outer" and any(n % 8 for n in sizes):
+        # the ragged axis contracted: _grouped_mm asserts on the device
+        # unless each group's rows are a multiple of 16 bytes
+        return loop, ("per-expert torch.matmul loop (torch._grouped_mm "
+                      "takes no group of rows that is not a multiple of 8)")
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        if op == "dot":
+            bt = b.transpose(1, 2).contiguous().transpose(1, 2)
+            fn = lambda: gm(a, bt, offs=offs)  # noqa: E731
+        else:
+            at = a.t().contiguous()
+            fn = lambda: gm(at, b, offs=offs)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn, "torch._grouped_mm"
+    except (RuntimeError, TypeError, ValueError) as e:
+        return loop, f"per-expert torch.matmul loop (_grouped_mm: {e})"[:160]
+
+
+def b8_r1_oracle(torch, op, a, b, gs):
+    """B8's f32 chains computed by R1 (``row_linear``), a group at a time:
+    each element one in-order FMA chain from 0.0f, R1's contract and B8's;
+    rows past sum(gs) and empty groups zero."""
+    from gym_tpu_torch.ops.row_linear import row_linear
+    from gym_tpu_torch.ops.grouped_matmul import _group_rows
+    if op == "dot":
+        out = torch.zeros(a.shape[0], b.shape[-1], device="cuda")
+        w_nk = b.stride(2) != 1
+        for g, s, n in _group_rows(gs, a.shape[0]):
+            wg = b[g].t() if w_nk else b[g]
+            out[s:s + n] = row_linear(a[s:s + n], wg.contiguous(),
+                                      w_nk=w_nk)
+        return out
+    out = torch.zeros(gs.shape[0], a.shape[1], b.shape[1], device="cuda")
+    for g, s, n in _group_rows(gs, a.shape[0]):
+        out[g] = row_linear(a[s:s + n].t().contiguous(), b[s:s + n])
+    return out
+
+
+def b8_routed(torch, randn, tokens, topk=2):
+    """A served step's B8 operands: ``tokens`` unit-normal rows routed as
+    ``moe_mlp`` routes them (an f32 softmax of x · router, the router at its
+    init N(0, 0.02), ``lax.top_k``'s picks, a stable sort), so the group
+    sizes are those of a real routing: at a few rows most groups empty.
+    Returns (the sorted rows [tokens·k, C], GELU's inputs [tokens·k, H],
+    the group sizes [E])."""
+    from gym_tpu_torch.models.moe import _group_sizes, top_k
+    x, router = randn(tokens, B8_C), randn(B8_C, B8_E, std=0.02)
+    _, topi = top_k(torch.softmax(x @ router, dim=-1), topk)
+    gid = topi.reshape(-1)
+    order = torch.argsort(gid, stable=True)
+    xs = x[:, None].expand(tokens, topk, B8_C).reshape(-1, B8_C)[order]
+    return xs, randn(tokens * topk, B8_H), _group_sizes(gid[None], B8_E)[0]
+
+
+# 16a's served steps in f32, tokens a call (top-2: twice the rows): a decode
+# step of 1, 4, 8 and 16 slots, the prefill buckets of 16c's shortest and
+# longest prompts (32, 512), and a 414-token prompt unpadded
+B8_SERVED = (1, 4, 8, 16, 32, 414, 512)
+
+
+def b8_cases(torch, dt):
+    """16a's cases in dtype ``dt``: (name, op, a, b, gs). Scales as on the
+    path: x and h unit normal (a layer norm's output, GELU's input), the
+    weights N(0, 0.02) (their init), the cotangents N(0, 0.02). Training's
+    shapes in both dtypes (the fit's forward and backward, and K=2 nodes
+    flattened to 16 groups as 16b's backward launches them); in f32 also
+    the served steps of ``B8_SERVED``, as 16c gives them to B8."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    r, c, h, e = B8_ROWS, B8_C, B8_H, B8_E
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * std).to(dt)
+
+    x, hid = randn(r, c), randn(r, h)
+    ct_h, ct_y = randn(r, h, std=0.02), randn(r, c, std=0.02)
+    w_fc, w_pr = randn(e, c, h, std=0.02), randn(e, h, c, std=0.02)
+    w_fc2, w_pr2 = randn(2 * e, c, h, std=0.02), randn(2 * e, h, c, std=0.02)
+
+    def sizes(s):
+        return torch.tensor(s, dtype=torch.int32, device="cuda")
+
+    gs8 = sizes(b8_skewed(r, e))
+    gs16 = sizes(b8_skewed(r // 2, e) + b8_skewed(r // 2, e,
+                                                  big_first=False))
+    past = sizes(b8_skewed(r, e, past=B8_PAST))
+    cases = [
+        ("fc", "dot", x, w_fc, gs8),
+        ("proj", "dot", hid, w_pr, gs8),
+        ("ct_x fc", "dot", ct_h, w_fc.transpose(1, 2), gs8),
+        ("ct_x proj", "dot", ct_y, w_pr.transpose(1, 2), gs8),
+        ("outer fc", "outer", x, ct_h, gs8),
+        ("outer proj", "outer", hid, ct_y, gs8),
+        ("fc K=2 (G=16)", "dot", x, w_fc2, gs16),
+        ("proj K=2 (G=16)", "dot", hid, w_pr2, gs16),
+        ("ct_x fc K=2 (G=16)", "dot", ct_h, w_fc2.transpose(1, 2), gs16),
+        ("ct_x proj K=2 (G=16)", "dot", ct_y, w_pr2.transpose(1, 2), gs16),
+        ("outer fc K=2 (G=16)", "outer", x, ct_h, gs16),
+        ("outer proj K=2 (G=16)", "outer", hid, ct_y, gs16),
+        (f"fc, {B8_PAST} rows past sum(gs)", "dot", x, w_fc, past),
+        (f"outer fc, {B8_PAST} rows past sum(gs)", "outer", x, ct_h, past),
+    ]
+    if dt == torch.float32:
+        for tokens in B8_SERVED:
+            xs, hs, gs = b8_routed(torch, randn, tokens)
+            cases += [(f"served fc, {tokens} tokens", "dot", xs, w_fc, gs),
+                      (f"served proj, {tokens} tokens", "dot", hs, w_pr, gs)]
+    return cases
+
+
+# 16a's timed cases: the JSON line's row of each kernel first
+B8_TIMED = ("fc", "proj", "ct_x fc", "ct_x proj", "outer fc", "outer proj")
+
+
+def check_b8(torch, tgm, card, timing=True):
+    """16a: B8 against its plain version on the card at the MoE path's
+    shapes, bf16 and f32 (each output poisoned first); f32 grouped_dot bit
+    for bit R1's chains a group, f32 grouped_outer and bf16 in their bands;
+    then the timed cases beside the plain version, the library yardstick and
+    the bound. Returns (errs, times) keyed by the kernels' names."""
+    errs = {"B8_grouped_dot": 0.0, "B8_grouped_outer": 0.0}
+    times, rows = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        f32 = dt == torch.float32
+        tag = "f32" if f32 else "bf16"
+        for name, op, a, b, gs in b8_cases(torch, dt):
+            fn = tgm.grouped_dot if op == "dot" else tgm.grouped_outer
+            plain = (tgm.plain_grouped_dot if op == "dot"
+                     else tgm.plain_grouped_outer)
+            out_elems = (a.shape[0] * b.shape[-1] if op == "dot"
+                         else gs.shape[0] * a.shape[1] * b.shape[1])
+            poison(torch, out_elems * a.element_size())
+            with torch.no_grad():
+                got = fn(a, b, gs)
+                ref = plain(a, b, gs)
+            torch.cuda.synchronize()
+            kernel = ("B8_grouped_dot" if op == "dot"
+                      else "B8_grouped_outer")
+            err = compare(f"B8 {name} {tag} [{a.shape[0]}, "
+                          f"{a.shape[1]}] x {list(b.shape)}, G="
+                          f"{gs.shape[0]}, sum(gs)={int(gs.sum())}"
+                          + (f", gs {gs.tolist()}" if name.startswith(
+                              "served") else ""),
+                          got, ref, "out", dt)
+            errs[kernel] = max(errs[kernel], err)
+            if op == "dot":
+                used = int(gs.sum())
+                check(torch.all(got[used:] == 0).item(),
+                      f"B8 {op} {name} {tag}: rows past sum(gs) not zero")
+            else:
+                empty = (gs == 0).nonzero().flatten().tolist()
+                check(all(torch.all(got[i] == 0).item() for i in empty),
+                      f"B8 {name} {tag}: an empty group not zero")
+            if f32:
+                with torch.no_grad():
+                    chain = b8_r1_oracle(torch, op, a, b, gs)
+                same = torch.equal(got, chain)
+                log(f"    f32 {'bit for bit' if same else 'NOT bit for bit'}"
+                    f" R1's in-order FMA chains a group (max |a-b| "
+                    f"{(got - chain).abs().max().item():.3e})")
+                if op == "dot":
+                    check(same, f"B8 {name}: f32 differs from R1's chains")
+            if not timing or name not in B8_TIMED or (
+                    f32 and name not in ("fc", "outer fc")):
+                continue
+            used = int(gs.sum())
+            k_dim, n_dim = (a.shape[1], b.shape[-1]) if op == "dot" else (
+                used, b.shape[1])
+            m_dim = used if op == "dot" else a.shape[1]
+            flops = 2 * m_dim * k_dim * n_dim
+            isz = a.element_size()
+            nonempty = int((gs > 0).sum())
+            if op == "dot":
+                nbytes = isz * (used * a.shape[1]
+                                + nonempty * a.shape[1] * b.shape[-1]
+                                + a.shape[0] * b.shape[-1])
+            else:
+                nbytes = isz * (used * (a.shape[1] + b.shape[1])
+                                + gs.shape[0] * a.shape[1] * b.shape[1])
+            lib_fn, lib_label = b8_library(torch, op, a, b, gs)
+            with torch.no_grad():
+                ms = timed(torch, lambda: fn(a, b, gs))
+                plain_ms = timed(torch, lambda: plain(a, b, gs), reps=3,
+                                 inner=3)
+                lib_ms = timed(torch, lib_fn)
+            bound_ms, by = b8_bound(flops, nbytes, f32)
+            log(f"    {name} {tag} timed (CUDA events, median of 5): "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms")
+            rows.append((f"{name} {tag}", ms, plain_ms, lib_ms,
+                         lib_label, bound_ms, by, flops / ms / 1e9))
+            if name in ("fc", "outer fc") and not f32:
+                times[kernel] = {"ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": lib_ms,
+                                 "bound": (bound_ms, by)}
+    if timing:
+        log(f"  16a B8 times (CUDA events, median of 5) on {card}:")
+        for name, ms, plain_ms, lib_ms, lib_label, bound_ms, by, tf in rows:
+            log(f"    {name}: {ms:.4f} ms ({tf:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_label}),"
+                f" bound {bound_ms:.4f} ms ({by}), "
+                f"{bound_ms / ms:.1%} of the bound")
+    return errs, times
+
+
+def moe_fit(torch, mods, card):
+    """16b: the MoE GPT-2 base at T=1024 through ``Trainer.fit``, K=2 x 4
+    rows, bf16, DiLoCo (AdamW, H=2), 4 steps: B8's launches exactly (each
+    MoE layer 2 forward products, 2 ct_x and 2 outers a step, 2 forward
+    products an eval forward), steps/s, peak memory, active-parameter
+    MFU."""
+    from gym_tpu_torch.models.nanogpt import GPTConfig, node_mfu
+    title = "phase 16b gpt2-base MoE (8 experts, top-2, every 2nd block)"
+    nodes, batch, steps = 2, 4, 4
+    counts, res = train_phase(torch, mods, title, MOE_BASE, nodes, batch,
+                              steps, ("B8_grouped_dot", "B8_grouped_outer",
+                                      "B3_blk_fwd", "B4_blk_bwd"))
+    peak = torch.cuda.max_memory_allocated()
+    cfg = GPTConfig(**MOE_BASE)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layer))
+    evals = 2 * len(res.history["global_loss"])
+    want = {"B8_grouped_dot": n_moe * (4 * steps + 2 * evals),
+            "B8_grouped_outer": n_moe * 2 * steps}
+    got = {k: counts[k] for k in want}
+    import gym_tpu_torch.ops.grouped_matmul as tgm
+    check(got == want, f"{title}: B8 launches {got}, expected {want}")
+    check(tgm.grouped_dot.launches_wt == n_moe * 2 * steps,
+          f"{title}: {tgm.grouped_dot.launches_wt} launches read w "
+          f"transposed, expected {n_moe * 2 * steps}")
+    sps = res.steps_per_second_steady or res.steps_per_second
+    mfu = node_mfu(cfg, res.node_state.params, nodes * batch, 1.0 / sps,
+                   peak_flops=BF16_FLOPS)
+    n_total = sum(p[0].numel() for p in res.node_state.params.values())
+    log(f"  B8 launches as expected: grouped_dot {want['B8_grouped_dot']} "
+        f"= {n_moe} MoE layers x (4 x {steps} steps + 2 x {evals} eval "
+        f"forwards), of them {tgm.grouped_dot.launches_wt} ct_x reading w "
+        f"transposed; grouped_outer {want['B8_grouped_outer']}")
+    log(f"  {n_total:,} parameters a node; steady {sps:.4f} steps/s, "
+        f"active-parameter MFU {mfu:.4%} at {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB on {card}")
+    del res
+    torch.cuda.empty_cache()
+    return got
+
+
+def moe_serving(torch, mods, card):
+    """16c: the same MoE model in f32 (random weights from a seed) through
+    the paged engine: 8 of phase 10's requests eagerly and on CUDA graphs,
+    the same tokens; one request alone gives its tokens in the batch and
+    ``generate_fast``'s."""
+    from gym_tpu_torch.convert import serving_params
+    from gym_tpu_torch.models.nanogpt import GPT, GPTConfig, generate_fast
+    title = "phase 16c serving the MoE GPT-2 base"
+    cfg = GPTConfig(**{k: v for k, v in MOE_BASE.items()
+                       if k != "attn_impl"})
+    params = serving_params(GPT(cfg).init_params(1, 0, "cuda"), node=0)
+    work = serve_workload()[:8]
+    paged = dict(num_slots=16, paged=True, page_size=16, decode_chunk=8)
+    log(f"{title}: f32, {len(work)} of phase 10's requests, prompts "
+        f"{min(len(p) for p, _ in work)}-{max(len(p) for p, _ in work)} "
+        f"tokens, paged engine (page 16, 16 slots, decode_chunk 8)")
+    streams, launches = {}, {}
+    for graphs in (False, True):
+        label = "graphs" if graphs else "eager"
+        reset_counts(mods)
+        got, eng, _, wall, _ = serve_run(torch, params, cfg, work,
+                                         f"16c {label}", cuda_graphs=graphs,
+                                         **paged)
+        counts = read_counts(mods)
+        launches[label] = {k: counts[k] for k in ("B8_grouped_dot",
+                                                  "B8_grouped_outer",
+                                                  "R1_row_gemm")}
+        streams[graphs] = got
+        ntok = sum(len(t) for t in got)
+        log(f"  {label}: {ntok} tokens in {wall:.3f} s ({ntok / wall:.1f} "
+            f"tokens/s), launches {launches[label]}")
+        check(counts["B8_grouped_dot"] > 0, f"{title} {label}: B8 never "
+              f"launched")
+        check(counts["B8_grouped_outer"] == 0, f"{title} {label}: an outer "
+              f"product at inference")
+        del eng
+    check(streams[True] == streams[False], f"{title}: the CUDA graphs' "
+          f"tokens differ from the eager engine's")
+    check(launches["graphs"] == launches["eager"], f"{title}: launches on "
+          f"graphs {launches['graphs']}, eagerly {launches['eager']}")
+    i = 3
+    p, kw = work[i]
+    one, eng, _, _, _ = serve_run(torch, params, cfg, [(p, kw)],
+                                  "16c alone", **paged)
+    del eng
+    gen_kw = {k: v for k, v in kw.items() if k != "max_new_tokens"}
+    gf = generate_fast(params, cfg, p[None], kw["max_new_tokens"],
+                       **gen_kw)[0, len(p):].tolist()
+    log(f"  graphs equal to eager, tokens and launches (graph replays "
+        f"count); request {i} alone "
+        f"{'equal' if one[0] == streams[True][i] else 'DIFFERS'} to its "
+        f"tokens in the batch, generate_fast "
+        f"{'equal' if gf == one[0] else 'DIFFERS'}")
+    check(one[0] == streams[True][i] == gf, f"{title}: a request alone "
+          f"differs from its tokens in the batch or from generate_fast")
+    del params
+    torch.cuda.empty_cache()
+    return launches["graphs"]
+
+
+def moe_cli(card):
+    """16d: the nanoGPT CLI with ``--n_experts 4`` on the docs corpus at a
+    small width, three steps on the card, in a subprocess."""
+    import shutil
+    title = "phase 16d the MoE CLI"
+    cmd = [sys.executable, "-m", "gym_tpu_torch.examples.nanogpt",
+           "--n_experts", "4", "--dataset", "docs", "--max_steps", "3",
+           "--block_size", "128", "--batch_size", "4", "--num_nodes", "2",
+           "--val_size", "4", "--autocast", "--attn_impl", "flash"]
+    shutil.rmtree(MOE_CLI_DIR, ignore_errors=True)
+    os.makedirs(MOE_CLI_DIR)
+    try:
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": HERE}
+        proc = subprocess.run(cmd, cwd=MOE_CLI_DIR, capture_output=True,
+                              text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{title}: rc {proc.returncode}\n"
+              f"{proc.stderr[-3000:]}")
+        runs = os.listdir(os.path.join(MOE_CLI_DIR, "logs"))
+        rows = csv_rows(os.path.join(MOE_CLI_DIR, "logs", runs[0],
+                                     "train.csv"))
+        check(len(runs) == 1 and runs[0].endswith("_moe4e2")
+              and len(rows) == 3
+              and all(math.isfinite(float(r["loss"])) for r in rows),
+              f"{title}: runs {runs}, rows {rows}")
+        final = [l for l in proc.stdout.splitlines()
+                 if l.startswith("final train loss")]
+        log(f"{title}: {' '.join(cmd[3:])}: run {runs[0]}, losses "
+            f"{[r['loss'] for r in rows]}; {final[0] if final else ''}; "
+            f"{wall:.1f} s on {card}")
+    finally:
+        shutil.rmtree(MOE_CLI_DIR, ignore_errors=True)
+
+
+def moe_phase(torch, mods, tgm, card):
+    """Phase 16: B8 on the card (16a), the MoE GPT-2 base trained (16b) and
+    served (16c), the CLI (16d). Returns (errs, times, launches) of the
+    JSON line's B8 rows (launches: 16b's)."""
+    t16 = time.perf_counter()
+    errs, times = check_b8(torch, tgm, card)
+    launches = moe_fit(torch, mods, card)
+    served = moe_serving(torch, mods, card)
+    log(f"  16c B8 launches on graphs: {served}")
+    moe_cli(card)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    return errs, times, launches
+
+
+def b8_check() -> int:
+    """``chip_smoke.py --b8-check``: phase 1, the build, B8's ptxas report
+    and 16a's checks alone (no timing), for ``scripts/b8_faults.py``'s
+    planted faults; exits 0 when 16a passes."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    import gym_tpu_torch.ops.grouped_matmul as tgm
+    from gym_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = card_line()
+        log(f"phase 1: {card}")
+        t0 = time.perf_counter()
+        _build.load()
+        log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
+        row_gemm_report(_build.build_log, _build._nvcc(),
+                        ("grouped_gemm_kernel", "grouped_outer_kernel"), 4)
+        errs, _ = check_b8(torch, tgm, card, timing=False)
+        torch.cuda.synchronize()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"16a passed: {errs}")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -6033,6 +6520,7 @@ def main() -> int:
         import gym_tpu_torch.ops.decode_attention as tdec
         import gym_tpu_torch.ops.flash_attention as tflash
         import gym_tpu_torch.ops.fused_attention as tfa
+        import gym_tpu_torch.ops.grouped_matmul as tgm
         import gym_tpu_torch.ops.quantize_tiles as tqt
         import gym_tpu_torch.ops.row_linear as trow
         import gym_tpu_torch.ops.scatter_mean as tsm
@@ -6053,7 +6541,8 @@ def main() -> int:
               "config4": (16 * 16, 256, 128, 4)}
     mods = {"fused": tfa, "flash": tflash, "threefry": tf,
             "scatter_mean": tsm, "decode_attention": tdec,
-            "row_linear": trow, "quantize_tiles": tqt}
+            "row_linear": trow, "quantize_tiles": tqt,
+            "grouped_matmul": tgm}
     t_all = time.perf_counter()
     try:
         card = card_line()
@@ -6107,6 +6596,10 @@ def main() -> int:
         check_quantize_sass(sass)
         row_gemm_report(_build.build_log, _build._nvcc(),
                         ("quantize_tiles",), QUANTIZE_KERNELS)
+        log("  B8 (grouped_gemm.cu), SASS and ptxas:")
+        check_b8_sass(sass)
+        row_gemm_report(_build.build_log, _build._nvcc(),
+                        ("grouped_gemm_kernel", "grouped_outer_kernel"), 4)
         t1_ops = threefry_ops_per_element(sass)
 
         log(f"phase 3: kernels against plain versions on the card "
@@ -6226,6 +6719,13 @@ def main() -> int:
         elastic_phase(torch, mods, card)
         sweep_phase(torch, tfa, card)
         log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+        log(f"phase 16: mixture of experts on one card "
+            f"({time.perf_counter() - t_all:.1f} s since the start)")
+        m_errs, m_times, m_launches = moe_phase(torch, mods, tgm, card)
+        errs.update(m_errs)
+        times.update(m_times)
+        launches.update(m_launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6252,4 +6752,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-worker"]:
         sys.exit(ckpt_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--b8-check"]:
+        sys.exit(b8_check())
     sys.exit(main())

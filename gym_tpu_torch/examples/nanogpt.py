@@ -13,8 +13,10 @@ dir instead of training (a missing or wholly corrupt one is a one-line
 exit); ``--no_prefetch`` and ``--sync_checkpoint`` select the serial
 paths; ``--network PRESET`` (and ``--network_overlap``) prices the
 strategy's collective trace on a topology and prints the simulated
-totals. Flags of a later slice of the port (cp/tp/ep/pp; MoE; experiment
-tracking) exit naming it. Runs on the card unless ``--device cpu``.
+totals; ``--n_experts E`` (with ``--expert_topk`` and ``--moe_every``) makes
+every ``moe_every``-th block's MLP an E-expert routed MoE layer on B8. Flags
+of a later slice of the port (cp/tp/ep/pp; experiment tracking) exit naming
+it. Runs on the card unless ``--device cpu``.
 
     python -m gym_tpu_torch.examples.nanogpt --strategy demo \\
         --num_nodes 64 --lr 1e-3 --block_size 256 --attn_impl flash
@@ -51,7 +53,6 @@ LATER_FLAGS = {
     "tp": (1, "tensor parallelism (ROADMAP Queue A, item 16)"),
     "ep": (1, "expert parallelism (ROADMAP Queue A, item 16)"),
     "pp": (1, "pipeline parallelism (ROADMAP Queue A, item 16)"),
-    "n_experts": (0, "mixture-of-experts layers (ROADMAP Queue A, item 16)"),
     "wandb_project": (None, "experiment tracking"),
 }
 
@@ -78,6 +79,8 @@ def gen_run_name(args) -> str:
         parts.append(args.codec)
     if args.participation < 1.0:
         parts.append(f"part{args.participation}")
+    if args.n_experts:
+        parts.append(f"moe{args.n_experts}e{args.expert_topk}")
     return "_".join(str(p) for p in parts)
 
 
@@ -226,7 +229,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--sync_checkpoint", action="store_true",
                    help="blocking checkpoint saves instead of the "
                         "writer thread")
-    for name in ("cp", "tp", "ep", "pp", "n_experts"):
+    p.add_argument("--n_experts", type=int, default=0,
+                   help="MoE: experts per MoE block (0 = dense)")
+    p.add_argument("--expert_topk", type=int, default=2)
+    p.add_argument("--moe_every", type=int, default=2,
+                   help="every Nth block is MoE (2 = alternate)")
+    for name in ("cp", "tp", "ep", "pp"):
         p.add_argument(f"--{name}", type=int, default=LATER_FLAGS[name][0])
     p.add_argument("--wandb_project", default=None)
     # the network simulation: the strategy's collective trace priced on a
@@ -280,6 +288,10 @@ def main(argv=None):
     cfg.block_size = args.block_size
     cfg.attn_impl = args.attn_impl
     cfg.dropout = args.dropout
+    if args.n_experts:
+        cfg.n_experts = args.n_experts
+        cfg.expert_topk = args.expert_topk
+        cfg.moe_every = args.moe_every
     res = Trainer(GPT(cfg), train, val).fit(
         num_epochs=args.num_epochs,
         max_steps=args.max_steps,

@@ -39,8 +39,16 @@ rows it looks up, and keeps K and V in int8 pools with f32 scale pools
 (``k_scale``/``v_scale``, the page or row dimension first), quantized as
 they are written and read by B7's int8 form. The evaluation forward
 dequantizes a quantized tree's leaves and runs the f32 forward; training
-one raises. MoE and sequence sharding belong to later slices of the port
-and raise.
+one raises.
+
+Mixture of experts (``n_experts > 0``): every ``moe_every``-th block's MLP
+is ``models/moe.py``'s routed layer, parameters ``h_{i}.moe.router.kernel``
+``[C, E]``, ``fc_kernel`` ``[E, C, 4C]``, ``proj_kernel`` ``[E, 4C, C]``
+and the biases ``fc_bias`` ``[E, 4C]`` and ``proj_bias`` ``[E, C]``; the
+experts run on B8 (``ops/grouped_matmul.py``) under the ``ragged``
+dispatch, and the layers' weighted router losses join the loss in training
+only. Decode runs them in f32 on B8 with the router on R1. Quantized
+weights with MoE, expert parallelism and sequence sharding raise.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..ops.fused_attention import kv_quantize
 from ..ops.grouped_matmul import quantized_attend, quantized_dot
 from ..ops.row_linear import row_add_layer_norm, row_cumsum, row_linear
 from .base import dropout as _dropout
+from .moe import moe_active_params, moe_mlp, resolve_impl
 
 
 @dataclasses.dataclass
@@ -96,6 +105,10 @@ class GPTConfig:
     kv_dtype: str = "f32"
     quant_tile: int = 256
     quant_embed: bool = False
+
+    def is_moe_layer(self, i: int) -> bool:
+        return (self.n_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
 
     @classmethod
     def gpt2_size_map(cls, size: str) -> "GPTConfig":
@@ -132,7 +145,7 @@ class GPTConfig:
 def _unsupported(cfg: GPTConfig) -> Optional[str]:
     """The config fields of later slices, named if set."""
     checks = (
-        (cfg.n_experts > 0, "mixture-of-experts layers"),
+        (cfg.expert_axis is not None, "expert parallelism"),
         (cfg.seq_axis is not None or cfg.attn_impl == "ring",
          "sequence sharding (ring attention)"),
     )
@@ -265,6 +278,13 @@ class GPT(torch.nn.Module):
         if config.kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', got "
                              f"{config.kv_dtype!r}")
+        refuse_quantized_moe(config)
+        if config.n_experts > 0:
+            resolve_impl(config.moe_impl)
+            if not 1 <= config.expert_topk <= config.n_experts:
+                raise ValueError(
+                    f"expert_topk={config.expert_topk} must be in [1, "
+                    f"n_experts={config.n_experts}]")
         self.config = config
 
     def _param_specs(self):
@@ -293,6 +313,15 @@ class GPT(torch.nn.Module):
             dense(f"{p}.attn.c_attn", c, 3 * c, 0.02)
             dense(f"{p}.attn.c_proj", c, c, resid)
             ln(f"{p}.ln_2")
+            if cfg.is_moe_layer(i):
+                e = cfg.n_experts
+                specs[f"{p}.moe.router.kernel"] = ((c, e), 0.02)
+                specs[f"{p}.moe.fc_kernel"] = ((e, c, 4 * c), 0.02)
+                specs[f"{p}.moe.proj_kernel"] = ((e, 4 * c, c), resid)
+                if cfg.bias:
+                    specs[f"{p}.moe.fc_bias"] = ((e, 4 * c), 0.0)
+                    specs[f"{p}.moe.proj_bias"] = ((e, c), 0.0)
+                continue
             dense(f"{p}.mlp.c_fc", c, 4 * c, 0.02)
             dense(f"{p}.mlp.c_proj", 4 * c, c, resid)
         ln("ln_f")
@@ -303,11 +332,12 @@ class GPT(torch.nn.Module):
         """f32 parameters from ``seed``, identical on every node (replicas
         start from the same weights, as in the JAX package); stacked
         ``[K, ...]``. Normal(0.02) kernels and embeddings, 0.02/√(2L) for the
-        residual projections, zero biases, unit layer-norm scales."""
+        residual projections (and MoE expert projections), zero biases,
+        unit layer-norm scales."""
         gen = torch.Generator().manual_seed(int(seed))
         out = {}
         for name, (shape, init) in self._param_specs().items():
-            if name.endswith((".bias", ".scale")):
+            if name.endswith(("bias", ".scale")):
                 w = torch.full(shape, init)
             else:
                 w = torch.randn(shape, generator=gen) * init
@@ -319,13 +349,14 @@ class GPT(torch.nn.Module):
         """flax's path and call counter of every dropout draw: the
         embedding's ``Dropout_0``, then in each block the attention
         probabilities (``make_rng`` in ``attn``), the attention output's
-        and the MLP's ``Dropout_0``."""
+        and the MLP's (or the MoE layer's) ``Dropout_0``."""
         paths = {"drop": ("Dropout_0", 1)}
         for i in range(self.config.n_layer):
             p = f"h_{i}"
+            mlp = "moe" if self.config.is_moe_layer(i) else "mlp"
             paths[f"{p}.attn"] = (p, "attn", 1)
             paths[f"{p}.attn.drop"] = (p, "attn", "Dropout_0", 1)
-            paths[f"{p}.mlp.drop"] = (p, "mlp", "Dropout_0", 1)
+            paths[f"{p}.{mlp}.drop"] = (p, mlp, "Dropout_0", 1)
         return paths
 
     def _attention(self, params, p, x, train, keys):
@@ -360,6 +391,17 @@ class GPT(torch.nn.Module):
         x = _dense(params, f"{p}.c_proj", x)
         return _dropout(x, self.config.dropout, keys.get(f"{p}.drop"), train)
 
+    def _moe(self, params, p, x, train, keys, rows=False):
+        cfg = self.config
+        y, aux = moe_mlp(params, p, x, topk=cfg.expert_topk,
+                         capacity_factor=cfg.capacity_factor,
+                         aux_weight=cfg.moe_aux_weight,
+                         z_weight=cfg.moe_z_weight, impl=cfg.moe_impl,
+                         chunk_rows=cfg.moe_chunk_rows, rows=rows)
+        if rows:
+            return y
+        return _dropout(y, cfg.dropout, keys.get(f"{p}.drop"), train), aux
+
     def forward(self, params, batch, train: bool = True,
                 rng: Optional[np.ndarray] = None):
         cfg = self.config
@@ -392,19 +434,29 @@ class GPT(torch.nn.Module):
                 rng, paths.values())))
         x = _embed(wte, idx) + wpe[:, None]
         x = _dropout(x, cfg.dropout, keys.get("drop"), train)
+        aux_total = None
         for i in range(cfg.n_layer):
+            block = self._moe_block if cfg.is_moe_layer(i) else self._block
             if cfg.remat:
                 # the recomputation folds the same keys: the same masks
-                x = _maybe_checkpoint(self._block, params, f"h_{i}", x,
-                                      train, keys)
+                x = _maybe_checkpoint(block, params, f"h_{i}", x, train,
+                                      keys)
             else:
-                x = self._block(params, f"h_{i}", x, train, keys)
+                x = block(params, f"h_{i}", x, train, keys)
+            if cfg.is_moe_layer(i):
+                x, aux = x
+                aux_total = aux if aux_total is None else aux_total + aux
         x = _layer_norm(params, "ln_f", x)
         if targets is None:
             # weight tying: lm_head = wteᵀ
             return torch.matmul(x.to(wte.dtype), wte.transpose(1, 2)[:, None])
         loss_sum, count = ce_sum_count(x, targets, wte, cfg.loss_chunk)
-        return loss_sum / torch.clamp(count, min=1.0)
+        loss = loss_sum / torch.clamp(count, min=1.0)
+        if cfg.n_experts > 0 and train:
+            # the router losses (each layer's already weighted), in training
+            # only: the evaluation loss stays the cross-entropy
+            loss = loss + aux_total
+        return loss
 
     def _block(self, params, p, x, train, keys):
         x = x + self._attention(params, f"{p}.attn",
@@ -413,6 +465,15 @@ class GPT(torch.nn.Module):
         return x + self._mlp(params, f"{p}.mlp",
                              _layer_norm(params, f"{p}.ln_2", x),
                              train, keys)
+
+    def _moe_block(self, params, p, x, train, keys):
+        """A block whose MLP is the MoE layer: ``(x, aux)``."""
+        x = x + self._attention(params, f"{p}.attn",
+                                _layer_norm(params, f"{p}.ln_1", x),
+                                train, keys)
+        y, aux = self._moe(params, f"{p}.moe",
+                           _layer_norm(params, f"{p}.ln_2", x), train, keys)
+        return x + y, aux
 
     # -- KV-cache decode: one model, no node dimension ----------------------
 
@@ -499,6 +560,9 @@ class GPT(torch.nn.Module):
             d = self._decode_attend(params, f"{p}.attn", h, cache, cursor,
                                     block_table)
             x, h = self._row_add_ln(params, f"{p}.ln_2", x, d)
+            if cfg.is_moe_layer(i):
+                d = self._moe(params, f"{p}.moe", h, False, {}, rows=True)
+                continue
             h = F.gelu(self._row_dense(params, f"{p}.mlp.c_fc", h),
                        approximate="tanh")
             d = self._row_dense(params, f"{p}.mlp.c_proj", h)
@@ -626,6 +690,16 @@ def dequantize_params(params: Dict[str, torch.Tensor]
     return out
 
 
+def refuse_quantized_moe(config) -> None:
+    """Quantized weights with MoE layers raise, with the JAX package's
+    message."""
+    if (getattr(config, "weights_dtype", "f32") != "f32"
+            and getattr(config, "n_experts", 0) > 0):
+        raise ValueError(
+            "quantized serving does not support MoE configs yet — serve MoE "
+            "checkpoints with weights_dtype='f32'")
+
+
 def _device(params) -> torch.device:
     return next(iter(params.values())).device
 
@@ -664,9 +738,16 @@ def node_mfu(config: GPTConfig, node_params: Dict[str, torch.Tensor],
              seqs_per_iter: float, dt: float, peak_flops: float) -> float:
     """MFU from node-stacked params (leading [K] dimension, as the trainer
     holds them): counts one node's parameters and delegates to
-    ``estimate_mfu``."""
+    ``estimate_mfu``; an MoE config counts its experts at their routed
+    ``expert_topk / n_experts`` share (``moe_active_params``)."""
     one = {n: p[0] for n, p in node_params.items()}
-    return estimate_mfu(config, one, seqs_per_iter, dt, peak_flops)
+    n_active = None
+    if config.n_experts > 0:
+        n_active = (moe_active_params(one, config.expert_topk,
+                                      config.n_experts)
+                    - one["wpe.embedding"].numel())
+    return estimate_mfu(config, one, seqs_per_iter, dt, peak_flops,
+                        n_params=n_active)
 
 
 # -- decode: config, sampling, generation -----------------------------------

@@ -33,6 +33,7 @@ SOURCES = tuple(os.path.join(_CSRC, f) for f in ("fused_attention.cu",
                                                  "decode_attention.cu",
                                                  "row_gemm.cu",
                                                  "quantize_tiles.cu",
+                                                 "grouped_gemm.cu",
                                                  "crc32c.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in ("attn_common.cuh",
                                                  "hopper.cuh"))
@@ -198,6 +199,11 @@ def load() -> ctypes.CDLL:
         lib.gym_row_layer_norm.restype = i32
         lib.gym_row_add_layer_norm.argtypes = [vp] * 6 + [i32, i32, f32, vp]
         lib.gym_row_add_layer_norm.restype = i32
+        lib.gym_grouped_gemm.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 3 + [
+            i32, vp]
+        lib.gym_grouped_gemm.restype = i32
+        lib.gym_grouped_outer.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+        lib.gym_grouped_outer.restype = i32
         # host code: the checkpoint sidecars' crc32c (utils/integrity.py)
         lib.gym_crc32c.argtypes = [ctypes.c_char_p, i64, u32]
         lib.gym_crc32c.restype = u32

@@ -1,5 +1,5 @@
-"""Quantized matmuls of the serving path (counterpart of the quantization
-half of ``gym_tpu/ops/grouped_matmul.py``).
+"""The grouped matmuls of the MoE layers and the quantized matmuls of the
+serving path (counterpart of ``gym_tpu/ops/grouped_matmul.py``).
 
 A quantized serving config stores every block kernel (and, with
 ``quant_embed``, the tied ``wte``) as int8 values (int4 values are stored
@@ -14,12 +14,28 @@ dequantizes each weight as it is staged and then runs R1's FMA chains, bit
 for bit R1 on ``dequantize_tiles(q, scale)``; on the CPU its plain version.
 No f32 weight is stored.
 
-The grouped matmuls of the same JAX module (``grouped_dot`` and
-``grouped_outer``, the MoE kernels B8) are ported with the MoE layers
-(ROADMAP item 16).
+The grouped matmuls (B8, the MoE layers' expert products,
+``csrc/grouped_gemm.cu``): ``grouped_dot(x, w, gs)`` is ``lax.ragged_dot``,
+``y[r] = x[r] @ w[g(r)]`` with the first ``gs[0]`` rows on ``w[0]``, the
+next ``gs[1]`` on ``w[1]`` and so on, rows past ``sum(gs)`` zeros, empty
+groups legal; ``grouped_outer(x, g, gs)`` is its w-cotangent, ``out[e] =
+x_eᵀ @ g_e``. Their gradients are ``torch.autograd.Function``s that close
+over each other, the JAX transposes: ``ct_x = grouped_dot(ct, wᵀ)``, w
+read transposed through its strides (no copy), ``ct_w = grouped_outer(x,
+ct)``. K problems of the same shape are one call: stack the rows ``[K·R,
+C]``, the weights ``[K·E, C, H]`` and the sizes ``[K·E]``, so that problem
+n's rows land in groups n·E … n·E+E−1 (JAX's flattening batch rule).
+``gs`` stays on the device: nothing here reads it on the host for a CUDA
+tensor. On a CPU tensor the entries run ``plain_grouped_dot`` and
+``plain_grouped_outer`` (torch over the groups, also the tests' oracle); on
+a CUDA tensor they launch B8 or raise. ``grouped_dot.launches`` (and
+``launches_wt``, the launches that read w transposed) and
+``grouped_outer.launches`` count the launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -60,3 +76,210 @@ def quantized_attend(x: torch.Tensor, q: torch.Tensor,
     embedding (the tied lm head), B6 reading q transposed."""
     from .row_linear import row_qlinear
     return row_qlinear(x, q, scale, w_nk=True)
+
+
+# -- B8: the grouped matmuls -----------------------------------------------
+
+
+def _group_rows(gs: torch.Tensor, rows: int):
+    """(group, first row, row count) of each non-empty group, the sizes
+    clamped so that no group passes ``rows`` (read on the host: the plain
+    versions only)."""
+    start = 0
+    for g, n in enumerate(gs.tolist()):
+        n = max(0, min(int(n), rows - start))
+        if n:
+            yield g, start, n
+        start += n
+
+
+def plain_grouped_dot(x: torch.Tensor, w: torch.Tensor,
+                      gs: torch.Tensor) -> torch.Tensor:
+    """B8's plain version: x ``[R, K]``, w ``[G, K, N]`` (any strides), gs
+    ``[G]`` → ``[R, N]`` in x's dtype, one ``matmul`` a group; rows past
+    ``sum(gs)`` zeros."""
+    out = x.new_zeros(x.shape[0], w.shape[-1])
+    for g, start, n in _group_rows(gs, x.shape[0]):
+        out[start:start + n] = x[start:start + n] @ w[g]
+    return out
+
+
+def plain_grouped_outer(x: torch.Tensor, g: torch.Tensor,
+                        gs: torch.Tensor) -> torch.Tensor:
+    """B8's plain w-cotangent: x ``[R, C]``, g ``[R, H]``, gs ``[G]`` →
+    ``[G, C, H]`` in x's dtype, ``x_eᵀ @ g_e`` a group, zeros for an empty
+    one."""
+    out = x.new_zeros(gs.shape[0], x.shape[1], g.shape[1])
+    for e, start, n in _group_rows(gs, x.shape[0]):
+        out[e] = x[start:start + n].t() @ g[start:start + n]
+    return out
+
+
+def _b8_dtype(*ts) -> int:
+    """1 for bf16 operands, 0 for f32 (B8's ``bf16`` argument); raises on
+    anything else or on mixed dtypes or devices."""
+    if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"B8 takes f32 or bf16 operands of one dtype, got "
+                         f"{[t.dtype for t in ts]}")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("B8's operands lie on several devices")
+    return int(ts[0].dtype == torch.bfloat16)
+
+
+def _sizes(gs: torch.Tensor, device) -> torch.Tensor:
+    if gs.device != device:
+        raise ValueError(f"gs on {gs.device}, operands on {device}")
+    return gs.to(torch.int32).contiguous()
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _dot_checks(x, w, gs):
+    if x.dim() != 2 or w.dim() != 3 or gs.dim() != 1:
+        raise ValueError(f"grouped_dot shapes: x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} gs{tuple(gs.shape)}")
+    if x.shape[1] != w.shape[1] or w.shape[0] != gs.shape[0]:
+        raise ValueError(f"grouped_dot dims disagree: x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} gs{tuple(gs.shape)} (need "
+                         f"x[1]==w[1] and w[0]==gs[0])")
+
+
+def _launch_dot(x, w, gs):
+    """One launch of ``grouped_gemm_kernel``: ``[R, N]``."""
+    bf16 = _b8_dtype(x, w)
+    r, k = x.shape
+    g, _, n = w.shape
+    y = torch.empty(r, n, dtype=x.dtype, device=x.device)
+    if r == 0 or n == 0:
+        return y
+    if k == 0 or g == 0:
+        return y.zero_()
+    x = x.contiguous()
+    gs = _sizes(gs, x.device)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.gym_grouped_gemm(
+            x.data_ptr(), w.data_ptr(), gs.data_ptr(), y.data_ptr(), r, k, n,
+            g, w.stride(0), w.stride(1), w.stride(2), bf16,
+            _stream(x.device))
+    _build.check(lib, code, "gym_grouped_gemm")
+    grouped_dot.launches += 1
+    if w.stride(2) != 1:
+        grouped_dot.launches_wt += 1
+    return y
+
+
+def _launch_outer(x, g, gs):
+    """One launch of ``grouped_outer_kernel``: ``[G, C, H]``."""
+    bf16 = _b8_dtype(x, g)
+    r, c = x.shape
+    h = g.shape[1]
+    e = gs.shape[0]
+    out = torch.empty(e, c, h, dtype=x.dtype, device=x.device)
+    if e == 0 or c == 0 or h == 0:
+        return out
+    x, g = x.contiguous(), g.contiguous()
+    gs = _sizes(gs, x.device)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.gym_grouped_outer(
+            x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), r, c,
+            h, e, bf16, _stream(x.device))
+    _build.check(lib, code, "gym_grouped_outer")
+    grouped_outer.launches += 1
+    return out
+
+
+def _dot(x, w, gs):
+    _dot_checks(x, w, gs)
+    if x.device.type == "cpu":
+        return plain_grouped_dot(x, w, gs)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_dot: device must be cpu or cuda, got "
+                         f"{x.device}")
+    return _launch_dot(x, w, gs)
+
+
+def _outer(x, g, gs):
+    if x.dim() != 2 or g.dim() != 2 or gs.dim() != 1 \
+            or x.shape[0] != g.shape[0]:
+        raise ValueError(f"grouped_outer shapes: x{tuple(x.shape)} "
+                         f"g{tuple(g.shape)} gs{tuple(gs.shape)}")
+    if x.device.type == "cpu":
+        return plain_grouped_outer(x, g, gs)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_outer: device must be cpu or cuda, got "
+                         f"{x.device}")
+    return _launch_outer(x, g, gs)
+
+
+class _GroupedDot(torch.autograd.Function):
+    # y = dot(x, w): ct_x = dot(ct, wᵀ), ct_w = outer(x, ct)
+
+    @staticmethod
+    def forward(ctx, x, w, gs):
+        ctx.save_for_backward(x, w, gs)
+        return _dot(x, w, gs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w, gs = ctx.saved_tensors
+        ct_x = ct_w = None
+        if ctx.needs_input_grad[0]:
+            ct_x = grouped_dot(ct, w.transpose(1, 2), gs)
+        if ctx.needs_input_grad[1]:
+            ct_w = grouped_outer(x, ct, gs)
+        return ct_x, ct_w, None
+
+
+class _GroupedOuter(torch.autograd.Function):
+    # o = outer(x, g): ct_x = dot(g, o_ctᵀ), ct_g = dot(x, o_ct)
+
+    @staticmethod
+    def forward(ctx, x, g, gs):
+        ctx.save_for_backward(x, g, gs)
+        return _outer(x, g, gs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, g, gs = ctx.saved_tensors
+        ct_x = ct_g = None
+        if ctx.needs_input_grad[0]:
+            ct_x = grouped_dot(g, ct.transpose(1, 2), gs)
+        if ctx.needs_input_grad[1]:
+            ct_g = grouped_dot(x, ct, gs)
+        return ct_x, ct_g, None
+
+
+def grouped_dot(x: torch.Tensor, w: torch.Tensor,
+                gs: torch.Tensor) -> torch.Tensor:
+    """``y[r] = x[r] @ w[e(r)]``: x ``[R, C]``, w ``[E, C, H]`` (any
+    strides: a transposed view is read as it lies), gs ``[E]`` int on x's
+    device → ``[R, H]`` in x's dtype (f32 or bf16), rows past ``sum(gs)``
+    zeros. Differentiable in x and w. One launch of B8 on the card."""
+    return _GroupedDot.apply(x, w, gs)
+
+
+def grouped_outer(x: torch.Tensor, g: torch.Tensor,
+                  gs: torch.Tensor) -> torch.Tensor:
+    """``out[e] = x_eᵀ @ g_e`` over the rows of group e: x ``[R, C]``, g
+    ``[R, H]``, gs ``[E]`` → ``[E, C, H]`` in x's dtype, zeros for an empty
+    group. Differentiable in x and g. One launch of B8's outer kernel on
+    the card."""
+    return _GroupedOuter.apply(x, g, gs)
+
+
+grouped_dot.launches = 0
+grouped_dot.launches_wt = 0
+grouped_outer.launches = 0
+
+
+def reset_launch_counts() -> None:
+    grouped_dot.launches = 0
+    grouped_dot.launches_wt = 0
+    grouped_outer.launches = 0

@@ -49,12 +49,13 @@ def _kernel_wrappers() -> List[Callable]:
     """The serving path's kernel wrappers, each with a ``launches``
     counter: B7, R1, L1 (with the residual add it takes) and T1's bits
     rows; B6 and B7 int8 under quantized weights and KV; L1 without the
-    add."""
-    from ..ops import decode_attention, row_linear, threefry
+    add; B8's grouped product under MoE layers."""
+    from ..ops import decode_attention, grouped_matmul, row_linear, threefry
     return [decode_attention.decode_attention,
             decode_attention.decode_attention_int8, row_linear.row_linear,
             row_linear.row_qlinear, row_linear.row_layer_norm,
-            row_linear.row_add_layer_norm, threefry.random_bits_rows]
+            row_linear.row_add_layer_norm, threefry.random_bits_rows,
+            grouped_matmul.grouped_dot]
 
 
 def _launch_counts() -> List[int]:

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..convert import serving_params
-from ..models.nanogpt import GPTConfig
+from ..models.nanogpt import GPTConfig, refuse_quantized_moe
 from ..ops.grouped_matmul import quant_tile_for
 from ..train_node import default_device
 from ..utils.checkpoint import CheckpointNotFoundError, restore_params
@@ -90,6 +90,7 @@ def quantize_params(params: Dict[str, torch.Tensor],
     wd = getattr(config, "weights_dtype", "f32")
     if wd == "f32":
         return params
+    refuse_quantized_moe(config)
     if wd not in ("int8", "int4"):
         raise ValueError(
             f"weights_dtype must be 'f32', 'int8' or 'int4', got {wd!r}")

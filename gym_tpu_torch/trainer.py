@@ -319,6 +319,19 @@ class Trainer:
         loss_model = as_loss_model(self.model)
         if autocast and loss_model.compute_dtype is None:
             loss_model = LossModel(loss_model.module, torch.bfloat16)
+        from .models.nanogpt import GPT as _GPT
+        mod_cfg = getattr(loss_model.module, "config", None)
+        if (isinstance(loss_model.module, _GPT)
+                and getattr(mod_cfg, "n_experts", 0)
+                and mod_cfg.moe_impl == "auto"):
+            # the MoE dispatch pinned, as the JAX package pins it: the
+            # drop-free ragged path (einsum would be expert parallelism's,
+            # which is not ported); a shallow copy keeps a user LossModel's
+            # own loss and attributes
+            import copy
+            loss_model = copy.copy(loss_model)
+            loss_model.module = _GPT(
+                dataclasses.replace(mod_cfg, moe_impl="ragged"))
         runtime = NodeRuntime.create(num_nodes, dev)
 
         def feed(host_tree):

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Plant faults in B8, the MoE layers' grouped matmuls
+(``gym_tpu_torch/ops/csrc/grouped_gemm.cu``), and show that phase 16a of
+``chip_smoke.py`` catches each one, on a machine with a CUDA card:
+
+    python3 scripts/b8_faults.py [FAULT ...]
+
+First the checkout as it is (16a must pass), then, for each fault (all by
+default), the checkout copied to a temporary directory, the fault written
+into the copy's kernel source and ``chip_smoke.py --b8-check`` (the build
+and 16a: both kernels at the MoE path's shapes, bf16 and f32, each output
+poisoned first) run there. Prints, a fault, the exit code and the first
+failure message. Exits non-zero if the clean copy fails or a fault passes.
+``tests/test_torch_grouped_gemm_source.py`` holds each fault's text to
+exactly one place in the source.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL = "gym_tpu_torch/ops/csrc/grouped_gemm.cu"
+# name: (text in the kernel source, its faulty replacement)
+FAULTS = {
+    # each group after the first starts a row late
+    "group_offset_off_by_one": ("    start += n;\n", "    start += n + 1;\n"),
+    # a group's last tile runs on past the group's end, its rows of the
+    # next group through this group's expert
+    "tile_straddles_into_the_next_expert": (
+        "return {g, row0, min(start + n, row0 + BM)};",
+        "return {g, row0, min(R, row0 + BM)};"),
+    # an empty group's w-cotangent left unwritten
+    "empty_group_not_written": (
+        "    zero_tile<E>(o, N, M - m0, N - n0, BT);  // an empty group's "
+        "product\n", ""),
+    # the rows past sum(gs) left unwritten
+    "rows_past_sum_not_zeroed": (
+        "    zero_tile<E>(o, N, t.row1 - t.row0, N - n0, BT);  // rows past "
+        "sum(gs)\n", ""),
+    # w's k and n strides exchanged, so a transposed read (ct . w^T) reads
+    # w as it lies, and the forward's read transposed
+    "weight_strides_swapped": ("               w_sn, w_sk, N - n0, K,",
+                               "               w_sk, w_sn, N - n0, K,"),
+}
+
+
+def plant(name: str, dst: str) -> None:
+    shutil.copytree(os.path.join(ROOT, "gym_tpu_torch"),
+                    os.path.join(dst, "gym_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dst)
+    if name is None:
+        return
+    old, new = FAULTS[name]
+    path = os.path.join(dst, KERNEL)
+    with open(path) as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise SystemExit(f"{name}: {text.count(old)} matches of {old!r}")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+
+
+def run(name):
+    """(exit code, first failure line) of 16a on a copy with ``name``
+    planted (None: the checkout as it is)."""
+    with tempfile.TemporaryDirectory() as dst:
+        plant(name, dst)
+        proc = subprocess.run(
+            ["timeout", "600", sys.executable, "chip_smoke.py",
+             "--b8-check"], cwd=dst, capture_output=True, text=True)
+    lines = (proc.stderr + proc.stdout).splitlines()
+    failed = [l for l in lines if "FAILED" in l or "Error" in l
+              or "error" in l][:1]
+    return proc.returncode, failed, lines
+
+
+def main() -> int:
+    rc, failed, lines = run(None)
+    print(f"== clean: 16a rc={rc}", *(failed or lines[-1:]), sep="\n  ",
+          flush=True)
+    ok = rc == 0
+    for name in sys.argv[1:] or FAULTS:
+        rc, failed, _ = run(name)
+        print(f"== {name}: 16a rc={rc}", *failed, sep="\n  ", flush=True)
+        ok &= rc != 0
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

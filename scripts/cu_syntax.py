@@ -97,6 +97,11 @@ inline float __uint_as_float(unsigned u) {
   __builtin_memcpy(&f, &u, 4);
   return f;
 }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  __builtin_memcpy(&u, &f, 4);
+  return u;
+}
 '''
 
 

@@ -2,8 +2,9 @@
 ``python -m gym_tpu_torch.examples.nanogpt``, run end to end on the CPU in a
 subprocess (two steps each, from a temporary directory, where they write
 their ``logs/`` and ``data/``), under the compression strategies too, sample
-after training (``--sample``), and refuse a flag of a later slice with a
-message naming it."""
+after training (``--sample``), train with mixture-of-experts layers
+(``--n_experts``), and refuse a flag of a later slice with a message naming
+it."""
 
 import csv
 import os
@@ -104,6 +105,19 @@ def test_compression_strategies_train_from_the_cli(tmp_path, module, args):
     ("nanogpt", ["--dataset", "shakespeare", "--device", "cpu"],
      "shakespeare")])
 def test_later_slices_exit_naming_them(tmp_path, module, args, word):
+    if "--n_experts" in args:
+        # mixture of experts is ported: the flag trains two steps on the
+        # CPU, and the run is named moe{E}e{k} as in the JAX example
+        proc = _run(tmp_path, module, "--device", "cpu", "--max_steps", "2",
+                    "--block_size", "64", "--batch_size", "4",
+                    "--val_size", "4", *args)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        rows = _train_rows(tmp_path / "logs")
+        assert len(rows) == 2 and all(0 < float(r["loss"]) < 10
+                                      for r in rows)
+        (run,) = (tmp_path / "logs").iterdir()
+        assert run.name.endswith("_moe2e2")
+        return
     import importlib
     main = importlib.import_module(f"gym_tpu_torch.examples.{module}").main
     with pytest.raises((SystemExit, NotImplementedError),

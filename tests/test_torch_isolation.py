@@ -74,13 +74,15 @@ def test_no_forbidden_imports(path):
 
 
 def test_no_library_attention_or_compile_in_the_port():
-    """SDPA, cuDNN attention and torch.compile are no port of a kernel; only
-    chip_smoke.py may time SDPA as a yardstick. cuDNN may be named only by
-    the CNN, for its convolutions' TF32 flag."""
+    """SDPA, cuDNN attention, torch.compile and PyTorch's grouped GEMM are
+    no port of a kernel; only chip_smoke.py may time SDPA and
+    ``torch._grouped_mm`` as yardsticks. cuDNN may be named only by the
+    CNN, for its convolutions' TF32 flag."""
     for path in sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")):
         text = path.read_text()
         words = ["scaled_dot_product_attention", "torch.compile",
-                 "flash_attn", "xformers", "cudnn_attention", "sdpa"]
+                 "flash_attn", "xformers", "cudnn_attention", "sdpa",
+                 "grouped_mm"]
         if path != CUDNN_CONV:
             words.append("cudnn")
         for word in words:

@@ -93,6 +93,15 @@ phase 8d's shapes (a key a row and one shared key), tiles 7, 64 and 256 (n % 4 !
 any-tile path), int4, rounding to nearest, and zero, NaN, ±inf, huge and
 -0.0 tiles; one launch a call; the codec and the link's residual on the
 card equal to the CPU's (``-k quantize_tiles or codec``).
+
+B8, the MoE layers' grouped matmuls (``-k b8 or moe_layer``): grouped_dot,
+with w as it lies and read transposed, and grouped_outer against their plain
+versions in both dtypes' bands, empty groups and rows past sum(gs) zero on
+poisoned outputs, f32 grouped_dot bit for bit R1 a group and a row's bits
+the same alone, in its group and with K=2 problems flattened; the gradients
+against the plain versions' autograd; the ragged MoE layer of K=2 nodes on
+the card against the CPU, its decode form's rows the same alone and in a
+batch.
 """
 
 import pytest
@@ -101,6 +110,7 @@ import torch
 import gym_tpu_torch.ops.decode_attention as tdec
 import gym_tpu_torch.ops.flash_attention as tflash
 import gym_tpu_torch.ops.fused_attention as tfa
+import gym_tpu_torch.ops.grouped_matmul as tgm
 import gym_tpu_torch.ops.quantize_tiles as tqt
 import gym_tpu_torch.ops.row_linear as trow
 import gym_tpu_torch.ops.scatter_mean as tsm
@@ -1444,3 +1454,124 @@ def test_codec_and_link_on_card_equal_the_cpu(codec):
             a, nan = a.cpu(), torch.isnan(b)
             assert torch.equal(torch.isnan(a), nan)
             assert _same_bits(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+
+
+# -- B8: the MoE layers' grouped matmuls --------------------------------------
+
+
+def _b8_operands(g, dt, r=700, c=96, h=160, sizes=(0, 301, 99, 0, 250, 50)):
+    """x [r, c], w [G, c, h], ct [r, h] and gs: empty groups, a group
+    larger than half the rows, sizes that are no multiple of a tile."""
+    x = torch.randn(r, c, device="cuda", generator=g).to(dt)
+    w = (torch.randn(len(sizes), c, h, device="cuda", generator=g)
+         * 0.05).to(dt)
+    ct = (torch.randn(r, h, device="cuda", generator=g) * 0.05).to(dt)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    return x, w, ct, gs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("sizes", [(0, 301, 99, 0, 250, 50),
+                                   (0, 301, 99, 0, 250, 17)],
+                         ids=["all_rows", "rows_past_sum"])
+def test_b8_matches_its_plain_version(dt, sizes):
+    """grouped_dot (w as it lies and read transposed) and grouped_outer
+    against the plain versions; rows past sum(gs) and empty groups zero,
+    each output poisoned first; f32 grouped_dot bit for bit R1's chains a
+    group."""
+    dtype, tol = DTYPES[dt]
+    x, w, ct, gs = _b8_operands(_card(), dtype, sizes=sizes)
+    used = int(sum(sizes))
+    for a, b in ((x, w), (ct, w.transpose(1, 2))):
+        torch.full((a.shape[0] * b.shape[-1] * 4,), 0xFF, dtype=torch.uint8,
+                   device="cuda")
+        got = tgm.grouped_dot(a, b, gs)
+        _close(got, tgm.plain_grouped_dot(a, b, gs), tol, "grouped_dot")
+        assert torch.all(got[used:] == 0)
+        if dt == "f32":
+            start = 0
+            for e, n in enumerate(sizes):
+                if n:
+                    wt = b[e].t().contiguous() if b.stride(2) != 1 else b[e]
+                    want = trow.row_linear(a[start:start + n], wt.contiguous(),
+                                           w_nk=b.stride(2) != 1)
+                    assert torch.equal(got[start:start + n], want)
+                start += n
+    torch.full((w.numel() * 4,), 0xFF, dtype=torch.uint8, device="cuda")
+    out = tgm.grouped_outer(x, ct, gs)
+    _close(out, tgm.plain_grouped_outer(x, ct, gs), tol, "grouped_outer")
+    assert torch.all(out[0] == 0) and torch.all(out[3] == 0)
+
+
+@pytest.mark.gpu
+def test_b8_rows_do_not_depend_on_their_neighbours():
+    """f32: a row's output is the same bits alone in its group, among its
+    group's rows and among K=2 problems flattened into one call."""
+    x, w, _, gs = _b8_operands(_card(), torch.float32)
+    full = tgm.grouped_dot(x, w, gs)
+    # row 400 is group 4's first (sizes 0, 301, 99, 0, 250, 50)
+    one = tgm.grouped_dot(x[400:401], w[4:5],
+                          torch.tensor([1], dtype=torch.int32,
+                                       device="cuda"))
+    assert torch.equal(one[0], full[400])
+    two = tgm.grouped_dot(torch.cat([x, x]), torch.cat([w, w]),
+                          torch.cat([gs, gs]))
+    assert torch.equal(two[:700], full) and torch.equal(two[700:], full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_b8_gradients_match_the_plain_version(dt):
+    """The autograd Functions on the card (ct_x on B8 reading w transposed,
+    ct_w on the outer kernel) against the plain versions' autograd."""
+    dtype, tol = DTYPES[dt]
+    x, w, ct, gs = _b8_operands(_card(), dtype)
+    grads = []
+    for fn in (tgm.grouped_dot, lambda a, b, s: _plain_dot(a, b, s)):
+        a = x.clone().requires_grad_()
+        b = w.clone().requires_grad_()
+        fn(a, b, gs).backward(ct)
+        grads.append((a.grad, b.grad))
+    (gx, gw), (px, pw) = grads
+    _close(gx, px, tol, "ct_x")
+    _close(gw, pw, tol, "ct_w")
+
+
+def _plain_dot(a, b, gs):
+    """The plain version under torch's own autograd."""
+    out, start = [], 0
+    for e, n in enumerate(gs.tolist()):
+        out.append(a[start:start + n] @ b[e])
+        start += n
+    return torch.cat(out)
+
+
+@pytest.mark.gpu
+def test_moe_layer_on_card_matches_the_cpu():
+    """The ragged MoE layer of K=2 nodes (B8 on the card, the plain
+    versions on the CPU), f32: output, aux and gradients in the f32 band;
+    the decode form's rows equal alone and in a batch."""
+    import gym_tpu_torch.models.moe as tmoe
+    _card()
+    g = torch.Generator().manual_seed(3)
+    k, e, c = 2, 4, 64
+    params = {"m.router.kernel": torch.randn(k, c, e, generator=g),
+              "m.fc_kernel": torch.randn(k, e, c, 4 * c, generator=g) * .05,
+              "m.proj_kernel": torch.randn(k, e, 4 * c, c, generator=g) * .05,
+              "m.fc_bias": torch.randn(k, e, 4 * c, generator=g) * .05,
+              "m.proj_bias": torch.randn(k, e, c, generator=g) * .05}
+    x = torch.randn(k, 3, 40, c, generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {n: t.to(dev).requires_grad_() for n, t in params.items()}
+        y, aux = tmoe.moe_mlp(p, "m", x.to(dev), topk=2)
+        (y.square().sum() + aux.sum()).backward()
+        out[dev] = [y.detach().cpu(), aux.detach().cpu()] + [
+            t.grad.cpu() for t in p.values()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a, b, DTYPES["f32"][1], "moe layer")
+    one = {n: t[0].cuda() for n, t in params.items()}
+    rows = tmoe.moe_mlp(one, "m", x[0].cuda(), rows=True)[0]
+    alone = tmoe.moe_mlp(one, "m", x[0, 1:2, 7:8].cuda(), rows=True)[0]
+    assert torch.equal(alone[0, 0], rows[1, 7])

@@ -214,6 +214,16 @@ def test_later_slice_features_raise(field, value):
             model(qparams, (idx, idx), train=True)
         assert model(qparams, (idx, idx), train=False).shape == (1,)
         return
+    if field == "n_experts":
+        # mixture of experts is ported: an MoE config builds and runs a
+        # forward (every second block's MLP routed over 4 experts)
+        model = TGPT(TConfig(**SMALL, **{field: value}))
+        params = model.init_params(1, 0, "cpu")
+        assert "h_1.moe.fc_kernel" in params
+        idx = torch.zeros(1, 1, 8, dtype=torch.int64)
+        loss = model(params, (idx, idx), train=True)
+        assert loss.shape == (1,) and torch.isfinite(loss).all()
+        return
     if field == "kv_dtype":
         # the int8 KV cache is ported: a decode config's cache holds int8
         # K and V with one f32 scale per (position, head)
