@@ -216,22 +216,27 @@ Phases (any failure exits non-zero before the result lines are printed):
    reshard priced, and in every cell the attention pair the port's gate
    picks at that shape launched (the packed pair) and no other;
 16. mixture of experts on one card: 16a B8 (``grouped_gemm_kernel``,
-   ``grouped_outer_kernel``) against its plain version at the MoE path's
-   shapes, [16384, 768] x [8, 768, 3072] and [16384, 3072] x [8, 3072,
-   768], each ct_x (w read transposed) and each grouped_outer, bf16 and
+   ``grouped_outer_kernel``: bf16 on TMA and ``wgmma``, f32 R1's chains)
+   against its plain version at the MoE path's shapes, [16384, 768] x [8,
+   768, 3072] and [16384, 3072] x [8, 3072, 768], each ct_x (w read transposed) and each grouped_outer, bf16 and
    f32, group sizes with an empty group and one of 60% of the rows, K=2
    flattened to 16 groups (forward, ct_x and grouped_outer) and 333 rows
    past sum(gs); in f32 also the served steps 16c gives B8 (decode of 1-16
    slots, prefills of 32-512 tokens, top-2 rows routed as ``moe_mlp``
    routes them, most groups empty at a few rows); each output poisoned
    first: bf16 in phase 3's band, f32 in the f32 band and f32 grouped_dot
-   bit for bit R1's in-order FMA chains a group; then timed beside the
-   plain version, the library yardstick (``torch._grouped_mm`` where it
-   takes the operands, else a per-expert ``torch.matmul`` loop, labelled)
-   and the bound; 16b the repo's MoE config (GPT-2 base, every second
-   block's MLP 8 experts top-2, T=1024) through ``Trainer.fit``, K=2 × 4
-   rows, bf16, DiLoCo (AdamW, H=2), 4 steps: B8's launches exactly, steady
-   steps/s, peak memory, active-parameter MFU; 16c the same model in f32,
+   bit for bit R1's in-order FMA chains a group; bf16 also in the band of
+   the first kernels kept as the oracle (``grouped_*_ref_kernel``; bit for
+   bit reported) and run twice bit for bit, a bf16 view TMA does not take
+   (C = 100) on the first kernels, counted apart, and bf16 grouped_dot and
+   grouped_outer captured in a CUDA graph, replayed equal to eager; then
+   timed beside the first kernel, the plain version, the library
+   yardstick (``torch._grouped_mm`` where it takes the operands, else a
+   per-expert ``torch.matmul`` loop, labelled) and the bound; 16b the
+   repo's MoE config (GPT-2 base, every second block's MLP 8 experts
+   top-2, T=1024) through ``Trainer.fit``, K=2 × 4 rows, bf16, DiLoCo
+   (AdamW, H=2), 4 steps: B8's launches exactly (none on the first
+   kernels' path), steady steps/s, peak memory, active-parameter MFU; 16c the same model in f32,
    random weights, 8 of phase 10's requests through the paged engine
    eagerly and on CUDA graphs (tokens and launches equal), one request
    alone equal to its tokens in the batch and to ``generate_fast``; 16d
@@ -2833,23 +2838,62 @@ def check_quantize_sass(counts):
           f"any-tile kernel's")
 
 
+# B8's kernels: the TMA path's three (the forward with w as it lies and
+# read transposed, the outer), the f32 instances of the first kernels and
+# the first bf16 kernels, kept as the oracle (grouped_*_ref_kernel)
+B8_KERNELS = {"tma": 3, "f32": 2, "ref": 2}
+B8_NAMES = ("grouped_gemm_kernel", "grouped_outer_kernel",
+            "grouped_gemm_ref_kernel", "grouped_outer_ref_kernel")
+
+
+def b8_kind(name):
+    """"tma", "ref" or "f32" for a B8 kernel's name (demangled or not),
+    else None."""
+    if not any(n in name for n in B8_NAMES):
+        return None
+    if "CUtensorMap" in name:
+        return "tma"
+    return "ref" if "_ref_kernel" in name else "f32"
+
+
 def check_b8_sass(counts):
-    """B8's two kernels in both dtypes, without atomics (the global check
-    above): the bf16 instances on the tensor cores (HMMA, mma.sync), the
-    f32 ones FFMA chains without a tensor-core instruction."""
-    for name in ("grouped_gemm_kernel", "grouped_outer_kernel"):
-        found = [k for k in counts if name + "<" in k or name + "I" in k]
-        check(len(found) == 2, f"expected 2 {name}, found {found}")
-        for k in found:
-            c = counts[k]
-            bf16 = ("<true>" in k or "<(bool)1>" in k or "ILb1E" in k)
-            log(f"  {kernel_label(k)}: HMMA {c['HMMA']}, HGMMA "
-                f"{c['HGMMA']}, FFMA {c['FFMA']}, ATOM/RED {c['ATOM/RED']}")
-            if bf16:
-                check(c["HMMA"] > 0, f"{k}: bf16 B8 without HMMA")
-            else:
-                check(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0,
-                      f"{k}: f32 B8 must be FFMA chains ({c})")
+    """B8's kernels without atomics: the TMA path's bf16 kernels on wgmma
+    (HGMMA, no HMMA), the first bf16 kernels kept as the oracle on
+    mma.sync (HMMA, no HGMMA), the f32 instances FFMA chains without a
+    tensor-core instruction."""
+    found = {kind: [] for kind in B8_KERNELS}
+    for k, c in counts.items():
+        kind = b8_kind(k)
+        if kind is None:
+            continue
+        found[kind].append(k)
+        log(f"  {kernel_label(k)} ({kind}): HGMMA {c['HGMMA']}, HMMA "
+            f"{c['HMMA']}, FFMA {c['FFMA']}, ATOM/RED {c['ATOM/RED']}")
+        check(c["ATOM/RED"] == 0, f"{k}: an atomic in B8")
+        if kind == "tma":
+            check(c["HGMMA"] > 0 and c["HMMA"] == 0,
+                  f"{k}: the TMA path's B8 must run on wgmma ({c})")
+        elif kind == "ref":
+            check(c["HMMA"] > 0 and c["HGMMA"] == 0,
+                  f"{k}: B8's first bf16 kernel runs on mma.sync ({c})")
+        else:
+            check(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0,
+                  f"{k}: f32 B8 must be FFMA chains ({c})")
+    check({k: len(v) for k, v in found.items()} == B8_KERNELS,
+          f"B8 kernels {found}, expected {B8_KERNELS} of each kind")
+
+
+def b8_occupancy(lib):
+    """The TMA path's kernels: blocks an SM, registers, shared memory."""
+    for kind, name in enumerate(("grouped_gemm_kernel (w as it lies)",
+                                 "grouped_gemm_kernel (w read transposed)",
+                                 "grouped_outer_kernel")):
+        regs, smem = ctypes.c_int(), ctypes.c_longlong()
+        per_sm = lib.gym_grouped_occupancy(kind, ctypes.byref(regs),
+                                           ctypes.byref(smem))
+        check(per_sm >= 1, f"B8 {name} cannot be resident ({per_sm})")
+        log(f"  B8 {name}: 288 threads at {regs.value} registers, "
+            f"{smem.value} B of shared memory, {per_sm} block(s) per SM")
 
 
 def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
@@ -6236,36 +6280,108 @@ def b8_cases(torch, dt):
 B8_TIMED = ("fc", "proj", "ct_x fc", "ct_x proj", "outer fc", "outer proj")
 
 
+def b8_out_bytes(op, a, b, gs):
+    return (a.shape[0] * b.shape[-1] if op == "dot"
+            else gs.shape[0] * a.shape[1] * b.shape[1]) * a.element_size()
+
+
+def b8_unaligned(torch, tgm):
+    """bf16 views TMA does not take (C = 100: rows of 200 bytes) on the
+    first kernels: each call one launch counted in ``launches_ref`` and
+    none in ``launches``, in phase 3's band of the plain version; rows
+    past sum(gs) and the empty group among the sizes."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    r, c, h, e = 4096, 100, 400, B8_E
+    dt = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * std).to(dt)
+
+    x, ct, w = randn(r, c), randn(r, h, std=0.02), randn(e, c, h, std=0.02)
+    gs = torch.tensor(b8_skewed(r, e, past=B8_PAST), dtype=torch.int32,
+                      device="cuda")
+    for name, op, a, b in (("fc", "dot", x, w),
+                           ("ct_x", "dot", ct, w.transpose(1, 2)),
+                           ("outer", "outer", x, ct)):
+        fn = tgm.grouped_dot if op == "dot" else tgm.grouped_outer
+        plain = (tgm.plain_grouped_dot if op == "dot"
+                 else tgm.plain_grouped_outer)
+        before = (fn.launches, fn.launches_ref)
+        poison(torch, b8_out_bytes(op, a, b, gs))
+        with torch.no_grad():
+            got = fn(a, b, gs)
+            ref = plain(a, b, gs)
+        torch.cuda.synchronize()
+        compare(f"B8 {name} bf16 [{r}, {a.shape[1]}] x {list(b.shape)} "
+                f"(unaligned: the first kernel)", got, ref, "out", dt)
+        after = (fn.launches, fn.launches_ref)
+        check(after == (before[0], before[1] + 1), f"B8 {name} unaligned: "
+              f"launches {before} -> {after}, expected one on the first "
+              f"kernel's path")
+    log(f"  unaligned bf16 views took the first kernels, one launch each "
+        f"in launches_ref")
+
+
+def b8_graphs(torch, tgm, cases):
+    """A bf16 grouped_dot and grouped_outer captured in a CUDA graph and
+    replayed: equal bit for bit to the eager call."""
+    for name, op, a, b, gs in cases:
+        fn = tgm.grouped_dot if op == "dot" else tgm.grouped_outer
+        with torch.no_grad():
+            eager = fn(a, b, gs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(a, b, gs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn(a, b, gs)
+            out.fill_(float("nan"))
+            graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(out, eager)
+        log(f"  B8 {name} bf16 captured in a CUDA graph: replay "
+            f"{'equal bit for bit to' if same else 'DIFFERS from'} eager")
+        check(same, f"B8 {name}: a graph replay differs from eager")
+        del graph, out, eager
+
+
 def check_b8(torch, tgm, card, timing=True):
     """16a: B8 against its plain version on the card at the MoE path's
-    shapes, bf16 and f32 (each output poisoned first); f32 grouped_dot bit
-    for bit R1's chains a group, f32 grouped_outer and bf16 in their bands;
-    then the timed cases beside the plain version, the library yardstick and
-    the bound. Returns (errs, times) keyed by the kernels' names."""
+    shapes, bf16 and f32 (each output poisoned first); bf16 also against
+    the first kernels kept as the oracle (in the band; bit for bit
+    reported) and run twice, bit for bit; f32 grouped_dot bit for bit R1's
+    chains a group, f32 grouped_outer and bf16 in their bands; bf16 views
+    TMA does not take on the first kernels; graphs replayed equal to eager;
+    then the timed cases beside the first kernel, the plain version, the
+    library yardstick and the bound. Returns (errs, times) keyed by the
+    kernels' names."""
     errs = {"B8_grouped_dot": 0.0, "B8_grouped_outer": 0.0}
-    times, rows = {}, []
+    times, rows, bits = {}, [], []
     for dt in (torch.bfloat16, torch.float32):
         f32 = dt == torch.float32
         tag = "f32" if f32 else "bf16"
-        for name, op, a, b, gs in b8_cases(torch, dt):
+        cases = b8_cases(torch, dt)
+        for name, op, a, b, gs in cases:
             fn = tgm.grouped_dot if op == "dot" else tgm.grouped_outer
             plain = (tgm.plain_grouped_dot if op == "dot"
                      else tgm.plain_grouped_outer)
-            out_elems = (a.shape[0] * b.shape[-1] if op == "dot"
-                         else gs.shape[0] * a.shape[1] * b.shape[1])
-            poison(torch, out_elems * a.element_size())
+            first = (tgm.grouped_dot_ref if op == "dot"
+                     else tgm.grouped_outer_ref)
+            poison(torch, b8_out_bytes(op, a, b, gs))
             with torch.no_grad():
                 got = fn(a, b, gs)
                 ref = plain(a, b, gs)
             torch.cuda.synchronize()
             kernel = ("B8_grouped_dot" if op == "dot"
                       else "B8_grouped_outer")
-            err = compare(f"B8 {name} {tag} [{a.shape[0]}, "
-                          f"{a.shape[1]}] x {list(b.shape)}, G="
-                          f"{gs.shape[0]}, sum(gs)={int(gs.sum())}"
-                          + (f", gs {gs.tolist()}" if name.startswith(
-                              "served") else ""),
-                          got, ref, "out", dt)
+            label = (f"B8 {name} {tag} [{a.shape[0]}, {a.shape[1]}] x "
+                     f"{list(b.shape)}, G={gs.shape[0]}, sum(gs)="
+                     f"{int(gs.sum())}" + (f", gs {gs.tolist()}"
+                                           if name.startswith("served")
+                                           else ""))
+            err = compare(label, got, ref, "out", dt)
             errs[kernel] = max(errs[kernel], err)
             if op == "dot":
                 used = int(gs.sum())
@@ -6275,6 +6391,19 @@ def check_b8(torch, tgm, card, timing=True):
                 empty = (gs == 0).nonzero().flatten().tolist()
                 check(all(torch.all(got[i] == 0).item() for i in empty),
                       f"B8 {name} {tag}: an empty group not zero")
+            if not f32:
+                poison(torch, b8_out_bytes(op, a, b, gs))
+                with torch.no_grad():
+                    again = fn(a, b, gs)
+                    old = first(a, b, gs)
+                torch.cuda.synchronize()
+                same_twice(torch, f"B8 {name} bf16", (got,), (again,))
+                compare(f"  against the first kernel", got, old, "out", dt)
+                bits.append(torch.equal(got, old))
+                log(f"    {'bit for bit' if bits[-1] else 'NOT bit for bit'}"
+                    f" the first kernel (max |a-b| "
+                    f"{(got.float() - old.float()).abs().max().item():.3e})")
+                del again, old
             if f32:
                 with torch.no_grad():
                     chain = b8_r1_oracle(torch, op, a, b, gs)
@@ -6304,6 +6433,8 @@ def check_b8(torch, tgm, card, timing=True):
             lib_fn, lib_label = b8_library(torch, op, a, b, gs)
             with torch.no_grad():
                 ms = timed(torch, lambda: fn(a, b, gs))
+                first_ms = (None if f32 else
+                            timed(torch, lambda: first(a, b, gs)))
                 plain_ms = timed(torch, lambda: plain(a, b, gs), reps=3,
                                  inner=3)
                 lib_ms = timed(torch, lib_fn)
@@ -6311,16 +6442,26 @@ def check_b8(torch, tgm, card, timing=True):
             log(f"    {name} {tag} timed (CUDA events, median of 5): "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"{lib_ms:.4f} ms")
-            rows.append((f"{name} {tag}", ms, plain_ms, lib_ms,
+            rows.append((f"{name} {tag}", ms, first_ms, plain_ms, lib_ms,
                          lib_label, bound_ms, by, flops / ms / 1e9))
             if name in ("fc", "outer fc") and not f32:
                 times[kernel] = {"ms": ms, "plain_ms": plain_ms,
                                  "library_ms": lib_ms,
                                  "bound": (bound_ms, by)}
+        if not f32:
+            log(f"  bf16: {sum(bits)} of {len(bits)} cases bit for bit the "
+                f"first kernel")
+            b8_graphs(torch, tgm, [c for c in cases
+                                   if c[0] in ("fc", "outer fc")])
+        del cases
+    b8_unaligned(torch, tgm)
     if timing:
         log(f"  16a B8 times (CUDA events, median of 5) on {card}:")
-        for name, ms, plain_ms, lib_ms, lib_label, bound_ms, by, tf in rows:
-            log(f"    {name}: {ms:.4f} ms ({tf:.1f} TFLOP/s), plain "
+        for (name, ms, first_ms, plain_ms, lib_ms, lib_label, bound_ms, by,
+             tf) in rows:
+            was = "" if first_ms is None else (
+                f", the first kernel {first_ms:.4f} ms")
+            log(f"    {name}: {ms:.4f} ms ({tf:.1f} TFLOP/s){was}, plain "
                 f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_label}),"
                 f" bound {bound_ms:.4f} ms ({by}), "
                 f"{bound_ms / ms:.1%} of the bound")
@@ -6351,6 +6492,9 @@ def moe_fit(torch, mods, card):
     check(tgm.grouped_dot.launches_wt == n_moe * 2 * steps,
           f"{title}: {tgm.grouped_dot.launches_wt} launches read w "
           f"transposed, expected {n_moe * 2 * steps}")
+    ref = (tgm.grouped_dot.launches_ref, tgm.grouped_outer.launches_ref)
+    check(ref == (0, 0), f"{title}: B8 launches on the first kernels' path "
+          f"{ref}: every MoE shape must take the TMA kernels")
     sps = res.steps_per_second_steady or res.steps_per_second
     mfu = node_mfu(cfg, res.node_state.params, nodes * batch, 1.0 / sps,
                    peak_flops=BF16_FLOPS)
@@ -6494,8 +6638,10 @@ def b8_check() -> int:
         t0 = time.perf_counter()
         _build.load()
         log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
-        row_gemm_report(_build.build_log, _build._nvcc(),
-                        ("grouped_gemm_kernel", "grouped_outer_kernel"), 4)
+        row_gemm_report(_build.build_log, _build._nvcc(), B8_NAMES,
+                        sum(B8_KERNELS.values()))
+        check_b8_sass(sass_counts(_build._nvcc(), _build.build()))
+        b8_occupancy(_build.load())
         errs, _ = check_b8(torch, tgm, card, timing=False)
         torch.cuda.synchronize()
     except SmokeFailure as e:
@@ -6596,10 +6742,11 @@ def main() -> int:
         check_quantize_sass(sass)
         row_gemm_report(_build.build_log, _build._nvcc(),
                         ("quantize_tiles",), QUANTIZE_KERNELS)
-        log("  B8 (grouped_gemm.cu), SASS and ptxas:")
+        log("  B8 (grouped_gemm.cu), SASS, ptxas and occupancy:")
         check_b8_sass(sass)
-        row_gemm_report(_build.build_log, _build._nvcc(),
-                        ("grouped_gemm_kernel", "grouped_outer_kernel"), 4)
+        row_gemm_report(_build.build_log, _build._nvcc(), B8_NAMES,
+                        sum(B8_KERNELS.values()))
+        b8_occupancy(lib)
         t1_ops = threefry_ops_per_element(sass)
 
         log(f"phase 3: kernels against plain versions on the card "

@@ -684,33 +684,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
-// library links without libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The [N, H, T, D] bf16 view at p with element strides s as a 4-d tensor
 // map (dims innermost first: D, T, H, N) of [64 rows x ROWB bytes] boxes,
 // swizzled at the box's row width as BfTile<D> is.
@@ -718,7 +691,7 @@ template <int D>
 cudaError_t tensor_map(CUtensorMap* map, const void* p, Strides s, int N,
                        int H, int T_len) {
   using L = BfTile<D>;
-  const EncodeTiled encode = encode_tiled();
+  const hop::EncodeTiled encode = hop::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_len,
                               (cuuint64_t)H, (cuuint64_t)N};

@@ -13,51 +13,80 @@
 // XLA's lowering, no pl.pallas_call).
 //
 // The grouping lives on the device: gs is read by every block, and a block
-// walks the group sizes to its own tile (an exclusive cumsum of the sizes,
-// each clamped so that no group passes R), so the host never reads gs and a
-// CUDA graph can hold the launch. The grid is sized from the static R, G, K
-// and N alone:
-//  - grouped_gemm_kernel: blockIdx.x is a row slot, blockIdx.y a column
-//    tile. The row slots enumerate each group's tiles of BM rows, group by
-//    group, so a tile never straddles two groups and reads one expert; the
-//    slots after them zero the rows past sum(gs). sum over g of
-//    ceil(gs[g] / BM) plus the tail's tiles is at most R / BM + G + 1, the
-//    grid's row slots; a slot past them all exits.
-//  - grouped_outer_kernel: blockIdx.y is the group, blockIdx.x an (M tile,
-//    N tile) of its output. The block walks its group's rows in order, so
-//    there are no atomics and the sums are the same on every run; an empty
-//    group writes zeros.
+// walks the group sizes to its own tile (the sizes clamped so that no group
+// passes R), so the host never reads gs and a CUDA graph can hold the
+// launch. Grids are sized from the static R, G, K (or M) and N alone. No
+// kernel here has an atomic, and the sums of an output element are taken
+// in one fixed order, so the same inputs give the same bits on every run.
 //
-// bf16: 128 x 128 tiles, k steps of 32, 8 warps each computing 64 x 32 of
-// the tile with mma.sync m16n8k16 (bf16 in, f32 accumulation), one rounding
-// to bf16 (round to nearest even) at the store. Both operands are staged in
-// shared memory as [128][32 + 8] (k contiguous: a fragment's two k values
-// are one 32-bit load, and the pitch of 80 bytes puts the 32 lanes of a
-// fragment load on 32 banks), read from device memory in chunks of 8
-// elements along whichever axis is contiguous (16-byte loads where aligned,
-// else 8 element loads), the next k step's chunks loaded into registers
-// while the tensor cores run on this one.
+// What bounds it on this card: at the MoE training shapes (16,384 rows, C
+// 768, H 3072, 8 experts) the products, 2 R K N operations, at 989 TFLOP/s
+// in bf16 (0.078 ms a projection; its bytes, about 160 MB, take 0.048 ms
+// at 3.35 TB/s) and at 67 TFLOP/s of f32 FMAs in f32; at decode's few
+// rows, the weights' bytes.
 //
-// f32: 64 x 64 tiles, k steps of 16, each of 256 threads computing 4 x 4
-// elements (rows ty + 16 i, columns tx + 16 j). R1's rule (row_gemm.cu):
-// each output element is one in-order fmaf chain over k = 0 .. K-1 started
-// at 0.0f, and a k step past K is never taken. So a row's bits do not
-// depend on which other rows share its expert, on the tile or on R: what
-// the serving engine's splices and park/resume need, and each element is
-// bit for bit R1 on the same row and expert (chip_smoke.py phase 16a holds
-// it to that).
+// bf16 (training), namespace tc: TMA, an mbarrier ring and wgmma. A block
+// (one an SM) owns 128 x 256 tiles of output and has two consumer
+// warpgroups, 64 rows each, and one producer warp. The producer's first
+// thread keeps the operands' boxes (64 deep, 128-byte rows swizzled at 128
+// bytes, through tensor maps encoded on the host for each call) in flight
+// into a ring of stages, with an mbarrier a stage for "full" (TMA's bytes
+// landed) and one for "empty" (both consumers' products on it done). The
+// consumers run m64n256k16 wgmma steps on a stage from shared memory, one
+// stage's products in flight while the next are issued, f32 accumulators
+// in registers, and round to bf16 once at the store (to nearest even). No
+// operand is transposed in shared memory: wgmma reads each as it lies,
+// K-major (the depth along a box's rows) or MN-major (the depth down them;
+// hopper.cuh's desc_mn and the instruction's transpose immediates): x [R,
+// K] is a K-major A; w as it lies ([G, K, N], n contiguous) an MN-major B,
+// and read transposed (ct . w^T: k contiguous) a K-major B; in the outer,
+// x [R, M] an MN-major A and ct [R, N] an MN-major B. 128 x 128 tiles at
+// two blocks an SM measured slower at every 16a shape (PERF.md).
+//  - grouped_gemm_kernel: persistent, a block an SM walking items i, i +
+//    gridDim.x, ...: item i is column tile i % tiles_n of row slot i /
+//    tiles_n. The row slots enumerate each group's tiles of 128 rows,
+//    group by group (find_row_tile), so a tile reads one expert; the slots
+//    after them zero the rows past sum(gs). sum over g of ceil(gs[g] / 128)
+//    plus the tail's tiles is at most R / 128 + G + 1, the row slots. The
+//    ring (3 stages) runs on across a block's tiles, so the next tile's
+//    loads land while the consumers store this one; a tile goes out
+//    through shared memory, a 1-D bulk copy a row, so that the consumers
+//    start on the next tile while the copies drain (at K = 768 a tile's
+//    products take about as long as its 64 KB of output at the card's
+//    write rate). A group's last tile loads rows of the next group (TMA's
+//    box does not know where a group ends): they are multiplied by this
+//    expert and never stored, the copies going out a row at a time for the
+//    tile's own rows only (a TMA store of the whole box would race with the
+//    next tile's rows). TMA fills rows past R and depth past K with zeros.
+//  - grouped_outer_kernel: a ring of 4 stages; block i is output tile i %
+//    tiles of the group of rank i / tiles by row count, the longest first,
+//    the order computed by every block from gs (nth_longest): the long
+//    group's tiles start in the first wave and the short groups' tiles
+//    fill the SMs beside them, where a grid in group order leaves most SMs
+//    idle behind the long group's last tiles. A tile walks its group's rows
+//    from the first in stages of 64 (no second pass, no scratch); in the
+//    last stage the rows past the group's end are zeroed in both operands
+//    before its products (they belong to the next group; TMA zeroes rows
+//    past R). An empty group's tiles write zeros.
+// TMA takes 16-byte-aligned bases and row strides: K, N and M multiples of
+// 8. Other bf16 views take the first kernels, kept as the oracle
+// (grouped_gemm_ref_kernel, grouped_outer_ref_kernel: 128 x 128 tiles, k
+// steps of 32, 8 warps each computing 64 x 32 with mma.sync m16n8k16, one
+// shared stage filled through registers); the wrapper picks the path by
+// that rule and counts the first kernels' launches apart.
 //
-// Bounds at the MoE training shapes (16,384 rows, C 768, H 3072, 8 experts):
-// the products, 2 R K N operations at 989 TFLOP/s in bf16 (0.078 ms a
-// projection) and at 67 TFLOP/s of f32 FMAs in f32; at decode's few rows,
-// the weights' bytes at 3.35 TB/s. This first kernel has no TMA, no wgmma
-// and one stage of shared memory: it is right first (PERF.md has its
-// times beside these bounds).
-
-#include <cuda_runtime.h>
-#include <stdint.h>
+// f32 (serving, evals): 64 x 64 tiles, k steps of 16, each of 256 threads
+// computing 4 x 4 elements (rows ty + 16 i, columns tx + 16 j). R1's rule
+// (row_gemm.cu): each output element is one in-order fmaf chain over k = 0
+// .. K-1 started at 0.0f, and a k step past K is never taken. So a row's
+// bits do not depend on which other rows share its expert, on the tile or
+// on R: what the serving engine's splices and park/resume need, and each
+// element is bit for bit R1 on the same row and expert (chip_smoke.py phase
+// 16a holds it to that). The f32 outer walks its group's rows in order.
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -383,11 +412,11 @@ __device__ void tile_product(const View& a, const View& b, int K, void* o,
 // y [R, N] = x [R, K] . w[g(r)], w's element (g, k, n) at w + g * w_sg +
 // k * w_sk + n * w_sn; gs [G] int32 on the device
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-    grouped_gemm_kernel(const void* x, const void* w, const int* gs, void* y,
-                        int R, int K, int N, int G, long long w_sg,
-                        long long w_sk, long long w_sn, int x_vec,
-                        int w_vec) {
+__device__ __forceinline__ void gemm_rows(const void* x, const void* w,
+                                          const int* gs, void* y, int R,
+                                          int K, int N, int G, long long w_sg,
+                                          long long w_sk, long long w_sn,
+                                          int x_vec, int w_vec) {
   using E = typename std::conditional<kBf16, bf16_t, float>::type;
   constexpr int BT = kBf16 ? kBT : kFT;
   const RowTile t = find_row_tile(gs, G, R, BT, (int)blockIdx.x);
@@ -408,10 +437,10 @@ __global__ void __launch_bounds__(kThreads)
 // out [G, M, N]: out[g] = x_g^T . ct_g, x [R, M] and ct [R, N] contiguous,
 // the rows of group g in order
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-    grouped_outer_kernel(const void* x, const void* ct, const int* gs,
-                         void* out, int R, int M, int N, int G, int x_vec,
-                         int ct_vec) {
+__device__ __forceinline__ void outer_tiles(const void* x, const void* ct,
+                                            const int* gs, void* out, int R,
+                                            int M, int N, int G, int x_vec,
+                                            int ct_vec) {
   using E = typename std::conditional<kBf16, bf16_t, float>::type;
   constexpr int BT = kBf16 ? kBT : kFT;
   const int tiles_n = (N + BT - 1) / BT;
@@ -431,6 +460,497 @@ __global__ void __launch_bounds__(kThreads)
   tile_product<kBf16>(a, b, s.count, o, N, M - m0, N - n0);
 }
 
+// the f32 kernels (R1's chains) and the first bf16 kernels, kept as the
+// oracle of the TMA path below and as the path of the bf16 shapes TMA
+// cannot take (grouped_gemm_ref_kernel, grouped_outer_ref_kernel)
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    grouped_gemm_kernel(const void* x, const void* w, const int* gs, void* y,
+                        int R, int K, int N, int G, long long w_sg,
+                        long long w_sk, long long w_sn, int x_vec,
+                        int w_vec) {
+  gemm_rows<kBf16>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    grouped_gemm_ref_kernel(const void* x, const void* w, const int* gs,
+                            void* y, int R, int K, int N, int G,
+                            long long w_sg, long long w_sk, long long w_sn,
+                            int x_vec, int w_vec) {
+  gemm_rows<true>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    grouped_outer_kernel(const void* x, const void* ct, const int* gs,
+                         void* out, int R, int M, int N, int G, int x_vec,
+                         int ct_vec) {
+  outer_tiles<kBf16>(x, ct, gs, out, R, M, N, G, x_vec, ct_vec);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    grouped_outer_ref_kernel(const void* x, const void* ct, const int* gs,
+                             void* out, int R, int M, int N, int G,
+                             int x_vec, int ct_vec) {
+  outer_tiles<true>(x, ct, gs, out, R, M, N, G, x_vec, ct_vec);
+}
+
+// -- bf16: TMA, an mbarrier ring and wgmma ----------------------------------
+
+namespace tc {
+
+using hop::Tile;
+constexpr int CONSUMERS = 256;  // two warpgroups; arrivals that empty a stage
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int BM = 128;              // a tile's rows of output: 64 a consumer
+constexpr int BN = 256;              // a tile's columns
+constexpr int BK = 64;               // a stage's depth: 128 bytes of bf16
+constexpr uint32_t PART = 64 * 128;  // a [64 rows x 128 bytes] box, swizzled
+// the forward's staged output rows: BN bf16 and 16 bytes, so that the 8
+// rows of a warp's 4-byte stores fall on 32 banks
+constexpr uint32_t OUT_PITCH = 2 * BN + 16;
+
+// Shared memory from a 1024-aligned base: the ring's S stages (A's 128 x
+// 64, then B's BN x 64, bf16), OUT bytes of staged output rows, then the
+// barriers full[S], empty[S].
+template <int S, uint32_t OUT>
+struct Ring {
+  static constexpr int STAGES = S;
+  static constexpr uint32_t A = BM * BK * 2;
+  static constexpr uint32_t B = BN * BK * 2;
+  static constexpr uint32_t STAGE = A + B;
+  static constexpr uint32_t STAGED = S * STAGE;
+  static constexpr uint32_t BARS = STAGED + OUT;
+  static constexpr size_t BYTES = 1024 + BARS + 16 * S;
+  __device__ static uint32_t full(uint32_t base, int st) {
+    return base + BARS + 8 * st;
+  }
+  __device__ static uint32_t empty(uint32_t base, int st) {
+    return base + BARS + 8 * (S + st);
+  }
+};
+using GemmRing = Ring<3, BM * OUT_PITCH>;  // 211 KB
+using OuterRing = Ring<4, 0>;              // 193 KB
+
+// the ring's base, its barriers initialised (every thread)
+template <class C>
+__device__ __forceinline__ uint32_t ring_init() {
+  extern __shared__ __align__(16) uint8_t ring_smem[];
+  const uint32_t base = (hop::smem_u32(ring_smem) + 1023) & ~1023u;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < C::STAGES; ++st) {
+      hop::mbar_init(C::full(base, st), 1);
+      hop::mbar_init(C::empty(base, st), CONSUMERS);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+  return base;
+}
+
+// The producer thread: nk stages of a tile, each once the consumers have
+// released it, its boxes issued by load(A, B, full barrier, depth k0). it
+// counts the stages the block has filled, across its tiles.
+template <class C, class Load>
+__device__ __forceinline__ void produce(uint32_t base, int& it, int nk,
+                                        Load load) {
+  for (int kt = 0; kt < nk; ++kt, ++it) {
+    const int st = it % C::STAGES;
+    // round r of a stage waits for the release of round r - 1 (parity 1
+    // of a fresh barrier passes at once)
+    hop::mbar_wait(C::empty(base, st), ((it / C::STAGES) & 1) ^ 1);
+    hop::mbar_expect_tx(C::full(base, st), C::STAGE);
+    const uint32_t a = base + st * C::STAGE;
+    load(a, a + C::A, C::full(base, st), kt * BK);
+  }
+}
+
+// wgmma descriptors of consumer warpgroup w's A (its 64 rows) and of B at
+// depth step ks of a stage: K-major (0) or MN-major (1, the depth down the
+// rows of 64 x 128-byte parts, no transpose in shared memory)
+template <int TA>
+__device__ __forceinline__ uint64_t desc_a(uint32_t a, int w, int ks) {
+  if constexpr (TA) return hop::desc_mn<128>(a, ks, w);
+  else return hop::desc_k<Tile<128, BM>>(a + w * PART, ks);
+}
+template <int TB>
+__device__ __forceinline__ uint64_t desc_b(uint32_t b, int ks) {
+  if constexpr (TB) return hop::desc_mn<128>(b, ks, 0);
+  else return hop::desc_k<Tile<128, BN>>(b, ks);
+}
+
+// rows [valid, 64) of the `parts` 64-row parts at p set to zero, by the
+// consumers together: a whole 128-byte row is the same bytes under any
+// swizzle
+__device__ __forceinline__ void zero_part_rows(uint32_t p, int parts,
+                                               int valid) {
+  const int per_part = (64 - valid) * 8;  // 16-byte chunks
+  for (int e = threadIdx.x; e < parts * per_part; e += CONSUMERS)
+    hop::st_shared_zero16(p + (e / per_part) * PART +
+                          (valid + e % per_part / 8) * 128 +
+                          e % 8 * 16);
+}
+
+// Consumer warpgroup w = threadIdx.x / 128: acc (its 64 rows x BN of the
+// tile) += A B over nk stages, 16-deep wgmma steps in depth order. A and
+// B are K-major (0) or MN-major (1). last_rows: the depth rows of the last
+// stage that belong to the product (the outer's group end), the rest zeroed
+// in both operands first, so that no value of another group (not even an
+// inf) reaches the sums; BK where all do. One stage's products stay in
+// flight while the next stage's are issued; a stage is released once its
+// products are done, the last one at the tile's end. it counts the stages
+// the block has used, across its tiles.
+template <class C, int TA, int TB>
+__device__ __forceinline__ void consume(uint32_t base, int& it, int nk,
+                                        int last_rows, float (&acc)[BN / 2]) {
+  const int w = threadIdx.x >> 7;
+  for (int kt = 0; kt < nk; ++kt, ++it) {
+    const int st = it % C::STAGES;
+    const uint32_t a = base + st * C::STAGE;
+    hop::mbar_wait(C::full(base, st), (it / C::STAGES) & 1);
+    if (kt == nk - 1 && last_rows < BK) {
+      zero_part_rows(a, C::STAGE / PART, last_rows);
+      hop::fence_async_smem();
+      hop::bar_sync(1, CONSUMERS);
+    }
+    hop::fence_regs(acc);
+    hop::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      hop::wgmma_ss_n256<TA, TB>(acc, desc_a<TA>(a, w, ks),
+                                 desc_b<TB>(a + C::A, ks), 1);
+    hop::wg_commit();
+    hop::wg_wait<1>();
+    hop::fence_regs(acc);
+    if (kt > 0) hop::mbar_arrive(C::empty(base, (it - 1) % C::STAGES));
+  }
+  hop::wg_wait<0>();
+  hop::fence_regs(acc);
+  hop::mbar_arrive(C::empty(base, (it - 1) % C::STAGES));
+}
+
+// this thread's output pair (row ln.row + 8 rr, columns 8 j + ln.col and
+// the next) of acc, rounded to bf16 (to nearest even, once)
+__device__ __forceinline__ uint32_t out_pair(const float (&acc)[BN / 2],
+                                             int j, int rr) {
+  return f32_to_bf16_bits(acc[4 * j + 2 * rr]) |
+         (f32_to_bf16_bits(acc[4 * j + 2 * rr + 1]) << 16);
+}
+
+// acc (consumer warpgroup w's 64 rows x BN) at o (row pitch ld): rows <
+// rows and columns < cols only (cols a multiple of 8), a 4-byte store a
+// pair of columns
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                           bf16_t* o, long long ld, int rows,
+                                           int cols) {
+  const hop::Lane ln;
+  const int w = threadIdx.x >> 7;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = 64 * w + ln.row + 8 * rr;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      if (8 * j + ln.col < cols)
+        *reinterpret_cast<uint32_t*>(o + (long long)r * ld + 8 * j + ln.col) =
+            out_pair(acc, j, rr);
+  }
+}
+
+// The tile through shared memory: acc into the staged rows at out (pitch
+// OUT_PITCH), then row r < rows (cols values, a multiple of 8) one bulk
+// copy to o + r ld, issued by consumer thread r, so that the block goes on
+// to its next tile while the copies drain. The rows of the tile past rows
+// (another group's) are never copied. The copies of the block's previous
+// tile have read the staged rows before they are written again.
+__device__ __forceinline__ void store_staged(const float (&acc)[BN / 2],
+                                             uint32_t out, bf16_t* o,
+                                             long long ld, int rows,
+                                             int cols) {
+  const hop::Lane ln;
+  const int w = threadIdx.x >> 7;
+  if (threadIdx.x < BM) hop::bulk_wait_read<0>();
+  hop::bar_sync(1, CONSUMERS);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const uint32_t row = out + (64 * w + ln.row + 8 * rr) * OUT_PITCH;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      hop::st_shared_u32(row + 2 * (8 * j + ln.col), out_pair(acc, j, rr));
+  }
+  hop::fence_async_smem();
+  hop::bar_sync(1, CONSUMERS);
+  if ((int)threadIdx.x < rows) {
+    hop::bulk_store(o + (long long)threadIdx.x * ld,
+                    out + threadIdx.x * OUT_PITCH, 2 * min(cols, BN));
+    hop::bulk_commit();
+  }
+}
+
+// rows x cols (clamped to BM x BN; cols a multiple of 8) of bf16 zeros at
+// o (row pitch ld, 16-byte aligned rows), by the consumers
+__device__ __forceinline__ void zero_out(bf16_t* o, long long ld, int rows,
+                                         int cols) {
+  rows = min(rows, BM);
+  cols = min(cols, BN) / 8;
+  for (int e = threadIdx.x; e < rows * cols; e += CONSUMERS)
+    *reinterpret_cast<uint4*>(o + (long long)(e / cols) * ld + e % cols * 8) =
+        make_uint4(0, 0, 0, 0);
+}
+
+struct Ranked {
+  int group, start, count;
+};
+
+// The group of rank `rank` when the groups are ordered by their row count,
+// the longest first (equal counts: the lower index first), with its first
+// row and row count (the sizes clamped so that no group passes R: group g
+// starts at min(R, S_g) for S_g the sum of max(gs[h], 0) over h < g). Every
+// warp computes it alike, a lane a group, 32 groups at a time.
+__device__ Ranked nth_longest(const int* gs, int G, int R, int rank) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  // the clamped start and count of group 32c + lane; `before` carries
+  // S_g over the chunks
+  const auto span = [&](int c, long long& before, int& start, int& count) {
+    const int g = 32 * c + lane;
+    const long long n = g < G && gs[g] > 0 ? gs[g] : 0;
+    long long incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long v = __shfl_up_sync(all, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const long long s0 = before + incl - n, s1 = before + incl;
+    before += __shfl_sync(all, incl, 31);
+    start = (int)(s0 < R ? s0 : R);
+    count = (int)(s1 < R ? s1 : R) - start;
+  };
+  long long before = 0;
+  for (int c = 0; 32 * c < G; ++c) {
+    const int g = 32 * c + lane;
+    int start, count;
+    span(c, before, start, count);
+    int r = 0;
+    long long before2 = 0;
+    for (int c2 = 0; 32 * c2 < G; ++c2) {
+      int s2, n2;
+      span(c2, before2, s2, n2);
+      for (int j = 0; j < 32; ++j) {
+        const int h = 32 * c2 + j;
+        const int nh = __shfl_sync(all, n2, j);
+        r += h < G && (nh > count || (nh == count && h < g));
+      }
+    }
+    const unsigned hit = __ballot_sync(all, g < G && r == rank);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      return {__shfl_sync(all, g, src), __shfl_sync(all, start, src),
+              __shfl_sync(all, count, src)};
+    }
+  }
+  return {0, 0, 0};
+}
+
+// y [R, N] = x [R, K] . w[g(r)], bf16, through tensor maps: x as 2-d (K,
+// R) in boxes of 64 k x 128 rows; w as 3-d, its contiguous axis innermost:
+// (N, K, G) in boxes of 64 n x 64 k (MN-major B, w as it lies) or (K, N, G)
+// in boxes of 64 k x BN n (kKMajorB: K-major B, w read transposed).
+// Persistent: block b takes items b, b + gridDim.x, ...; item i is column
+// tile i % tiles_n of row slot i / tiles_n (find_row_tile's), so the
+// blocks at work at one time share a few experts' weights. The producer
+// runs on into the block's next tile while the consumers finish one.
+template <bool kKMajorB>
+__global__ void __launch_bounds__(THREADS, 1)
+    grouped_gemm_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw,
+                        const int* __restrict__ gs, bf16_t* __restrict__ y,
+                        int R, int K, int N, int G, int items) {
+  using C = GemmRing;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int nk = (K + BK - 1) / BK;
+  const uint32_t base = ring_init<C>();
+  int it = 0;
+  if (threadIdx.x >= CONSUMERS) {
+    const void* mx = &tx;
+    const void* mw = &tw;
+    if (threadIdx.x == CONSUMERS)
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const int n0 = i % tiles_n * BN;
+        const RowTile t = find_row_tile(gs, G, R, BM, i / tiles_n);
+        if (t.group < 0) continue;  // no tile, or rows past the groups
+        produce<C>(base, it, nk, [=](uint32_t a, uint32_t b, uint32_t bar,
+                                     int k0) {
+          // a group's last tile loads rows of the next group too: their
+          // products are never stored (store_staged's rows)
+          hop::tma_load_2d(a, mx, bar, k0, t.row0);
+          if constexpr (kKMajorB) {
+            hop::tma_load_3d(b, mw, bar, k0, n0, t.group);
+          } else {
+#pragma unroll
+            for (int p = 0; p < BN / 64; ++p)
+              hop::tma_load_3d(b + p * PART, mw, bar, n0 + 64 * p, k0,
+                               t.group);
+          }
+        });
+      }
+    return;
+  }
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int n0 = i % tiles_n * BN;
+    const RowTile t = find_row_tile(gs, G, R, BM, i / tiles_n);
+    if (t.group == kNoTile) continue;
+    bf16_t* o = y + (long long)t.row0 * N + n0;
+    if (t.group == kTailRows) {
+      zero_out(o, N, t.row1 - t.row0, N - n0);  // rows past the groups
+      continue;
+    }
+    float acc[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    consume<C, 0, kKMajorB ? 0 : 1>(base, it, nk, BK, acc);
+    store_staged(acc, base + C::STAGED, o, N, t.row1 - t.row0, N - n0);
+  }
+  if (threadIdx.x < BM) hop::bulk_wait<0>();
+}
+
+// out [G, M, N]: out[g] = x_g^T . ct_g, bf16, x [R, M] and ct [R, N] as 2-d
+// tensor maps (M, R) and (N, R) in boxes of 64 values x 64 rows: both
+// operands MN-major, the depth (the group's rows, from its first) down the
+// boxes' rows. Block i is output tile i % tiles of the group of rank i /
+// tiles, the longest groups first, so the long group's tiles start in the
+// first wave and the short ones fill the SMs beside them; a tile walks its
+// group's rows in order (no atomics, no second pass); an empty group's
+// tiles write zeros.
+__global__ void __launch_bounds__(THREADS, 1)
+    grouped_outer_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tc,
+                         const int* __restrict__ gs, bf16_t* __restrict__ out,
+                         int R, int M, int N, int G) {
+  using C = OuterRing;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const Ranked s = nth_longest(gs, G, R, (int)blockIdx.x / tiles);
+  const int tile = (int)blockIdx.x % tiles;
+  const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+  bf16_t* o = out + ((long long)s.group * M + m0) * N + n0;
+  if (s.count == 0) {
+    if (threadIdx.x < CONSUMERS) {
+      zero_out(o, N, M - m0, N - n0);  // an empty group's tile
+    }
+    return;
+  }
+  const uint32_t base = ring_init<C>();
+  const int nk = (s.count + BK - 1) / BK;
+  int it = 0;
+  if (threadIdx.x >= CONSUMERS) {
+    const void* mx = &tx;
+    const void* mc = &tc;
+    if (threadIdx.x == CONSUMERS)
+      produce<C>(base, it, nk, [=](uint32_t a, uint32_t b, uint32_t bar,
+                                   int k0) {
+        const int r = s.start + k0;
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          hop::tma_load_2d(a + p * PART, mx, bar, m0 + 64 * p, r);
+#pragma unroll
+        for (int p = 0; p < BN / 64; ++p)
+          hop::tma_load_2d(b + p * PART, mc, bar, n0 + 64 * p, r);
+      });
+    return;
+  }
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  consume<C, 1, 1>(base, it, nk, s.count - (nk - 1) * BK, acc);
+  store_tile(acc, o, N, M - m0, N - n0);
+}
+
+// dynamic shared memory above 48 KB for kern, once a device: the first
+// (eager) call sets it, before any capture
+template <int KIND>
+cudaError_t allow_smem(const void* kern, size_t bytes) {
+  static bool set[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && set[dev])) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < 64) set[dev] = true;
+  return err;
+}
+
+// the persistent forward's grid: a block an SM, or fewer for fewer items
+cudaError_t gemm_blocks(long long items, int* blocks) {
+  static int sms[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int n = dev < 64 ? sms[dev] : 0;
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) sms[dev] = n;
+  }
+  *blocks = (int)(items < n ? items : n);
+  return cudaSuccess;
+}
+
+template <bool kKMajorB>
+cudaError_t launch_gemm(const void* x, const void* w, const int* gs, void* y,
+                        int R, int K, int N, int G, long long w_sg,
+                        long long w_sk, long long w_sn, cudaStream_t st) {
+  const long long items = ((R + BM - 1) / BM + (long long)G + 1) *
+                          ((N + BN - 1) / BN);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)R};
+  const cuuint64_t x_bytes[1] = {2 * (cuuint64_t)K};
+  const cuuint32_t x_box[2] = {BK, BM};
+  // w's contiguous axis innermost: n as it lies, k read transposed
+  const cuuint64_t w_dims[3] = {(cuuint64_t)(kKMajorB ? K : N),
+                                (cuuint64_t)(kKMajorB ? N : K), (cuuint64_t)G};
+  const cuuint64_t w_bytes[2] = {2 * (cuuint64_t)(kKMajorB ? w_sn : w_sk),
+                                 2 * (cuuint64_t)w_sg};
+  const cuuint32_t w_box[3] = {64, kKMajorB ? BN : BK, 1};
+  cudaError_t err;
+  int blocks = 0;
+  auto kern = grouped_gemm_kernel<kKMajorB>;
+  if ((err = hop::bf16_map_128b(&mx, x, 2, x_dims, x_bytes, x_box)) ||
+      (err = hop::bf16_map_128b(&mw, w, 3, w_dims, w_bytes, w_box)) ||
+      (err = allow_smem<kKMajorB>((const void*)kern, GemmRing::BYTES)) ||
+      (err = gemm_blocks(items, &blocks)))
+    return err;
+  kern<<<blocks, THREADS, GemmRing::BYTES, st>>>(
+      mx, mw, gs, static_cast<bf16_t*>(y), R, K, N, G, (int)items);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_outer(const void* x, const void* ct, const int* gs,
+                         void* out, int R, int M, int N, int G,
+                         cudaStream_t st) {
+  const long long items =
+      (long long)G * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap mx, mc;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)M, (cuuint64_t)R};
+  const cuuint64_t x_bytes[1] = {2 * (cuuint64_t)M};
+  const cuuint64_t c_dims[2] = {(cuuint64_t)N, (cuuint64_t)R};
+  const cuuint64_t c_bytes[1] = {2 * (cuuint64_t)N};
+  const cuuint32_t box[2] = {64, BK};
+  cudaError_t err;
+  if ((err = hop::bf16_map_128b(&mx, x, 2, x_dims, x_bytes, box)) ||
+      (err = hop::bf16_map_128b(&mc, ct, 2, c_dims, c_bytes, box)) ||
+      (err = allow_smem<2>((const void*)grouped_outer_kernel,
+                           OuterRing::BYTES)))
+    return err;
+  grouped_outer_kernel<<<(unsigned)items, THREADS, OuterRing::BYTES, st>>>(
+      mx, mc, gs, static_cast<bf16_t*>(out), R, M, N, G);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
@@ -440,55 +960,126 @@ extern "C" {
 // y [R, N] (contiguous) = x [R, K] (contiguous) . w[g(r)] with w's element
 // (g, k, n) at w + g * w_sg + k * w_sk + n * w_sn (elements; [G, K, N]
 // contiguous is (K N, N, 1), w [G, N, K] read transposed (K N, 1, K)), gs
-// [G] int32 on the device; bf16 1 for bf16 tensors, 0 for f32.
+// [G] int32 on the device; bf16 1 for bf16 tensors, 0 for f32. bf16 runs
+// the TMA path, which takes x, w and y 16-byte aligned, K and N multiples
+// of 8, w_sg a multiple of 8 and one of w's k and n axes contiguous, the
+// other's stride a multiple of 8, and returns cudaErrorInvalidValue for
+// any other view (gym_grouped_gemm_ref takes every bf16 view).
 int gym_grouped_gemm(const void* x, const void* w, const void* gs, void* y,
                      int R, int K, int N, int G, long long w_sg,
                      long long w_sk, long long w_sn, int bf16, void* stream) {
   if (R <= 0 || K <= 0 || N <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
-  const int bt = bf16 ? kBT : kFT;
-  const long long slots = (R + bt - 1) / bt + (long long)G + 1;
-  if (slots > 0x7fffffffLL || (N + bt - 1) / bt > 65535)
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* g = static_cast<const int*>(gs);
+  if (bf16) {
+    const bool kmajor = w_sk == 1;
+    if (!(aligned16(x) && aligned16(w) && aligned16(y) && K % 8 == 0 &&
+          N % 8 == 0 && w_sg % 8 == 0 &&
+          (kmajor ? w_sn % 8 == 0 : w_sn == 1 && w_sk % 8 == 0)))
+      return (int)cudaErrorInvalidValue;
+    return (int)(kmajor ? tc::launch_gemm<true>(x, w, g, y, R, K, N, G, w_sg,
+                                                w_sk, w_sn, st)
+                        : tc::launch_gemm<false>(x, w, g, y, R, K, N, G,
+                                                 w_sg, w_sk, w_sn, st));
+  }
+  const long long slots = (R + kFT - 1) / kFT + (long long)G + 1;
+  if (slots > 0x7fffffffLL || (N + kFT - 1) / kFT > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)slots, (unsigned)((N + bt - 1) / bt));
+  const dim3 grid((unsigned)slots, (unsigned)((N + kFT - 1) / kFT));
+  grouped_gemm_kernel<false><<<grid, kThreads, 0, st>>>(
+      x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The same product in bf16 on the first kernel (grouped_gemm_ref_kernel:
+// mma.sync, one shared stage), any view: the TMA path's oracle and the
+// path of the views it does not take.
+int gym_grouped_gemm_ref(const void* x, const void* w, const void* gs,
+                         void* y, int R, int K, int N, int G, long long w_sg,
+                         long long w_sk, long long w_sn, void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  const long long slots = (R + kBT - 1) / kBT + (long long)G + 1;
+  if (slots > 0x7fffffffLL || (N + kBT - 1) / kBT > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)slots, (unsigned)((N + kBT - 1) / kBT));
   // 16-byte chunks: 8 bf16 along the contiguous axis, each chunk's start a
   // multiple of 8 elements from an aligned base
   const int x_vec = aligned16(x) && K % 8 == 0;
   const int w_vec = aligned16(w) && w_sg % 8 == 0 &&
                     (w_sk == 1 ? w_sn % 8 == 0 : (w_sn == 1 && w_sk % 8 == 0));
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* g = static_cast<const int*>(gs);
-  if (bf16)
-    grouped_gemm_kernel<true><<<grid, kThreads, 0, st>>>(
-        x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
-  else
-    grouped_gemm_kernel<false><<<grid, kThreads, 0, st>>>(
-        x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, 0, 0);
+  grouped_gemm_ref_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, w, static_cast<const int*>(gs), y, R, K, N, G, w_sg, w_sk, w_sn,
+      x_vec, w_vec);
   return (int)cudaGetLastError();
 }
 
 // out [G, M, N] (contiguous) = x_g^T . ct_g for each group g, x [R, M] and
-// ct [R, N] contiguous, gs [G] int32 on the device.
+// ct [R, N] contiguous, gs [G] int32 on the device. bf16 runs the TMA path,
+// which takes R > 0, x, ct and out 16-byte aligned and M and N multiples
+// of 8 (else cudaErrorInvalidValue; gym_grouped_outer_ref takes any).
 int gym_grouped_outer(const void* x, const void* ct, const void* gs,
                       void* out, int R, int M, int N, int G, int bf16,
                       void* stream) {
   if (R < 0 || M <= 0 || N <= 0 || G <= 0 || G > 65535)
     return (int)cudaErrorInvalidValue;
-  const int bt = bf16 ? kBT : kFT;
-  const long long tiles =
-      (long long)((M + bt - 1) / bt) * ((N + bt - 1) / bt);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)G);
-  const int x_vec = aligned16(x) && M % 8 == 0;
-  const int ct_vec = aligned16(ct) && N % 8 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int* g = static_cast<const int*>(gs);
-  if (bf16)
-    grouped_outer_kernel<true><<<grid, kThreads, 0, st>>>(
-        x, ct, g, out, R, M, N, G, x_vec, ct_vec);
-  else
-    grouped_outer_kernel<false><<<grid, kThreads, 0, st>>>(
-        x, ct, g, out, R, M, N, G, 0, 0);
+  if (bf16) {
+    if (!(R > 0 && aligned16(x) && aligned16(ct) && aligned16(out) &&
+          M % 8 == 0 && N % 8 == 0))
+      return (int)cudaErrorInvalidValue;
+    return (int)tc::launch_outer(x, ct, g, out, R, M, N, G, st);
+  }
+  const long long tiles =
+      (long long)((M + kFT - 1) / kFT) * ((N + kFT - 1) / kFT);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  grouped_outer_kernel<false><<<dim3((unsigned)tiles, (unsigned)G), kThreads,
+                                0, st>>>(x, ct, g, out, R, M, N, G, 0, 0);
   return (int)cudaGetLastError();
+}
+
+// The outer product in bf16 on the first kernel (grouped_outer_ref_kernel),
+// any view.
+int gym_grouped_outer_ref(const void* x, const void* ct, const void* gs,
+                          void* out, int R, int M, int N, int G,
+                          void* stream) {
+  if (R < 0 || M <= 0 || N <= 0 || G <= 0 || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)((M + kBT - 1) / kBT) * ((N + kBT - 1) / kBT);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int x_vec = aligned16(x) && M % 8 == 0;
+  const int ct_vec = aligned16(ct) && N % 8 == 0;
+  grouped_outer_ref_kernel<<<dim3((unsigned)tiles, (unsigned)G), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      x, ct, static_cast<const int*>(gs), out, R, M, N, G, x_vec, ct_vec);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of a TMA-path kernel resident on one SM (kind 0: grouped_gemm
+// with w as it lies, 1: w read transposed, 2: grouped_outer), or a
+// negative cudaError_t; regs gets its registers a thread and smem its
+// dynamic shared memory.
+int gym_grouped_occupancy(int kind, int* regs, long long* smem) {
+  const void* kern = kind == 0   ? (const void*)tc::grouped_gemm_kernel<false>
+                     : kind == 1 ? (const void*)tc::grouped_gemm_kernel<true>
+                     : kind == 2 ? (const void*)tc::grouped_outer_kernel
+                                 : nullptr;
+  if (kern == nullptr) return -(int)cudaErrorInvalidValue;
+  const size_t bytes = kind == 2 ? tc::OuterRing::BYTES : tc::GemmRing::BYTES;
+  cudaError_t err = kind == 0   ? tc::allow_smem<0>(kern, bytes)
+                    : kind == 1 ? tc::allow_smem<1>(kern, bytes)
+                                : tc::allow_smem<2>(kern, bytes);
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        tc::THREADS, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  *regs = attr.numRegs;
+  *smem = (long long)bytes;
+  return blocks;
 }
 
 }  // extern "C"

@@ -28,9 +28,20 @@ n's rows land in groups n·E … n·E+E−1 (JAX's flattening batch rule).
 ``gs`` stays on the device: nothing here reads it on the host for a CUDA
 tensor. On a CPU tensor the entries run ``plain_grouped_dot`` and
 ``plain_grouped_outer`` (torch over the groups, also the tests' oracle); on
-a CUDA tensor they launch B8 or raise. ``grouped_dot.launches`` (and
-``launches_wt``, the launches that read w transposed) and
-``grouped_outer.launches`` count the launches.
+a CUDA tensor they launch B8 or raise.
+
+On the card a bf16 call takes one of two paths, by a rule on its views
+(``tma_path_dot``, ``tma_path_outer``): TMA takes 16-byte-aligned bases
+and row strides, so the TMA/``wgmma`` kernels run where x, w (or ct) lie
+16-byte aligned, K, N (C, H) are multiples of 8 and one of w's last two
+axes is contiguous with the other's stride a multiple of 8; every other
+bf16 view runs the first kernels (``mma.sync``), kept as the oracle
+(``grouped_dot_ref``, ``grouped_outer_ref``, uncounted). f32 always runs
+R1's chains. ``grouped_dot.launches`` and ``grouped_outer.launches`` count
+the launches of the TMA and f32 kernels (one a call: the outer has no
+second pass), ``launches_ref`` those of the first kernels for views TMA
+does not take, and ``grouped_dot.launches_wt`` the launches, on either
+path, that read w transposed.
 """
 
 from __future__ import annotations
@@ -93,6 +104,37 @@ def _group_rows(gs: torch.Tensor, rows: int):
         start += n
 
 
+def row_slots(gs, rows: int, bm: int = 128):
+    """The forward's row slots (``grouped_gemm.cu`` ``find_row_tile``),
+    plain Python: (group, first row, end row) of each group's tiles of
+    ``bm`` rows, group by group, then ``(-1, r0, r1)`` for the tiles of the
+    rows past the groups, up to ``rows / bm + G + 1`` slots (the grid's)
+    with ``None`` for a slot past them all."""
+    sizes = [int(n) for n in gs]
+    out, start = [], 0
+    for g, n in enumerate(sizes):
+        n = max(0, min(n, rows - start))
+        out += [(g, r0, min(start + n, r0 + bm))
+                for r0 in range(start, start + n, bm)]
+        start += n
+    out += [(-1, r0, min(rows, r0 + bm)) for r0 in range(start, rows, bm)]
+    slots = -(-rows // bm) + len(sizes) + 1
+    return out + [None] * (slots - len(out))
+
+
+def outer_order(gs, rows: int):
+    """The outer's groups in its blocks' order (``grouped_gemm.cu``
+    ``nth_longest``), plain Python: (group, first row, row count), the
+    longest first, equal counts by group index; sizes clamped so that no
+    group passes ``rows``."""
+    spans, start = [], 0
+    for g, n in enumerate(int(n) for n in gs):
+        n = max(0, min(n, rows - start))
+        spans.append((g, start, n))
+        start += n
+    return sorted(spans, key=lambda s: (-s[2], s[0]))
+
+
 def plain_grouped_dot(x: torch.Tensor, w: torch.Tensor,
                       gs: torch.Tensor) -> torch.Tensor:
     """B8's plain version: x ``[R, K]``, w ``[G, K, N]`` (any strides), gs
@@ -147,75 +189,152 @@ def _dot_checks(x, w, gs):
                          f"x[1]==w[1] and w[0]==gs[0])")
 
 
-def _launch_dot(x, w, gs):
-    """One launch of ``grouped_gemm_kernel``: ``[R, N]``."""
+def tma_path_dot(x, w) -> bool:
+    """Whether a bf16 ``grouped_dot`` on the card takes the TMA kernels (x
+    contiguous): x and w 16-byte aligned, K and N multiples of 8, w's
+    expert stride a multiple of 8, and w's k axis contiguous with its n
+    stride a multiple of 8 (w read transposed) or its n axis contiguous
+    with its k stride a multiple of 8 (w as it lies). ``gym_grouped_gemm``
+    holds the same rule."""
+    k, n = w.shape[1], w.shape[2]
+    sg, sk, sn = w.stride()
+    lay = sn % 8 == 0 if sk == 1 else (sn == 1 and sk % 8 == 0)
+    return (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0 and k % 8 == 0 and n % 8 == 0
+            and sg % 8 == 0 and lay)
+
+
+def tma_path_outer(x, g) -> bool:
+    """Whether a bf16 ``grouped_outer`` on the card takes the TMA kernel
+    (x and g contiguous, at least one row): both 16-byte aligned, C and H
+    multiples of 8 (``gym_grouped_outer``'s rule)."""
+    return (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and g.data_ptr() % 16 == 0 and x.shape[1] % 8 == 0
+            and g.shape[1] % 8 == 0)
+
+
+def _launch_dot(x, w, gs, ref=False):
+    """One launch of B8's grouped GEMM: ``[R, N]``. bf16 takes the TMA
+    kernel where ``tma_path_dot`` allows and ``ref`` is false, else the
+    first kernel. Returns (y, the path launched: "tma", "ref", "f32", or
+    None for nothing launched)."""
     bf16 = _b8_dtype(x, w)
     r, k = x.shape
     g, _, n = w.shape
     y = torch.empty(r, n, dtype=x.dtype, device=x.device)
     if r == 0 or n == 0:
-        return y
+        return y, None
     if k == 0 or g == 0:
-        return y.zero_()
+        return y.zero_(), None
     x = x.contiguous()
+    path = ("f32" if not bf16 else
+            "tma" if not ref and tma_path_dot(x, w) else "ref")
     gs = _sizes(gs, x.device)
     from . import _build
     lib = _build.load()
+    args = (x.data_ptr(), w.data_ptr(), gs.data_ptr(), y.data_ptr(), r, k,
+            n, g, w.stride(0), w.stride(1), w.stride(2))
     with torch.cuda.device(x.device):
-        code = lib.gym_grouped_gemm(
-            x.data_ptr(), w.data_ptr(), gs.data_ptr(), y.data_ptr(), r, k, n,
-            g, w.stride(0), w.stride(1), w.stride(2), bf16,
-            _stream(x.device))
-    _build.check(lib, code, "gym_grouped_gemm")
-    grouped_dot.launches += 1
-    if w.stride(2) != 1:
-        grouped_dot.launches_wt += 1
-    return y
+        if path == "ref":
+            name = "gym_grouped_gemm_ref"
+            code = lib.gym_grouped_gemm_ref(*args, _stream(x.device))
+        else:
+            name = "gym_grouped_gemm"
+            code = lib.gym_grouped_gemm(*args, bf16, _stream(x.device))
+    _build.check(lib, code, name)
+    return y, path
 
 
-def _launch_outer(x, g, gs):
-    """One launch of ``grouped_outer_kernel``: ``[G, C, H]``."""
+def _launch_outer(x, g, gs, ref=False):
+    """One launch of B8's outer kernel: ``[G, C, H]``, bf16 on the TMA
+    kernel where ``tma_path_outer`` allows and ``ref`` is false; returns
+    (out, the path) as ``_launch_dot``."""
     bf16 = _b8_dtype(x, g)
     r, c = x.shape
     h = g.shape[1]
     e = gs.shape[0]
     out = torch.empty(e, c, h, dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or h == 0:
-        return out
+        return out, None
+    if r == 0:
+        return out.zero_(), None
     x, g = x.contiguous(), g.contiguous()
+    path = ("f32" if not bf16 else
+            "tma" if not ref and tma_path_outer(x, g) else "ref")
     gs = _sizes(gs, x.device)
     from . import _build
     lib = _build.load()
+    args = (x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), r, c,
+            h, e)
     with torch.cuda.device(x.device):
-        code = lib.gym_grouped_outer(
-            x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), r, c,
-            h, e, bf16, _stream(x.device))
-    _build.check(lib, code, "gym_grouped_outer")
-    grouped_outer.launches += 1
-    return out
+        if path == "ref":
+            name = "gym_grouped_outer_ref"
+            code = lib.gym_grouped_outer_ref(*args, _stream(x.device))
+        else:
+            name = "gym_grouped_outer"
+            code = lib.gym_grouped_outer(*args, bf16, _stream(x.device))
+    _build.check(lib, code, name)
+    return out, path
+
+
+def _count(fn, path):
+    if path == "ref":
+        fn.launches_ref += 1
+    elif path is not None:
+        fn.launches += 1
+
+
+def _on_card(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: a cpu or cuda tensor, got {x.device}")
 
 
 def _dot(x, w, gs):
     _dot_checks(x, w, gs)
     if x.device.type == "cpu":
         return plain_grouped_dot(x, w, gs)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_dot: device must be cpu or cuda, got "
-                         f"{x.device}")
-    return _launch_dot(x, w, gs)
+    _on_card(x, "grouped_dot")
+    y, path = _launch_dot(x, w, gs)
+    _count(grouped_dot, path)
+    if path is not None and w.stride(2) != 1:
+        grouped_dot.launches_wt += 1
+    return y
 
 
-def _outer(x, g, gs):
+def _outer_checks(x, g, gs):
     if x.dim() != 2 or g.dim() != 2 or gs.dim() != 1 \
             or x.shape[0] != g.shape[0]:
         raise ValueError(f"grouped_outer shapes: x{tuple(x.shape)} "
                          f"g{tuple(g.shape)} gs{tuple(gs.shape)}")
+
+
+def _outer(x, g, gs):
+    _outer_checks(x, g, gs)
     if x.device.type == "cpu":
         return plain_grouped_outer(x, g, gs)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_outer: device must be cpu or cuda, got "
-                         f"{x.device}")
-    return _launch_outer(x, g, gs)
+    _on_card(x, "grouped_outer")
+    out, path = _launch_outer(x, g, gs)
+    _count(grouped_outer, path)
+    return out
+
+
+def grouped_dot_ref(x: torch.Tensor, w: torch.Tensor,
+                    gs: torch.Tensor) -> torch.Tensor:
+    """B8's first kernel on the card (bf16, ``mma.sync``), the TMA path's
+    oracle, on any bf16 view. Not counted; no autograd. A CUDA tensor
+    only."""
+    _dot_checks(x, w, gs)
+    _on_card(x, "grouped_dot_ref")
+    return _launch_dot(x, w, gs, ref=True)[0]
+
+
+def grouped_outer_ref(x: torch.Tensor, g: torch.Tensor,
+                      gs: torch.Tensor) -> torch.Tensor:
+    """B8's first outer kernel on the card, the TMA path's oracle. Not
+    counted; no autograd. A CUDA tensor only."""
+    _outer_checks(x, g, gs)
+    _on_card(x, "grouped_outer_ref")
+    return _launch_outer(x, g, gs, ref=True)[0]
 
 
 class _GroupedDot(torch.autograd.Function):
@@ -274,12 +393,11 @@ def grouped_outer(x: torch.Tensor, g: torch.Tensor,
     return _GroupedOuter.apply(x, g, gs)
 
 
-grouped_dot.launches = 0
-grouped_dot.launches_wt = 0
-grouped_outer.launches = 0
-
-
 def reset_launch_counts() -> None:
-    grouped_dot.launches = 0
+    for fn in (grouped_dot, grouped_outer):
+        fn.launches = 0
+        fn.launches_ref = 0
     grouped_dot.launches_wt = 0
-    grouped_outer.launches = 0
+
+
+reset_launch_counts()

@@ -7,10 +7,11 @@
 
 First the checkout as it is (16a must pass), then, for each fault (all by
 default), the checkout copied to a temporary directory, the fault written
-into the copy's kernel source and ``chip_smoke.py --b8-check`` (the build
-and 16a: both kernels at the MoE path's shapes, bf16 and f32, each output
-poisoned first) run there. Prints, a fault, the exit code and the first
-failure message. Exits non-zero if the clean copy fails or a fault passes.
+into the copy's kernel source and ``chip_smoke.py --b8-check`` (the build,
+B8's SASS and 16a: the kernels at the MoE path's shapes, bf16 and f32,
+each output poisoned first, bf16 against the plain version and the first
+kernels kept as the oracle) run there. Prints, a fault, the exit code and
+the first failure message. Exits non-zero if the clean copy fails or a fault passes.
 ``tests/test_torch_grouped_gemm_source.py`` holds each fault's text to
 exactly one place in the source.
 """
@@ -23,7 +24,9 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = "gym_tpu_torch/ops/csrc/grouped_gemm.cu"
-# name: (text in the kernel source, its faulty replacement)
+# name: (text in the kernel source, its faulty replacement); each breaks
+# the path the MoE shapes take (the TMA kernels, and find_row_tile, which
+# the first kernels share)
 FAULTS = {
     # each group after the first starts a row late
     "group_offset_off_by_one": ("    start += n;\n", "    start += n + 1;\n"),
@@ -34,16 +37,39 @@ FAULTS = {
         "return {g, row0, min(R, row0 + BM)};"),
     # an empty group's w-cotangent left unwritten
     "empty_group_not_written": (
-        "    zero_tile<E>(o, N, M - m0, N - n0, BT);  // an empty group's "
-        "product\n", ""),
+        "zero_out(o, N, M - m0, N - n0);  // an empty group's tile",
+        "// an empty group's tile left unwritten"),
     # the rows past sum(gs) left unwritten
     "rows_past_sum_not_zeroed": (
-        "    zero_tile<E>(o, N, t.row1 - t.row0, N - n0, BT);  // rows past "
-        "sum(gs)\n", ""),
-    # w's k and n strides exchanged, so a transposed read (ct . w^T) reads
-    # w as it lies, and the forward's read transposed
-    "weight_strides_swapped": ("               w_sn, w_sk, N - n0, K,",
-                               "               w_sk, w_sn, N - n0, K,"),
+        "zero_out(o, N, t.row1 - t.row0, N - n0);  // rows past the groups",
+        "continue;  // rows past the groups left unwritten"),
+    # w's k and n extents exchanged in its tensor map, so the forward reads
+    # w as if it lay [G, N, K] and the transposed read as [G, K, N]
+    "weight_axes_swapped": (
+        "  const cuuint64_t w_dims[3] = {(cuuint64_t)(kKMajorB ? K : N),\n"
+        "                                (cuuint64_t)(kKMajorB ? N : K),",
+        "  const cuuint64_t w_dims[3] = {(cuuint64_t)(kKMajorB ? N : K),\n"
+        "                                (cuuint64_t)(kKMajorB ? K : N),"),
+    # a forward tile stores all its rows: the next group's, multiplied by
+    # this group's expert, over the next tile's (or the zeroed tail's)
+    "tile_stores_the_next_groups_rows": (
+        "store_staged(acc, base + C::STAGED, o, N, t.row1 - t.row0, N - n0);",
+        "store_staged(acc, base + C::STAGED, o, N, min(BM, R - t.row0), "
+        "N - n0);"),
+    # the outer's last stage keeps the rows past its group's end: the next
+    # group's rows enter the sums
+    "outer_boundary_rows_not_zeroed": (
+        "consume<C, 1, 1>(base, it, nk, s.count - (nk - 1) * BK, acc);",
+        "consume<C, 1, 1>(base, it, nk, BK, acc);"),
+    # the outer's x (an MN-major A) read as K-major: the transpose bit off
+    "mn_major_transpose_bit_flipped": (
+        "consume<C, 1, 1>(base, it, nk, s.count - (nk - 1) * BK, acc);",
+        "consume<C, 0, 1>(base, it, nk, s.count - (nk - 1) * BK, acc);"),
+    # equal row counts share a rank: one such group's tiles run twice, the
+    # other's never
+    "schedule_repeats_a_group": (
+        "r += h < G && (nh > count || (nh == count && h < g));",
+        "r += h < G && nh > count;"),
 }
 
 

@@ -7,10 +7,11 @@ header that stubs CUDA's types, built-ins and intrinsics, with its
     python3 scripts/cu_syntax.py [FILE.cu ...]
 
 (every ``gym_tpu_torch/ops/csrc/*.cu`` that includes no header of the
-port's own by default). It catches C++ errors (a redeclared name, a
-template that does not instantiate, a wrong argument list), not what only
-``nvcc`` and ``ptxas`` see (PTX, registers, shared memory). Exits non-zero
-if any file fails.
+port's own but ``hopper.cuh`` by default; a header of the port's own is
+read from beside the file, with the same stubs). It catches C++ errors (a
+redeclared name, a template that does not instantiate, a wrong argument
+list), not what only ``nvcc`` and ``ptxas`` see (PTX, registers, shared
+memory). Exits non-zero if any file fails.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ STUB = r'''#pragma once
 #define __restrict__
 #define __align__(x)
 #define __shared__
+#define __grid_constant__
 #define asm(...) ((void)0)
+#define CUDART_VERSION 12090
 using std::max;
 using std::min;
 struct dim3 {
@@ -47,7 +50,30 @@ struct uint3 { unsigned x, y, z; };
 extern uint3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorNotSupported = 801 };
+struct cudaFuncAttributes { int numRegs; };
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, F) { return 0; }
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess };
+enum { cudaEnableDefault = 0 };
+inline cudaError_t cudaGetDriverEntryPointByVersion(
+    const char*, void**, unsigned, unsigned long long,
+    cudaDriverEntryPointQueryResult*) { return 0; }
+// <cuda.h>: the tensor map's types and enums
+typedef unsigned long long cuuint64_t;
+typedef unsigned cuuint32_t;
+typedef int CUresult;
+enum { CUDA_SUCCESS = 0 };
+struct CUtensorMap { alignas(64) unsigned long long opaque[16]; };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_32B,
+                          CU_TENSOR_MAP_SWIZZLE_64B,
+                          CU_TENSOR_MAP_SWIZZLE_128B };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) {
@@ -56,6 +82,7 @@ inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) {
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetDevice(int*) { return 0; }
+inline cudaError_t cudaSetDevice(int) { return 0; }
 template <class F>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int,
                                                           size_t) {
@@ -63,6 +90,11 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int,
 }
 inline cudaError_t cudaGetLastError() { return 0; }
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct __nv_bfloat16 { unsigned short x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float, float) { return {}; }
 struct char4 { signed char x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
@@ -73,6 +105,7 @@ inline float4 make_float4(float a, float b, float c, float d) {
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_up_sync(unsigned, T v, int) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline unsigned __match_any_sync(unsigned m, int) { return m; }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
@@ -105,12 +138,26 @@ inline unsigned __float_as_uint(float f) {
 '''
 
 
-def check(path: str, tmp: str) -> bool:
+CUDA_HEADERS = ("cuda_runtime.h", "cuda.h", "cuda_bf16.h")
+
+
+def stubbed(path: str) -> str:
+    """The source at ``path`` as g++ reads it: CUDA's headers the stub,
+    launch configurations cut, inline PTX dropped."""
     with open(path) as f:
         text = f.read()
-    text = text.replace("#include <cuda_runtime.h>", '#include "cuda_stub.h"')
+    for h in CUDA_HEADERS:
+        text = text.replace(f"#include <{h}>", '#include "cuda_stub.h"')
     text = re.sub(r"<<<[^;]*?>>>", "", text)
-    text = text.replace("asm volatile(", "asm(")
+    return text.replace("asm volatile(", "asm(")
+
+
+def check(path: str, tmp: str) -> bool:
+    text = stubbed(path)
+    for h in re.findall(r'#include "([^"]+)"', text):
+        if h != "cuda_stub.h":
+            with open(os.path.join(tmp, h), "w") as f:
+                f.write(stubbed(os.path.join(os.path.dirname(path), h)))
     src = os.path.join(tmp, os.path.basename(path) + ".cpp")
     with open(src, "w") as f:
         f.write(text)
@@ -127,7 +174,8 @@ def main() -> int:
     files = sys.argv[1:] or [
         f for f in sorted(glob.glob(os.path.join(
             HERE, "gym_tpu_torch", "ops", "csrc", "*.cu")))
-        if not re.search(r'#include "', open(f).read())]
+        if set(re.findall(r'#include "([^"]+)"', open(f).read()))
+        <= {"hopper.cuh"}]
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "cuda_stub.h"), "w") as f:
             f.write(STUB)

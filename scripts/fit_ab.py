@@ -12,7 +12,9 @@ steps and then a fit of ``--steps`` steps at ``chip_smoke.py``'s settings
 ``chip_smoke.gpt_fit``: GPT 4L/4H/128d, T=256, K=64 × 16 rows, bf16,
 DiLoCo; ``8e``, DiLoCo with the int8 codec at GPT-2 base, K=4 × 4 rows, H
 2, as phase 8e trains it; ``8d_dynamiq``, DynamiQ int8 at the flagship,
-K=16 × 16 rows, as phase 8d does), and prints one JSON line: the tree, the
+K=16 × 16 rows, as phase 8d does; ``16b``, the MoE GPT-2 base (every
+second block 8 experts, top-2) at K=2 × 4 rows, bf16, DiLoCo, as phase
+16b trains it), and prints one JSON line: the tree, the
 card, the steady steps/s, the ms a step and the measured fit's peak device
 memory. Alternate the trees (A B B A ...) so that a drift of the host
 favours neither; the spread of one tree's runs says how far apart two
@@ -46,6 +48,9 @@ def run_one(config: str, steps: int, tree: str) -> None:
         if config == "flagship":
             return cs.gpt_fit(torch, FLAGSHIP, 64, 16, n, "cuda", True, 0,
                               "ab_flagship")
+        if config == "16b":
+            return cs.gpt_fit(torch, cs.MOE_BASE, 2, 4, n, "cuda", True, 0,
+                              "ab_16b")
         if config in CODEC_FITS:
             from gym_tpu_torch import strategy
             adamw = strategy.OptimSpec("adamw", lr=3e-4)
@@ -79,7 +84,7 @@ def main() -> int:
         return 0
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", choices=["9a", "9b", "9c", "9d", "flagship",
-                                       *CODEC_FITS])
+                                       "16b", *CODEC_FITS])
     p.add_argument("trees", nargs="+")
     p.add_argument("--steps", type=int, default=20)
     args = p.parse_args()

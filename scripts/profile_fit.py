@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where a training step of a BASELINE config goes on the card:
 ``torch.profiler`` over a fit of ``--steps`` steps (no evals), after a warm
-fit of two, at ``chip_smoke.py``'s phase-9 settings.
+fit of two, at ``chip_smoke.py``'s phase-9 settings; ``16b`` is phase
+16b's MoE fit (GPT-2 base, every second block 8 experts top-2, K=2 × 4
+rows, bf16, DiLoCo), with its eval at the start and at the end.
 
     python3 scripts/profile_fit.py 9b 9d 9f [--steps 8] [--kernel NAME ...]
 
@@ -26,6 +28,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def fit_of(cs, config, steps):
+    if config == "16b":  # phase 16b's MoE fit (its two evals included)
+        import torch
+        return lambda: cs.gpt_fit(torch, cs.MOE_BASE, 2, 4, steps, "cuda",
+                                  True, 0, "prof_16b")
     if config == "9d":
         return lambda: cs.config4_fit(steps, val_size=0, run_name="prof_9d")
     if config == "9f":
@@ -100,7 +106,7 @@ def profile(cs, torch, config, steps, kernels=()):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("configs", nargs="+",
-                   choices=["9a", "9b", "9c", "9d", "9f"])
+                   choices=["9a", "9b", "9c", "9d", "9f", "16b"])
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--kernel", action="append", default=[],
                    help="also report the kernels whose names hold this")

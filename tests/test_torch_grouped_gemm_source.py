@@ -1,25 +1,32 @@
 """B8's contract, held in its CUDA source (``grouped_gemm.cu``), on the CPU:
 the file passes ``scripts/cu_syntax.py`` (C++ as ``g++`` reads it against
-stubbed CUDA types); its two kernels are the only ones and hold no atomic
-and no host read of the group sizes (a block walks ``gs`` on the device);
-the f32 path chains ``fmaf`` into its accumulator in k order, with no
-tensor-core instruction, and the bf16 path multiplies on ``mma.sync``; the
-C entries are bound in ``_build.py``, which builds the file; and each of
-``scripts/b8_faults.py``'s planted faults names exactly one place of the
-source, inside the function it breaks."""
+stubbed CUDA types); its kernels are the TMA path's two, the f32 instances
+and the first bf16 kernels kept as the oracle, and hold no atomic and no
+host read of the group sizes (a block walks ``gs`` on the device); the
+bf16 path loads through TMA into an mbarrier ring and multiplies on
+``wgmma`` with no transpose in shared memory, the first kernels keep
+``mma.sync``, and the f32 path chains ``fmaf`` into its accumulator in k
+order, with no tensor-core instruction; the C entries are bound in
+``_build.py``, which builds the file; each of ``scripts/b8_faults.py``'s
+planted faults names exactly one place of the source, inside the function
+it breaks; and the kernels' schedules, through their plain-Python twins
+(``row_slots``, ``outer_order``), cover every output row and tile exactly
+once, by its own group."""
 
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import gym_tpu_torch.ops._build as build
 import gym_tpu_torch.ops.grouped_matmul as tgm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(tgm.__file__), "csrc", "grouped_gemm.cu")
+CSRC = os.path.join(os.path.dirname(tgm.__file__), "csrc")
+SRC = os.path.join(CSRC, "grouped_gemm.cu")
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import b8_faults  # noqa: E402
 
@@ -29,12 +36,16 @@ FAULT_HOMES = {
     "tile_straddles_into_the_next_expert": "find_row_tile",
     "empty_group_not_written": "grouped_outer_kernel",
     "rows_past_sum_not_zeroed": "grouped_gemm_kernel",
-    "weight_strides_swapped": "grouped_gemm_kernel",
+    "weight_axes_swapped": "launch_gemm",
+    "tile_stores_the_next_groups_rows": "grouped_gemm_kernel",
+    "outer_boundary_rows_not_zeroed": "grouped_outer_kernel",
+    "mn_major_transpose_bit_flipped": "grouped_outer_kernel",
+    "schedule_repeats_a_group": "nth_longest",
 }
 
 
-def _text(strip_comments=True) -> str:
-    with open(SRC) as f:
+def _text(path=SRC, strip_comments=True) -> str:
+    with open(path) as f:
         text = f.read()
     if strip_comments:
         text = re.sub(r"//[^\n]*", "", text)
@@ -51,15 +62,18 @@ def _close(text: str, i: int, left: str, right: str) -> int:
     raise AssertionError("unbalanced brackets")
 
 
-def _body(text: str, name: str) -> str:
-    """The definition of function ``name``: its name through the brace that
-    closes its body."""
-    for m in re.finditer(r"\b" + name + r"\s*\(", text):
-        after = _close(text, m.end() - 1, "(", ")")
+def _body(text: str, name: str, last=False) -> str:
+    """The definition of function (or namespace) ``name``: its name
+    through the brace that closes its body; the last one with ``last``."""
+    found = []
+    for m in re.finditer(r"\b" + name + r"\s*[({]", text):
+        after = (m.end() - 1 if text[m.end() - 1] == "{"
+                 else _close(text, m.end() - 1, "(", ")"))
         if text[after:].lstrip().startswith("{"):
             brace = text.index("{", after)
-            return text[m.start():_close(text, brace, "{", "}")]
-    raise AssertionError(f"no definition of {name} in grouped_gemm.cu")
+            found.append(text[m.start():_close(text, brace, "{", "}")])
+    assert found, f"no definition of {name} in {SRC}"
+    return found[-1] if last else found[0]
 
 
 def test_source_passes_the_syntax_check():
@@ -77,16 +91,20 @@ def test_kernels_and_entries():
         head = text[m.end():text.index("{", m.end())]
         kernels.add(next(n for n in re.findall(r"(\w+)\s*\(", head)
                          if not n.startswith("__")))
-    assert kernels == {"grouped_gemm_kernel", "grouped_outer_kernel"}
+    assert kernels == {"grouped_gemm_kernel", "grouped_outer_kernel",
+                       "grouped_gemm_ref_kernel", "grouped_outer_ref_kernel"}
     for word in ("atomic", "cudaMemcpy", "cudaStreamSynchronize",
                  "cudaDeviceSynchronize"):
         assert word not in text, word
+    assert "atomic" not in _text(os.path.join(CSRC, "hopper.cuh"))
     assert SRC in build.SOURCES
     with open(build.__file__) as f:
         bound = f.read()
-    for entry in ("gym_grouped_gemm", "gym_grouped_outer"):
+    for entry in ("gym_grouped_gemm", "gym_grouped_gemm_ref",
+                  "gym_grouped_outer", "gym_grouped_outer_ref",
+                  "gym_grouped_occupancy"):
         assert f"int {entry}(" in text
-        assert f"lib.{entry}.argtypes" in bound
+        assert f"lib.{entry}.argtypes" in bound or f'"{entry[12:]}"' in bound
 
 
 def test_f32_chains_and_bf16_tensor_cores():
@@ -98,9 +116,37 @@ def test_f32_chains_and_bf16_tensor_cores():
     assert "min(kFK, K - k0)" in chain
     for word in ("mma", "wgmma", "tf32", "__shfl"):
         assert word not in chain
+    # the TMA path: a producer's TMA boxes into a ring of full and empty
+    # mbarriers, wgmma on the consumers, one rounding to bf16 at the store
+    tc = _body(text, "namespace tc")
+    produce = _body(tc, "produce")
+    assert "mbar_wait(C::empty(base, st)" in produce
+    assert "mbar_expect_tx(C::full(base, st), C::STAGE)" in produce
+    consume = _body(tc, "consume")
+    assert "mbar_wait(C::full(base, st)" in consume
+    assert "wgmma_ss_n256<TA, TB>" in consume
+    assert "mbar_arrive(C::empty(base" in consume
+    for k in ("grouped_gemm_kernel", "grouped_outer_kernel"):
+        body = _body(tc, k)
+        assert "ring_init<C>()" in body and "tma_load_" in body
+    assert "tma_load_3d" in _body(tc, "grouped_gemm_kernel")
+    assert "OuterRing" in _body(tc, "grouped_outer_kernel")
+    assert "f32_to_bf16_bits(acc[4 * j + 2 * rr])" in _body(tc, "out_pair")
+    # no transposes in shared memory: wgmma reads MN-major operands
+    # through their descriptors and the transpose immediates
+    for word in ("store_chunks", "mma.sync", "mma_bf16", "__syncwarp"):
+        assert word not in tc, word
+    assert "desc_mn<128>" in _body(tc, "desc_a")
+    assert "desc_mn<128>" in _body(tc, "desc_b")
+    hopper = _text(os.path.join(CSRC, "hopper.cuh"))
+    n256 = _body(hopper, "wgmma_ss_n256")
+    assert "m64n256k16.f32.bf16.bf16" in n256
+    assert '"n"(TA), "n"(TB)' in n256 and "p, 1, 1, %131, %132" in n256
+    # the first kernels, kept as the oracle, on mma.sync
+    assert "gemm_rows<true>" in _body(text, "grouped_gemm_ref_kernel")
+    assert "outer_tiles<true>" in _body(text, "grouped_outer_ref_kernel")
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in \
         _body(text, "mma_bf16")
-    # one rounding to bf16, to nearest even, at the store
     assert "f32_to_bf16_bits(acc[mi][ni][h])" in _body(text, "mma_store")
 
 
@@ -109,5 +155,85 @@ def test_each_planted_fault_names_one_place(fault):
     old, new = b8_faults.FAULTS[fault]
     raw = _text(strip_comments=False)
     assert raw.count(old) == 1 and old != new
-    body = _body(raw, FAULT_HOMES[fault])
+    body = _body(raw, FAULT_HOMES[fault], last=True)
     assert old in body, f"{fault} is not in {FAULT_HOMES[fault]}"
+
+
+def _sizes(seed, groups, rows):
+    """Group sizes: empty groups, one of 60% of the rows, and a total that
+    falls short of, meets or passes ``rows``."""
+    rng = np.random.default_rng(seed)
+    n = int(rows * rng.choice([0.5, 0.9, 1.0, 1.3]))
+    if groups == 1:
+        return [n]
+    sizes = rng.multinomial(n - int(0.6 * n),
+                            np.ones(groups - 1) / (groups - 1)).tolist()
+    sizes.insert(int(rng.integers(groups)), int(0.6 * n))
+    for g in rng.choice(groups, size=min(2, groups - 1), replace=False):
+        sizes[g] = 0
+    return sizes
+
+
+def _spans(sizes, rows):
+    spans, start = [], 0
+    for n in sizes:
+        n = max(0, min(n, rows - start))
+        spans.append((start, n))
+        start += n
+    return spans
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_forward_row_slots_cover_each_row_once(seed):
+    """``find_row_tile``'s twin: each row below ``rows`` in exactly one
+    slot, a group's slots inside its own rows (at most 128 a slot), the
+    rows past the groups in tail slots, no more slots than the grid's."""
+    groups = [3, 8, 16, 40, 1, 64][seed]
+    rows = [700, 16384, 8192, 5000, 129, 2048][seed]
+    sizes = _sizes(seed, groups, rows)
+    slots = tgm.row_slots(sizes, rows)
+    assert len(slots) == -(-rows // 128) + groups + 1
+    seen = np.zeros(rows, dtype=int)
+    spans = _spans(sizes, rows)
+    used = sum(n for _, n in spans)
+    for slot in slots:
+        if slot is None:
+            continue
+        g, r0, r1 = slot
+        assert 0 < r1 - r0 <= 128
+        seen[r0:r1] += 1
+        if g < 0:
+            assert r0 >= used
+        else:
+            start, n = spans[g]
+            assert start <= r0 < r1 <= start + n
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_outer_order_covers_each_tile_once(seed):
+    """``nth_longest``'s twin: the blocks' groups are a permutation of the
+    groups, the longest first (ties by index), each with its own clamped
+    rows, so every (group, tile) item is computed exactly once; and the
+    kernel's clamp (a group starts at min(R, its unclamped prefix)) is the
+    sequential one."""
+    groups = [3, 8, 16, 40, 1, 64][seed]
+    rows = [700, 16384, 8192, 5000, 129, 2048][seed]
+    sizes = _sizes(seed + 10, groups, rows)
+    order = tgm.outer_order(sizes, rows)
+    assert sorted(g for g, _, _ in order) == list(range(groups))
+    counts = [n for _, _, n in order]
+    assert counts == sorted(counts, reverse=True)
+    spans = _spans(sizes, rows)
+    prefix = np.concatenate([[0], np.cumsum(np.maximum(sizes, 0))])
+    for rank, (g, start, n) in enumerate(order):
+        assert (start, n) == spans[g]
+        lo, hi = min(rows, prefix[g]), min(rows, prefix[g + 1])
+        assert (start, n) == (lo, hi - lo)
+        # the kernel's rank of g: the groups longer, or as long and lower
+        assert rank == sum(spans[h][1] > n or (spans[h][1] == n and h < g)
+                           for h in range(groups))
+    tiles = 6 * 12
+    items = [(order[i // tiles][0], i % tiles)
+             for i in range(groups * tiles)]
+    assert len(set(items)) == groups * tiles

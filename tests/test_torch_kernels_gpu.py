@@ -98,7 +98,9 @@ B8, the MoE layers' grouped matmuls (``-k b8 or moe_layer``): grouped_dot,
 with w as it lies and read transposed, and grouped_outer against their plain
 versions in both dtypes' bands, empty groups and rows past sum(gs) zero on
 poisoned outputs, f32 grouped_dot bit for bit R1 a group and a row's bits
-the same alone, in its group and with K=2 problems flattened; the gradients
+the same alone, in its group and with K=2 problems flattened; bf16 at an
+MoE width on the TMA kernels and, for a view TMA does not take (C = 100),
+on the first kernels, each path's launches counted apart; the gradients
 against the plain versions' autograd; the ragged MoE layer of K=2 nodes on
 the card against the CPU, its decode form's rows the same alone and in a
 batch.
@@ -1502,6 +1504,53 @@ def test_b8_matches_its_plain_version(dt, sizes):
     out = tgm.grouped_outer(x, ct, gs)
     _close(out, tgm.plain_grouped_outer(x, ct, gs), tol, "grouped_outer")
     assert torch.all(out[0] == 0) and torch.all(out[3] == 0)
+
+
+def _b8_path_run(c, h, sizes, path):
+    """bf16 grouped_dot (w as it lies and read transposed) and
+    grouped_outer at [sum + 40 rows, c] x [G, c, h]: each one launch on
+    ``path``'s count ("tma": ``launches``, "ref": ``launches_ref``) and
+    none on the other's, in the bf16 band of the plain version and of the
+    first kernels; rows past sum(gs) and empty groups zero on poisoned
+    outputs."""
+    dtype, tol = DTYPES["bf16"]
+    x, w, ct, gs = _b8_operands(_card(), dtype, r=sum(sizes) + 40, c=c,
+                                h=h, sizes=sizes)
+    runs = ((tgm.grouped_dot, tgm.plain_grouped_dot, tgm.grouped_dot_ref,
+             x, w),
+            (tgm.grouped_dot, tgm.plain_grouped_dot, tgm.grouped_dot_ref,
+             ct, w.transpose(1, 2)),
+            (tgm.grouped_outer, tgm.plain_grouped_outer,
+             tgm.grouped_outer_ref, x, ct))
+    for fn, plain, first, a, b in runs:
+        before = (fn.launches, fn.launches_ref)
+        out = (a.shape[0] * b.shape[-1] if fn is tgm.grouped_dot
+               else len(sizes) * a.shape[1] * b.shape[1])
+        torch.full((2 * out,), 0xFF, dtype=torch.uint8, device="cuda")
+        got = fn(a, b, gs)
+        one = (1, 0) if path == "tma" else (0, 1)
+        assert (fn.launches - before[0], fn.launches_ref - before[1]) == one
+        _close(got, plain(a, b, gs), tol, fn.__name__)
+        _close(got, first(a, b, gs), tol, fn.__name__ + " (first kernel)")
+        if fn is tgm.grouped_dot:
+            assert torch.all(got[sum(sizes):] == 0)
+        else:
+            assert all(torch.all(got[e] == 0) for e, n in enumerate(sizes)
+                       if n == 0)
+
+
+@pytest.mark.gpu
+def test_b8_moe_width_takes_the_tma_path():
+    """The MoE layer's widths (C 768, H 3072), 8 experts, one empty and one
+    of 60% of the rows: the TMA kernels."""
+    _b8_path_run(768, 3072, (1229, 0, 2458, 200, 77, 0, 100, 33), "tma")
+
+
+@pytest.mark.gpu
+def test_b8_unaligned_view_takes_the_first_kernels():
+    """C = 100 (rows of 200 bytes, which TMA does not take): the first
+    kernels, counted in ``launches_ref``."""
+    _b8_path_run(100, 160, (0, 301, 99, 0, 250, 50), "ref")
 
 
 @pytest.mark.gpu
