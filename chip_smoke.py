@@ -215,31 +215,41 @@ Phases (any failure exits non-zero before the result lines are printed):
    reconciliation failure, 6 cells in ``frontier.csv``, the join cells'
    reshard priced, and in every cell the attention pair the port's gate
    picks at that shape launched (the packed pair) and no other;
-16. mixture of experts on one card: 16a B8 (``grouped_gemm_kernel``,
-   ``grouped_outer_kernel``: bf16 on TMA and ``wgmma``, f32 R1's chains)
-   against its plain version at the MoE path's shapes, [16384, 768] x [8,
-   768, 3072] and [16384, 3072] x [8, 3072, 768], each ct_x (w read transposed) and each grouped_outer, bf16 and
-   f32, group sizes with an empty group and one of 60% of the rows, K=2
-   flattened to 16 groups (forward, ct_x and grouped_outer) and 333 rows
-   past sum(gs); in f32 also the served steps 16c gives B8 (decode of 1-16
-   slots, prefills of 32-512 tokens, top-2 rows routed as ``moe_mlp``
-   routes them, most groups empty at a few rows); each output poisoned
-   first: bf16 in phase 3's band, f32 in the f32 band and f32 grouped_dot
-   bit for bit R1's in-order FMA chains a group; bf16 also in the band of
-   the first kernels kept as the oracle (``grouped_*_ref_kernel``; bit for
-   bit reported) and run twice bit for bit, a bf16 view TMA does not take
-   (C = 100) on the first kernels, counted apart, and bf16 grouped_dot and
-   grouped_outer captured in a CUDA graph, replayed equal to eager; then
-   timed beside the first kernel, the plain version, the library
+16. mixture of experts on one card: 16a B8 (``tc::grouped_gemm_kernel``,
+   ``tc::grouped_outer_kernel``: bf16 on TMA and ``wgmma``; f32 on the
+   ``cp.async`` ring kernels ``grouped_gemm_f32_kernel`` (three tilings by
+   R) and ``grouped_outer_f32_kernel``, R1's chains) against its plain
+   version at the MoE path's shapes, [16384, 768] x [8, 768, 3072] and
+   [16384, 3072] x [8, 3072, 768], each ct_x (w read transposed) and each
+   grouped_outer, bf16 and f32, group sizes with an empty group and one of
+   60% of the rows, K=2 flattened to 16 groups (forward, ct_x and
+   grouped_outer) and 333 rows past sum(gs); in f32 also the served steps
+   16c gives B8 (decode of 1-16 slots, prefills of 32-512 tokens, top-2
+   rows routed as ``moe_mlp`` routes them, most groups empty at a few
+   rows); each output poisoned first, in the dtype's band (bf16 phase 3's)
+   and run twice bit for bit; bf16 also in the band of the first kernels
+   kept as the oracle (``grouped_*_ref_kernel``; bit for bit reported), a
+   bf16 view TMA does not take (C = 100) on the first kernels, counted
+   apart; every f32 case bit for bit its oracle (the first f32 kernels,
+   ``grouped_*_f32_ref_kernel``) and R1's in-order FMA chains a group;
+   grouped_dot and grouped_outer captured in a CUDA graph, replayed equal
+   to eager, in both dtypes (f32 also a decode step of 1 and of 16
+   tokens); then timed beside the oracle, the plain version, the library
    yardstick (``torch._grouped_mm`` where it takes the operands, else a
-   per-expert ``torch.matmul`` loop, labelled) and the bound; 16b the
-   repo's MoE config (GPT-2 base, every second block's MLP 8 experts
-   top-2, T=1024) through ``Trainer.fit``, K=2 × 4 rows, bf16, DiLoCo
-   (AdamW, H=2), 4 steps: B8's launches exactly (none on the first
-   kernels' path), steady steps/s, peak memory, active-parameter MFU; 16c the same model in f32,
-   random weights, 8 of phase 10's requests through the paged engine
-   eagerly and on CUDA graphs (tokens and launches equal), one request
-   alone equal to its tokens in the batch and to ``generate_fast``; 16d
+   per-expert ``torch.matmul`` loop, labelled) and the bound (in f32 at a
+   few rows the larger of the bytes of the experts with rows and the
+   chain floor, K dependent FMAs); in f32 also the served decode of 1 and
+   16 tokens and the 512-token prefill; 16b the repo's MoE config (GPT-2
+   base, every second block's MLP 8 experts top-2, T=1024) through
+   ``Trainer.fit``, K=2 × 4 rows, bf16, DiLoCo (AdamW, H=2), 4 steps: B8's
+   launches exactly (none on the first kernels' path), steady steps/s,
+   peak memory, active-parameter MFU; then in f32, K=2 × 1 row, 2 steps:
+   every product on the f32 ring kernels, their launches exactly; 16c the
+   same model in f32, random weights, 8 of phase 10's requests through the
+   paged engine eagerly and on CUDA graphs (tokens and launches equal, the
+   tokens' digest printed for ``scripts/moe_serve_digest.py``), one
+   request alone equal to its tokens in the batch and to
+   ``generate_fast``; 16d
    ``python -m gym_tpu_torch.examples.nanogpt --n_experts 4 --dataset
    docs`` at 4L/4H/128d, three steps. ``chip_smoke.py --b8-check`` runs
    the build and 16a's checks alone (``scripts/b8_faults.py``);
@@ -352,12 +362,15 @@ entry) and 9d (the f32 B1/B2), and of phase 10's run (a) (B7, R1, L1 with the ad
 bits rows), each counted from zero; the packed pair and
 B5's forward count their bf16 and f32 kernels apart (every eval runs in
 f32); B6 and B7 int8 count 13b's first int8 run; B8's two kernels count
-16b's fit (grouped_dot's launches include the ct_x products).
+16b's fit (grouped_dot's launches include the ct_x products), their f32
+ring kernels 16b's f32 fit; each B8 row also names its kernel, its oracle
+and the oracle's time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -474,7 +487,23 @@ KERNELS = {
                        "gym_tpu/ops/grouped_matmul.py:40-65"),
     "B8_grouped_outer": ("grouped_matmul", "grouped_outer", "launches",
                          B8_CU, "gym_tpu/ops/grouped_matmul.py:75-102"),
+    # their f32 launches alone: the ring kernels (grouped_gemm_f32_kernel,
+    # grouped_outer_f32_kernel), timed beside their oracle, the first ones
+    "B8_grouped_dot_f32": ("grouped_matmul", "grouped_dot", "launches_f32",
+                           B8_CU, "gym_tpu/ops/grouped_matmul.py:40-65"),
+    "B8_grouped_outer_f32": ("grouped_matmul", "grouped_outer",
+                             "launches_f32", B8_CU,
+                             "gym_tpu/ops/grouped_matmul.py:75-102"),
 }
+# the kernels a JSON row of B8 times, and the oracle timed beside them
+B8_ORACLES = {
+    "B8_grouped_dot": ("tc::grouped_gemm_kernel", "grouped_gemm_ref_kernel"),
+    "B8_grouped_outer": ("tc::grouped_outer_kernel",
+                         "grouped_outer_ref_kernel"),
+    "B8_grouped_dot_f32": ("f32::grouped_gemm_f32_kernel",
+                           "grouped_gemm_f32_ref_kernel"),
+    "B8_grouped_outer_f32": ("f32::grouped_outer_f32_kernel",
+                             "grouped_outer_f32_ref_kernel")}
 # GPT-2 base (12L/12H/768, vocab 50304, T=1024), phases 5 and 8
 GPT2_BASE = dict(block_size=1024, vocab_size=50304, n_layer=12, n_head=12,
                  n_embd=768, attn_impl="flash")
@@ -2839,28 +2868,34 @@ def check_quantize_sass(counts):
 
 
 # B8's kernels: the TMA path's three (the forward with w as it lies and
-# read transposed, the outer), the f32 instances of the first kernels and
-# the first bf16 kernels, kept as the oracle (grouped_*_ref_kernel)
-B8_KERNELS = {"tma": 3, "f32": 2, "ref": 2}
+# read transposed, the outer), the first bf16 kernels kept as their oracle
+# (grouped_*_ref_kernel), the f32 ring kernels' seven (the forward in three
+# tilings, each with w as it lies and read transposed, and the outer) and
+# the first f32 kernels kept as their oracle (grouped_*_f32_ref_kernel)
+B8_KERNELS = {"tma": 3, "ref": 2, "f32": 7, "f32_ref": 2}
 B8_NAMES = ("grouped_gemm_kernel", "grouped_outer_kernel",
-            "grouped_gemm_ref_kernel", "grouped_outer_ref_kernel")
+            "grouped_gemm_ref_kernel", "grouped_outer_ref_kernel",
+            "grouped_gemm_f32_kernel", "grouped_outer_f32_kernel",
+            "grouped_gemm_f32_ref_kernel", "grouped_outer_f32_ref_kernel")
 
 
 def b8_kind(name):
-    """"tma", "ref" or "f32" for a B8 kernel's name (demangled or not),
-    else None."""
+    """"tma", "ref", "f32" or "f32_ref" for a B8 kernel's name (demangled
+    or not), else None."""
     if not any(n in name for n in B8_NAMES):
         return None
     if "CUtensorMap" in name:
         return "tma"
-    return "ref" if "_ref_kernel" in name else "f32"
+    if "_f32_ref_kernel" in name:
+        return "f32_ref"
+    return "f32" if "_f32_kernel" in name else "ref"
 
 
 def check_b8_sass(counts):
     """B8's kernels without atomics: the TMA path's bf16 kernels on wgmma
     (HGMMA, no HMMA), the first bf16 kernels kept as the oracle on
-    mma.sync (HMMA, no HGMMA), the f32 instances FFMA chains without a
-    tensor-core instruction."""
+    mma.sync (HMMA, no HGMMA), the f32 kernels and their oracle FFMA
+    chains without a tensor-core instruction."""
     found = {kind: [] for kind in B8_KERNELS}
     for k, c in counts.items():
         kind = b8_kind(k)
@@ -2883,17 +2918,31 @@ def check_b8_sass(counts):
           f"B8 kernels {found}, expected {B8_KERNELS} of each kind")
 
 
+B8_OCCUPANCY = ("grouped_gemm_kernel (bf16, w as it lies)",
+                "grouped_gemm_kernel (bf16, w read transposed)",
+                "grouped_outer_kernel (bf16)",
+                "grouped_gemm_f32_kernel (few rows, w read transposed)",
+                "grouped_gemm_f32_kernel (few rows, w as it lies)",
+                "grouped_gemm_f32_kernel (prefill, w read transposed)",
+                "grouped_gemm_f32_kernel (prefill, w as it lies)",
+                "grouped_gemm_f32_kernel (many rows, w read transposed)",
+                "grouped_gemm_f32_kernel (many rows, w as it lies)",
+                "grouped_outer_f32_kernel")
+
+
 def b8_occupancy(lib):
-    """The TMA path's kernels: blocks an SM, registers, shared memory."""
-    for kind, name in enumerate(("grouped_gemm_kernel (w as it lies)",
-                                 "grouped_gemm_kernel (w read transposed)",
-                                 "grouped_outer_kernel")):
-        regs, smem = ctypes.c_int(), ctypes.c_longlong()
-        per_sm = lib.gym_grouped_occupancy(kind, ctypes.byref(regs),
+    """The TMA path's and the f32 ring kernels: blocks an SM, threads,
+    registers, shared memory."""
+    for kind, name in enumerate(B8_OCCUPANCY):
+        threads, regs = ctypes.c_int(), ctypes.c_int()
+        smem = ctypes.c_longlong()
+        per_sm = lib.gym_grouped_occupancy(kind, ctypes.byref(threads),
+                                           ctypes.byref(regs),
                                            ctypes.byref(smem))
         check(per_sm >= 1, f"B8 {name} cannot be resident ({per_sm})")
-        log(f"  B8 {name}: 288 threads at {regs.value} registers, "
-            f"{smem.value} B of shared memory, {per_sm} block(s) per SM")
+        log(f"  B8 {name}: {threads.value} threads at {regs.value} "
+            f"registers, {smem.value} B of shared memory, {per_sm} "
+            f"block(s) per SM")
 
 
 def row_gemm_report(build_log, nvcc, kernels=("row_gemm_pipe_kernel",
@@ -6139,12 +6188,14 @@ def b8_skewed(rows, e, past=0, big_first=True):
     return sizes if big_first else sizes[::-1]
 
 
-def b8_bound(flops, nbytes, f32):
-    """(ms, "operations" or "bytes"): the products at 989 TFLOP/s (bf16) or
-    at 67 TFLOP/s of f32 FMAs, or the bytes at 3.35 TB/s, the larger."""
+def b8_bound(flops, nbytes, f32, chain_ms=0.0):
+    """(ms, "operations", "bytes" or "the chain"): the products at 989
+    TFLOP/s (bf16) or at 67 TFLOP/s of f32 FMAs, the bytes at 3.35 TB/s,
+    or (f32 forward) the chain floor, K dependent FMAs, the largest."""
     t_ops = flops / (F32_FLOPS if f32 else BF16_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return max((t_ops, "operations"), (t_bytes, "bytes"),
+               (chain_ms, "the chain"))
 
 
 def b8_library(torch, op, a, b, gs):
@@ -6276,8 +6327,12 @@ def b8_cases(torch, dt):
     return cases
 
 
-# 16a's timed cases: the JSON line's row of each kernel first
+# 16a's timed cases, in both dtypes: the JSON line's row of each kernel
+# first; in f32 also the served decode of 1 and 16 tokens and the 512-token
+# prefill
 B8_TIMED = ("fc", "proj", "ct_x fc", "ct_x proj", "outer fc", "outer proj")
+B8_TIMED_SERVED = tuple(f"served {op}, {n} tokens" for n in (1, 16, 512)
+                        for op in ("fc", "proj"))
 
 
 def b8_out_bytes(op, a, b, gs):
@@ -6322,9 +6377,9 @@ def b8_unaligned(torch, tgm):
         f"in launches_ref")
 
 
-def b8_graphs(torch, tgm, cases):
-    """A bf16 grouped_dot and grouped_outer captured in a CUDA graph and
-    replayed: equal bit for bit to the eager call."""
+def b8_graphs(torch, tgm, cases, tag):
+    """grouped_dot and grouped_outer captured in a CUDA graph and replayed:
+    equal bit for bit to the eager call."""
     for name, op, a, b, gs in cases:
         fn = tgm.grouped_dot if op == "dot" else tgm.grouped_outer
         with torch.no_grad():
@@ -6341,24 +6396,31 @@ def b8_graphs(torch, tgm, cases):
             graph.replay()
         torch.cuda.synchronize()
         same = torch.equal(out, eager)
-        log(f"  B8 {name} bf16 captured in a CUDA graph: replay "
+        log(f"  B8 {name} {tag} captured in a CUDA graph: replay "
             f"{'equal bit for bit to' if same else 'DIFFERS from'} eager")
-        check(same, f"B8 {name}: a graph replay differs from eager")
+        check(same, f"B8 {name} {tag}: a graph replay differs from eager")
         del graph, out, eager
+
+
+def b8_kernel(op, f32):
+    """The JSON line's row of a B8 case."""
+    return ("B8_grouped_dot" if op == "dot" else "B8_grouped_outer") + (
+        "_f32" if f32 else "")
 
 
 def check_b8(torch, tgm, card, timing=True):
     """16a: B8 against its plain version on the card at the MoE path's
-    shapes, bf16 and f32 (each output poisoned first); bf16 also against
-    the first kernels kept as the oracle (in the band; bit for bit
-    reported) and run twice, bit for bit; f32 grouped_dot bit for bit R1's
-    chains a group, f32 grouped_outer and bf16 in their bands; bf16 views
-    TMA does not take on the first kernels; graphs replayed equal to eager;
-    then the timed cases beside the first kernel, the plain version, the
-    library yardstick and the bound. Returns (errs, times) keyed by the
-    kernels' names."""
-    errs = {"B8_grouped_dot": 0.0, "B8_grouped_outer": 0.0}
+    shapes, bf16 and f32 (each output poisoned first), in the dtype's band,
+    and run twice, bit for bit; bf16 also against the first kernels kept as
+    the oracle (in the band; bit for bit reported); f32 bit for bit the
+    oracle (the first f32 kernels) and R1's chains a group; bf16 views TMA does
+    not take on the first kernels; graphs replayed equal to eager; then the
+    timed cases beside the oracle, the plain version, the library yardstick
+    and the bound. Returns (errs, times) keyed by the kernels' names."""
+    errs = {b8_kernel(op, f32): 0.0 for op in ("dot", "outer")
+            for f32 in (False, True)}
     times, rows, bits = {}, [], []
+    chain_ms_per_k = FMA_CHAIN_CYCLES / (max_sm_mhz() * 1e3)
     for dt in (torch.bfloat16, torch.float32):
         f32 = dt == torch.float32
         tag = "f32" if f32 else "bf16"
@@ -6374,13 +6436,17 @@ def check_b8(torch, tgm, card, timing=True):
                 got = fn(a, b, gs)
                 ref = plain(a, b, gs)
             torch.cuda.synchronize()
-            kernel = ("B8_grouped_dot" if op == "dot"
-                      else "B8_grouped_outer")
+            kernel = b8_kernel(op, f32)
+            tiling = ""
+            if f32 and op == "dot":
+                t = tgm.f32_tiling(a.shape[0])
+                tiling = (f", {tgm.F32_TILE_ROWS[t]}-row tiles "
+                          f"(f32_tiling {t})")
             label = (f"B8 {name} {tag} [{a.shape[0]}, {a.shape[1]}] x "
                      f"{list(b.shape)}, G={gs.shape[0]}, sum(gs)="
                      f"{int(gs.sum())}" + (f", gs {gs.tolist()}"
                                            if name.startswith("served")
-                                           else ""))
+                                           else "") + tiling)
             err = compare(label, got, ref, "out", dt)
             errs[kernel] = max(errs[kernel], err)
             if op == "dot":
@@ -6391,30 +6457,34 @@ def check_b8(torch, tgm, card, timing=True):
                 empty = (gs == 0).nonzero().flatten().tolist()
                 check(all(torch.all(got[i] == 0).item() for i in empty),
                       f"B8 {name} {tag}: an empty group not zero")
-            if not f32:
-                poison(torch, b8_out_bytes(op, a, b, gs))
-                with torch.no_grad():
-                    again = fn(a, b, gs)
-                    old = first(a, b, gs)
-                torch.cuda.synchronize()
-                same_twice(torch, f"B8 {name} bf16", (got,), (again,))
-                compare(f"  against the first kernel", got, old, "out", dt)
-                bits.append(torch.equal(got, old))
-                log(f"    {'bit for bit' if bits[-1] else 'NOT bit for bit'}"
-                    f" the first kernel (max |a-b| "
-                    f"{(got.float() - old.float()).abs().max().item():.3e})")
-                del again, old
+            poison(torch, b8_out_bytes(op, a, b, gs))
+            with torch.no_grad():
+                again = fn(a, b, gs)
+                old = first(a, b, gs)
+            torch.cuda.synchronize()
+            same_twice(torch, f"B8 {name} {tag}", (got,), (again,))
+            same = torch.equal(got, old)
+            what = ("the oracle (the first f32 kernel)" if f32
+                    else "the first kernel")
+            log(f"    {'bit for bit' if same else 'NOT bit for bit'} {what} "
+                f"(max |a-b| "
+                f"{(got.float() - old.float()).abs().max().item():.3e})")
             if f32:
+                check(same, f"B8 {name} f32: differs from its oracle")
                 with torch.no_grad():
                     chain = b8_r1_oracle(torch, op, a, b, gs)
                 same = torch.equal(got, chain)
                 log(f"    f32 {'bit for bit' if same else 'NOT bit for bit'}"
                     f" R1's in-order FMA chains a group (max |a-b| "
                     f"{(got - chain).abs().max().item():.3e})")
-                if op == "dot":
-                    check(same, f"B8 {name}: f32 differs from R1's chains")
-            if not timing or name not in B8_TIMED or (
-                    f32 and name not in ("fc", "outer fc")):
+                check(same, f"B8 {name}: f32 differs from R1's chains")
+                del chain
+            else:
+                compare(f"  against the first kernel", got, old, "out", dt)
+                bits.append(same)
+            del again, old
+            if not timing or name not in B8_TIMED + (
+                    B8_TIMED_SERVED if f32 else ()):
                 continue
             used = int(gs.sum())
             k_dim, n_dim = (a.shape[1], b.shape[-1]) if op == "dot" else (
@@ -6433,38 +6503,38 @@ def check_b8(torch, tgm, card, timing=True):
             lib_fn, lib_label = b8_library(torch, op, a, b, gs)
             with torch.no_grad():
                 ms = timed(torch, lambda: fn(a, b, gs))
-                first_ms = (None if f32 else
-                            timed(torch, lambda: first(a, b, gs)))
+                first_ms = timed(torch, lambda: first(a, b, gs))
                 plain_ms = timed(torch, lambda: plain(a, b, gs), reps=3,
                                  inner=3)
                 lib_ms = timed(torch, lib_fn)
-            bound_ms, by = b8_bound(flops, nbytes, f32)
+            chain_ms = k_dim * chain_ms_per_k if f32 and op == "dot" else 0.0
+            bound_ms, by = b8_bound(flops, nbytes, f32, chain_ms)
             log(f"    {name} {tag} timed (CUDA events, median of 5): "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{lib_ms:.4f} ms")
+                f"{ms:.4f} ms, oracle {first_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms")
             rows.append((f"{name} {tag}", ms, first_ms, plain_ms, lib_ms,
                          lib_label, bound_ms, by, flops / ms / 1e9))
-            if name in ("fc", "outer fc") and not f32:
+            if name in ("fc", "outer fc"):
                 times[kernel] = {"ms": ms, "plain_ms": plain_ms,
                                  "library_ms": lib_ms,
-                                 "bound": (bound_ms, by)}
+                                 "bound": (bound_ms, by),
+                                 "oracle_ms": first_ms}
         if not f32:
             log(f"  bf16: {sum(bits)} of {len(bits)} cases bit for bit the "
                 f"first kernel")
-            b8_graphs(torch, tgm, [c for c in cases
-                                   if c[0] in ("fc", "outer fc")])
+        b8_graphs(torch, tgm, [c for c in cases if c[0] in (
+            "fc", "outer fc", "served fc, 1 tokens",
+            "served proj, 16 tokens")], tag)
         del cases
     b8_unaligned(torch, tgm)
     if timing:
         log(f"  16a B8 times (CUDA events, median of 5) on {card}:")
         for (name, ms, first_ms, plain_ms, lib_ms, lib_label, bound_ms, by,
              tf) in rows:
-            was = "" if first_ms is None else (
-                f", the first kernel {first_ms:.4f} ms")
-            log(f"    {name}: {ms:.4f} ms ({tf:.1f} TFLOP/s){was}, plain "
-                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_label}),"
-                f" bound {bound_ms:.4f} ms ({by}), "
-                f"{bound_ms / ms:.1%} of the bound")
+            log(f"    {name}: {ms:.4f} ms ({tf:.1f} TFLOP/s), the oracle "
+                f"{first_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms ({lib_label}), bound {bound_ms:.4f} ms "
+                f"({by}), {bound_ms / ms:.1%} of the bound")
     return errs, times
 
 
@@ -6511,6 +6581,50 @@ def moe_fit(torch, mods, card):
     return got
 
 
+def moe_fit_f32(torch, mods, card):
+    """16b in f32 (no autocast), K=2 x 1 row, 2 steps: every MoE product on
+    the f32 ring kernels, their launches exactly (each MoE layer 2 forward
+    products, 2 ct_x and 2 outers a step, 2 forward products an eval
+    forward), none on another path."""
+    from gym_tpu_torch.models.nanogpt import GPTConfig
+    import gym_tpu_torch.ops.grouped_matmul as tgm
+    title = "phase 16b f32 gpt2-base MoE"
+    nodes, batch, steps = 2, 1, 2
+    torch.cuda.empty_cache()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    res = gpt_fit(torch, MOE_BASE, nodes, batch, steps, "cuda", False, 0,
+                  "16b_f32")
+    wall = time.perf_counter() - t0
+    counts = read_counts(mods)
+    losses = [l for _, l in res.history["train_loss"]]
+    check(len(losses) == steps and all(math.isfinite(l) for l in losses),
+          f"{title}: non-finite or missing losses {losses}")
+    cfg = GPTConfig(**MOE_BASE)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layer))
+    evals = 2 * len(res.history["global_loss"])
+    want = {"B8_grouped_dot_f32": n_moe * (4 * steps + 2 * evals),
+            "B8_grouped_outer_f32": n_moe * 2 * steps}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{title}: f32 B8 launches {got}, expected {want}")
+    check((counts["B8_grouped_dot"], counts["B8_grouped_outer"],
+           tgm.grouped_dot.launches_ref, tgm.grouped_outer.launches_ref) ==
+          (want["B8_grouped_dot_f32"], want["B8_grouped_outer_f32"], 0, 0),
+          f"{title}: B8 launches off the f32 ring kernels {counts}")
+    log(f"{title}: K={nodes} x {batch} rows, {steps} steps, losses "
+        f"{[f'{l:.6f}' for l in losses]}, {wall:.1f} s on {card}; f32 B8 "
+        f"launches as expected: {got}")
+    del res
+    torch.cuda.empty_cache()
+    return got
+
+
+def tokens_digest(streams) -> str:
+    """A short digest of token streams (lists of ints), to compare runs of
+    two checkouts (``scripts/moe_serve_digest.py``)."""
+    return hashlib.sha256(json.dumps(streams).encode()).hexdigest()[:16]
+
+
 def moe_serving(torch, mods, card):
     """16c: the same MoE model in f32 (random weights from a seed) through
     the paged engine: 8 of phase 10's requests eagerly and on CUDA graphs,
@@ -6549,6 +6663,8 @@ def moe_serving(torch, mods, card):
         del eng
     check(streams[True] == streams[False], f"{title}: the CUDA graphs' "
           f"tokens differ from the eager engine's")
+    log(f"  16c tokens digest {tokens_digest(streams[True])} (eager = "
+        f"graphs; scripts/moe_serve_digest.py prints a checkout's)")
     check(launches["graphs"] == launches["eager"], f"{title}: launches on "
           f"graphs {launches['graphs']}, eagerly {launches['eager']}")
     i = 3
@@ -6613,6 +6729,7 @@ def moe_phase(torch, mods, tgm, card):
     t16 = time.perf_counter()
     errs, times = check_b8(torch, tgm, card)
     launches = moe_fit(torch, mods, card)
+    launches.update(moe_fit_f32(torch, mods, card))
     served = moe_serving(torch, mods, card)
     log(f"  16c B8 launches on graphs: {served}")
     moe_cli(card)
@@ -6889,6 +7006,10 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": r["library_ms"]})
+        if name in B8_ORACLES:
+            kernels[-1].update(kernel=B8_ORACLES[name][0],
+                               oracle=B8_ORACLES[name][1],
+                               oracle_ms=r["oracle_ms"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -200,13 +200,14 @@ def load() -> ctypes.CDLL:
         lib.gym_row_add_layer_norm.argtypes = [vp] * 6 + [i32, i32, f32, vp]
         lib.gym_row_add_layer_norm.restype = i32
         b8 = [vp] * 4 + [i32] * 4 + [i64] * 3
-        lib.gym_grouped_gemm.argtypes = b8 + [i32, vp]
-        lib.gym_grouped_gemm_ref.argtypes = b8 + [vp]
+        lib.gym_grouped_gemm.argtypes = b8 + [i32, i32, vp]
+        lib.gym_grouped_gemm_ref.argtypes = b8 + [i32, vp]
         lib.gym_grouped_outer.argtypes = [vp] * 4 + [i32] * 5 + [vp]
-        lib.gym_grouped_outer_ref.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.gym_grouped_outer_ref.argtypes = [vp] * 4 + [i32] * 5 + [vp]
         for fn in ("gemm", "gemm_ref", "outer", "outer_ref"):
             getattr(lib, f"gym_grouped_{fn}").restype = i32
         lib.gym_grouped_occupancy.argtypes = [i32, ctypes.POINTER(i32),
+                                              ctypes.POINTER(i32),
                                               ctypes.POINTER(i64)]
         lib.gym_grouped_occupancy.restype = i32
         # host code: the checkpoint sidecars' crc32c (utils/integrity.py)

@@ -75,14 +75,34 @@
 // shared stage filled through registers); the wrapper picks the path by
 // that rule and counts the first kernels' launches apart.
 //
-// f32 (serving, evals): 64 x 64 tiles, k steps of 16, each of 256 threads
-// computing 4 x 4 elements (rows ty + 16 i, columns tx + 16 j). R1's rule
-// (row_gemm.cu): each output element is one in-order fmaf chain over k = 0
-// .. K-1 started at 0.0f, and a k step past K is never taken. So a row's
-// bits do not depend on which other rows share its expert, on the tile or
-// on R: what the serving engine's splices and park/resume need, and each
-// element is bit for bit R1 on the same row and expert (chip_smoke.py phase
-// 16a holds it to that). The f32 outer walks its group's rows in order.
+// f32 (serving, evals), namespace f32: R1's rule (row_gemm.cu): each
+// output element is one in-order fmaf chain over k = 0 .. K-1 started at
+// 0.0f, held by one thread, and a k step past K is never taken; no split of
+// K, no atomics, no tensor cores. So a row's bits do not depend on which
+// other rows share its expert, on the tile or on R: what the serving
+// engine's splices and park/resume need, and each element is bit for bit
+// R1 on the same row and expert (chip_smoke.py phase 16a holds it to that).
+// The f32 outer chains each element over its group's rows in order. Bound:
+// the f32 FMAs (67 TFLOP/s) at the training shapes; at decode's few rows the
+// bytes of the experts that have rows, or the chain (K dependent FMAs).
+//  - grouped_gemm_f32_kernel: R1's pipelined design over the row slots of
+//    find_row_tile: x and w stream through a ring of cp.async stages
+//    (16-byte copies where the rows allow, zero-filled past R, K, N and the
+//    group's end), one barrier a depth tile, and each thread keeps TM x TN
+//    chains in registers, read from shared memory as float4s (x [BM][BK +
+//    4]; w as it lies [BK][BN], or read transposed [BN][BK + 4]). Three
+//    tilings, picked on the host from R alone (so graphs hold the launch):
+//    16 x 16 for decode's few rows (an expert's weights read once a row
+//    slot, an empty group's slots out at once), 64 x 64 for the prefill
+//    buckets, 128 x 128 (8 x 8 a thread; two blocks an SM, one where w is
+//    read transposed) for training and the evals.
+//  - grouped_outer_f32_kernel: 128 x 128 output tiles, 8 x 8 a thread, the
+//    group's rows in stages of 16 through the ring, both operands as they
+//    lie ([16][128] each, float4 reads of 4 m's and 4 n's); blocks longest
+//    group first (tc::nth_longest, as the bf16 outer); rows never split.
+// The first f32 kernels (64 x 64 tiles, one synchronous shared stage) are
+// kept as the oracle (grouped_gemm_f32_ref_kernel,
+// grouped_outer_f32_ref_kernel), reached only through the _ref entries.
 
 #include <type_traits>
 
@@ -460,16 +480,16 @@ __device__ __forceinline__ void outer_tiles(const void* x, const void* ct,
   tile_product<kBf16>(a, b, s.count, o, N, M - m0, N - n0);
 }
 
-// the f32 kernels (R1's chains) and the first bf16 kernels, kept as the
-// oracle of the TMA path below and as the path of the bf16 shapes TMA
-// cannot take (grouped_gemm_ref_kernel, grouped_outer_ref_kernel)
-template <bool kBf16>
+// The first kernels, kept as the oracle: in bf16 of the TMA path below and
+// the path of the bf16 shapes TMA cannot take (grouped_gemm_ref_kernel,
+// grouped_outer_ref_kernel); in f32 of the ring kernels further below
+// (grouped_gemm_f32_ref_kernel, grouped_outer_f32_ref_kernel), off the path.
 __global__ void __launch_bounds__(kThreads)
-    grouped_gemm_kernel(const void* x, const void* w, const int* gs, void* y,
-                        int R, int K, int N, int G, long long w_sg,
-                        long long w_sk, long long w_sn, int x_vec,
-                        int w_vec) {
-  gemm_rows<kBf16>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
+    grouped_gemm_f32_ref_kernel(const void* x, const void* w, const int* gs,
+                                void* y, int R, int K, int N, int G,
+                                long long w_sg, long long w_sk,
+                                long long w_sn, int x_vec, int w_vec) {
+  gemm_rows<false>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -480,12 +500,11 @@ __global__ void __launch_bounds__(kThreads)
   gemm_rows<true>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
 }
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-    grouped_outer_kernel(const void* x, const void* ct, const int* gs,
-                         void* out, int R, int M, int N, int G, int x_vec,
-                         int ct_vec) {
-  outer_tiles<kBf16>(x, ct, gs, out, R, M, N, G, x_vec, ct_vec);
+    grouped_outer_f32_ref_kernel(const void* x, const void* ct, const int* gs,
+                                 void* out, int R, int M, int N, int G,
+                                 int x_vec, int ct_vec) {
+  outer_tiles<false>(x, ct, gs, out, R, M, N, G, x_vec, ct_vec);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -953,6 +972,500 @@ cudaError_t launch_outer(const void* x, const void* ct, const int* gs,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// -- f32: R1's chains on a cp.async ring -------------------------------------
+
+namespace f32 {
+
+// cp.async of 16 or 4 bytes; with ok false nothing is read and the
+// destination is zero-filled (src-size 0)
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hop::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hop::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// BM x BN outputs a block, TM x TN a thread, the depth in tiles of BK,
+// STAGES tiles in the ring, MINB blocks an SM asked of the compiler (MINB_WT
+// where w is read transposed)
+template <int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_,
+          int MINB_, int XV_ = 4, int MINB_WT_ = MINB_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int STAGES = STAGES_, MINB = MINB_, MINB_WT = MINB_WT_;
+  static constexpr int XV = XV_;  // x's reads (w as it lies): XV k's each
+  static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  static constexpr int XP = BK + 4;  // a [p][k] stage's pitch: odd float4s
+  static_assert(BK % 16 == 0 && BN % 16 == 0 && XP % 8 == 4, "tile");
+};
+
+// The forward's tilings (f32_tiling in ops/grouped_matmul.py picks one by
+// R; scripts/b8_f32_sweep.py times them): few rows (the served decode
+// steps), R1's few-row tile (16 x 16, 2 x 1 a thread, BK 128, a ring of
+// 4): a group's row slot of at most 16 rows reads its expert's weights
+// once, in narrow blocks that spread one expert over many SMs; the prefill
+// buckets, R1's 64 x 64 (4 x 4 a thread, BK 32, a ring of 3), whose grid
+// fills the card where 128 x 128 tiles leave N = 768 under one wave; many
+// rows (training, evals), 128 x 128, 8 x 8 a thread (w as it lies: per 2
+// k's 12 reads from shared memory, 8 of x and 4 of w, feed 128 FMAs), BK
+// 32, a ring of 3, two blocks an SM where w lies as it is, one (no 128
+// registers' cap: 4 k's of 8 columns held a step) where it is read
+// transposed. The outer: 128 x 128, 8 x 8, its depth (the group's rows) in
+// stages of 16, a ring of 4.
+using FewTile = Tile<16, 16, 128, 2, 1, 4, 1>;
+using MidTile = Tile<64, 64, 32, 4, 4, 3, 2>;
+using WideTile = Tile<128, 128, 32, 8, 8, 3, 2, 2, 1>;
+using OuterTile = Tile<128, 128, 16, 8, 8, 4, 2>;
+enum Tiling { kFew = 0, kMid = 1, kWide = 2 };
+
+// An operand's tile source: element (r, c) at base[r * ld + c * cs] for r
+// < rows and c < cols, zero elsewhere; vec: 16-byte copies (cs 1, ld, cols
+// and base 16-byte aligned, checked on the host), else 4-byte ones.
+struct Src {
+  const float* base;
+  long long ld, cs;
+  int rows, cols, vec;
+};
+
+// ROWS x COLS elements of s from (row0, col0) into dst (pitch P)
+template <int ROWS, int COLS, int P, int THREADS>
+__device__ __forceinline__ void stage(float* dst, const Src& s, int row0,
+                                      int col0) {
+  if (s.vec) {
+    constexpr int CH = COLS / 4;
+    for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
+      const int r = c / CH, cc = c % CH * 4, gr = row0 + r, gc = col0 + cc;
+      const bool ok = gr < s.rows && gc < s.cols;
+      cp16(dst + r * P + cc, ok ? s.base + gr * s.ld + gc : s.base, ok);
+    }
+  } else {
+    for (int c = threadIdx.x; c < ROWS * COLS; c += THREADS) {
+      const int r = c / COLS, cc = c % COLS, gr = row0 + r, gc = col0 + cc;
+      const bool ok = gr < s.rows && gc < s.cols;
+      cp4(dst + r * P + cc, ok ? s.base + gr * s.ld + gc * s.cs : s.base,
+          ok);
+    }
+  }
+}
+
+// The ring: depth tiles kt0 .. kt1-1, each staged by load(slot, kt) into
+// one of S slots and chained by chain(slot, kt) in order, one barrier a
+// tile: while the threads chain over tile kt, tiles kt+1 .. kt+S-1 are in
+// flight. A tile goes into the slot chained a tile ago, free once every
+// thread has passed this tile's barrier. The ring ends free for another.
+template <int S, class Load, class Chain>
+__device__ __forceinline__ void ring(int kt0, int kt1, Load load,
+                                     Chain chain) {
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (kt0 + s < kt1) load(s, kt0 + s);
+    hop::cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    hop::cp_async_wait<S - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; slot (kt - 1) % S is free
+    const int next = kt + S - 1;
+    if (next < kt1) load((next - kt0) % S, next);
+    hop::cp_async_commit();
+    chain((kt - kt0) % S, kt);
+  }
+  hop::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// V consecutive k's of a [p][k] stage row, one 8- or 16-byte read
+template <int V>
+__device__ __forceinline__ void load_k(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+    static_assert(V == 2, "a read of 2 or 4 k's");
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  }
+}
+
+// w [K, N] staged as it lies: a thread's columns, where TN is a multiple of
+// 4 in groups of 4 neighbours (float4 reads, a warp's 8-thread phases on
+// 128 contiguous bytes), else one every TX
+template <class T>
+__device__ __forceinline__ int kn_col(int tx, int j) {
+  if constexpr (T::TN % 4 == 0)
+    return (j / 4) * (T::TX * 4) + tx * 4 + (j % 4);
+  else
+    return tx + j * T::TX;
+}
+
+// w's stage: [BK][BN] as it lies (KN), [BN][BK + 4] read transposed
+template <class T, bool KN>
+struct WStage {
+  static constexpr int ROWS = KN ? T::BK : T::BN;
+  static constexpr int COLS = KN ? T::BN : T::BK;
+  static constexpr int PITCH = KN ? T::BN : T::XP;
+  static constexpr int FLOATS = ROWS * PITCH;
+};
+
+template <class T, bool KN>
+constexpr size_t gemm_smem() {
+  return sizeof(float) * T::STAGES * (T::BM * T::XP + WStage<T, KN>::FLOATS);
+}
+
+constexpr size_t outer_smem() {
+  using T = OuterTile;
+  return sizeof(float) * T::STAGES * T::BK * (T::BM + T::BN);
+}
+
+// tc::allow_smem's kind of an f32 kernel (0-2 are the TMA kernels'): 3-8
+// the forward's tilings, w read transposed then as it lies, 9 the outer
+template <class T, bool KN>
+constexpr int smem_kind() {
+  return (std::is_same<T, FewTile>::value   ? 3
+          : std::is_same<T, MidTile>::value ? 5
+                                            : 7) +
+         KN;
+}
+constexpr int kOuterSmemKind = 9;
+
+// acc += the chains of 4 k's from kk (fewer when kmax - kk < 4, only in the
+// last tile): every element's FMAs in k order, x first (R1's chain_quad). x
+// is staged [BM][BK + 4] (rows ty + i TY), read XV k's at a time where w
+// lies as it is (the 128-row tile reads pairs: fewer registers held), 4
+// where w is read transposed; w as WStage.
+template <class T, bool KN, bool FULL>
+__device__ __forceinline__ void chain_quad(float (&acc)[T::TM][T::TN],
+                                           const float* xs, const float* ws,
+                                           int tx, int ty, int kk, int kmax) {
+  if constexpr (KN) {
+#pragma unroll
+    for (int h = 0; h < 4; h += T::XV) {
+      float a[T::TM][T::XV];
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+        load_k(a[i], xs + (ty + i * T::TY) * T::XP + kk + h);
+#pragma unroll
+      for (int q = 0; q < T::XV; ++q) {
+        if (!FULL && kk + h + q >= kmax) break;
+        const float* wr = ws + (kk + h + q) * T::BN;
+        float b[T::TN];
+        if constexpr (T::TN % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < T::TN; j += 4) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(wr + kn_col<T>(tx, j));
+            b[j] = v.x;
+            b[j + 1] = v.y;
+            b[j + 2] = v.z;
+            b[j + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < T::TN; ++j) b[j] = wr[kn_col<T>(tx, j)];
+        }
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < T::TN; ++j)
+            acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
+        }
+      }
+    }
+  } else {
+    float b[T::TN][4];
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j)
+      load_k(b[j], ws + (tx + j * T::TX) * T::XP + kk);
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      float a[4];
+      load_k(a, xs + (ty + i * T::TY) * T::XP + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!FULL && kk + q >= kmax) break;
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(a[q], b[j][q], acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc += the chains of one depth tile of kmax k's: a full tile unrolled,
+// the last one's kmax < BK k's a quad at a time
+template <class T, bool KN>
+__device__ __forceinline__ void chain_tile(float (&acc)[T::TM][T::TN],
+                                           const float* xs, const float* ws,
+                                           int tx, int ty, int kmax) {
+  if (kmax == T::BK) {
+#pragma unroll
+    for (int kk = 0; kk < T::BK; kk += 4)
+      chain_quad<T, KN, true>(acc, xs, ws, tx, ty, kk, T::BK);
+  } else {
+#pragma unroll 1
+    for (int kk = 0; kk < kmax; kk += 4)
+      chain_quad<T, KN, false>(acc, xs, ws, tx, ty, kk, kmax);
+  }
+}
+
+// rows x cols f32 zeros at o (row pitch ld)
+template <int THREADS>
+__device__ __forceinline__ void zero_rows(float* o, long long ld, int rows,
+                                          int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += THREADS)
+    o[(long long)(e / cols) * ld + e % cols] = 0.f;
+}
+
+// y [R, N] = x [R, K] . w[g(r)], f32, w's element (g, k, n) at w + g w_sg
+// + k w_sk + n w_sn: as it lies (KN: w_sn 1, or any strides in 4-byte
+// copies) or read transposed (w_sk 1). Block b is column tile b % tiles_n
+// of row slot b / tiles_n (find_row_tile at BM): one group's rows, one
+// expert's weights; the slots past the groups zero the rows past sum(gs).
+// Each output element is one fmaf chain over k = 0 .. K-1 in order from
+// 0.0f, held by one thread (R1's rule): the tile's rows past the group's
+// end are zero-filled and never stored, and no k past K is chained.
+template <class T, bool KN>
+__global__ void __launch_bounds__(T::THREADS, KN ? T::MINB : T::MINB_WT)
+    grouped_gemm_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w,
+                            const int* __restrict__ gs,
+                            float* __restrict__ y, int R, int K, int N, int G,
+                            long long w_sg, long long w_sk, long long w_sn,
+                            int x_vec, int w_vec, int y_vec) {
+  using WS = WStage<T, KN>;
+  const int tiles_n = (N + T::BN - 1) / T::BN;
+  const RowTile t = find_row_tile(gs, G, R, T::BM, (int)blockIdx.x / tiles_n);
+  if (t.group == kNoTile) return;
+  const int n0 = (int)blockIdx.x % tiles_n * T::BN;
+  const int rows = t.row1 - t.row0, cols = min(N - n0, T::BN);
+  float* o = y + (long long)t.row0 * N + n0;
+  if (t.group == kTailRows) {
+    zero_rows<T::THREADS>(o, N, rows, cols);  // the f32 rows past sum(gs)
+    return;
+  }
+  extern __shared__ __align__(16) float f32_smem[];
+  float* xs = f32_smem;
+  float* ws = f32_smem + T::STAGES * T::BM * T::XP;
+  const Src xa{x + (long long)t.row0 * K, K, 1, rows, K, x_vec};
+  const float* wg = w + t.group * w_sg + n0 * w_sn;
+  const Src wb = KN ? Src{wg, w_sk, w_sn, K, N - n0, w_vec}
+                    : Src{wg, w_sn, w_sk, N - n0, K, w_vec};
+  const auto load = [&](int slot, int kt) {
+    const int k0 = kt * T::BK;
+    stage<T::BM, T::BK, T::XP, T::THREADS>(xs + slot * T::BM * T::XP, xa, 0,
+                                           k0);
+    stage<WS::ROWS, WS::COLS, WS::PITCH, T::THREADS>(
+        ws + slot * WS::FLOATS, wb, KN ? k0 : 0, KN ? 0 : k0);
+  };
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+  const auto chain = [&](float(&a)[T::TM][T::TN], int slot, int kt) {
+    chain_tile<T, KN>(a, xs + slot * T::BM * T::XP, ws + slot * WS::FLOATS,
+                      tx, ty, min(T::BK, K - kt * T::BK));
+  };
+  const int KT = (K + T::BK - 1) / T::BK;
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  ring<T::STAGES>(0, KT, load,
+                  [&](int slot, int kt) { chain(acc, slot, kt); });
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = ty + i * T::TY;
+    if (r >= rows) continue;
+    float* yr = o + (long long)r * N;
+    if (KN && T::TN % 4 == 0 && y_vec) {
+#pragma unroll
+      for (int j = 0; j < T::TN; j += 4) {
+        const int c = kn_col<T>(tx, j);
+        if (c < cols)
+          *reinterpret_cast<float4*>(yr + c) = make_float4(
+              acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) {
+        const int c = KN ? kn_col<T>(tx, j) : tx + j * T::TX;
+        if (c < cols) yr[c] = acc[i][j];
+      }
+    }
+  }
+}
+
+// out [G, M, N]: out[g] = x_g^T . ct_g, f32, x [R, M] and ct [R, N]
+// contiguous. Block i is output tile i % tiles of the group of rank i /
+// tiles, the longest groups first (tc::nth_longest, as the bf16 outer), so
+// the long group's tiles start in the first wave; an empty group's tiles
+// write zeros. Both operands stream as they lie, a stage of 16 of the
+// group's rows [16][128] each, read as float4s of 4 m's and 4 n's: each
+// element is one fmaf chain over the group's rows in order from its first,
+// from 0.0f (the rows are never split); the rows past the group's end are
+// zero-filled and never chained.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+    grouped_outer_f32_kernel(const float* __restrict__ x,
+                             const float* __restrict__ ct,
+                             const int* __restrict__ gs,
+                             float* __restrict__ out, int R, int M, int N,
+                             int G, int x_vec, int ct_vec, int o_vec) {
+  const int tiles_n = (N + T::BN - 1) / T::BN;
+  const int tiles = (M + T::BM - 1) / T::BM * tiles_n;
+  const tc::Ranked s = tc::nth_longest(gs, G, R, (int)blockIdx.x / tiles);
+  const int tile = (int)blockIdx.x % tiles;
+  const int m0 = tile / tiles_n * T::BM, n0 = tile % tiles_n * T::BN;
+  const int rows = min(M - m0, T::BM), cols = min(N - n0, T::BN);
+  float* o = out + ((long long)s.group * M + m0) * N + n0;
+  if (s.count == 0) {
+    zero_rows<T::THREADS>(o, N, rows, cols);  // an empty group's f32 tile
+    return;
+  }
+  const int depth = s.count;  // the chains' steps: the group's rows
+  extern __shared__ __align__(16) float f32_smem[];
+  float* xs = f32_smem;
+  float* cs = f32_smem + T::STAGES * T::BK * T::BM;
+  const Src xa{x + (long long)s.start * M + m0, M, 1, depth, M - m0, x_vec};
+  const Src cb{ct + (long long)s.start * N + n0, N, 1, depth, N - n0, ct_vec};
+  const auto load = [&](int slot, int kt) {
+    stage<T::BK, T::BM, T::BM, T::THREADS>(xs + slot * T::BK * T::BM, xa,
+                                           kt * T::BK, 0);
+    stage<T::BK, T::BN, T::BN, T::THREADS>(cs + slot * T::BK * T::BN, cb,
+                                           kt * T::BK, 0);
+  };
+  // this thread's rows m = 4 TY (i / 4) + 4 ty + i % 4 and columns n = 4
+  // TX (j / 4) + 4 tx + j % 4: float4s of each operand a step
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  const auto step = [&](const float* xr, const float* cr) {
+    float a[T::TM], b[T::TN];
+#pragma unroll
+    for (int i = 0; i < T::TM; i += 4) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(xr + T::TY * i + 4 * ty);
+      a[i] = v.x;
+      a[i + 1] = v.y;
+      a[i + 2] = v.z;
+      a[i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < T::TN; j += 4) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(cr + T::TX * j + 4 * tx);
+      b[j] = v.x;
+      b[j + 1] = v.y;
+      b[j + 2] = v.z;
+      b[j + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  };
+  const auto chain = [&](int slot, int kt) {
+    const float* xr = xs + slot * T::BK * T::BM;
+    const float* cr = cs + slot * T::BK * T::BN;
+    const int kmax = min(T::BK, depth - kt * T::BK);
+    if (kmax == T::BK) {
+#pragma unroll
+      for (int k = 0; k < T::BK; ++k) step(xr + k * T::BM, cr + k * T::BN);
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < kmax; ++k) step(xr + k * T::BM, cr + k * T::BN);
+    }
+  };
+  ring<T::STAGES>(0, (depth + T::BK - 1) / T::BK, load, chain);
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = T::TY * (i / 4) * 4 + 4 * ty + i % 4;
+    if (r >= rows) continue;
+    float* orow = o + (long long)r * N;
+#pragma unroll
+    for (int j = 0; j < T::TN; j += 4) {
+      const int c = T::TX * j + 4 * tx;
+      if (o_vec && c < cols) {
+        *reinterpret_cast<float4*>(orow + c) = make_float4(
+            acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < cols) orow[c + q] = acc[i][j + q];
+      }
+    }
+  }
+}
+
+template <class T, bool KN>
+cudaError_t launch_tiled(const float* x, const float* w, const int* gs,
+                        float* y, int R, int K, int N, int G, long long w_sg,
+                        long long w_sk, long long w_sn, int x_vec, int w_vec,
+                        int y_vec, cudaStream_t st) {
+  constexpr size_t smem = gemm_smem<T, KN>();
+  static_assert(smem <= 232448, "shared memory");
+  const long long blocks = ((R + T::BM - 1) / T::BM + (long long)G + 1) *
+                           ((N + T::BN - 1) / T::BN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kern = grouped_gemm_f32_kernel<T, KN>;
+  cudaError_t err =
+      tc::allow_smem<smem_kind<T, KN>()>((const void*)kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)blocks, T::THREADS, smem, st>>>(
+      x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec, y_vec);
+  return cudaGetLastError();
+}
+
+// w as it lies unless its k axis alone is contiguous (read transposed)
+template <class T>
+cudaError_t launch_gemm_f32(const float* x, const float* w, const int* gs,
+                            float* y, int R, int K, int N, int G,
+                            long long w_sg, long long w_sk, long long w_sn,
+                            cudaStream_t st) {
+  const bool kn = w_sn == 1 || w_sk != 1;
+  // 16-byte copies: the contiguous axis's extent, the other's stride and
+  // the expert stride multiples of 4 floats, from an aligned base
+  const int x_vec = K % 4 == 0 && aligned16(x);
+  const int w_vec = aligned16(w) && w_sg % 4 == 0 &&
+                    (kn ? w_sn == 1 && N % 4 == 0 && w_sk % 4 == 0
+                        : K % 4 == 0 && w_sn % 4 == 0);
+  const int y_vec = N % 4 == 0 && aligned16(y);
+  return kn ? launch_tiled<T, true>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn,
+                                   x_vec, w_vec, y_vec, st)
+            : launch_tiled<T, false>(x, w, gs, y, R, K, N, G, w_sg, w_sk, w_sn,
+                                    x_vec, w_vec, y_vec, st);
+}
+
+cudaError_t launch_outer_f32(const float* x, const float* ct, const int* gs,
+                             float* out, int R, int M, int N, int G,
+                             cudaStream_t st) {
+  using T = OuterTile;
+  const long long blocks = (long long)G * ((M + T::BM - 1) / T::BM) *
+                           ((N + T::BN - 1) / T::BN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kern = grouped_outer_f32_kernel<T>;
+  cudaError_t err =
+      tc::allow_smem<kOuterSmemKind>((const void*)kern, outer_smem());
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)blocks, T::THREADS, outer_smem(), st>>>(
+      x, ct, gs, out, R, M, N, G, M % 4 == 0 && aligned16(x),
+      N % 4 == 0 && aligned16(ct), N % 4 == 0 && aligned16(out));
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 extern "C" {
@@ -964,10 +1477,14 @@ extern "C" {
 // the TMA path, which takes x, w and y 16-byte aligned, K and N multiples
 // of 8, w_sg a multiple of 8 and one of w's k and n axes contiguous, the
 // other's stride a multiple of 8, and returns cudaErrorInvalidValue for
-// any other view (gym_grouped_gemm_ref takes every bf16 view).
+// any other view (gym_grouped_gemm_ref takes every bf16 view). f32 runs
+// the ring kernels on any view at `tiling` (enum f32::Tiling: 0 few rows,
+// 1 the prefill buckets, 2 many rows; the host's f32_tiling), which bf16
+// ignores.
 int gym_grouped_gemm(const void* x, const void* w, const void* gs, void* y,
                      int R, int K, int N, int G, long long w_sg,
-                     long long w_sk, long long w_sn, int bf16, void* stream) {
+                     long long w_sk, long long w_sn, int bf16, int tiling,
+                     void* stream) {
   if (R <= 0 || K <= 0 || N <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* g = static_cast<const int*>(gs);
@@ -982,41 +1499,58 @@ int gym_grouped_gemm(const void* x, const void* w, const void* gs, void* y,
                         : tc::launch_gemm<false>(x, w, g, y, R, K, N, G,
                                                  w_sg, w_sk, w_sn, st));
   }
-  const long long slots = (R + kFT - 1) / kFT + (long long)G + 1;
-  if (slots > 0x7fffffffLL || (N + kFT - 1) / kFT > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)slots, (unsigned)((N + kFT - 1) / kFT));
-  grouped_gemm_kernel<false><<<grid, kThreads, 0, st>>>(
-      x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, 0, 0);
-  return (int)cudaGetLastError();
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+  if (tiling == f32::kFew)
+    return (int)f32::launch_gemm_f32<f32::FewTile>(xf, wf, g, yf, R, K, N, G,
+                                                   w_sg, w_sk, w_sn, st);
+  if (tiling == f32::kMid)
+    return (int)f32::launch_gemm_f32<f32::MidTile>(xf, wf, g, yf, R, K, N, G,
+                                                   w_sg, w_sk, w_sn, st);
+  if (tiling == f32::kWide)
+    return (int)f32::launch_gemm_f32<f32::WideTile>(xf, wf, g, yf, R, K, N,
+                                                    G, w_sg, w_sk, w_sn, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The same product in bf16 on the first kernel (grouped_gemm_ref_kernel:
-// mma.sync, one shared stage), any view: the TMA path's oracle and the
-// path of the views it does not take.
+// The same product on the first kernels, any view: bf16 (1) on
+// grouped_gemm_ref_kernel (mma.sync, one shared stage), the TMA path's
+// oracle and the path of the views it does not take; f32 (0) on
+// grouped_gemm_f32_ref_kernel (R1's chains, one shared stage), the ring
+// kernels' oracle.
 int gym_grouped_gemm_ref(const void* x, const void* w, const void* gs,
                          void* y, int R, int K, int N, int G, long long w_sg,
-                         long long w_sk, long long w_sn, void* stream) {
+                         long long w_sk, long long w_sn, int bf16,
+                         void* stream) {
   if (R <= 0 || K <= 0 || N <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
-  const long long slots = (R + kBT - 1) / kBT + (long long)G + 1;
-  if (slots > 0x7fffffffLL || (N + kBT - 1) / kBT > 65535)
+  const int bt = bf16 ? kBT : kFT;
+  const long long slots = (R + bt - 1) / bt + (long long)G + 1;
+  if (slots > 0x7fffffffLL || (N + bt - 1) / bt > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)slots, (unsigned)((N + kBT - 1) / kBT));
+  const dim3 grid((unsigned)slots, (unsigned)((N + bt - 1) / bt));
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* g = static_cast<const int*>(gs);
+  if (!bf16) {
+    grouped_gemm_f32_ref_kernel<<<grid, kThreads, 0, st>>>(
+        x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, 0, 0);
+    return (int)cudaGetLastError();
+  }
   // 16-byte chunks: 8 bf16 along the contiguous axis, each chunk's start a
   // multiple of 8 elements from an aligned base
   const int x_vec = aligned16(x) && K % 8 == 0;
   const int w_vec = aligned16(w) && w_sg % 8 == 0 &&
                     (w_sk == 1 ? w_sn % 8 == 0 : (w_sn == 1 && w_sk % 8 == 0));
-  grouped_gemm_ref_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, w, static_cast<const int*>(gs), y, R, K, N, G, w_sg, w_sk, w_sn,
-      x_vec, w_vec);
+  grouped_gemm_ref_kernel<<<grid, kThreads, 0, st>>>(
+      x, w, g, y, R, K, N, G, w_sg, w_sk, w_sn, x_vec, w_vec);
   return (int)cudaGetLastError();
 }
 
 // out [G, M, N] (contiguous) = x_g^T . ct_g for each group g, x [R, M] and
 // ct [R, N] contiguous, gs [G] int32 on the device. bf16 runs the TMA path,
 // which takes R > 0, x, ct and out 16-byte aligned and M and N multiples
-// of 8 (else cudaErrorInvalidValue; gym_grouped_outer_ref takes any).
+// of 8 (else cudaErrorInvalidValue; gym_grouped_outer_ref takes any); f32
+// the ring kernel.
 int gym_grouped_outer(const void* x, const void* ct, const void* gs,
                       void* out, int R, int M, int N, int G, int bf16,
                       void* stream) {
@@ -1030,55 +1564,93 @@ int gym_grouped_outer(const void* x, const void* ct, const void* gs,
       return (int)cudaErrorInvalidValue;
     return (int)tc::launch_outer(x, ct, g, out, R, M, N, G, st);
   }
-  const long long tiles =
-      (long long)((M + kFT - 1) / kFT) * ((N + kFT - 1) / kFT);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  grouped_outer_kernel<false><<<dim3((unsigned)tiles, (unsigned)G), kThreads,
-                                0, st>>>(x, ct, g, out, R, M, N, G, 0, 0);
-  return (int)cudaGetLastError();
+  return (int)f32::launch_outer_f32(static_cast<const float*>(x),
+                                static_cast<const float*>(ct), g,
+                                static_cast<float*>(out), R, M, N, G, st);
 }
 
-// The outer product in bf16 on the first kernel (grouped_outer_ref_kernel),
-// any view.
+// The outer product on the first kernels, any view: bf16 (1) on
+// grouped_outer_ref_kernel, f32 (0) on grouped_outer_f32_ref_kernel.
 int gym_grouped_outer_ref(const void* x, const void* ct, const void* gs,
-                          void* out, int R, int M, int N, int G,
+                          void* out, int R, int M, int N, int G, int bf16,
                           void* stream) {
   if (R < 0 || M <= 0 || N <= 0 || G <= 0 || G > 65535)
     return (int)cudaErrorInvalidValue;
+  const int bt = bf16 ? kBT : kFT;
   const long long tiles =
-      (long long)((M + kBT - 1) / kBT) * ((N + kBT - 1) / kBT);
+      (long long)((M + bt - 1) / bt) * ((N + bt - 1) / bt);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)G);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* g = static_cast<const int*>(gs);
+  if (!bf16) {
+    grouped_outer_f32_ref_kernel<<<grid, kThreads, 0, st>>>(
+        x, ct, g, out, R, M, N, G, 0, 0);
+    return (int)cudaGetLastError();
+  }
   const int x_vec = aligned16(x) && M % 8 == 0;
   const int ct_vec = aligned16(ct) && N % 8 == 0;
-  grouped_outer_ref_kernel<<<dim3((unsigned)tiles, (unsigned)G), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      x, ct, static_cast<const int*>(gs), out, R, M, N, G, x_vec, ct_vec);
+  grouped_outer_ref_kernel<<<grid, kThreads, 0, st>>>(
+      x, ct, g, out, R, M, N, G, x_vec, ct_vec);
   return (int)cudaGetLastError();
 }
 
-// Blocks of a TMA-path kernel resident on one SM (kind 0: grouped_gemm
-// with w as it lies, 1: w read transposed, 2: grouped_outer), or a
-// negative cudaError_t; regs gets its registers a thread and smem its
-// dynamic shared memory.
-int gym_grouped_occupancy(int kind, int* regs, long long* smem) {
-  const void* kern = kind == 0   ? (const void*)tc::grouped_gemm_kernel<false>
-                     : kind == 1 ? (const void*)tc::grouped_gemm_kernel<true>
-                     : kind == 2 ? (const void*)tc::grouped_outer_kernel
-                                 : nullptr;
-  if (kern == nullptr) return -(int)cudaErrorInvalidValue;
-  const size_t bytes = kind == 2 ? tc::OuterRing::BYTES : tc::GemmRing::BYTES;
-  cudaError_t err = kind == 0   ? tc::allow_smem<0>(kern, bytes)
-                    : kind == 1 ? tc::allow_smem<1>(kern, bytes)
-                                : tc::allow_smem<2>(kern, bytes);
+// Blocks of a B8 kernel resident on one SM (kind 0: the TMA grouped_gemm
+// with w as it lies, 1: w read transposed, 2: the TMA grouped_outer; f32:
+// 3 and 4 the few-row forward, w read transposed and as it lies, 5 and 6
+// the prefill buckets', 7 and 8 the many-row one, 9 the outer), or a
+// negative cudaError_t; threads gets its threads a block, regs its
+// registers a thread and smem its dynamic shared memory.
+int gym_grouped_occupancy(int kind, int* threads, int* regs,
+                          long long* smem) {
+  using namespace f32;
+  struct Kind {
+    const void* kern;
+    size_t bytes;
+    int threads;
+    cudaError_t (*allow)(const void*, size_t);
+  };
+  const Kind kinds[] = {
+      {(const void*)tc::grouped_gemm_kernel<false>, tc::GemmRing::BYTES,
+       tc::THREADS, tc::allow_smem<0>},
+      {(const void*)tc::grouped_gemm_kernel<true>, tc::GemmRing::BYTES,
+       tc::THREADS, tc::allow_smem<1>},
+      {(const void*)tc::grouped_outer_kernel, tc::OuterRing::BYTES,
+       tc::THREADS, tc::allow_smem<2>},
+      {(const void*)grouped_gemm_f32_kernel<FewTile, false>,
+       gemm_smem<FewTile, false>(), FewTile::THREADS,
+       tc::allow_smem<smem_kind<FewTile, false>()>},
+      {(const void*)grouped_gemm_f32_kernel<FewTile, true>,
+       gemm_smem<FewTile, true>(), FewTile::THREADS,
+       tc::allow_smem<smem_kind<FewTile, true>()>},
+      {(const void*)grouped_gemm_f32_kernel<MidTile, false>,
+       gemm_smem<MidTile, false>(), MidTile::THREADS,
+       tc::allow_smem<smem_kind<MidTile, false>()>},
+      {(const void*)grouped_gemm_f32_kernel<MidTile, true>,
+       gemm_smem<MidTile, true>(), MidTile::THREADS,
+       tc::allow_smem<smem_kind<MidTile, true>()>},
+      {(const void*)grouped_gemm_f32_kernel<WideTile, false>,
+       gemm_smem<WideTile, false>(), WideTile::THREADS,
+       tc::allow_smem<smem_kind<WideTile, false>()>},
+      {(const void*)grouped_gemm_f32_kernel<WideTile, true>,
+       gemm_smem<WideTile, true>(), WideTile::THREADS,
+       tc::allow_smem<smem_kind<WideTile, true>()>},
+      {(const void*)grouped_outer_f32_kernel<OuterTile>, outer_smem(),
+       OuterTile::THREADS, tc::allow_smem<kOuterSmemKind>}};
+  if (kind < 0 || kind >= (int)(sizeof(kinds) / sizeof(kinds[0])))
+    return -(int)cudaErrorInvalidValue;
+  const Kind& k = kinds[kind];
   cudaFuncAttributes attr;
   int blocks = 0;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  cudaError_t err = k.allow(k.kern, k.bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k.kern);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        tc::THREADS, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.kern,
+                                                        k.threads, k.bytes);
   if (err != cudaSuccess) return -(int)err;
+  *threads = k.threads;
   *regs = attr.numRegs;
-  *smem = (long long)bytes;
+  *smem = (long long)k.bytes;
   return blocks;
 }
 

@@ -37,11 +37,17 @@ and row strides, so the TMA/``wgmma`` kernels run where x, w (or ct) lie
 axes is contiguous with the other's stride a multiple of 8; every other
 bf16 view runs the first kernels (``mma.sync``), kept as the oracle
 (``grouped_dot_ref``, ``grouped_outer_ref``, uncounted). f32 always runs
-R1's chains. ``grouped_dot.launches`` and ``grouped_outer.launches`` count
-the launches of the TMA and f32 kernels (one a call: the outer has no
-second pass), ``launches_ref`` those of the first kernels for views TMA
-does not take, and ``grouped_dot.launches_wt`` the launches, on either
-path, that read w transposed.
+the ring kernels (R1's in-order FMA chains on a ``cp.async`` ring), the
+forward at the tiling ``f32_tiling`` picks from the row count; the first
+f32 kernels are their oracle, reached only through ``grouped_dot_ref`` and
+``grouped_outer_ref`` on f32 tensors. ``grouped_dot.launches`` and
+``grouped_outer.launches`` count the launches of the TMA and f32 kernels
+(one a call: the outer has no second pass), ``launches_f32`` the f32
+ones among them, ``launches_ref`` those of the first kernels for bf16
+views TMA does not take, and ``grouped_dot.launches_wt`` the launches, on
+either path, that read w transposed. A CUDA graph's replays add to
+``launches`` alone (``programs/graphs.py``); the others count the calls
+that run the wrapper.
 """
 
 from __future__ import annotations
@@ -102,6 +108,27 @@ def _group_rows(gs: torch.Tensor, rows: int):
         if n:
             yield g, start, n
         start += n
+
+
+# the f32 forward's tilings (``grouped_gemm.cu`` ``f32::Tiling``) and the
+# rows of a tile of each: few rows (the served decode steps), the prefill
+# buckets, many rows (training, the evals)
+F32_FEW, F32_MID, F32_WIDE = 0, 1, 2
+F32_TILE_ROWS = {F32_FEW: 16, F32_MID: 64, F32_WIDE: 128}
+# the most rows of the few-row tiling and the fewest of the many-row one,
+# from scripts/b8_f32_sweep.py on the H100 at the MoE widths (PERF.md)
+F32_FEW_MAX_ROWS, F32_WIDE_MIN_ROWS = 128, 4096
+
+
+def f32_tiling(rows: int) -> int:
+    """The f32 forward's tiling for a call of ``rows`` rows, from the
+    static row count alone (never the group sizes, so a graph holds the
+    launch): 16-row slots that read each expert's weights once up to 64
+    tokens routed top-2, 64 x 64 tiles for the prefill buckets, 128 x 128
+    tiles from 4096 rows."""
+    if rows <= F32_FEW_MAX_ROWS:
+        return F32_FEW
+    return F32_MID if rows < F32_WIDE_MIN_ROWS else F32_WIDE
 
 
 def row_slots(gs, rows: int, bm: int = 128):
@@ -213,11 +240,12 @@ def tma_path_outer(x, g) -> bool:
             and g.shape[1] % 8 == 0)
 
 
-def _launch_dot(x, w, gs, ref=False):
+def _launch_dot(x, w, gs, ref=False, tiling=None):
     """One launch of B8's grouped GEMM: ``[R, N]``. bf16 takes the TMA
-    kernel where ``tma_path_dot`` allows and ``ref`` is false, else the
-    first kernel. Returns (y, the path launched: "tma", "ref", "f32", or
-    None for nothing launched)."""
+    kernel where ``tma_path_dot`` allows, f32 the ring kernels at
+    ``tiling`` (by default ``f32_tiling``'s), and ``ref`` (or a bf16 view
+    TMA does not take) the first kernel of the dtype. Returns (y, the path
+    launched: "tma", "ref", "f32", or None for nothing launched)."""
     bf16 = _b8_dtype(x, w)
     r, k = x.shape
     g, _, n = w.shape
@@ -227,28 +255,33 @@ def _launch_dot(x, w, gs, ref=False):
     if k == 0 or g == 0:
         return y.zero_(), None
     x = x.contiguous()
-    path = ("f32" if not bf16 else
-            "tma" if not ref and tma_path_dot(x, w) else "ref")
+    path = ("ref" if ref else "f32" if not bf16 else
+            "tma" if tma_path_dot(x, w) else "ref")
     gs = _sizes(gs, x.device)
     from . import _build
     lib = _build.load()
     args = (x.data_ptr(), w.data_ptr(), gs.data_ptr(), y.data_ptr(), r, k,
-            n, g, w.stride(0), w.stride(1), w.stride(2))
+            n, g, w.stride(0), w.stride(1), w.stride(2), bf16)
     with torch.cuda.device(x.device):
         if path == "ref":
             name = "gym_grouped_gemm_ref"
             code = lib.gym_grouped_gemm_ref(*args, _stream(x.device))
         else:
             name = "gym_grouped_gemm"
-            code = lib.gym_grouped_gemm(*args, bf16, _stream(x.device))
+            if bf16:
+                tiling = -1
+            elif tiling is None:
+                tiling = f32_tiling(r)
+            code = lib.gym_grouped_gemm(*args, tiling, _stream(x.device))
     _build.check(lib, code, name)
     return y, path
 
 
 def _launch_outer(x, g, gs, ref=False):
     """One launch of B8's outer kernel: ``[G, C, H]``, bf16 on the TMA
-    kernel where ``tma_path_outer`` allows and ``ref`` is false; returns
-    (out, the path) as ``_launch_dot``."""
+    kernel where ``tma_path_outer`` allows, f32 on the ring kernel, the
+    first kernel of the dtype for ``ref``; returns (out, the path) as
+    ``_launch_dot``."""
     bf16 = _b8_dtype(x, g)
     r, c = x.shape
     h = g.shape[1]
@@ -259,20 +292,17 @@ def _launch_outer(x, g, gs, ref=False):
     if r == 0:
         return out.zero_(), None
     x, g = x.contiguous(), g.contiguous()
-    path = ("f32" if not bf16 else
-            "tma" if not ref and tma_path_outer(x, g) else "ref")
+    path = ("ref" if ref else "f32" if not bf16 else
+            "tma" if tma_path_outer(x, g) else "ref")
     gs = _sizes(gs, x.device)
     from . import _build
     lib = _build.load()
     args = (x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), r, c,
-            h, e)
+            h, e, bf16)
     with torch.cuda.device(x.device):
-        if path == "ref":
-            name = "gym_grouped_outer_ref"
-            code = lib.gym_grouped_outer_ref(*args, _stream(x.device))
-        else:
-            name = "gym_grouped_outer"
-            code = lib.gym_grouped_outer(*args, bf16, _stream(x.device))
+        name = "gym_grouped_outer_ref" if path == "ref" else \
+            "gym_grouped_outer"
+        code = getattr(lib, name)(*args, _stream(x.device))
     _build.check(lib, code, name)
     return out, path
 
@@ -282,6 +312,7 @@ def _count(fn, path):
         fn.launches_ref += 1
     elif path is not None:
         fn.launches += 1
+        fn.launches_f32 += path == "f32"
 
 
 def _on_card(x, what):
@@ -320,9 +351,9 @@ def _outer(x, g, gs):
 
 def grouped_dot_ref(x: torch.Tensor, w: torch.Tensor,
                     gs: torch.Tensor) -> torch.Tensor:
-    """B8's first kernel on the card (bf16, ``mma.sync``), the TMA path's
-    oracle, on any bf16 view. Not counted; no autograd. A CUDA tensor
-    only."""
+    """B8's first kernel on the card, any view: in bf16 (``mma.sync``) the
+    TMA path's oracle, in f32 (R1's chains, one shared stage) the ring
+    kernels'. Not counted; no autograd. A CUDA tensor only."""
     _dot_checks(x, w, gs)
     _on_card(x, "grouped_dot_ref")
     return _launch_dot(x, w, gs, ref=True)[0]
@@ -330,8 +361,9 @@ def grouped_dot_ref(x: torch.Tensor, w: torch.Tensor,
 
 def grouped_outer_ref(x: torch.Tensor, g: torch.Tensor,
                       gs: torch.Tensor) -> torch.Tensor:
-    """B8's first outer kernel on the card, the TMA path's oracle. Not
-    counted; no autograd. A CUDA tensor only."""
+    """B8's first outer kernel on the card, the oracle of the TMA path
+    (bf16) and of the ring kernel (f32). Not counted; no autograd. A CUDA
+    tensor only."""
     _outer_checks(x, g, gs)
     _on_card(x, "grouped_outer_ref")
     return _launch_outer(x, g, gs, ref=True)[0]
@@ -396,6 +428,7 @@ def grouped_outer(x: torch.Tensor, g: torch.Tensor,
 def reset_launch_counts() -> None:
     for fn in (grouped_dot, grouped_outer):
         fn.launches = 0
+        fn.launches_f32 = 0
         fn.launches_ref = 0
     grouped_dot.launches_wt = 0
 

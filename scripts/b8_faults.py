@@ -25,8 +25,8 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = "gym_tpu_torch/ops/csrc/grouped_gemm.cu"
 # name: (text in the kernel source, its faulty replacement); each breaks
-# the path the MoE shapes take (the TMA kernels, and find_row_tile, which
-# the first kernels share)
+# the path the MoE shapes take (the TMA kernels, the f32 ring kernels, and
+# find_row_tile, which every forward shares)
 FAULTS = {
     # each group after the first starts a row late
     "group_offset_off_by_one": ("    start += n;\n", "    start += n + 1;\n"),
@@ -70,6 +70,47 @@ FAULTS = {
     "schedule_repeats_a_group": (
         "r += h < G && (nh > count || (nh == count && h < g));",
         "r += h < G && nh > count;"),
+    # f32: each chain in two halves of the depth, summed at the end
+    "f32_chain_split_in_two": (
+        "  ring<T::STAGES>(0, KT, load,\n"
+        "                  [&](int slot, int kt) "
+        "{ chain(acc, slot, kt); });\n",
+        "  float hi[T::TM][T::TN] = {};\n"
+        "  ring<T::STAGES>(0, KT / 2, load,\n"
+        "                  [&](int slot, int kt) { chain(acc, slot, kt); });\n"
+        "  ring<T::STAGES>(KT / 2, KT, load,\n"
+        "                  [&](int slot, int kt) { chain(hi, slot, kt); });\n"
+        "  for (int i = 0; i < T::TM; ++i)\n"
+        "    for (int j = 0; j < T::TN; ++j) acc[i][j] += hi[i][j];\n"),
+    # f32: the second depth tile's quads of four k's chained last first
+    "f32_k_order_reversed_in_a_tile": (
+        "    chain_tile<T, KN>(a, xs + slot * T::BM * T::XP, "
+        "ws + slot * WS::FLOATS,\n"
+        "                      tx, ty, min(T::BK, K - kt * T::BK));\n",
+        "    if (kt == 1 && K >= 2 * T::BK) {\n"
+        "      for (int kk = T::BK - 4; kk >= 0; kk -= 4)\n"
+        "        chain_quad<T, KN, true>(a, xs + slot * T::BM * T::XP,\n"
+        "                                ws + slot * WS::FLOATS, tx, ty, kk,\n"
+        "                                T::BK);\n"
+        "    } else {\n"
+        "      chain_tile<T, KN>(a, xs + slot * T::BM * T::XP,\n"
+        "                        ws + slot * WS::FLOATS, tx, ty,\n"
+        "                        min(T::BK, K - kt * T::BK));\n"
+        "    }\n"),
+    # f32: the outer's last stage chains the next group's first row too
+    "f32_outer_takes_a_row_of_the_next_group": (
+        "const int depth = s.count;  // the chains' steps: the group's rows",
+        "const int depth = min(s.count + 1, R - s.start);"),
+    # f32: the forward's tail tiles (the rows past sum(gs)) left unwritten
+    "f32_tail_rows_not_zeroed": (
+        "zero_rows<T::THREADS>(o, N, rows, cols);  // the f32 rows past "
+        "sum(gs)",
+        "// the f32 rows past sum(gs) left unwritten"),
+    # f32: the ring's next tile copied into the stage the chains are on,
+    # before the barrier that frees it
+    "f32_ring_stage_reused_before_its_barrier": (
+        "if (next < kt1) load((next - kt0) % S, next);",
+        "if (next < kt1) load((kt - kt0) % S, next);"),
 }
 
 

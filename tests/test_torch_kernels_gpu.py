@@ -98,7 +98,9 @@ B8, the MoE layers' grouped matmuls (``-k b8 or moe_layer``): grouped_dot,
 with w as it lies and read transposed, and grouped_outer against their plain
 versions in both dtypes' bands, empty groups and rows past sum(gs) zero on
 poisoned outputs, f32 grouped_dot bit for bit R1 a group and a row's bits
-the same alone, in its group and with K=2 problems flattened; bf16 at an
+the same alone, in its group and with K=2 problems flattened; the f32 ring
+kernels bit for bit their oracle (the first f32 kernels) and R1 a group, the
+forward at every tiling, at a small shape and a served decode step; bf16 at an
 MoE width on the TMA kernels and, for a view TMA does not take (C = 100),
 on the first kernels, each path's launches counted apart; the gradients
 against the plain versions' autograd; the ragged MoE layer of K=2 nodes on
@@ -1504,6 +1506,64 @@ def test_b8_matches_its_plain_version(dt, sizes):
     out = tgm.grouped_outer(x, ct, gs)
     _close(out, tgm.plain_grouped_outer(x, ct, gs), tol, "grouped_outer")
     assert torch.all(out[0] == 0) and torch.all(out[3] == 0)
+
+
+def _r1_groups(op, a, b, sizes):
+    """B8's f32 products computed by R1 (``row_linear``) a group at a time:
+    each element one in-order FMA chain from 0.0f; rows past sum(gs) and
+    empty groups zero."""
+    start = 0
+    if op == "dot":
+        out = torch.zeros(a.shape[0], b.shape[-1], device="cuda")
+    else:
+        out = torch.zeros(len(sizes), a.shape[1], b.shape[1], device="cuda")
+    for e, n in enumerate(sizes):
+        n = max(0, min(n, a.shape[0] - start))
+        if n and op == "dot":
+            w_nk = b.stride(2) != 1
+            wt = b[e].t() if w_nk else b[e]
+            out[start:start + n] = trow.row_linear(
+                a[start:start + n], wt.contiguous(), w_nk=w_nk)
+        elif n:
+            out[e] = trow.row_linear(a[start:start + n].t().contiguous(),
+                                     b[start:start + n])
+        start += n
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,c,h,sizes", [
+    (700, 96, 160, (0, 301, 99, 0, 250, 50)),
+    (700, 96, 160, (0, 301, 99, 0, 250, 17)),
+    (32, 768, 3072, (5, 0, 7, 1, 0, 3, 9, 4))],
+    ids=["all_rows", "rows_past_sum", "served_decode"])
+def test_b8_f32_ring_kernels_match_the_oracle_and_r1(rows, c, h, sizes):
+    """f32 on the ring kernels: grouped_dot (w as it lies and read
+    transposed, at the tiling the host picks and at every other) and
+    grouped_outer, each output poisoned first, bit for bit the oracle (the
+    first f32 kernels, ``grouped_*_ref``) and R1's chains a group; rows past
+    sum(gs) and empty groups zero; one f32 launch a call."""
+    x, w, ct, gs = _b8_operands(_card(), torch.float32, r=rows, c=c, h=h,
+                                sizes=sizes)
+    for a, b in ((x, w), (ct, w.transpose(1, 2))):
+        before = tgm.grouped_dot.launches_f32
+        torch.full((a.shape[0] * b.shape[-1] * 4,), 0xFF, dtype=torch.uint8,
+                   device="cuda")
+        got = tgm.grouped_dot(a, b, gs)
+        assert tgm.grouped_dot.launches_f32 == before + 1
+        assert torch.equal(got, tgm.grouped_dot_ref(a, b, gs))
+        assert torch.equal(got, _r1_groups("dot", a, b, sizes))
+        assert torch.all(got[sum(sizes):] == 0)
+        for tiling in tgm.F32_TILE_ROWS:
+            torch.full((a.shape[0] * b.shape[-1] * 4,), 0xFF,
+                       dtype=torch.uint8, device="cuda")
+            y, path = tgm._launch_dot(a, b, gs, tiling=tiling)
+            assert path == "f32" and torch.equal(y, got), tiling
+    torch.full((w.numel() * 4,), 0xFF, dtype=torch.uint8, device="cuda")
+    out = tgm.grouped_outer(x, ct, gs)
+    assert torch.equal(out, tgm.grouped_outer_ref(x, ct, gs))
+    assert torch.equal(out, _r1_groups("outer", x, ct, sizes))
+    assert all(torch.all(out[e] == 0) for e, n in enumerate(sizes) if n == 0)
 
 
 def _b8_path_run(c, h, sizes, path):
